@@ -1,0 +1,26 @@
+"""gammagl_tpu_torch: the PyTorch and CUDA port of gammagl_tpu.
+
+A second package beside the JAX one, with the same module paths, so each
+part has its counterpart in `gammagl_tpu`. Plain tensor code is PyTorch;
+each TPU kernel of the JAX package becomes a kernel written by hand for
+NVIDIA Hopper, under ``csrc/`` and bound in `ops.cuda`. Kernels are built
+at first use, never at import. This package imports neither JAX nor
+`gammagl_tpu`.
+
+Layer map:
+  ops/        -- segment reductions, COO SpMM, the CSR SpMM kernel
+  data/       -- Graph (host-side structure, cached CSR plan)
+  layers/     -- MessagePassing, GCNConv
+  models/     -- GCNModel
+  utils/      -- self-loops, compute dtype, flax parameter loading
+  serve       -- InferenceSession
+"""
+
+__version__ = "0.1.0"
+
+from gammagl_tpu_torch import ops  # noqa: F401
+from gammagl_tpu_torch import utils  # noqa: F401
+from gammagl_tpu_torch import data  # noqa: F401
+from gammagl_tpu_torch import layers  # noqa: F401
+from gammagl_tpu_torch import models  # noqa: F401
+from gammagl_tpu_torch import serve  # noqa: F401

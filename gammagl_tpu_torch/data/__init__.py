@@ -1,0 +1,5 @@
+"""Graph data containers."""
+
+from gammagl_tpu_torch.data.graph import Graph  # noqa: F401
+
+__all__ = ["Graph"]

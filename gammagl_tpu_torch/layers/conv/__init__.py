@@ -1,0 +1,8 @@
+"""Convolution layers."""
+
+from gammagl_tpu_torch.layers.conv.message_passing import (  # noqa: F401
+    MessagePassing,
+)
+from gammagl_tpu_torch.layers.conv.gcn_conv import GCNConv  # noqa: F401
+
+__all__ = ["MessagePassing", "GCNConv"]

@@ -1,0 +1,5 @@
+"""Assembled GNN models."""
+
+from gammagl_tpu_torch.models.gcn import GCNModel  # noqa: F401
+
+__all__ = ["GCNModel"]

@@ -1,0 +1,58 @@
+"""SpMM over COO edges: the plan-free path of `MessagePassing`.
+
+PyTorch counterpart of `gammagl_tpu/ops/spmm.py`: gather the source rows,
+scale them by the edge weights and reduce them into their destinations.
+A caller with a `Graph.csr_plan()` takes `ops.cuda.spmm_csr` instead,
+which runs a hand-written kernel on the card.
+"""
+
+from typing import Optional
+
+import torch
+
+from gammagl_tpu_torch.ops.segment import (segment_max, segment_mean,
+                                           segment_min, segment_sum)
+
+__all__ = ["spmm", "gspmm"]
+
+_REDUCE = {"sum": segment_sum, "mean": segment_mean, "max": segment_max,
+           "min": segment_min}
+
+
+def spmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
+         reduce: str = "sum"):
+    """out[d] = reduce_{(s,d) in E} w_{sd} * x[s].
+
+    Parameters
+    ----------
+    edge_index : (2, E) integer tensor, row 0 = src, row 1 = dst
+    edge_weight : (E,) tensor or None
+    x : (N, F) node features
+    num_nodes : number of destination rows; defaults to x.shape[0]
+    reduce : 'sum' | 'mean' | 'max' | 'min'
+
+    Floating messages are formed and reduced in float32 (or wider) and
+    the result is cast once to ``x``'s dtype. Out-of-range destinations
+    are dropped.
+    """
+    if reduce not in _REDUCE:
+        raise ValueError(f"unknown reduce {reduce!r}")
+    if num_nodes is None:
+        num_nodes = x.shape[0]
+    src, dst = edge_index[0].long(), edge_index[1]
+    # clamp the gather so an out-of-range pad src reads a real row; its
+    # out-of-range dst then drops the message
+    msg = x[src.clamp(0, x.shape[0] - 1)]
+    if x.is_floating_point():
+        msg = msg.to(torch.promote_types(x.dtype, torch.float32))
+    if edge_weight is not None:
+        msg = msg * edge_weight.to(msg.dtype).reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+    return _REDUCE[reduce](msg, dst, num_nodes).to(x.dtype)
+
+
+def gspmm(edge_index, edge_weight, x, reduce: str = "sum",
+          num_nodes: Optional[int] = None):
+    """Reference spelling of `spmm` (argument order of the reference)."""
+    return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
+                reduce=reduce)

@@ -1,0 +1,61 @@
+"""Serving: a model placed on its device and warmed up once.
+
+Counterpart of `InferenceSession` in `gammagl_tpu/serve.py`. The JAX
+session compiles the forward ahead of time; here construction moves the
+model to the device and runs one warm-up call, which builds the kernels
+and places each plan's arrays on the device, so the first request runs at
+steady-state cost.
+
+    sess = InferenceSession(model, (x, edge_index), device="cuda",
+                            compute_dtype=torch.bfloat16,
+                            plan=graph.csr_plan())
+    logits = sess(x, edge_index)
+"""
+
+import numpy as np
+import torch
+
+__all__ = ["InferenceSession"]
+
+
+def _device(device):
+    device = torch.device("cpu" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"InferenceSession: device {device} asked "
+                               "for, but torch sees no CUDA device")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class InferenceSession:
+    """Eval-mode forward of ``model`` on ``device``.
+
+    Each call moves its inputs to the device (numpy arrays become
+    tensors), casts float inputs to ``compute_dtype`` when one is given,
+    and runs ``model(*inputs, **forward_kwargs)`` under
+    ``torch.inference_mode()``. The output is returned as the model
+    produces it (float32 logits for `GCNModel`).
+    """
+
+    def __init__(self, model, example_inputs, device=None, compute_dtype=None,
+                 **forward_kwargs):
+        self.device = _device(device)
+        self.compute_dtype = compute_dtype
+        self.model = model.to(self.device).eval()
+        self.forward_kwargs = forward_kwargs
+        self(*example_inputs)
+
+    def _place(self, a):
+        if not isinstance(a, torch.Tensor):
+            a = torch.tensor(np.asarray(a))
+        a = a.to(self.device)
+        if self.compute_dtype is not None and a.is_floating_point():
+            a = a.to(self.compute_dtype)
+        return a
+
+    def __call__(self, *inputs):
+        with torch.inference_mode():
+            return self.model(*(self._place(a) for a in inputs),
+                              **self.forward_kwargs)

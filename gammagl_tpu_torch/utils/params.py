@@ -1,0 +1,82 @@
+"""Load a flax parameter tree of the JAX package into a port module.
+
+A port module that has parameters names its flax counterparts in a
+``flax_tree()`` method: a mapping from the flax name (``"GCNConv_0"``,
+``"Dense_0"``, ``"bias"``) to a submodule or a parameter. An
+``nn.Linear`` stands for a flax ``Dense``: its (out, in) weight is the
+transpose of the (in, out) ``kernel``.
+"""
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn.parameter import UninitializedParameter
+
+__all__ = ["load_jax_params"]
+
+
+def _layout(module, prefix=()):
+    """flax path -> (torch parameter, transpose)."""
+    if isinstance(module, nn.Linear):
+        out = {prefix + ("kernel",): (module.weight, True)}
+        if module.bias is not None:
+            out[prefix + ("bias",)] = (module.bias, False)
+        return out
+    if not hasattr(module, "flax_tree"):
+        raise TypeError(f"{type(module).__name__} names no flax "
+                        "counterpart (no flax_tree method)")
+    out = {}
+    for name, child in module.flax_tree().items():
+        if isinstance(child, nn.Module):
+            out.update(_layout(child, prefix + (name,)))
+        else:
+            out[prefix + (name,)] = (child, False)
+    return out
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def load_jax_params(model, params):
+    """Fill ``model`` from flax variables ``{"params": tree}`` whose leaves
+    are arrays (numpy, or anything ``np.asarray`` takes).
+
+    Raises KeyError when the tree misses a parameter of the model or holds
+    one the model lacks, and ValueError on a shape mismatch. A lazy layer
+    (in-features not yet known) takes its shape from the tree. Returns
+    ``model``.
+    """
+    if not isinstance(params, Mapping) or "params" not in params:
+        raise KeyError("expected flax variables of the form "
+                       "{'params': {...}}")
+    given = dict(_flatten(params["params"]))
+    want = _layout(model)
+    missing = sorted("/".join(p) for p in set(want) - set(given))
+    extra = sorted("/".join(p) for p in set(given) - set(want))
+    if missing or extra:
+        raise KeyError(f"flax tree does not match {type(model).__name__}: "
+                       f"missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for path, (param, transpose) in want.items():
+            value = np.asarray(given[path], dtype=np.float32)
+            if transpose:
+                value = value.T
+            if isinstance(param, UninitializedParameter):
+                param.materialize(value.shape)
+            elif tuple(param.shape) != value.shape:
+                raise ValueError(
+                    f"{'/'.join(path)}: flax shape {value.shape} (after "
+                    f"transpose: {transpose}) != port shape "
+                    f"{tuple(param.shape)}")
+            param.copy_(torch.tensor(value))
+    for m in model.modules():  # lazy layers learn their in-features here
+        if isinstance(m, nn.Linear) and m.in_features == 0:
+            m.in_features = m.weight.shape[1]
+    return model
