@@ -8,12 +8,15 @@ at first use, never at import. This package imports neither JAX nor
 `gammagl_tpu`.
 
 Layer map:
-  ops/        -- segment reductions, COO SpMM, the CSR SpMM kernel
+  ops/        -- segment reductions, edge softmax, COO SpMM; the kernels:
+                 CSR SpMM and fused edge attention, forward and backward
   data/       -- Graph (host-side structure, cached CSR plan)
-  layers/     -- MessagePassing, GCNConv
-  models/     -- GCNModel
+  layers/     -- MessagePassing, GCNConv, GATConv
+  models/     -- GCNModel, GATModel
+  train/      -- loss, accuracy, the Adam train state and checkpoints
   utils/      -- self-loops, compute dtype, flax parameter loading
   serve       -- InferenceSession
+  examples/   -- trainer twins (python -m gammagl_tpu_torch.examples.<name>)
 """
 
 __version__ = "0.1.0"
@@ -23,4 +26,5 @@ from gammagl_tpu_torch import utils  # noqa: F401
 from gammagl_tpu_torch import data  # noqa: F401
 from gammagl_tpu_torch import layers  # noqa: F401
 from gammagl_tpu_torch import models  # noqa: F401
+from gammagl_tpu_torch import train  # noqa: F401
 from gammagl_tpu_torch import serve  # noqa: F401

@@ -1,0 +1,164 @@
+"""FusedGAT trainer: GAT through the fused attention kernels.
+
+Twin of `examples/fusedgat/fusedgat_trainer.py`: the same model (two
+GATConvs with a `CSRPlan`, no dropout), the same full-batch step (masked
+cross-entropy, Adam) and the same flags, plus ``--device``. On a card
+every GATConv runs the hand-written flash attention kernels forward and
+backward, and the feature gradients go through the CSR SpMM kernel; on
+the CPU the same calls run their plain versions.
+
+    python -m gammagl_tpu_torch.examples.fusedgat_trainer --device cpu
+    python -m gammagl_tpu_torch.examples.fusedgat_trainer --device cuda
+
+It reads no dataset files: the graph is the JAX package's synthetic
+community graph (1000 nodes, 7 classes, 128 features, average degree 8)
+made from ``--seed``, or the numpy arrays given to `main`. ``--dataset``
+and ``--dataset_path`` are accepted, so command lines carry over, and
+only name the run. Like the JAX trainer it reads neither ``--drop_rate``
+nor ``--l2_coef``.
+"""
+
+import argparse
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gammagl_tpu_torch.layers.conv import GATConv
+from gammagl_tpu_torch.ops.cuda import build_csr_plan
+from gammagl_tpu_torch.train import TrainState, accuracy, semi_supervised_loss
+from gammagl_tpu_torch.utils import add_self_loops, load_jax_params
+
+__all__ = ["FusedGAT", "synthetic_community_graph", "loss_and_grad",
+           "train_step", "parser", "main"]
+
+
+class FusedGAT(nn.Module):
+    """GATConv(hidden_dim x heads) -> ELU -> GATConv(num_class, 1 head),
+    no dropout; flax names ``GATConv_0``, ``GATConv_1``."""
+
+    def __init__(self, hidden_dim=8, heads=8, num_class=7, in_channels=None,
+                 dtype=None):
+        super().__init__()
+        self.convs = nn.ModuleList([
+            GATConv(in_channels, hidden_dim, heads=heads, dtype=dtype),
+            GATConv(hidden_dim * heads, num_class, heads=1, dtype=dtype)])
+
+    def flax_tree(self):
+        return {f"GATConv_{i}": conv for i, conv in enumerate(self.convs)}
+
+    def forward(self, x, edge_index, plan=None):
+        x = F.elu(self.convs[0](x, edge_index, plan=plan))
+        return self.convs[1](x, edge_index, plan=plan)
+
+
+def synthetic_community_graph(num_nodes=1000, num_classes=7, feat_dim=128,
+                              avg_degree=8, p_intra=0.9, seed=0,
+                              feature_signal=0.3):
+    """The stochastic-block-model graph of
+    `gammagl_tpu.datasets.synthetic_community_graph`, drawn from the same
+    numpy stream: returns a dict of numpy arrays (x, edge_index, y and
+    the train/val/test masks)."""
+    rng = np.random.default_rng(seed)
+    per = num_nodes // num_classes
+    y = np.minimum(np.arange(num_nodes) // per, num_classes - 1)
+    E = num_nodes * avg_degree // 2
+    src = rng.integers(0, num_nodes, E)
+    same = rng.random(E) < p_intra
+    tgt_class = np.where(same, y[src],
+                         (y[src] + rng.integers(1, num_classes, E))
+                         % num_classes)
+    dst = np.minimum(tgt_class * per + rng.integers(0, per, E),
+                     num_nodes - 1)
+    both = np.concatenate([np.stack([src, dst]), np.stack([dst, src])], 1)
+    key = np.unique(both[0].astype(np.int64) * num_nodes + both[1])
+    edge_index = np.stack([key // num_nodes, key % num_nodes])
+    x = (rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
+         + feature_signal * np.eye(num_classes, feat_dim,
+                                   dtype=np.float32)[y])
+    data = {"x": x, "edge_index": edge_index, "y": y.astype(np.int64)}
+    perm = rng.permutation(num_nodes)
+    n_tr, n_va = int(0.4 * num_nodes), int(0.2 * num_nodes)
+    for name, idx in (("train_mask", perm[:n_tr]),
+                      ("val_mask", perm[n_tr:n_tr + n_va]),
+                      ("test_mask", perm[n_tr + n_va:])):
+        mask = np.zeros(num_nodes, bool)
+        mask[idx] = True
+        data[name] = mask
+    return data
+
+
+def loss_and_grad(model, x, edge_index, y, mask, plan=None, **forward_kwargs):
+    """Masked cross-entropy of one full-batch forward, and its backward:
+    the gradients are left in each parameter's ``.grad``."""
+    logits = model(x, edge_index, plan=plan, **forward_kwargs)
+    loss = semi_supervised_loss(logits, y, mask)
+    loss.backward()
+    return loss.detach()
+
+
+def train_step(state, x, edge_index, y, mask, plan=None, **forward_kwargs):
+    """One optimizer step of the training mode model; returns the loss."""
+    state.model.train()
+    loss = loss_and_grad(state.model, x, edge_index, y, mask, plan,
+                         **forward_kwargs)
+    state.apply_gradients()
+    return loss
+
+
+def parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    for name, default in (("dataset", "cora"), ("dataset_path", "data"),
+                          ("lr", 0.005), ("n_epoch", 100), ("hidden_dim", 8),
+                          ("drop_rate", 0.5), ("l2_coef", 5e-4), ("seed", 0),
+                          ("heads", 8)):
+        p.add_argument(f"--{name}", type=type(default), default=default)
+    p.add_argument("--device", default="cpu")
+    return p
+
+
+def main(args, data=None, params=None):
+    """Train; returns {"losses": [...], "test_acc": float}. ``data`` is a
+    dict of numpy arrays as `synthetic_community_graph` returns (None:
+    that graph from ``args.seed``); ``params`` an optional flax-shaped
+    tree for `load_jax_params` (None: a fresh init from ``args.seed``)."""
+    if data is None:
+        data = synthetic_community_graph(seed=args.seed)
+    dev = torch.device(args.device)
+    n = data["x"].shape[0]
+    ei, _ = add_self_loops(np.asarray(data["edge_index"]), num_nodes=n)
+    plan = build_csr_plan(ei[0], ei[1], n)
+    x = torch.from_numpy(np.asarray(data["x"], np.float32)).to(dev)
+    edge_index = torch.from_numpy(ei).to(dev)
+    y = torch.from_numpy(np.asarray(data["y"])).to(dev)
+    train_mask = torch.from_numpy(np.asarray(data["train_mask"])).to(dev)
+    test_mask = torch.from_numpy(np.asarray(data["test_mask"])).to(dev)
+    torch.manual_seed(args.seed)
+    num_class = int(np.asarray(data["y"]).max()) + 1
+    model = FusedGAT(args.hidden_dim, args.heads, num_class,
+                     in_channels=x.shape[1])
+    if params is not None:
+        load_jax_params(model, params)
+    state = TrainState(model.to(dev), args.lr)
+
+    def test_acc():
+        model.eval()
+        with torch.no_grad():
+            return float(accuracy(model(x, edge_index, plan=plan), y,
+                                  test_mask))
+
+    losses = []
+    for epoch in range(args.n_epoch):
+        losses.append(float(train_step(state, x, edge_index, y, train_mask,
+                                       plan)))
+        if epoch % 20 == 0:
+            print(f"epoch {epoch:3d} loss {losses[-1]:.4f} "
+                  f"test {test_acc():.4f}")
+    acc = test_acc()
+    print(f"final test acc {acc:.4f} (fused attention path, {args.device})")
+    return {"losses": losses, "test_acc": acc}
+
+
+if __name__ == "__main__":
+    main(parser().parse_args())

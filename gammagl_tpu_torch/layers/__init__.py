@@ -1,5 +1,9 @@
 """Layers."""
 
-from gammagl_tpu_torch.layers.conv import GCNConv, MessagePassing  # noqa: F401
+from gammagl_tpu_torch.layers.conv import (  # noqa: F401
+    GATConv,
+    GCNConv,
+    MessagePassing,
+)
 
-__all__ = ["MessagePassing", "GCNConv"]
+__all__ = ["MessagePassing", "GCNConv", "GATConv"]

@@ -1,0 +1,59 @@
+"""GAT model, counterpart of `gammagl_tpu/models/gat.py`."""
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gammagl_tpu_torch.layers.conv import GATConv
+
+__all__ = ["GATModel", "dropout"]
+
+
+def dropout(x, rate, generator=None):
+    """Inverted dropout drawn from ``generator`` (a `torch.Generator` on
+    x's device; None: the default one): each entry is kept with
+    probability 1 - rate and scaled by 1/(1 - rate), as flax's
+    ``nn.Dropout``."""
+    if rate == 0:
+        return x
+    kept = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(kept, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+class GATModel(nn.Module):
+    """Two GATConvs (Velickovic et al. 2018): ``heads`` heads of
+    ``hidden_dim`` concatenated, ELU, then one head of ``num_class``
+    averaged. Input dropout and attention dropout at ``drop_rate`` before
+    and inside each layer, active in training mode only.
+
+    ``dtype`` is the compute dtype; parameters stay float32. The first
+    layer's in-features come from ``in_channels``, the first input or
+    `load_jax_params`. In training, ``keeps`` (one (E, H) attention mask
+    a layer, in the caller's edge order) and ``generator`` make the
+    dropout reproducible across the plan and COO paths.
+    """
+
+    def __init__(self, hidden_dim=8, num_class=7, heads=8, drop_rate=0.6,
+                 dtype=None, in_channels=None):
+        super().__init__()
+        self.drop_rate = drop_rate
+        self.convs = nn.ModuleList([
+            GATConv(in_channels, hidden_dim, heads=heads,
+                    dropout_rate=drop_rate, dtype=dtype),
+            GATConv(hidden_dim * heads, num_class, heads=1, concat=False,
+                    dropout_rate=drop_rate, dtype=dtype)])
+
+    def flax_tree(self):
+        return {f"GATConv_{i}": conv for i, conv in enumerate(self.convs)}
+
+    def forward(self, x, edge_index, num_nodes=None, plan=None, keeps=None,
+                generator=None):
+        rate = self.drop_rate if self.training else 0.0
+        keeps = keeps if keeps is not None else (None, None)
+        x = dropout(x, rate, generator)
+        x = self.convs[0](x, edge_index, num_nodes, plan=plan,
+                          keep=keeps[0], generator=generator)
+        x = dropout(F.elu(x), rate, generator)
+        return self.convs[1](x, edge_index, num_nodes, plan=plan,
+                             keep=keeps[1], generator=generator)

@@ -1,6 +1,6 @@
-"""Message-passing ops: plain PyTorch segment reductions and COO SpMM,
-with the CSR SpMM kernel of `gammagl_tpu_torch.ops.cuda` for the
-plan path."""
+"""Message-passing ops: plain PyTorch segment reductions, edge softmax and
+COO SpMM, with the kernels of `gammagl_tpu_torch.ops.cuda` (CSR SpMM,
+fused edge attention) for the plan path."""
 
 from gammagl_tpu_torch.ops.segment import (  # noqa: F401
     segment_count,
@@ -9,7 +9,8 @@ from gammagl_tpu_torch.ops.segment import (  # noqa: F401
     segment_min,
     segment_sum,
 )
-from gammagl_tpu_torch.ops.spmm import gspmm, spmm  # noqa: F401
+from gammagl_tpu_torch.ops.softmax import segment_softmax  # noqa: F401
+from gammagl_tpu_torch.ops.spmm import bspmm, gspmm, spmm  # noqa: F401
 from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     CSRPlan,
     build_csr_plan,
@@ -17,9 +18,17 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     pad_edge_weights,
     spmm_csr,
     spmm_csr_reference,
+    flash_edge_attention,
+    flash_edge_attention_mh,
+    flash_gat_attention,
+    flash_softmax_spmm,
+    flash_softmax_spmm_mh,
 )
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
-           "segment_min", "spmm", "gspmm", "CSRPlan", "build_csr_plan",
-           "build_csr_plan_blocked", "pad_edge_weights", "spmm_csr",
-           "spmm_csr_reference"]
+           "segment_min", "segment_softmax", "spmm", "bspmm", "gspmm",
+           "CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
+           "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
+           "flash_edge_attention", "flash_edge_attention_mh",
+           "flash_gat_attention", "flash_softmax_spmm",
+           "flash_softmax_spmm_mh"]

@@ -13,6 +13,23 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (  # noqa: F401
     spmm_csr,
     spmm_csr_reference,
 )
+from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
+    attention_keep_mask,
+    flash_backward,
+    flash_backward_reference,
+    flash_edge_attention,
+    flash_edge_attention_mh,
+    flash_forward,
+    flash_forward_reference,
+    flash_gat_attention,
+    flash_softmax_spmm,
+    flash_softmax_spmm_mh,
+)
 
 __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
-           "pad_edge_weights", "spmm_csr", "spmm_csr_reference"]
+           "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
+           "attention_keep_mask", "flash_edge_attention",
+           "flash_edge_attention_mh", "flash_softmax_spmm",
+           "flash_softmax_spmm_mh", "flash_gat_attention", "flash_forward",
+           "flash_backward", "flash_forward_reference",
+           "flash_backward_reference"]

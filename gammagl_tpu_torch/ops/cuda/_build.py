@@ -1,11 +1,12 @@
 """Build the CUDA sources of the package with nvcc and load them by ctypes.
 
 The sources under ``gammagl_tpu_torch/csrc/`` have a plain C interface.
-At first use they are compiled for Hopper (``sm_90a``) into one shared
-library under ``gammagl_tpu_torch/_build/``, named by a hash of the
-sources and flags, so an edit to a source rebuilds it and an unchanged
-tree reuses it. There is no fallback: without nvcc, or when it fails,
-this raises.
+At first use each ``.cu`` is compiled for Hopper (``sm_90a``) by its own
+nvcc process, all started together, and the objects are linked into one
+shared library under ``gammagl_tpu_torch/_build/``, named by a hash of
+the sources and flags, so an edit to a source rebuilds it and an
+unchanged tree reuses it. There is no fallback: without nvcc, or when it
+fails, this raises.
 """
 
 import ctypes
@@ -22,8 +23,7 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _find_nvcc():
@@ -54,19 +54,41 @@ def _digest(files):
     return h.hexdigest()[:16]
 
 
+def _run(cmds, log):
+    """Run the commands in parallel, append their output to ``log``, and
+    raise on the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    with log.open("a") as f:
+        for cmd, out in zip(cmds, outs):
+            f.write(" ".join(cmd) + "\n" + out)
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode} (full log in "
+                f"{log}):\n{' '.join(cmd)}\n{out[-4000:]}")
+
+
 def _compile(units, lib_path):
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, units)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
     log = lib_path.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log.write_text("")
+    objs = [BUILD_DIR / f"{tag}.{u.stem}.o" for u in units]
+    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(u)]
+              for u, o in zip(units, objs)], log)
+        _run([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *map(str, objs)]], log)
+        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all/none
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode} "
-                           f"(full log in {log}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,7 +10,11 @@ in the caller's edge order, so per-edge weights can follow.
 `spmm_csr` computes ``out[d] = sum_{(s, d)} w_sd * x[s]``. On a CUDA
 tensor it launches the hand-written kernel of ``csrc/spmm_csr.cu`` and
 counts the launch in ``spmm_csr.launches``; on a CPU tensor it runs the
-plain version, `spmm_csr_reference`.
+plain version, `spmm_csr_reference`. It is differentiable: the gradient
+of ``x`` is the same SpMM on the plan's transpose (`CSRPlan.transpose`),
+counterpart of `_spmm_fused_bwd` and `_swap_plan` in the JAX module, and
+the gradient of the weights is the per-edge rowdot
+``<x[src_e], g[dst_e]>``.
 """
 
 import ctypes
@@ -33,7 +37,8 @@ class CSRPlan:
     col    : (num_edges,) int32, source of each CSR edge
     perm   : (num_edges,) int64, caller's index of each CSR edge
 
-    One copy of the arrays is kept per device (`arrays`).
+    One copy of the arrays is kept per device (`arrays`); the transpose
+    plans of the backward are built on first use and kept too.
     """
 
     def __init__(self, rowptr, col, perm, num_nodes, num_src, num_edges):
@@ -44,6 +49,31 @@ class CSRPlan:
         self.num_src = int(num_src)
         self.num_edges = int(num_edges)
         self._placed = {}
+        self._transpose = None
+        self._edge_scatter = None
+
+    def transpose(self):
+        """The plan of the reverse graph: rows are this plan's sources,
+        ``col`` the destination of each edge, and ``perm`` the position of
+        each of its edges in THIS plan's CSR order, so weights in CSR
+        order follow with ``w[transpose().perm]``."""
+        if self._transpose is None:
+            rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64),
+                             np.diff(self.rowptr))
+            self._transpose = build_csr_plan(
+                rows, self.col, self.num_src, num_src=self.num_nodes)
+        return self._transpose
+
+    def edge_scatter_plan(self):
+        """A plan whose rows are this plan's sources and whose ``col`` is
+        the CSR position of each edge: `spmm_csr` with it sums per-edge
+        rows, given in this plan's CSR order, into their source rows."""
+        if self._edge_scatter is None:
+            tp = self.transpose()
+            self._edge_scatter = CSRPlan(
+                tp.rowptr, tp.perm.astype(np.int32), tp.perm,
+                self.num_src, self.num_edges, self.num_edges)
+        return self._edge_scatter
 
     def arrays(self, device):
         """(rowptr, col, perm) as tensors on ``device``, copied once."""
@@ -140,16 +170,22 @@ def _check_x(x, plan):
                          f"{plan.num_src}")
 
 
+def _csr_rows(plan, device):
+    """The destination row of each CSR edge: (E,) int64 on ``device``."""
+    rowptr = plan.arrays(device)[0]
+    return torch.repeat_interleave(
+        torch.arange(plan.num_nodes, device=device), rowptr.diff(),
+        output_size=plan.num_edges)
+
+
 def spmm_csr_reference(x, edge_weight, plan, weights_padded=False):
     """Plain PyTorch version of `spmm_csr`: ``index_add_`` of the weighted
     source rows in float32, cast once to ``x``'s dtype."""
     _check_x(x, plan)
-    rowptr, col, _ = plan.arrays(x.device)
+    col = plan.arrays(x.device)[1]
     w = _csr_weights(edge_weight, plan, weights_padded)
     acc = torch.promote_types(x.dtype, torch.float32)
-    dst = torch.repeat_interleave(
-        torch.arange(plan.num_nodes, device=x.device), rowptr.diff(),
-        output_size=plan.num_edges)
+    dst = _csr_rows(plan, x.device)
     msg = x[col.long()].to(acc)
     if w is not None:
         msg = msg * w.to(acc)[:, None]
@@ -173,29 +209,17 @@ def _kernel():
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def spmm_csr(x, edge_weight, plan, weights_padded=False):
-    """out[d] = sum_{(s,d)} w_sd * x[s] over the plan's edges.
-
-    x : (N_src, F) float32 or bfloat16; the result has x's dtype, summed
-        in float32 and rounded once.
-    edge_weight : (E,) in the caller's edge order, None for unit weights,
-        or the output of `pad_edge_weights` with ``weights_padded=True``.
-
-    A CPU tensor takes `spmm_csr_reference`. A CUDA tensor launches the
-    kernel or raises; it never falls back.
-    """
-    if x.device.type == "cpu":
-        return spmm_csr_reference(x, edge_weight, plan, weights_padded)
+def _launch(x, w, plan):
+    """Run the kernel on CUDA tensors: x (N_src, F) f32 or bf16, w f32 (E,)
+    in CSR order or None."""
     if x.device.type != "cuda":
         raise ValueError(f"spmm_csr: no kernel for device {x.device}")
-    _check_x(x, plan)
     if x.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"spmm_csr: x dtype {x.dtype} is not one of "
                         f"{_KERNEL_DTYPES}")
     if not x.is_contiguous():
         raise ValueError("spmm_csr: x must be contiguous")
     rowptr, col, _ = plan.arrays(x.device)
-    w = _csr_weights(edge_weight, plan, weights_padded)
     if w is not None:
         if w.device != x.device:
             raise ValueError(f"edge weights on {w.device}, x on {x.device}")
@@ -215,6 +239,75 @@ def spmm_csr(x, edge_weight, plan, weights_padded=False):
                            f"{err(code).decode()} ({code})")
     spmm_csr.launches += 1
     return out
+
+
+def _forward(x, w, plan):
+    if x.device.type == "cpu":
+        return spmm_csr_reference(x, w, plan, weights_padded=True)
+    return _launch(x, w, plan)
+
+
+def _first_order_only(op):
+    """Raise in a backward taken with ``create_graph=True``: the kernels
+    have no backward of their own, so the gradient they return would be
+    taken as a constant and a second derivative silently dropped."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(f"{op} is differentiable once; a backward with "
+                           "create_graph=True is not supported")
+
+
+class _SpmmCSR(torch.autograd.Function):
+    """x, w (CSR order) -> out, with dx = A^T (w * g) on the transpose plan
+    (one more SpMM: a kernel launch on the card) and dw_e = <x[src_e],
+    g[dst_e]> as a plain rowdot, taken only when w needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan):
+        ctx.save_for_backward(x, w)
+        ctx.plan = plan
+        return _forward(x, w, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        _first_order_only("spmm_csr")
+        x, w = ctx.saved_tensors
+        plan = ctx.plan
+        g = g.to(x.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            tp = plan.transpose()
+            w_t = None
+            if w is not None:
+                w_t = w[tp.arrays(w.device)[2]]
+            dx = _forward(g, w_t, tp)
+            if x.shape[0] > plan.num_src:  # rows the plan never reads
+                dx = torch.cat([dx, dx.new_zeros(
+                    x.shape[0] - plan.num_src, dx.shape[1])])
+        if w is not None and ctx.needs_input_grad[1]:
+            col = plan.arrays(x.device)[1].long()
+            dw = (x[col].float() * g[_csr_rows(plan, x.device)].float()).sum(1)
+        return dx, dw, None
+
+
+def spmm_csr(x, edge_weight, plan, weights_padded=False):
+    """out[d] = sum_{(s,d)} w_sd * x[s] over the plan's edges.
+
+    x : (N_src, F) float32 or bfloat16; the result has x's dtype, summed
+        in float32 and rounded once.
+    edge_weight : (E,) in the caller's edge order, None for unit weights,
+        or the output of `pad_edge_weights` with ``weights_padded=True``.
+
+    A CPU tensor takes `spmm_csr_reference`. A CUDA tensor launches the
+    kernel or raises; it never falls back. Differentiable once in ``x``
+    and ``edge_weight`` (``create_graph=True`` raises on every device); the
+    backward of ``x`` is another launch of the kernel on the card
+    (counted in ``spmm_csr.launches`` too).
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spmm_csr: no kernel for device {x.device}")
+    _check_x(x, plan)
+    w = _csr_weights(edge_weight, plan, weights_padded)
+    return _SpmmCSR.apply(x, w, plan)
 
 
 spmm_csr.launches = 0

@@ -13,7 +13,7 @@ import torch
 from gammagl_tpu_torch.ops.segment import (segment_max, segment_mean,
                                            segment_min, segment_sum)
 
-__all__ = ["spmm", "gspmm"]
+__all__ = ["spmm", "bspmm", "gspmm"]
 
 _REDUCE = {"sum": segment_sum, "mean": segment_mean, "max": segment_max,
            "min": segment_min}
@@ -46,13 +46,26 @@ def spmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
     if x.is_floating_point():
         msg = msg.to(torch.promote_types(x.dtype, torch.float32))
     if edge_weight is not None:
-        msg = msg * edge_weight.to(msg.dtype).reshape(
-            (-1,) + (1,) * (x.dim() - 1))
+        w = edge_weight.to(msg.dtype)
+        msg = msg * w.reshape(w.shape + (1,) * (x.dim() - w.dim()))
     return _REDUCE[reduce](msg, dst, num_nodes).to(x.dtype)
 
 
 def gspmm(edge_index, edge_weight, x, reduce: str = "sum",
           num_nodes: Optional[int] = None):
     """Reference spelling of `spmm` (argument order of the reference)."""
+    return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
+                reduce=reduce)
+
+
+def bspmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
+          reduce: str = "sum"):
+    """Multi-head SpMM for attention layers: x (N, H, F), edge_weight
+    (E, H) per-head coefficients, out[d, h] = reduce_e w_eh * x[s_e, h].
+    Sums in float32, cast once to ``x``'s dtype, as `spmm`."""
+    if reduce not in ("sum", "mean", "max"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    if edge_weight is not None:
+        edge_weight = edge_weight[..., None]
     return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
                 reduce=reduce)

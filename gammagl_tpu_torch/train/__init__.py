@@ -1,0 +1,14 @@
+"""Training: losses, metrics, the train state and its checkpoints."""
+
+from gammagl_tpu_torch.train.metrics import (  # noqa: F401
+    accuracy,
+    semi_supervised_loss,
+)
+from gammagl_tpu_torch.train.state import (  # noqa: F401
+    TrainState,
+    load_checkpoint,
+    save_checkpoint,
+)
+
+__all__ = ["accuracy", "semi_supervised_loss", "TrainState",
+           "save_checkpoint", "load_checkpoint"]

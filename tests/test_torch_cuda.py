@@ -1,5 +1,7 @@
-"""Card-only tests of the port: the CSR SpMM kernel against its plain
-version, the launch count, the wrapper's checks, and the serving path.
+"""Card-only tests of the port: the CSR SpMM and flash attention kernels
+against their plain versions, forward and backward, the launch counts,
+the wrappers' checks, gradients of GCN and GAT through the kernels, and
+the serving path.
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -8,15 +10,19 @@ neither JAX nor the JAX package, so it runs on a machine without them:
 
 Tolerances, elementwise, |kernel - plain| <= rtol*|plain| + 1e-5*max|plain|
 (the second term for the two f32 summation orders): f32 rtol 1e-5; bf16
-rtol 1e-2, one bf16 ulp, since both round once from f32.
+rtol 1e-2, one bf16 ulp, since both round once from f32. Model
+gradients through the kernels against the plain path, f32: 1e-4 of each
+parameter's max |grad| (the paths form scores and sums in other orders).
 """
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from gammagl_tpu_torch.data import Graph
-from gammagl_tpu_torch.models import GCNModel
+from gammagl_tpu_torch.models import GATModel, GCNModel
 from gammagl_tpu_torch.ops import cuda as kops
 from gammagl_tpu_torch.serve import InferenceSession
 
@@ -115,3 +121,205 @@ def test_session_on_card_matches_cpu_session(card):
     assert got.device.type == "cuda" and got.shape == (n, 7)
     scale = float(want.abs().max())
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=3e-2 * scale)
+
+
+def _flash_case(card, H, F, dtype, gather, keep, seed=0, plan=None):
+    if plan is None:
+        plan, _ = _plan(seed)
+    g = torch.Generator().manual_seed(seed)
+    rows = plan.num_src if gather else plan.num_edges
+    s = torch.randn(rows, H, generator=g).to(card)
+    a = torch.randn(plan.num_nodes, H, generator=g).to(card)
+    msg = torch.randn(rows, H * F, generator=g).to(card, dtype)
+    kp = None
+    if keep:
+        kp = ((torch.rand(plan.num_edges, H, generator=g) < 0.4).float()
+              / 0.4).to(card)
+    grad = torch.randn(plan.num_nodes, H * F, generator=g).to(card, dtype)
+    return plan, (s, a, msg, kp), grad
+
+
+def _flash_both(plan, inputs, grad, gather, fn_fwd, fn_bwd, saved=None):
+    """Forward, then backward from ``saved`` (out, m, l) when given (the
+    plain backward takes the kernel's: a bf16 ``out`` rounded otherwise
+    shifts c = <out, g> by an ulp), else from this forward."""
+    s, a, msg, kp = inputs
+    out, m, l = fn_fwd(s, a, msg, kp, plan, 0.2, gather)
+    b_out, b_m, b_l = saved if saved is not None else (out, m, l)
+    ds, dmsg, da = fn_bwd(s, a, msg, kp, b_m, b_l, b_out, grad, plan, 0.2,
+                          gather)
+    return out, m, l, ds, dmsg, da
+
+
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (1, 64), (2, 640), (3, 5)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("gather", [False, True])
+@pytest.mark.parametrize("keep", [False, True])
+def test_flash_kernels_match_plain(card, H, F, dtype, rtol, gather, keep):
+    plan, inputs, grad = _flash_case(card, H, F, dtype, gather, keep, seed=H)
+    before = (kops.flash_forward.launches, kops.flash_backward.launches)
+    got = _flash_both(plan, inputs, grad, gather, kops.flash_forward,
+                      kops.flash_backward)
+    torch.cuda.synchronize()
+    assert (kops.flash_forward.launches,
+            kops.flash_backward.launches) == (before[0] + 1, before[1] + 1)
+    want = _flash_both(plan, inputs, grad, gather,
+                       kops.flash_forward_reference,
+                       kops.flash_backward_reference, saved=got[:3])
+    out, m, l, ds, dmsg, da = got
+    assert out.dtype == dtype and dmsg.dtype == dtype
+    assert torch.equal(m, want[1])
+    for g_, w_, r in zip(got, want, (rtol, 0, 1e-5, 1e-5, rtol, 1e-5)):
+        _close(g_, w_, r)
+    # empty rows: exactly 0 out and da, the JAX kernel's (m, l)
+    empty = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    assert bool((out[empty] == 0).all()) and bool((da[empty] == 0).all())
+    assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+    # deterministic: no atomics, a fixed edge order within each row
+    again = _flash_both(plan, inputs, grad, gather, kops.flash_forward,
+                        kops.flash_backward)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_read_keep_in_caller_order(card, dtype):
+    """With node rows (gather) the kernels read keep in the caller's edge
+    order through the plan's perm: the same function as per-edge inputs
+    gathered at each edge's source with the mask in CSR order."""
+    plan, (s, a, msg, caller), grad = _flash_case(card, 8, 8, dtype, True,
+                                                  True, seed=5)
+    _, col, perm = plan.arrays(card)
+    col = col.long()
+    got = _flash_both(plan, (s, a, msg, caller), grad, True,
+                      kops.flash_forward, kops.flash_backward)
+    want = _flash_both(plan, (s[col], a, msg[col], caller[perm]), grad,
+                       False, kops.flash_forward, kops.flash_backward,
+                       saved=got[:3])
+    torch.cuda.synchronize()
+    rt = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for g_, w_, r in zip(got, want, (rt, 0, 1e-5, 1e-5, rt, 1e-5)):
+        _close(g_, w_, r)
+    plain = _flash_both(plan, (s, a, msg, caller), grad, True,
+                        kops.flash_forward_reference,
+                        kops.flash_backward_reference, saved=got[:3])
+    for g_, w_, r in zip(got, plain, (rt, 0, 1e-5, 1e-5, rt, 1e-5)):
+        _close(g_, w_, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_without_edges(card, dtype):
+    none = np.zeros(0, np.int64)
+    plan = kops.build_csr_plan(none, none, 33, num_src=5)
+    _, inputs, grad = _flash_case(card, 2, 8, dtype, True, True, plan=plan)
+    out, m, l, ds, dmsg, da = _flash_both(plan, inputs, grad, True,
+                                          kops.flash_forward,
+                                          kops.flash_backward)
+    torch.cuda.synchronize()
+    assert out.shape == (33, 16) and bool((out == 0).all())
+    assert ds.shape == (0, 2) and dmsg.shape == (0, 16)
+    assert bool((da == 0).all()) and bool((l == 0).all())
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
+    plan, (s, a, msg, kp), _ = _flash_case(card, 2, 8, torch.float32, True,
+                                           False)
+    with pytest.raises(TypeError, match="dtype"):
+        kops.flash_forward(s, a, msg.half(), None, plan, 0.2, True)
+    with pytest.raises(TypeError, match="float32"):
+        kops.flash_forward(s.double(), a, msg, None, plan, 0.2, True)
+    with pytest.raises(ValueError, match="inputs on cpu"):
+        kops.flash_forward(s, a.cpu(), msg, None, plan, 0.2, True)
+
+
+def _gcn_grads(model, x, ei, plan):
+    model.zero_grad()
+    out = model(x, ei, plan=plan)
+    torch.nn.functional.cross_entropy(
+        out.float(), torch.arange(x.shape[0], device=x.device) % 7).backward()
+    return out.detach(), [p.grad for p in model.parameters()]
+
+
+def test_gcn_gradients_through_the_kernel_match_the_plain_path(card):
+    """spmm_csr on a CUDA tensor is differentiable: every weight of a
+    GCNModel with a plan gets the gradient of the plain COO path (before
+    the SpMM backward existed, all but the last bias got none)."""
+    rng = np.random.default_rng(7)
+    n, e = 1500, 12000
+    x = rng.normal(size=(n, 32)).astype(np.float32)
+    graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    model = GCNModel(hidden_dim=48, num_class=7, num_layers=3,
+                     drop_rate=0.0).to(card)
+    xt = torch.tensor(x, device=card)
+    ei = torch.tensor(graph.edge_index, device=card)
+    want_out, want = _gcn_grads(model, xt, ei, None)
+    before = kops.spmm_csr.launches
+    got_out, got = _gcn_grads(model, xt, ei, graph.csr_plan())
+    torch.cuda.synchronize()
+    # 3 forward launches and 3 dx launches: each layer's SpMM input is
+    # its projected features, which need a gradient
+    assert kops.spmm_csr.launches == before + 6
+    _close(got_out, want_out, 1e-5)
+    for g_, w_ in zip(got, want):
+        assert g_ is not None and bool((g_ != 0).any())
+        torch.testing.assert_close(g_, w_, rtol=0,
+                                   atol=1e-4 * float(w_.abs().max()))
+
+
+def test_gat_training_through_the_kernels_matches_the_plain_path(card):
+    """A GATModel step in training mode, f32: the plan path (flash
+    kernels forward and backward, SpMM for the feature gradients) against
+    the COO path with the same keep masks and dropout generator state."""
+    rng = np.random.default_rng(8)
+    n, e = 1200, 9000
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    xt = torch.tensor(x, device=card)
+    ei = torch.tensor(graph.edge_index, device=card)
+    E = ei.shape[1]
+    g = torch.Generator(device=card).manual_seed(9)
+    keeps = [kops.attention_keep_mask(g, 0.6, (E, h), card) for h in (4, 1)]
+    torch.manual_seed(10)
+    base = GATModel(hidden_dim=8, num_class=5, heads=4, in_channels=24)
+    y = torch.arange(n, device=card) % 5
+    results = []
+    for plan in (graph.csr_plan(), None):
+        model = copy.deepcopy(base).to(card).train()
+        gen = torch.Generator(device=card).manual_seed(11)
+        before = (kops.flash_forward.launches, kops.flash_backward.launches,
+                  kops.spmm_csr.launches)
+        out = model(xt, ei, plan=plan, keeps=keeps, generator=gen)
+        torch.nn.functional.cross_entropy(out, y).backward()
+        torch.cuda.synchronize()
+        after = (kops.flash_forward.launches, kops.flash_backward.launches,
+                 kops.spmm_csr.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (2, 2, 2) if plan is not None else (0, 0, 0))
+        results.append((out.detach(), [p.grad for p in model.parameters()]))
+    (out_k, grads_k), (out_p, grads_p) = results
+    _close(out_k, out_p, 1e-4)
+    for g_, w_ in zip(grads_k, grads_p):
+        torch.testing.assert_close(g_, w_, rtol=0,
+                                   atol=1e-4 * float(w_.abs().max()))
+
+
+def test_gat_session_on_card_matches_the_plain_path(card):
+    rng = np.random.default_rng(12)
+    n, e = 2000, 16000
+    x = rng.normal(size=(n, 48)).astype(np.float32)
+    graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    model = GATModel(hidden_dim=8, num_class=7, heads=8,
+                     dtype=torch.bfloat16, in_channels=48)
+    sess = InferenceSession(model, (x, graph.edge_index), device="cuda",
+                            compute_dtype=torch.bfloat16,
+                            plan=graph.csr_plan())
+    before = kops.flash_forward.launches
+    got = sess(x, graph.edge_index)
+    torch.cuda.synchronize()
+    assert kops.flash_forward.launches == before + 2
+    with torch.inference_mode():
+        want = sess.model(torch.tensor(x, device=card).bfloat16(),
+                          torch.tensor(graph.edge_index, device=card))
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=3e-2 * scale)
