@@ -12,28 +12,53 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bf16 and f32, F in {7, 40, 256}, a graph with empty rows and
    N_src != N_dst, a graph with no edges, a misaligned x, and the slice's
    own graph at F = 256 and F = 40; then its backward (dx through the
-   kernel on the transpose plan, dw) on the slice graph at F = 256 and 40,
-   bf16 and f32.
+   kernel on the transpose plan, dw through the SDDMM kernel) on the slice
+   graph at F = 256 and 40, bf16 and f32.
 3. Hold the flash attention kernels (forward and backward) against their
    plain versions: f32 and bf16, (H, F) in {(8, 8), (1, 40), (1, 64),
    (2, 640)}, with and without a keep mask, per-edge and gathered inputs,
    empty rows with N_src != N_dst, no edges, and the slice graph at both
    GAT layers' shapes; time both kernels against the plain versions there.
-4. Serve full-width GCN (ogbn-arxiv shape: 169,343 nodes, 2,315,598 edges
+4. Hold the edge-endpoint kernels against their plain versions: the
+   destination expand (unscaled: bitwise equal; scaled per edge and head),
+   the per-edge segment sum (unit, (E,) and (E, H) weights) and the SDDMM
+   (gathered and per-edge rows), f32 and bf16, C in {7, 40, 64}, empty
+   rows with N_src != N_dst, no edges, bitwise-equal repeats; on the slice
+   graph the expand and segment sum at GATv2's widths, and the SDDMM at
+   bench.py's shape (F = 256 bf16, gathered) and per edge (H = 8, F = 8),
+   forward and backward; time each.
+5. Serve full-width GCN (ogbn-arxiv shape: 169,343 nodes, 2,315,598 edges
    plus self-loops, 128 -> 256 -> 256 -> 40, bf16) through
    `InferenceSession` with `Graph.csr_plan()`: 8 requests, each held
    against the plain COO path; exactly 3 SpMM launches a request.
-5. Serve GAT on the same graph (128 -> 8 heads x 8 -> 40, bf16): 8
+6. Serve GAT on the same graph (128 -> 8 heads x 8 -> 40, bf16): 8
    requests, each held against the plain COO path within 3e-2 of max
    |logit|; exactly 2 flash forward launches a request and nothing else.
-6. Train that GAT for 5 full-batch steps (drop rate 0.6, Adam lr 0.005)
+7. Train that GAT for 5 full-batch steps (drop rate 0.6, Adam lr 0.005)
    with the fusedgat twin's step, and the same model through the plain COO
    path with the same masks, generator state and parameters: step-0
    gradients of every parameter and the 5 losses held within stated
    tolerances, the loss finite and falling, and per step exactly 2 flash
    forward, 2 flash backward and 2 SpMM launches.
-7. Print the card's name and power limit, one JSON line on the kernels,
-   and as the last line {"ok": true, "device": {...}}.
+8. Serve GATv2 (GATV2Model: 8 heads x 8 concatenated, ELU, 1 head x 40;
+   bf16 compute through the process default) through an `InferenceSession`
+   on its default device, the card: 8 requests against the plain COO
+   path; exactly 2 expand and 2 flash forward launches a request. Then
+   trace 3 more with torch.profiler: device time by kernel, device busy
+   time and idle share (chrome traces under gammagl_tpu_torch/_build/).
+9. Train that GATv2 for 5 full-batch steps (dropout 0.6, Adam lr 0.01 with
+   decayed weights 5e-4) with the gatv2 twin's step, against the plain COO
+   path under one generator state; per step exactly 2 expand, 2 flash
+   forward, 2 flash backward, 2 per-edge segment sums and 2 SpMM launches;
+   step-0 gradients held in float32 compute. Then trace 3 more steps.
+10. Drive the `sddmm_csr` entry point at bench.py's shape (F = 256 bf16,
+   x_src = x_dst) and `sddmm_csr_mh` on per-edge rows (H = 8, F = 8),
+   forward and backward: per call pair 2 SDDMM, 2 SpMM, 1 scaled expand
+   and 1 per-edge segment sum launches.
+11. Print the card's name and power limit, one JSON line on the kernels
+   (time, plain time, one PyTorch library call's time where one computes
+   the same function, the bound and launches by path), and as the last
+   line {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
@@ -50,6 +75,8 @@ import torch
 N_NODES, N_EDGES, N_FEAT = 169_343, 2_315_598, 128
 HIDDEN, N_CLASS, N_LAYERS = 256, 40, 3
 GAT_HIDDEN, GAT_HEADS, GAT_DROP, GAT_LR = 8, 8, 0.6, 0.005
+GATV2_LR, GATV2_L2 = 0.01, 5e-4  # the gatv2 trainer's Adam and decay
+SDDMM_F, N_SDDMM_CALLS = 256, 3
 N_REQUESTS, N_STEPS = 8, 5
 SEED = 0
 # step-0 gradients, each parameter: max |kernel - plain| <= GRAD_TOL *
@@ -57,16 +84,30 @@ SEED = 0
 # compute in bf16 and round at different points (the plain path rounds
 # alpha and the messages to bf16 per edge, the kernels sum in f32).
 GRAD_TOL, LOSS_TOL = 3e-2, 5e-3
+# float32 step-0 gradients of each parameter (GATv2): the paths sum in
+# other orders, nothing else differs
+F32_GRAD_TOL = 1e-4
+# the bound of a kernel: the larger of its bytes (each input read once,
+# each output written once) over HBM's rate and its arithmetic over the
+# f32 rate outside the tensor cores (every kernel here sums in f32 on
+# the CUDA cores); the published H100 SXM peaks at 700 W
+HBM_BYTES_PER_S, F32_FLOPS_PER_S = 3.35e12, 67e12
+SPMM_SOURCE = "gammagl_tpu_torch/csrc/spmm_csr.cu"
 FLASH_SOURCE = "gammagl_tpu_torch/csrc/flash_attention.cu"
+EDGE_SOURCE = "gammagl_tpu_torch/csrc/sddmm_csr.cu"
+PALLAS = "gammagl_tpu/ops/pallas/"
+# name -> (source, the TPU kernel it replaces, other TPU kernels it covers)
 KERNELS = {
-    "spmm_csr": ("gammagl_tpu_torch/csrc/spmm_csr.cu",
-                 "gammagl_tpu/ops/pallas/segment_matmul.py:243",
-                 ["gammagl_tpu/ops/pallas/segment_matmul.py:774",
-                  "gammagl_tpu/ops/pallas/segment_matmul.py:686"]),
-    "flash_forward": (FLASH_SOURCE,
-                      "gammagl_tpu/ops/pallas/flash_attention.py:566", []),
-    "flash_backward": (FLASH_SOURCE,
-                       "gammagl_tpu/ops/pallas/flash_attention.py:704", []),
+    "spmm_csr": (SPMM_SOURCE, PALLAS + "segment_matmul.py:243",
+                 [PALLAS + "segment_matmul.py:774",
+                  PALLAS + "segment_matmul.py:686"]),
+    "segment_sum_csr": (SPMM_SOURCE, PALLAS + "segment_matmul.py:849", []),
+    "flash_forward": (FLASH_SOURCE, PALLAS + "flash_attention.py:566", []),
+    "flash_backward": (FLASH_SOURCE, PALLAS + "flash_attention.py:704", []),
+    "expand_dst_csr": (EDGE_SOURCE, PALLAS + "sddmm_csr.py:386",
+                       [PALLAS + "sddmm_csr.py:134"]),
+    "sddmm_csr": (EDGE_SOURCE, PALLAS + "sddmm_csr.py:222",
+                  [PALLAS + "sddmm_csr.py:92"]),
 }
 
 
@@ -124,6 +165,81 @@ def paired_ms(kernel, plain, plain_iters=5):
     return (k0 + k1) / 2, (p0 + p1) / 2, (p0, k0, k1, p1)
 
 
+def bound(nbytes, flops):
+    """The least time the card could take (ms), and what sets it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(nbytes), "flops": int(flops)}
+
+
+def library_ms(label, fn):
+    """Time of one PyTorch library call computing the same function (a
+    yardstick the port never calls), or None where it refuses these
+    inputs."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"  {label}: no library time ({type(e).__name__}: "
+              f"{str(e).splitlines()[0][:120]})")
+        return None
+    return cuda_ms(fn)
+
+
+def timing(label, kernel, plain, nbytes, flops, library=None,
+           plain_iters=5):
+    """Kernel and plain times (plain, kernel, kernel, plain), the library
+    call's time and the bound; prints one line and returns a dict."""
+    k_ms, p_ms, runs = paired_ms(kernel, plain, plain_iters)
+    lib = library_ms(label, library) if library is not None else None
+    row = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib,
+           **bound(nbytes, flops)}
+    row["share_of_bound"] = row["bound_ms"] / k_ms
+    lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+    print(f"  {label}: kernel {k_ms:.4f} ms ({runs[1]:.4f}, {runs[2]:.4f}), "
+          f"plain {p_ms:.4f} ms ({runs[0]:.4f}, {runs[3]:.4f}), library "
+          f"{lib_txt}; bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({nbytes / 1e9:.4f} GB, {flops / 1e9:.3f} GFLOP), "
+          f"{row['share_of_bound']:.3f} of it")
+    return row
+
+
+def profile(label, fn, n=3):
+    """Trace n calls of fn with torch.profiler; print the device time by
+    kernel (chrome trace events of category kernel, memcpy and memset),
+    the device busy time and the idle share of the host-clock span, all
+    per call."""
+    from torch.profiler import ProfilerActivity
+    fn()
+    sync()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        span_us = (time.perf_counter() - t0) * 1e6 / n
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "gammagl_tpu_torch", "_build", "traces")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"trace_{label}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for ev in events:
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    busy = sum(by_name.values()) / n
+    print(f"  profile {label}: device busy {busy:.1f} us a call, span "
+          f"{span_us:.1f} us, idle {1 - busy / span_us:.3f}")
+    for name, dur in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
+        print(f"    {dur / n:9.1f} us {dur / n / busy:6.3f}  {name[:150]}")
+    return {"busy_us": busy, "span_us": span_us}
+
+
 def arxiv_graph(Graph, n_nodes=N_NODES, n_edges=N_EDGES):
     """bench.py's generator (seed 0) plus self-loops, and 128 features."""
     rng = np.random.default_rng(SEED)
@@ -163,16 +279,44 @@ def gat_params():
     return {"params": tree}
 
 
+def gatv2_params():
+    """A flax-shaped GATV2Model tree from numpy: glorot kernels, attention
+    vectors large enough that the softmax is not uniform."""
+    rng = np.random.default_rng(SEED + 7)
+    tree = {}
+    for i, (fan_in, H, F, width) in enumerate((
+            (N_FEAT, GAT_HEADS, GAT_HIDDEN, GAT_HEADS * GAT_HIDDEN),
+            (GAT_HEADS * GAT_HIDDEN, 1, N_CLASS, N_CLASS))):
+        lim = np.sqrt(6.0 / (fan_in + H * F))
+        tree[f"GATV2Conv_{i}"] = {
+            **{f"Dense_{j}": {"kernel": rng.uniform(
+                -lim, lim, (fan_in, H * F)).astype(np.float32)}
+               for j in (0, 1)},
+            "att": (rng.normal(size=(1, H, F)) * 0.3).astype(np.float32),
+            "bias": rng.uniform(-0.1, 0.1, width).astype(np.float32)}
+    return {"params": tree}
+
+
+def counters(k):
+    """Each kernel's wrapper, which counts its launches."""
+    return {"spmm_csr": k.spmm_csr, "segment_sum_csr": k.segment_sum_csr,
+            "flash_forward": k.flash_forward,
+            "flash_backward": k.flash_backward,
+            "expand_dst_csr": k.expand_dst_csr, "sddmm_csr": k.sddmm_csr}
+
+
 def reset_counts(k):
-    k.spmm_csr.launches = 0
-    k.flash_forward.launches = 0
-    k.flash_backward.launches = 0
+    for fn in counters(k).values():
+        fn.launches = 0
 
 
 def read_counts(k):
-    return {"spmm_csr": k.spmm_csr.launches,
-            "flash_forward": k.flash_forward.launches,
-            "flash_backward": k.flash_backward.launches}
+    return {name: fn.launches for name, fn in counters(k).items()}
+
+
+def every_kernel(per_call, n=1):
+    """{kernel: launches} over every kernel, n calls of per_call."""
+    return {name: per_call.get(name, 0) * n for name in KERNELS}
 
 
 def phase_spmm_checks(k, slice_plan, slice_w):
@@ -216,21 +360,23 @@ def phase_spmm_checks(k, slice_plan, slice_w):
                                     weights_padded=True)
         err = check_close(f"slice graph bf16 F={F}", got, want, 1e-2)
         main_err = max(main_err, err)
-        k_ms, p_ms, runs = paired_ms(
+        N, E = slice_plan.num_nodes, slice_plan.num_edges
+        rowptr, col, _ = slice_plan.arrays(dev)
+        # cuSPARSE's SpMM over the same CSR and weights
+        A = torch.sparse_csr_tensor(rowptr, col.long(), slice_w.to(x.dtype),
+                                    size=(N, slice_plan.num_src))
+        timings[F] = {"F": F, "max_abs_err": err, **timing(
+            f"spmm_csr F={F} bf16",
             lambda: k.spmm_csr(x, slice_w, slice_plan, weights_padded=True),
             lambda: k.spmm_csr_reference(x, slice_w, slice_plan,
-                                         weights_padded=True))
-        gb = slice_plan.num_edges * F * 2 / 1e9
-        print(f"  F={F} bf16: kernel {k_ms:.4f} ms ({runs[1]:.4f}, "
-              f"{runs[2]:.4f}), plain {p_ms:.4f} ms ({runs[0]:.4f}, "
-              f"{runs[3]:.4f}); gather {gb:.3f} GB -> "
-              f"{gb / (k_ms / 1e3):.1f} GB/s, "
-              f"{slice_plan.num_edges / (k_ms / 1e3) / 1e9:.3f} G edges/s")
-        timings[F] = {"F": F, "ms": k_ms, "plain_ms": p_ms,
-                      "max_abs_err": err}
+                                         weights_padded=True),
+            # x, col, rowptr and w in, out
+            nbytes=(slice_plan.num_src * F * 2 + E * 4 + (N + 1) * 8 + E * 4
+                    + N * F * 2),
+            flops=2 * E * F, library=lambda: A @ x)}
 
-    # the backward: dx is the kernel on the transpose plan, dw a rowdot;
-    # the plain dx is the plain SpMM on the same transpose plan
+    # the backward: dx is the kernel on the transpose plan, dw the SDDMM
+    # kernel; the plain dx is the plain SpMM on the same transpose plan
     tp = slice_plan.transpose()
     w_t = slice_w[tp.arrays(dev)[2]]
     rowptr, col, _ = slice_plan.arrays(dev)
@@ -348,26 +494,173 @@ def phase_flash_checks(k, slice_plan):
                 ("flash_backward",
                  lambda: k.flash_backward(*bwd_args),
                  lambda: k.flash_backward_reference(*bwd_args))):
-            k_ms, p_ms, runs = paired_ms(kern, plain, plain_iters=3)
-            # bytes the kernel must move at least: each edge's gathered
-            # message row, score and keep, its col and keep row index
-            # (and, backward, its dmsg row and ds)
-            per_edge = H * F * 2 + 4 * H + 4 * H + 4 + 8
-            if name == "flash_backward":
-                per_edge += H * F * 2 + 4 * H
-            gb = slice_plan.num_edges * per_edge / 1e9
-            print(f"  {name} H={H} F={F}: kernel {k_ms:.4f} ms "
-                  f"({runs[1]:.4f}, {runs[2]:.4f}), plain {p_ms:.4f} ms "
-                  f"({runs[0]:.4f}, {runs[3]:.4f}); per-edge bytes "
-                  f"{gb:.3f} GB -> {gb / (k_ms / 1e3):.1f} GB/s")
-            timings[name].append({"H": H, "F": F, "ms": k_ms,
-                                  "plain_ms": p_ms, "per_edge_gb": gb})
+            N, Ns, E = (slice_plan.num_nodes, slice_plan.num_src,
+                        slice_plan.num_edges)
+            # in: the node rows, per-node scores, a_dst, keep and its
+            # perm row, col and rowptr; forward out: out, m and l;
+            # backward also in: m, l, out and the cotangent, out: ds,
+            # dmsg and da
+            nbytes = (Ns * H * F * 2 + Ns * H * 4 + N * H * 4 + E * H * 4
+                      + E * 8 + E * 4 + (N + 1) * 8)
+            if name == "flash_forward":
+                nbytes += N * H * F * 2 + 2 * N * H * 4
+                flops = 2 * E * H * F + 6 * E * H
+            else:
+                nbytes += (2 * N * H * 4 + 2 * N * H * F * 2 + E * H * 4
+                           + E * H * F * 2 + N * H * 4)
+                flops = 4 * E * H * F + 8 * E * H
+            timings[name].append({"H": H, "F": F, **timing(
+                f"{name} H={H} F={F}", kern, plain, nbytes, flops,
+                plain_iters=3)})
     return main_err, timings
+
+
+def phase_edge_checks(k, slice_plan):
+    """The expand, per-edge segment sum and SDDMM kernels against their
+    plain versions; returns (max abs error by kernel, timings)."""
+    print("phase 4: expand, per-edge segment sum and SDDMM kernels vs plain "
+          "versions on the card")
+    from gammagl_tpu_torch.ops.cuda.sddmm_csr import _expand, _sddmm
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    n_dst, n_src, e = 700, 900, 5000
+    dst = 2 * rng.integers(0, 300, e)  # odd rows and the tail: empty
+    sparse = k.build_csr_plan(rng.integers(0, n_src, e), dst, n_dst,
+                              num_src=n_src)
+    none = np.zeros(0, np.int64)
+    empty = k.build_csr_plan(none, none, 50, num_src=30)
+    err = {"expand_dst_csr": 0.0, "segment_sum_csr": 0.0, "sddmm_csr": 0.0}
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for C, H in ((7, 7), (40, 1), (64, 8)):
+            for pname, p in (("empty rows", sparse), ("E=0", empty)):
+                E, tag = p.num_edges, f"{dtype} C={C} H={H} {pname}"
+                x = rand(p.num_nodes, C, dtype=dtype)
+                got = k.expand_dst_csr(x, p)
+                if not torch.equal(got, k.expand_dst_csr_reference(x, p)):
+                    fail(f"expand {tag}: not bitwise equal to x[row]")
+                scale = rand(E, H)
+                got = _expand(x, p, scale)
+                err["expand_dst_csr"] = max(err["expand_dst_csr"], check_close(
+                    f"scaled expand {tag}", got,
+                    k.expand_dst_csr_reference(x, p, scale), rtol))
+                v = rand(E, C, dtype=dtype)
+                for wname, w in (("unit", None), ("(E,)", rand(E).abs()),
+                                 ("(E, H)", rand(E, H).abs())):
+                    got = k.segment_sum_csr(v, p, w)
+                    err["segment_sum_csr"] = max(
+                        err["segment_sum_csr"], check_close(
+                            f"segment sum {wname} {tag}", got,
+                            k.segment_sum_csr_reference(v, p, w), rtol))
+                xd = rand(p.num_nodes, C, dtype=dtype)
+                for gather, a in ((True, rand(p.num_src, C, dtype=dtype)),
+                                  (False, v)):
+                    got = _sddmm(a, xd, p, H, gather)
+                    err["sddmm_csr"] = max(err["sddmm_csr"], check_close(
+                        f"sddmm gather={gather} {tag}", got,
+                        k.sddmm_csr_reference(a, xd, p, H, gather), 1e-5))
+                if p is sparse:  # no atomics: repeats give the same bits
+                    w = rand(E, H).abs()
+                    if not (torch.equal(_expand(x, p, scale),
+                                        _expand(x, p, scale))
+                            and torch.equal(k.segment_sum_csr(v, p, w),
+                                            k.segment_sum_csr(v, p, w))
+                            and torch.equal(_sddmm(v, xd, p, H, False),
+                                            _sddmm(v, xd, p, H, False))):
+                        fail(f"{tag}: repeated launches differ")
+
+    plan, bf16 = slice_plan, torch.bfloat16
+    N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
+    rowptr, col, _ = plan.arrays(dev)
+    counts = rowptr.diff()
+    timings = {"expand_dst_csr": [], "segment_sum_csr": [], "sddmm_csr": []}
+    for C in (GAT_HEADS * GAT_HIDDEN, N_CLASS):  # GATv2's layer widths
+        x = rand(N, C, dtype=bf16)
+        if not torch.equal(k.expand_dst_csr(x, plan),
+                           k.expand_dst_csr_reference(x, plan)):
+            fail(f"slice graph expand C={C}: not bitwise equal to x[row]")
+        timings["expand_dst_csr"].append({"C": C, "scaled": False, **timing(
+            f"expand C={C} bf16", lambda: k.expand_dst_csr(x, plan),
+            lambda: k.expand_dst_csr_reference(x, plan),
+            nbytes=N * C * 2 + (N + 1) * 8 + E * C * 2, flops=0,
+            library=lambda: torch.repeat_interleave(x, counts, dim=0,
+                                                    output_size=E))})
+        v = rand(E, C, dtype=bf16)
+        err["segment_sum_csr"] = max(err["segment_sum_csr"], check_close(
+            f"slice graph segment sum C={C} bf16", k.segment_sum_csr(v, plan),
+            k.segment_sum_csr_reference(v, plan), 1e-2))
+        timings["segment_sum_csr"].append({"C": C, **timing(
+            f"segment sum C={C} bf16", lambda: k.segment_sum_csr(v, plan),
+            lambda: k.segment_sum_csr_reference(v, plan),
+            nbytes=E * C * 2 + (N + 1) * 8 + N * C * 2, flops=E * C,
+            library=lambda: torch.segment_reduce(v, "sum", offsets=rowptr))})
+
+    # the SDDMM at bench.py's shape: gathered rows, x_src = x_dst = x
+    x = rand(Ns, SDDMM_F, dtype=bf16)
+    err["sddmm_csr"] = max(err["sddmm_csr"], check_close(
+        f"slice graph sddmm F={SDDMM_F} bf16", _sddmm(x, x, plan, 1, True),
+        k.sddmm_csr_reference(x, x, plan, 1, True), 1e-5))
+    mask = torch.sparse_csr_tensor(rowptr, col.long(),
+                                   torch.ones(E, device=dev, dtype=bf16),
+                                   size=(N, Ns))
+    timings["sddmm_csr"].append({"H": 1, "F": SDDMM_F, "gather": True,
+                                 **timing(
+        f"sddmm F={SDDMM_F} bf16 gathered", lambda: _sddmm(x, x, plan, 1, True),
+        lambda: k.sddmm_csr_reference(x, x, plan, 1, True),
+        nbytes=Ns * SDDMM_F * 2 + E * 4 + (N + 1) * 8 + E * 4,
+        flops=2 * E * SDDMM_F,
+        library=lambda: torch.sparse.sampled_addmm(mask, x, x.t(), beta=0.0))})
+    # its backward: two SpMMs weighted by the cotangent
+    xs, xd = x.clone().requires_grad_(), x.clone().requires_grad_()
+    g = rand(E)
+    k.sddmm_csr(xs, xd, plan).backward(g)
+    tp = plan.transpose()
+    check_close(f"sddmm F={SDDMM_F} backward dx_dst", xd.grad,
+                k.spmm_csr_reference(x, g, plan, weights_padded=True), 1e-2)
+    check_close(f"sddmm F={SDDMM_F} backward dx_src", xs.grad,
+                k.spmm_csr_reference(x, g[tp.arrays(dev)[2]], tp,
+                                     weights_padded=True), 1e-2)
+    # per-edge rows (H=8, F=8), and the backward: the scaled expand and
+    # the per-head weighted segment sum
+    H, F = GAT_HEADS, GAT_HIDDEN
+    msg, xd = rand(E, H * F, dtype=bf16), rand(N, H * F, dtype=bf16)
+    err["sddmm_csr"] = max(err["sddmm_csr"], check_close(
+        f"slice graph sddmm H={H} F={F} per edge",
+        _sddmm(msg, xd, plan, H, False),
+        k.sddmm_csr_reference(msg, xd, plan, H, False), 1e-5))
+    timings["sddmm_csr"].append({"H": H, "F": F, "gather": False, **timing(
+        f"sddmm H={H} F={F} bf16 per edge", lambda: _sddmm(msg, xd, plan, H,
+                                                          False),
+        lambda: k.sddmm_csr_reference(msg, xd, plan, H, False),
+        nbytes=E * H * F * 2 + N * H * F * 2 + (N + 1) * 8 + E * H * 4,
+        flops=2 * E * H * F)})
+    m3 = msg.view(E, H, F).clone().requires_grad_()
+    x3 = xd.view(N, H, F).clone().requires_grad_()
+    g = rand(E, H)
+    k.sddmm_csr_mh(None, x3, plan, msg=m3).backward(g)
+    err["expand_dst_csr"] = max(err["expand_dst_csr"], check_close(
+        f"sddmm H={H} F={F} backward dmsg (scaled expand)",
+        m3.grad.view(E, H * F), k.expand_dst_csr_reference(xd, plan, g),
+        1e-2))
+    err["segment_sum_csr"] = max(err["segment_sum_csr"], check_close(
+        f"sddmm H={H} F={F} backward dx_dst ((E, H) segment sum)",
+        x3.grad.view(N, H * F), k.segment_sum_csr_reference(msg, plan, g),
+        1e-2))
+    timings["expand_dst_csr"].append({"C": H * F, "scaled": True, **timing(
+        f"scaled expand C={H * F} H={H} bf16", lambda: _expand(xd, plan, g),
+        lambda: k.expand_dst_csr_reference(xd, plan, g),
+        nbytes=N * H * F * 2 + E * H * 4 + (N + 1) * 8 + E * H * F * 2,
+        flops=E * H * F)})
+    return err, timings
 
 
 def phase_gcn_serve(k, GCNModel, InferenceSession, load_jax_params, plan, x,
                     ei):
-    print("phase 4: serve GCN through InferenceSession")
+    print("phase 5: serve GCN through InferenceSession")
     model = GCNModel(hidden_dim=HIDDEN, num_class=N_CLASS,
                      num_layers=N_LAYERS, drop_rate=0.5,
                      dtype=torch.bfloat16)
@@ -391,8 +684,7 @@ def serve(k, sess, x, ei, per_request, name):
         lat_ms.append((time.perf_counter() - t0) * 1e3)
         outputs.append(out)
     counts = read_counts(k)
-    want = {kname: per_request.get(kname, 0) * N_REQUESTS
-            for kname in counts}
+    want = every_kernel(per_request, N_REQUESTS)
     print(f"  {N_REQUESTS} {name} requests, launches {counts}")
     if counts != want:
         fail(f"{name} serve: expected launches {want}, counted {counts}")
@@ -421,44 +713,72 @@ def gat_model(GATModel, load_jax_params):
     return load_jax_params(model, gat_params())
 
 
+def gatv2_model(GATV2Model, load_jax_params):
+    model = GATV2Model(hidden_dim=GAT_HIDDEN, num_class=N_CLASS,
+                       heads=GAT_HEADS, drop_rate=GAT_DROP,
+                       in_channels=N_FEAT)
+    return load_jax_params(model, gatv2_params())
+
+
 def phase_gat_serve(k, GATModel, InferenceSession, load_jax_params, plan, x,
                     ei):
-    print("phase 5: serve GAT through InferenceSession")
+    print("phase 6: serve GAT through InferenceSession")
     sess = InferenceSession(gat_model(GATModel, load_jax_params), (x, ei),
                             device=x.device, compute_dtype=torch.bfloat16,
                             plan=plan)
     return serve(k, sess, x, ei, {"flash_forward": 2}, "GAT")
 
 
-def phase_gat_train(k, twin, GATModel, TrainState, load_jax_params, plan, x,
-                    ei):
-    """5 steps through the kernels and through the plain COO path, with
-    the same keep masks, input-dropout generator state and parameters."""
-    print("phase 6: train GAT (the fusedgat twin's step) against the plain "
-          "path")
-    dev = x.device
-    n, E = x.shape[0], ei.shape[1]
+def phase_gatv2_serve(k, GATV2Model, InferenceSession, load_jax_params, plan,
+                      x, ei):
+    """GATV2Model has no dtype: bf16 compute is the process default, set
+    by the caller. The session runs on its default device, the card."""
+    print("phase 8: serve GATv2 through InferenceSession")
+    sess = InferenceSession(gatv2_model(GATV2Model, load_jax_params),
+                            (x, ei), compute_dtype=torch.bfloat16, plan=plan)
+    if sess.device.type != "cuda":
+        fail(f"InferenceSession's default device is {sess.device}")
+    counts, lat = serve(k, sess, x, ei,
+                        {"expand_dst_csr": 2, "flash_forward": 2}, "GATv2")
+    return counts, lat, profile("gatv2_serve", lambda: sess(x, ei))
+
+
+def train_labels(x):
+    """Random labels and a train mask over a random 54% of the nodes
+    (ogbn-arxiv's train split is 53.7%)."""
     rng = np.random.default_rng(SEED + 5)
-    y = torch.from_numpy(rng.integers(0, N_CLASS, n)).to(dev)
-    mask = torch.from_numpy(rng.random(n) < 0.54).to(dev)
-    states = {}
-    for path in ("kernel", "plain"):
-        model = gat_model(GATModel, load_jax_params).to(dev)
-        states[path] = TrainState(model, GAT_LR)
-    keep_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    per_step = {"spmm_csr": 2, "flash_forward": 2, "flash_backward": 2}
+    n, dev = x.shape[0], x.device
+    return (torch.from_numpy(rng.integers(0, N_CLASS, n)).to(dev),
+            torch.from_numpy(rng.random(n) < 0.54).to(dev))
+
+
+def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
+                keeps_for=None, check_step0=True):
+    """N_STEPS steps of ``twin``'s step through the kernels and through
+    the plain COO path, with the same keep masks (``keeps_for(step)``, or
+    drawn by the layers), input-dropout generator state and parameters:
+    step-0 gradients (unless ``check_step0`` is False), losses, launches a
+    step. Returns (launches, losses, step times in ms, max step-0 gradient
+    error, (the kernel path's state, its labels and mask, both paths'
+    step-0 gradients))."""
+    from gammagl_tpu_torch.train import TrainState
+    dev = x.device
+    y, mask = train_labels(x)
+    states = {path: TrainState(make_model().to(dev), lr, l2)
+              for path in ("kernel", "plain")}
+    want_step = every_kernel(per_step)
     losses = {"kernel": [], "plain": []}
     step_ms = {"kernel": [], "plain": []}
-    launches = {kname: 0 for kname in per_step}
-    grad_err = 0.0
+    launches = every_kernel({})
+    grad_err, step0_grads = 0.0, {}
     for step in range(N_STEPS):
-        keeps = [k.attention_keep_mask(keep_gen, GAT_DROP, (E, h), dev)
-                 for h in (GAT_HEADS, 1)]
+        keeps = keeps_for(step) if keeps_for is not None else None
         for path in ("kernel", "plain"):
             state = states[path]
             gen = torch.Generator(device=dev).manual_seed(SEED + 100 + step)
-            kw = dict(plan=plan if path == "kernel" else None, keeps=keeps,
-                      generator=gen)
+            kw = dict(plan=plan if path == "kernel" else None, generator=gen)
+            if keeps is not None:
+                kw["keeps"] = keeps
             sync()
             reset_counts(k)
             t0 = time.perf_counter()
@@ -467,6 +787,7 @@ def phase_gat_train(k, twin, GATModel, TrainState, load_jax_params, plan, x,
                 loss = twin.loss_and_grad(state.model, x, ei, y, mask, **kw)
                 grads = {name: p.grad.clone()
                          for name, p in state.model.named_parameters()}
+                step0_grads[path] = grads
                 state.apply_gradients()
             else:
                 loss = twin.train_step(state, x, ei, y, mask, **kw)
@@ -475,9 +796,9 @@ def phase_gat_train(k, twin, GATModel, TrainState, load_jax_params, plan, x,
             step_ms[path].append((time.perf_counter() - t0) * 1e3)
             counts = read_counts(k)
             if path == "kernel":
-                if counts != per_step:
-                    fail(f"train step {step}: expected launches {per_step}, "
-                         f"counted {counts}")
+                if counts != want_step:
+                    fail(f"{label} step {step}: expected launches "
+                         f"{want_step}, counted {counts}")
                 for kname in launches:
                     launches[kname] += counts[kname]
                 if step == 0:
@@ -485,7 +806,7 @@ def phase_gat_train(k, twin, GATModel, TrainState, load_jax_params, plan, x,
             elif any(counts.values()):
                 fail(f"the plain path launched kernels: {counts}")
             losses[path].append(loss)
-        if step == 0:
+        if step == 0 and check_step0:
             for name, want in grads.items():
                 grad_err = max(grad_err, check_close(
                     f"step-0 grad {name}", kernel_grads[name], want, 0.0,
@@ -495,14 +816,128 @@ def phase_gat_train(k, twin, GATModel, TrainState, load_jax_params, plan, x,
               f"{step_ms['kernel'][-1]:.2f} ms kernel path, "
               f"{step_ms['plain'][-1]:.2f} ms plain path")
         if not np.isfinite(lk) or abs(lk - lp) > LOSS_TOL * abs(lp):
-            fail(f"step {step}: loss {lk} vs plain {lp}")
+            fail(f"{label} step {step}: loss {lk} vs plain {lp}")
     if not losses["kernel"][-1] < losses["kernel"][0]:
-        fail(f"loss did not fall: {losses['kernel']}")
+        fail(f"{label}: loss did not fall: {losses['kernel']}")
     ms = np.asarray(step_ms["kernel"][1:])
-    print(f"  train step (steps 1-{N_STEPS - 1}): median {np.median(ms):.2f}"
-          f" ms kernel path, {np.median(step_ms['plain'][1:]):.2f} ms plain "
-          f"path; launches {launches}")
-    return launches, losses, step_ms, grad_err
+    print(f"  {label} train step (steps 1-{N_STEPS - 1}): median "
+          f"{np.median(ms):.2f} ms kernel path, "
+          f"{np.median(step_ms['plain'][1:]):.2f} ms plain path; launches "
+          f"{launches}")
+    return (launches, losses, step_ms, grad_err,
+            (states["kernel"], y, mask, step0_grads))
+
+
+def phase_gat_train(k, twin, GATModel, load_jax_params, plan, x, ei):
+    """The keep masks are drawn here, in the caller's edge order, and
+    handed to both paths."""
+    print("phase 7: train GAT (the fusedgat twin's step) against the plain "
+          "path")
+    dev, E = x.device, ei.shape[1]
+    keep_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def keeps_for(step):
+        return [k.attention_keep_mask(keep_gen, GAT_DROP, (E, h), dev)
+                for h in (GAT_HEADS, 1)]
+
+    return train_phase(
+        k, "GAT", lambda: gat_model(GATModel, load_jax_params), twin,
+        {"spmm_csr": 2, "flash_forward": 2, "flash_backward": 2}, GAT_LR,
+        0.0, plan, x, ei, keeps_for)[:4]
+
+
+def phase_gatv2_train(k, common, GATV2Model, load_jax_params,
+                      compute_dtype, plan, x, ei):
+    """The layers draw their attention masks from the generator, in CSR
+    order on both paths; bf16 compute is the process default.
+
+    Step-0 gradients are held in float32 compute, where only the order of
+    the sums differs between the paths. In bf16 the second layer's
+    ``Dense_1`` gradient is a sum that cancels, and any two orders of
+    GATv2's bf16 arithmetic land far apart in it: this phase prints how
+    far each bf16 path's step-0 gradients lie from the float32 ones (the
+    same masks: step 0 of the bf16 run draws from the same generator
+    state). The 5 training steps run in bf16 and hold the losses."""
+    print("phase 9: train GATv2 (the gatv2 twin's step) against the plain "
+          "path")
+    per_step = {"expand_dst_csr": 2, "flash_forward": 2, "flash_backward": 2,
+                "segment_sum_csr": 2, "spmm_csr": 2}
+    y, mask = train_labels(x)
+    grads = {}
+    with compute_dtype(None):
+        for path in ("kernel", "plain"):
+            model = gatv2_model(GATV2Model, load_jax_params).to(x.device)
+            gen = torch.Generator(device=x.device).manual_seed(SEED + 100)
+            sync()
+            reset_counts(k)
+            common.loss_and_grad(model.train(), x, ei, y, mask,
+                                 plan=plan if path == "kernel" else None,
+                                 generator=gen)
+            sync()
+            counts = read_counts(k)
+            want = every_kernel(per_step if path == "kernel" else {})
+            if counts != want:
+                fail(f"GATv2 f32 gradients, {path} path: expected launches "
+                     f"{want}, counted {counts}")
+            grads[path] = {name: p.grad
+                           for name, p in model.named_parameters()}
+    grad_err = 0.0
+    for name, want in grads["plain"].items():
+        grad_err = max(grad_err, check_close(
+            f"f32 step-0 grad {name}", grads["kernel"][name], want, 0.0,
+            atol=F32_GRAD_TOL))
+    launches, losses, step_ms, _, (state, y, mask, bf16) = train_phase(
+        k, "GATv2", lambda: gatv2_model(GATV2Model, load_jax_params), common,
+        per_step, GATV2_LR, GATV2_L2, plan, x, ei, check_step0=False)
+    bf16_err = {}
+    for path in ("kernel", "plain"):  # each bf16 path against float32
+        rel = {name: float((g.float() - grads["plain"][name]).abs().max())
+               / float(grads["plain"][name].abs().max())
+               for name, g in bf16[path].items()}
+        worst = max(rel, key=rel.get)
+        bf16_err[path] = rel[worst]
+        print(f"  bf16 step-0 gradients of the {path} path against float32: "
+              f"worst {rel[worst]:.4f} of max |grad| ({worst}); "
+              + ", ".join(f"{n} {r:.4f}" for n, r in rel.items()))
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 200)
+    prof = profile("gatv2_train", lambda: common.train_step(
+        state, x, ei, y, mask, plan=plan, generator=gen))
+    return launches, losses, step_ms, grad_err, bf16_err, prof
+
+
+def phase_sddmm_path(k, plan):
+    """The sddmm_csr entry point as bench.py drives it (F = 256 bf16, one
+    tensor on both sides), and sddmm_csr_mh on per-edge rows, forward and
+    backward."""
+    print("phase 10: the sddmm_csr and sddmm_csr_mh entry points, forward "
+          "and backward")
+    dev, gen = torch.device("cuda"), torch.Generator().manual_seed(SEED + 9)
+    N, E, H, F = plan.num_nodes, plan.num_edges, GAT_HEADS, GAT_HIDDEN
+    x = torch.randn(N, SDDMM_F, generator=gen).to(dev, torch.bfloat16)
+    msg = torch.randn(E, H, F, generator=gen).to(dev, torch.bfloat16)
+    xd = torch.randn(N, H, F, generator=gen).to(dev, torch.bfloat16)
+    x, msg, xd = (t.requires_grad_() for t in (x, msg, xd))
+    sync()
+    reset_counts(k)
+    for _ in range(N_SDDMM_CALLS):
+        s = k.sddmm_csr(x, x, plan)
+        s.sum().backward()
+        s_mh = k.sddmm_csr_mh(None, xd, plan, msg=msg)
+        s_mh.sum().backward()
+    sync()
+    counts = read_counts(k)
+    want = every_kernel({"sddmm_csr": 2, "spmm_csr": 2, "expand_dst_csr": 1,
+                         "segment_sum_csr": 1}, N_SDDMM_CALLS)
+    print(f"  {N_SDDMM_CALLS} calls of each, launches {counts}")
+    if counts != want:
+        fail(f"sddmm path: expected launches {want}, counted {counts}")
+    for name, t in (("scores", s), ("per-edge scores", s_mh),
+                    ("dx", x.grad), ("dmsg", msg.grad), ("dx_dst", xd.grad)):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"sddmm path: non-finite {name}")
+    if s.shape != (E,) or s_mh.shape != (E, H):
+        fail(f"sddmm path: shapes {tuple(s.shape)}, {tuple(s_mh.shape)}")
+    return counts
 
 
 def main():
@@ -510,13 +945,13 @@ def main():
         fail("torch sees no CUDA device; this smoke run needs the card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gammagl_tpu_torch.data import Graph
+    from gammagl_tpu_torch.examples import common
     from gammagl_tpu_torch.examples import fusedgat_trainer as twin
-    from gammagl_tpu_torch.models import GATModel, GCNModel
+    from gammagl_tpu_torch.models import GATModel, GATV2Model, GCNModel
     from gammagl_tpu_torch.ops import cuda as k
     from gammagl_tpu_torch.ops.cuda._build import load_library
     from gammagl_tpu_torch.serve import InferenceSession
-    from gammagl_tpu_torch.train import TrainState
-    from gammagl_tpu_torch.utils import load_jax_params
+    from gammagl_tpu_torch.utils import compute_dtype, load_jax_params
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -550,12 +985,21 @@ def main():
     spmm_err, spmm_ms = phase_spmm_checks(k, plan,
                                           k.pad_edge_weights(plan, w))
     flash_err, flash_ms = phase_flash_checks(k, plan)
+    edge_err, edge_ms = phase_edge_checks(k, plan)
     gcn_counts, gcn_lat = phase_gcn_serve(k, GCNModel, InferenceSession,
                                           load_jax_params, plan, x, ei)
     gat_counts, gat_lat = phase_gat_serve(k, GATModel, InferenceSession,
                                           load_jax_params, plan, x, ei)
     train_counts, losses, step_ms, grad_err = phase_gat_train(
-        k, twin, GATModel, TrainState, load_jax_params, plan, x, ei)
+        k, twin, GATModel, load_jax_params, plan, x, ei)
+    with compute_dtype(torch.bfloat16):
+        v2_counts, v2_lat, v2_serve_prof = phase_gatv2_serve(
+            k, GATV2Model, InferenceSession, load_jax_params, plan, x, ei)
+        (v2_train_counts, v2_losses, v2_step_ms, v2_grad_err, v2_bf16_err,
+         v2_train_prof) = phase_gatv2_train(k, common, GATV2Model,
+                                            load_jax_params, compute_dtype,
+                                            plan, x, ei)
+    sddmm_counts = phase_sddmm_path(k, plan)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -563,28 +1007,31 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
-    print(f"  whole run {time.perf_counter() - t_start:.1f} s")
-    print(smi.splitlines()[0])
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
-            "gat_train": train_counts}
+            "gat_train": train_counts, "gatv2_serve": v2_counts,
+            "gatv2_train": v2_train_counts, "sddmm": sddmm_counts}
+    errs = {"spmm_csr": spmm_err, **flash_err, **edge_err}
+    # each kernel's headline shape: the widest its main path runs
+    shapes = {"spmm_csr": [spmm_ms[HIDDEN], spmm_ms[N_CLASS]], **flash_ms,
+              **edge_ms}
     entries = []
     for name, (source, replaces, also) in KERNELS.items():
+        head = shapes[name][0]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": sum(c[name] for c in runs.values()),
-                 "launches_by_path": {p: c[name] for p, c in runs.items()}}
+                 "launches_by_path": {p: c[name] for p, c in runs.items()},
+                 "max_abs_err": errs[name], "ms": head["ms"],
+                 "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                 "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"], "by_shape": shapes[name]}
         if also:
             entry["also_replaces"] = also
-        if name == "spmm_csr":
-            entry.update(max_abs_err=spmm_err, ms=spmm_ms[HIDDEN]["ms"],
-                         plain_ms=spmm_ms[HIDDEN]["plain_ms"],
-                         by_width=[spmm_ms[HIDDEN], spmm_ms[N_CLASS]])
-        else:
-            entry.update(max_abs_err=flash_err[name],
-                         ms=flash_ms[name][0]["ms"],
-                         plain_ms=flash_ms[name][0]["plain_ms"],
-                         by_shape=flash_ms[name])
+        if entry["launches"] == 0:
+            fail(f"{name} was launched on no path")
         entries.append(entry)
+    print(f"  whole run {time.perf_counter() - t_start:.1f} s")
+    print(smi.splitlines()[0])
     print(json.dumps({
         "kernels": entries,
         "gcn_request_p50_ms": float(np.median(gcn_lat)),
@@ -594,10 +1041,20 @@ def main():
         "gat_train_step_ms": float(np.median(step_ms["kernel"][1:])),
         "gat_train_step_plain_ms": float(np.median(step_ms["plain"][1:])),
         "gat_train_losses": losses["kernel"],
-        "gat_step0_grad_max_abs_err": grad_err}))
+        "gat_step0_grad_max_abs_err": grad_err,
+        "gatv2_request_p50_ms": float(np.median(v2_lat)),
+        "gatv2_request_max_ms": float(v2_lat.max()),
+        "gatv2_train_step_ms": float(np.median(v2_step_ms["kernel"][1:])),
+        "gatv2_train_step_plain_ms": float(
+            np.median(v2_step_ms["plain"][1:])),
+        "gatv2_train_losses": v2_losses["kernel"],
+        "gatv2_step0_f32_grad_max_abs_err": v2_grad_err,
+        "gatv2_step0_bf16_grad_rel_err_vs_f32": v2_bf16_err,
+        "gatv2_profile": {"serve": v2_serve_prof, "train": v2_train_prof}}))
+    # the run used one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

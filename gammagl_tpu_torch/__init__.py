@@ -8,13 +8,15 @@ at first use, never at import. This package imports neither JAX nor
 `gammagl_tpu`.
 
 Layer map:
-  ops/        -- segment reductions, edge softmax, COO SpMM; the kernels:
-                 CSR SpMM and fused edge attention, forward and backward
+  ops/        -- segment reductions, edge softmax, COO SpMM and SDDMM; the
+                 kernels: CSR SpMM and per-edge segment sum, fused edge
+                 attention, destination expand and SDDMM, with backwards
   data/       -- Graph (host-side structure, cached CSR plan)
-  layers/     -- MessagePassing, GCNConv, GATConv
-  models/     -- GCNModel, GATModel
+  layers/     -- MessagePassing, GCNConv, GATConv, GATV2Conv
+  models/     -- GCNModel, GATModel, GATV2Model
   train/      -- loss, accuracy, the Adam train state and checkpoints
-  utils/      -- self-loops, compute dtype, flax parameter loading
+  utils/      -- self-loops, compute dtype, flax parameter loading, the
+                 default device (the CUDA card)
   serve       -- InferenceSession
   examples/   -- trainer twins (python -m gammagl_tpu_torch.examples.<name>)
 """

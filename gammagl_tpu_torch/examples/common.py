@@ -1,0 +1,172 @@
+"""What the trainer twins share: the synthetic graph, the flags and the
+full-batch node-classification loop (counterpart of `examples/common.py`'s
+`base_parser` and `run_simple_node_trainer`).
+
+The loop reads no dataset files: the graph is `synthetic_community_graph`
+(the JAX package's stochastic-block-model graph, drawn from the same numpy
+stream) or numpy arrays handed in. It hands the model a `CSRPlan` when its
+forward takes one, on the card and on the CPU alike: on the card the plan
+path runs the hand-written kernels, on the CPU their plain versions. (The
+JAX loop plans only on a TPU, where its kernels are not interpreted.)
+"""
+
+import argparse
+import copy
+import inspect
+
+import numpy as np
+import torch
+from torch.nn.parameter import UninitializedParameter
+
+from gammagl_tpu_torch.ops.cuda import build_csr_plan
+from gammagl_tpu_torch.train import TrainState, accuracy, semi_supervised_loss
+from gammagl_tpu_torch.utils import (add_self_loops, load_jax_params,
+                                     resolve_device)
+
+__all__ = ["synthetic_community_graph", "base_parser", "loss_and_grad",
+           "train_step", "run_simple_node_trainer"]
+
+
+def synthetic_community_graph(num_nodes=1000, num_classes=7, feat_dim=128,
+                              avg_degree=8, p_intra=0.9, seed=0,
+                              feature_signal=0.3):
+    """The stochastic-block-model graph of
+    `gammagl_tpu.datasets.synthetic_community_graph`, drawn from the same
+    numpy stream: returns a dict of numpy arrays (x, edge_index, y and
+    the train/val/test masks)."""
+    rng = np.random.default_rng(seed)
+    per = num_nodes // num_classes
+    y = np.minimum(np.arange(num_nodes) // per, num_classes - 1)
+    E = num_nodes * avg_degree // 2
+    src = rng.integers(0, num_nodes, E)
+    same = rng.random(E) < p_intra
+    tgt_class = np.where(same, y[src],
+                         (y[src] + rng.integers(1, num_classes, E))
+                         % num_classes)
+    dst = np.minimum(tgt_class * per + rng.integers(0, per, E),
+                     num_nodes - 1)
+    both = np.concatenate([np.stack([src, dst]), np.stack([dst, src])], 1)
+    key = np.unique(both[0].astype(np.int64) * num_nodes + both[1])
+    edge_index = np.stack([key // num_nodes, key % num_nodes])
+    x = (rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
+         + feature_signal * np.eye(num_classes, feat_dim,
+                                   dtype=np.float32)[y])
+    data = {"x": x, "edge_index": edge_index, "y": y.astype(np.int64)}
+    perm = rng.permutation(num_nodes)
+    n_tr, n_va = int(0.4 * num_nodes), int(0.2 * num_nodes)
+    for name, idx in (("train_mask", perm[:n_tr]),
+                      ("val_mask", perm[n_tr:n_tr + n_va]),
+                      ("test_mask", perm[n_tr + n_va:])):
+        mask = np.zeros(num_nodes, bool)
+        mask[idx] = True
+        data[name] = mask
+    return data
+
+
+def base_parser(description=None, **overrides):
+    """The JAX trainers' flags and defaults (`examples/common.py`
+    `base_parser`), the given overrides, and ``--device`` (default: the
+    CUDA card). ``--dataset`` and ``--dataset_path`` only name the run."""
+    p = argparse.ArgumentParser(description=description)
+    defaults = {"dataset": "cora", "dataset_path": "data", "lr": 0.01,
+                "n_epoch": 200, "hidden_dim": 16, "drop_rate": 0.5,
+                "l2_coef": 5e-4, "seed": 0}
+    defaults.update(overrides)
+    for name, default in defaults.items():
+        p.add_argument(f"--{name}", type=type(default), default=default)
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def loss_and_grad(model, x, edge_index, y, mask, plan=None,
+                  **forward_kwargs):
+    """Masked cross-entropy of one full-batch forward, and its backward:
+    the gradients are left in each parameter's ``.grad``."""
+    if plan is not None:
+        forward_kwargs["plan"] = plan
+    logits = model(x, edge_index, **forward_kwargs)
+    loss = semi_supervised_loss(logits, y, mask)
+    loss.backward()
+    return loss.detach()
+
+
+def train_step(state, x, edge_index, y, mask, plan=None, **forward_kwargs):
+    """One optimizer step of the training mode model; returns the loss."""
+    state.model.train()
+    loss = loss_and_grad(state.model, x, edge_index, y, mask, plan,
+                         **forward_kwargs)
+    state.apply_gradients()
+    return loss
+
+
+def _init_lazy(model, in_features):
+    """Give lazy layers their in-features from a one-node graph without
+    edges, as flax's ``init`` does from the first input."""
+    if any(isinstance(p, UninitializedParameter) for p in model.parameters()):
+        model.eval()
+        with torch.no_grad():
+            model(torch.zeros(1, in_features),
+                  torch.zeros(2, 0, dtype=torch.long))
+
+
+def run_simple_node_trainer(model, args, data=None, params=None,
+                            forward_kwargs=None, log_every=20):
+    """Full-batch semi-supervised node classification: Adam with decayed
+    weights (``args.lr``, ``args.l2_coef``) on the masked cross-entropy,
+    ``args.n_epoch`` steps, validation and test accuracy after each, on
+    ``args.device``.
+
+    ``data``: a dict of numpy arrays as `synthetic_community_graph` returns
+    (None: that graph from ``args.seed``); self-loops are added here.
+    ``params``: a flax-shaped tree for `load_jax_params` (None: the model's
+    own init from ``args.seed``). A model whose forward takes a
+    ``generator`` gets one, seeded from ``args.seed + 1``, for its dropout.
+
+    Returns {"losses", "best_val", "best_test", "best_params", "state"}:
+    the test accuracy at the best validation accuracy, and a copy of the
+    parameters at that epoch.
+    """
+    dev = resolve_device(args.device)
+    if data is None:
+        data = synthetic_community_graph(seed=args.seed)
+    n = data["x"].shape[0]
+    ei, _ = add_self_loops(np.asarray(data["edge_index"]), num_nodes=n)
+    x = torch.from_numpy(np.asarray(data["x"], np.float32)).to(dev)
+    edge_index = torch.from_numpy(ei).to(dev)
+    y = torch.from_numpy(np.asarray(data["y"])).to(dev)
+    masks = {k: torch.from_numpy(np.asarray(data[k]).reshape(n)).to(dev)
+             for k in ("train_mask", "val_mask", "test_mask")}
+    fkw = dict(forward_kwargs or {})
+    takes = inspect.signature(model.forward).parameters
+    if "plan" in takes and "plan" not in fkw:
+        fkw["plan"] = build_csr_plan(ei[0], ei[1], n)
+    torch.manual_seed(args.seed)
+    if params is not None:
+        load_jax_params(model, params)
+    else:
+        _init_lazy(model, x.shape[1])
+    state = TrainState(model.to(dev), args.lr, args.l2_coef)
+    train_kw = dict(fkw)
+    if "generator" in takes:
+        train_kw["generator"] = torch.Generator(device=dev).manual_seed(
+            args.seed + 1)
+
+    losses, best_val, best_test, best_params = [], -1.0, 0.0, None
+    for epoch in range(args.n_epoch):
+        loss = float(train_step(state, x, edge_index, y, masks["train_mask"],
+                                **train_kw))
+        model.eval()
+        with torch.no_grad():
+            logits = model(x, edge_index, **fkw)
+            val = float(accuracy(logits, y, masks["val_mask"]))
+            test = float(accuracy(logits, y, masks["test_mask"]))
+        losses.append(loss)
+        if val > best_val:
+            best_val, best_test = val, test
+            best_params = copy.deepcopy(model.state_dict())
+        if epoch % log_every == 0:
+            print(f"epoch {epoch:4d} loss {loss:.4f} val {val:.4f} "
+                  f"test {test:.4f}")
+    print(f"best val {best_val:.4f} -> test {best_test:.4f} ({dev})")
+    return {"losses": losses, "best_val": best_val, "best_test": best_test,
+            "best_params": best_params, "state": state}

@@ -7,8 +7,8 @@ every GATConv runs the hand-written flash attention kernels forward and
 backward, and the feature gradients go through the CSR SpMM kernel; on
 the CPU the same calls run their plain versions.
 
+    python -m gammagl_tpu_torch.examples.fusedgat_trainer              # the card
     python -m gammagl_tpu_torch.examples.fusedgat_trainer --device cpu
-    python -m gammagl_tpu_torch.examples.fusedgat_trainer --device cuda
 
 It reads no dataset files: the graph is the JAX package's synthetic
 community graph (1000 nodes, 7 classes, 128 features, average degree 8)
@@ -18,17 +18,19 @@ only name the run. Like the JAX trainer it reads neither ``--drop_rate``
 nor ``--l2_coef``.
 """
 
-import argparse
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gammagl_tpu_torch.examples.common import (base_parser, loss_and_grad,
+                                               synthetic_community_graph,
+                                               train_step)
 from gammagl_tpu_torch.layers.conv import GATConv
 from gammagl_tpu_torch.ops.cuda import build_csr_plan
-from gammagl_tpu_torch.train import TrainState, accuracy, semi_supervised_loss
-from gammagl_tpu_torch.utils import add_self_loops, load_jax_params
+from gammagl_tpu_torch.train import TrainState, accuracy
+from gammagl_tpu_torch.utils import (add_self_loops, load_jax_params,
+                                     resolve_device)
 
 __all__ = ["FusedGAT", "synthetic_community_graph", "loss_and_grad",
            "train_step", "parser", "main"]
@@ -53,69 +55,9 @@ class FusedGAT(nn.Module):
         return self.convs[1](x, edge_index, plan=plan)
 
 
-def synthetic_community_graph(num_nodes=1000, num_classes=7, feat_dim=128,
-                              avg_degree=8, p_intra=0.9, seed=0,
-                              feature_signal=0.3):
-    """The stochastic-block-model graph of
-    `gammagl_tpu.datasets.synthetic_community_graph`, drawn from the same
-    numpy stream: returns a dict of numpy arrays (x, edge_index, y and
-    the train/val/test masks)."""
-    rng = np.random.default_rng(seed)
-    per = num_nodes // num_classes
-    y = np.minimum(np.arange(num_nodes) // per, num_classes - 1)
-    E = num_nodes * avg_degree // 2
-    src = rng.integers(0, num_nodes, E)
-    same = rng.random(E) < p_intra
-    tgt_class = np.where(same, y[src],
-                         (y[src] + rng.integers(1, num_classes, E))
-                         % num_classes)
-    dst = np.minimum(tgt_class * per + rng.integers(0, per, E),
-                     num_nodes - 1)
-    both = np.concatenate([np.stack([src, dst]), np.stack([dst, src])], 1)
-    key = np.unique(both[0].astype(np.int64) * num_nodes + both[1])
-    edge_index = np.stack([key // num_nodes, key % num_nodes])
-    x = (rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
-         + feature_signal * np.eye(num_classes, feat_dim,
-                                   dtype=np.float32)[y])
-    data = {"x": x, "edge_index": edge_index, "y": y.astype(np.int64)}
-    perm = rng.permutation(num_nodes)
-    n_tr, n_va = int(0.4 * num_nodes), int(0.2 * num_nodes)
-    for name, idx in (("train_mask", perm[:n_tr]),
-                      ("val_mask", perm[n_tr:n_tr + n_va]),
-                      ("test_mask", perm[n_tr + n_va:])):
-        mask = np.zeros(num_nodes, bool)
-        mask[idx] = True
-        data[name] = mask
-    return data
-
-
-def loss_and_grad(model, x, edge_index, y, mask, plan=None, **forward_kwargs):
-    """Masked cross-entropy of one full-batch forward, and its backward:
-    the gradients are left in each parameter's ``.grad``."""
-    logits = model(x, edge_index, plan=plan, **forward_kwargs)
-    loss = semi_supervised_loss(logits, y, mask)
-    loss.backward()
-    return loss.detach()
-
-
-def train_step(state, x, edge_index, y, mask, plan=None, **forward_kwargs):
-    """One optimizer step of the training mode model; returns the loss."""
-    state.model.train()
-    loss = loss_and_grad(state.model, x, edge_index, y, mask, plan,
-                         **forward_kwargs)
-    state.apply_gradients()
-    return loss
-
-
 def parser():
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    for name, default in (("dataset", "cora"), ("dataset_path", "data"),
-                          ("lr", 0.005), ("n_epoch", 100), ("hidden_dim", 8),
-                          ("drop_rate", 0.5), ("l2_coef", 5e-4), ("seed", 0),
-                          ("heads", 8)):
-        p.add_argument(f"--{name}", type=type(default), default=default)
-    p.add_argument("--device", default="cpu")
-    return p
+    return base_parser(__doc__.splitlines()[0], lr=0.005, n_epoch=100,
+                       hidden_dim=8, heads=8)
 
 
 def main(args, data=None, params=None):
@@ -125,7 +67,7 @@ def main(args, data=None, params=None):
     tree for `load_jax_params` (None: a fresh init from ``args.seed``)."""
     if data is None:
         data = synthetic_community_graph(seed=args.seed)
-    dev = torch.device(args.device)
+    dev = resolve_device(args.device)
     n = data["x"].shape[0]
     ei, _ = add_self_loops(np.asarray(data["edge_index"]), num_nodes=n)
     plan = build_csr_plan(ei[0], ei[1], n)

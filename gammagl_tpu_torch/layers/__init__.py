@@ -2,8 +2,9 @@
 
 from gammagl_tpu_torch.layers.conv import (  # noqa: F401
     GATConv,
+    GATV2Conv,
     GCNConv,
     MessagePassing,
 )
 
-__all__ = ["MessagePassing", "GCNConv", "GATConv"]
+__all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv"]

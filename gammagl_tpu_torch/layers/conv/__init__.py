@@ -4,6 +4,9 @@ from gammagl_tpu_torch.layers.conv.message_passing import (  # noqa: F401
     MessagePassing,
 )
 from gammagl_tpu_torch.layers.conv.gcn_conv import GCNConv  # noqa: F401
-from gammagl_tpu_torch.layers.conv.gat_conv import GATConv  # noqa: F401
+from gammagl_tpu_torch.layers.conv.gat_conv import (  # noqa: F401
+    GATConv,
+    GATV2Conv,
+)
 
-__all__ = ["MessagePassing", "GCNConv", "GATConv"]
+__all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv"]

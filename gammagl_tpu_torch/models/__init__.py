@@ -1,6 +1,6 @@
 """Assembled GNN models."""
 
 from gammagl_tpu_torch.models.gcn import GCNModel  # noqa: F401
-from gammagl_tpu_torch.models.gat import GATModel  # noqa: F401
+from gammagl_tpu_torch.models.gat import GATModel, GATV2Model  # noqa: F401
 
-__all__ = ["GCNModel", "GATModel"]
+__all__ = ["GCNModel", "GATModel", "GATV2Model"]

@@ -1,6 +1,7 @@
-"""Message-passing ops: plain PyTorch segment reductions, edge softmax and
-COO SpMM, with the kernels of `gammagl_tpu_torch.ops.cuda` (CSR SpMM,
-fused edge attention) for the plan path."""
+"""Message-passing ops: plain PyTorch segment reductions, edge softmax,
+COO SpMM and SDDMM, with the kernels of `gammagl_tpu_torch.ops.cuda` (CSR
+SpMM and segment sum, fused edge attention, destination expand and SDDMM)
+for the plan path."""
 
 from gammagl_tpu_torch.ops.segment import (  # noqa: F401
     segment_count,
@@ -11,6 +12,7 @@ from gammagl_tpu_torch.ops.segment import (  # noqa: F401
 )
 from gammagl_tpu_torch.ops.softmax import segment_softmax  # noqa: F401
 from gammagl_tpu_torch.ops.spmm import bspmm, gspmm, spmm  # noqa: F401
+from gammagl_tpu_torch.ops.sddmm import sddmm, sddmm_dot  # noqa: F401
 from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     CSRPlan,
     build_csr_plan,
@@ -18,6 +20,11 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     pad_edge_weights,
     spmm_csr,
     spmm_csr_reference,
+    segment_sum_csr,
+    gather_rows,
+    expand_dst_csr,
+    sddmm_csr,
+    sddmm_csr_mh,
     flash_edge_attention,
     flash_edge_attention_mh,
     flash_gat_attention,
@@ -27,8 +34,11 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
            "segment_min", "segment_softmax", "spmm", "bspmm", "gspmm",
+           "sddmm", "sddmm_dot",
            "CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
+           "segment_sum_csr", "gather_rows", "expand_dst_csr", "sddmm_csr",
+           "sddmm_csr_mh",
            "flash_edge_attention", "flash_edge_attention_mh",
            "flash_gat_attention", "flash_softmax_spmm",
            "flash_softmax_spmm_mh"]

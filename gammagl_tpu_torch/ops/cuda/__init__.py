@@ -9,9 +9,24 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (  # noqa: F401
     CSRPlan,
     build_csr_plan,
     build_csr_plan_blocked,
+    gather_rows,
     pad_edge_weights,
+    segment_sum_csr,
+    segment_sum_csr_reference,
     spmm_csr,
     spmm_csr_reference,
+)
+from gammagl_tpu_torch.ops.cuda.sddmm_csr import (  # noqa: F401
+    expand_dst_csr,
+    expand_dst_csr_reference,
+    sddmm_csr,
+    sddmm_csr_mh,
+    sddmm_csr_reference,
+)
+from gammagl_tpu_torch.ops.cuda.attention import (  # noqa: F401
+    plan_gather_dst,
+    plan_gather_src,
+    plan_gather_src_compact,
 )
 from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
     attention_keep_mask,
@@ -32,4 +47,8 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "flash_edge_attention_mh", "flash_softmax_spmm",
            "flash_softmax_spmm_mh", "flash_gat_attention", "flash_forward",
            "flash_backward", "flash_forward_reference",
-           "flash_backward_reference"]
+           "flash_backward_reference", "segment_sum_csr",
+           "segment_sum_csr_reference", "gather_rows", "expand_dst_csr",
+           "expand_dst_csr_reference", "sddmm_csr", "sddmm_csr_mh",
+           "sddmm_csr_reference", "plan_gather_src",
+           "plan_gather_src_compact", "plan_gather_dst"]

@@ -1,4 +1,5 @@
-"""Destination-sorted CSR SpMM: the plan and the kernel's wrapper.
+"""Destination-sorted CSR SpMM and segment sum: the plan and the kernel's
+wrappers.
 
 PyTorch counterpart of `gammagl_tpu/ops/pallas/segment_matmul.py`. The
 TPU module tiles a padded, source-blocked layout for its matrix unit and
@@ -14,7 +15,15 @@ plain version, `spmm_csr_reference`. It is differentiable: the gradient
 of ``x`` is the same SpMM on the plan's transpose (`CSRPlan.transpose`),
 counterpart of `_spmm_fused_bwd` and `_swap_plan` in the JAX module, and
 the gradient of the weights is the per-edge rowdot
-``<x[src_e], g[dst_e]>``.
+``<x[src_e], g[dst_e]>``, the SDDMM kernel of ``csrc/sddmm_csr.cu``.
+
+The same kernel reads per-edge rows in CSR order in place of gathered
+source rows: `segment_sum_csr` sums them into their destinations, with
+weights per edge or per edge and head (counterpart of `segment_sum_csr`
+and `segment_sum_win`; launches counted in ``segment_sum_csr.launches``).
+`gather_rows` is the per-edge endpoint gather with a kernel-backed
+backward. A CSR has no window layout, so the JAX package's padded and
+compact edge orders are both the port's CSR order.
 """
 
 import ctypes
@@ -26,7 +35,8 @@ import torch
 from gammagl_tpu_torch.ops.cuda._build import load_library
 
 __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
-           "pad_edge_weights", "spmm_csr", "spmm_csr_reference"]
+           "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
+           "segment_sum_csr", "segment_sum_csr_reference", "gather_rows"]
 
 
 class CSRPlan:
@@ -178,27 +188,48 @@ def _csr_rows(plan, device):
         output_size=plan.num_edges)
 
 
+def _weigh(v, w):
+    """v (E, C) times per-edge weights: w (E,) scales a whole row, w (E, H)
+    scales the columns of head h, ``c // (C / H) == h``."""
+    if w.dim() == 1:
+        return v * w[:, None]
+    E, H = w.shape
+    C = v.shape[1]
+    return (v.view(E, H, C // H) * w[:, :, None]).view(E, C)
+
+
+def _csr_sum_reference(x, w, plan, per_edge):
+    """Plain PyTorch version of the kernel: ``out[d] = sum_e w_e * x[r(e)]``
+    over the CSR edges of d, with r(e) = e (``per_edge``) or col[e], w None,
+    (E,) or (E, H) in CSR order; float32 sums, cast once to x's dtype."""
+    col = plan.arrays(x.device)[1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    msg = (x[:plan.num_edges] if per_edge else x[col.long()]).to(acc)
+    if w is not None:
+        msg = _weigh(msg, w.to(acc))
+    out = torch.zeros(plan.num_nodes, x.shape[1], dtype=acc, device=x.device)
+    return out.index_add_(0, _csr_rows(plan, x.device), msg).to(x.dtype)
+
+
 def spmm_csr_reference(x, edge_weight, plan, weights_padded=False):
     """Plain PyTorch version of `spmm_csr`: ``index_add_`` of the weighted
     source rows in float32, cast once to ``x``'s dtype."""
     _check_x(x, plan)
-    col = plan.arrays(x.device)[1]
     w = _csr_weights(edge_weight, plan, weights_padded)
-    acc = torch.promote_types(x.dtype, torch.float32)
-    dst = _csr_rows(plan, x.device)
-    msg = x[col.long()].to(acc)
-    if w is not None:
-        msg = msg * w.to(acc)[:, None]
-    out = torch.zeros(plan.num_nodes, x.shape[1], dtype=acc, device=x.device)
-    return out.index_add_(0, dst, msg).to(x.dtype)
+    return _csr_sum_reference(x, w, plan, False)
+
+
+def segment_sum_csr_reference(v, plan, w=None):
+    """Plain PyTorch version of `segment_sum_csr`."""
+    return _csr_sum_reference(v, None if w is None else w.float(), plan, True)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     lib = load_library()
     fn = lib.gammagl_spmm_csr
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64,
-                                           ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = lib.gammagl_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -209,21 +240,26 @@ def _kernel():
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _launch(x, w, plan):
-    """Run the kernel on CUDA tensors: x (N_src, F) f32 or bf16, w f32 (E,)
-    in CSR order or None."""
+def _launch(x, w, plan, per_edge=False):
+    """Run the kernel on CUDA tensors: x f32 or bf16, (N_src, F) node rows
+    or (E, F) per-edge rows (``per_edge``); w f32 (E,) or (E, H) in CSR
+    order, or None. Counts the launch in `spmm_csr` or, per edge, in
+    `segment_sum_csr`."""
+    op = "segment_sum_csr" if per_edge else "spmm_csr"
     if x.device.type != "cuda":
-        raise ValueError(f"spmm_csr: no kernel for device {x.device}")
+        raise ValueError(f"{op}: no kernel for device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"spmm_csr: x dtype {x.dtype} is not one of "
+        raise TypeError(f"{op}: x dtype {x.dtype} is not one of "
                         f"{_KERNEL_DTYPES}")
     if not x.is_contiguous():
-        raise ValueError("spmm_csr: x must be contiguous")
+        raise ValueError(f"{op}: x must be contiguous")
     rowptr, col, _ = plan.arrays(x.device)
+    heads = 1
     if w is not None:
         if w.device != x.device:
             raise ValueError(f"edge weights on {w.device}, x on {x.device}")
         w = w.contiguous()
+        heads = 1 if w.dim() == 1 else w.shape[1]
     out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
@@ -232,19 +268,30 @@ def _launch(x, w, plan):
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), 0 if w is None else w.data_ptr(),
                   rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
-                  plan.num_nodes, x.shape[1], int(x.dtype == torch.bfloat16),
+                  plan.num_nodes, x.shape[1], heads, int(per_edge),
+                  int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
     if code != 0:
-        raise RuntimeError(f"spmm_csr kernel launch failed: "
+        raise RuntimeError(f"{op} kernel launch failed: "
                            f"{err(code).decode()} ({code})")
-    spmm_csr.launches += 1
+    if per_edge:
+        segment_sum_csr.launches += 1
+    else:
+        spmm_csr.launches += 1
     return out
 
 
-def _forward(x, w, plan):
+def _forward(x, w, plan, per_edge=False):
     if x.device.type == "cpu":
-        return spmm_csr_reference(x, w, plan, weights_padded=True)
-    return _launch(x, w, plan)
+        return _csr_sum_reference(x, w, plan, per_edge)
+    return _launch(x, w, plan, per_edge)
+
+
+def _pad_rows(d, n_rows):
+    """d with zero rows appended up to ``n_rows`` (rows no edge reads)."""
+    if d.shape[0] >= n_rows:
+        return d
+    return torch.cat([d, d.new_zeros((n_rows - d.shape[0],) + d.shape[1:])])
 
 
 def _first_order_only(op):
@@ -259,7 +306,7 @@ def _first_order_only(op):
 class _SpmmCSR(torch.autograd.Function):
     """x, w (CSR order) -> out, with dx = A^T (w * g) on the transpose plan
     (one more SpMM: a kernel launch on the card) and dw_e = <x[src_e],
-    g[dst_e]> as a plain rowdot, taken only when w needs a gradient."""
+    g[dst_e]> (the SDDMM kernel), taken only when w needs a gradient."""
 
     @staticmethod
     def forward(ctx, x, w, plan):
@@ -279,13 +326,10 @@ class _SpmmCSR(torch.autograd.Function):
             w_t = None
             if w is not None:
                 w_t = w[tp.arrays(w.device)[2]]
-            dx = _forward(g, w_t, tp)
-            if x.shape[0] > plan.num_src:  # rows the plan never reads
-                dx = torch.cat([dx, dx.new_zeros(
-                    x.shape[0] - plan.num_src, dx.shape[1])])
+            dx = _pad_rows(_forward(g, w_t, tp), x.shape[0])
         if w is not None and ctx.needs_input_grad[1]:
-            col = plan.arrays(x.device)[1].long()
-            dw = (x[col].float() * g[_csr_rows(plan, x.device)].float()).sum(1)
+            from gammagl_tpu_torch.ops.cuda.sddmm_csr import _sddmm
+            dw = _sddmm(x, g, plan, 1, gather=True)[:, 0]
         return dx, dw, None
 
 
@@ -311,3 +355,104 @@ def spmm_csr(x, edge_weight, plan, weights_padded=False):
 
 
 spmm_csr.launches = 0
+
+
+class _SegmentSum(torch.autograd.Function):
+    """v (E, C) per-edge rows, w (E,) or (E, H) or None -> (N_dst, C).
+    dv = the expand kernel scaled by w; dw = the per-edge SDDMM kernel
+    <v[e], g[row(e)]> per head (`ops.cuda.sddmm_csr`)."""
+
+    @staticmethod
+    def forward(ctx, v, w, plan):
+        ctx.save_for_backward(v, w)
+        ctx.plan = plan
+        return _forward(v, w, plan, per_edge=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        _first_order_only("segment_sum_csr")
+        from gammagl_tpu_torch.ops.cuda.sddmm_csr import _expand, _sddmm
+        v, w = ctx.saved_tensors
+        plan = ctx.plan
+        g = g.to(v.dtype).contiguous()
+        dv = dw = None
+        if ctx.needs_input_grad[0]:
+            scale = w if w is None or w.dim() == 2 else w[:, None]
+            dv = _expand(g, plan, scale)
+        if w is not None and ctx.needs_input_grad[1]:
+            heads = 1 if w.dim() == 1 else w.shape[1]
+            dw = _sddmm(v, g, plan, heads, gather=False).view(w.shape)
+        return dv, dw, None
+
+
+def segment_sum_csr(v, plan, w=None):
+    """out[d] = sum_{e of row d} w_e * v[e]: per-edge rows in the plan's CSR
+    order summed into their destination rows.
+
+    v : (E, C) float32 or bfloat16; the result (N_dst, C) has v's dtype,
+        summed in float32 and rounded once.
+    w : None (unit weights), (E,), or (E, H) with C % H == 0, where
+        ``w[e, h]`` scales the columns ``c // (C / H) == h``; CSR order.
+
+    Counterpart of the JAX package's `segment_sum_csr` and of
+    `segment_sum_win`: a CSR has no window layout, so the padded and the
+    compact orders are both this CSR order. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (counted in
+    ``segment_sum_csr.launches``) or raises. Differentiable once in v and
+    w.
+    """
+    if v.dim() != 2 or v.shape[0] != plan.num_edges:
+        raise ValueError(f"v must be (E={plan.num_edges}, C), got "
+                         f"{tuple(v.shape)}")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_sum_csr: no kernel for device {v.device}")
+    if w is not None:
+        if w.dim() not in (1, 2) or w.shape[0] != plan.num_edges or (
+                w.dim() == 2 and v.shape[1] % w.shape[1]):
+            raise ValueError(f"w shape {tuple(w.shape)} is not (E,) or "
+                             f"(E, H) with H dividing {v.shape[1]}")
+        w = w.float()
+    return _SegmentSum.apply(v, w, plan)
+
+
+segment_sum_csr.launches = 0
+
+
+class _GatherSrc(torch.autograd.Function):
+    """x (N_src, C) -> x[col] (E, C) in CSR order. The forward is plain
+    indexing (the JAX package gathers in XLA, outside any kernel); the
+    backward sums the per-edge cotangents into their sources with
+    `spmm_csr` on the plan's edge-scatter transpose, a kernel launch on
+    the card."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan, ctx.n_rows = plan, x.shape[0]
+        return x.index_select(0, plan.arrays(x.device)[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        _first_order_only("gather_rows")
+        d = _forward(g.contiguous(), None, ctx.plan.edge_scatter_plan())
+        return _pad_rows(d, ctx.n_rows), None
+
+
+def gather_rows(x, plan, index_kind="src"):
+    """Per-edge endpoint rows in the plan's CSR order: ``x[src_e]``
+    (``"src"``) or ``x[dst_e]`` (``"dst"``, which is `expand_dst_csr`).
+
+    x : (N, ...) -> (E, ...). Differentiable once; the backward of
+    ``"src"`` is `spmm_csr` on `CSRPlan.edge_scatter_plan`, that of
+    ``"dst"`` `segment_sum_csr`.
+    """
+    if index_kind == "dst":
+        from gammagl_tpu_torch.ops.cuda.sddmm_csr import expand_dst_csr
+        return expand_dst_csr(x, plan)
+    if index_kind != "src":
+        raise ValueError(f"index_kind must be 'src' or 'dst', got "
+                         f"{index_kind!r}")
+    if x.shape[0] < plan.num_src:
+        raise ValueError(f"x has {x.shape[0]} rows, the plan reads "
+                         f"{plan.num_src}")
+    out = _GatherSrc.apply(x.flatten(1), plan)
+    return out.view((plan.num_edges,) + tuple(x.shape[1:]))

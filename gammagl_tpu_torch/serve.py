@@ -15,22 +15,15 @@ steady-state cost.
 import numpy as np
 import torch
 
+from gammagl_tpu_torch.utils.device import resolve_device
+
 __all__ = ["InferenceSession"]
 
 
-def _device(device):
-    device = torch.device("cpu" if device is None else device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"InferenceSession: device {device} asked "
-                               "for, but torch sees no CUDA device")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 class InferenceSession:
-    """Eval-mode forward of ``model`` on ``device``.
+    """Eval-mode forward of ``model`` on ``device`` (None: the current
+    CUDA card; raises when torch sees none, so ask for ``"cpu"`` to run
+    the plain versions on the host).
 
     Each call moves its inputs to the device (numpy arrays become
     tensors), casts float inputs to ``compute_dtype`` when one is given,
@@ -41,7 +34,7 @@ class InferenceSession:
 
     def __init__(self, model, example_inputs, device=None, compute_dtype=None,
                  **forward_kwargs):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         self.model = model.to(self.device).eval()
         self.forward_kwargs = forward_kwargs

@@ -1,7 +1,7 @@
-"""Card-only tests of the port: the CSR SpMM and flash attention kernels
-against their plain versions, forward and backward, the launch counts,
-the wrappers' checks, gradients of GCN and GAT through the kernels, and
-the serving path.
+"""Card-only tests of the port: the CSR SpMM (and per-edge segment sum),
+flash attention, destination expand and SDDMM kernels against their plain
+versions, forward and backward, the launch counts, the wrappers' checks,
+gradients of GCN, GAT and GATv2 through the kernels, and the serving path.
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -22,9 +22,11 @@ import pytest
 import torch
 
 from gammagl_tpu_torch.data import Graph
-from gammagl_tpu_torch.models import GATModel, GCNModel
+from gammagl_tpu_torch.models import GATModel, GATV2Model, GCNModel
 from gammagl_tpu_torch.ops import cuda as kops
+from gammagl_tpu_torch.ops.cuda.sddmm_csr import _expand, _sddmm
 from gammagl_tpu_torch.serve import InferenceSession
+from gammagl_tpu_torch.utils import compute_dtype
 
 pytestmark = pytest.mark.cuda
 
@@ -107,7 +109,7 @@ def test_session_on_card_matches_cpu_session(card):
     graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
     model = GCNModel(hidden_dim=64, num_class=7, num_layers=3,
                      dtype=torch.bfloat16)
-    cpu = InferenceSession(model, (x, graph.edge_index),
+    cpu = InferenceSession(model, (x, graph.edge_index), device="cpu",
                            compute_dtype=torch.bfloat16,
                            plan=graph.csr_plan())
     want = cpu(x, graph.edge_index)
@@ -320,6 +322,219 @@ def test_gat_session_on_card_matches_the_plain_path(card):
     with torch.inference_mode():
         want = sess.model(torch.tensor(x, device=card).bfloat16(),
                           torch.tensor(graph.edge_index, device=card))
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=3e-2 * scale)
+
+
+# heads of each width in the edge-endpoint tests: one column a head, one
+# head, and GATv2's first layer
+_HEADS = {7: 7, 40: 1, 64: 8}
+
+
+@pytest.mark.parametrize("C", sorted(_HEADS))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_expand_kernel_matches_plain(card, C, dtype, rtol):
+    """Unscaled, the expand is a copy: bitwise equal to x[row(e)]. Scaled
+    per edge and head, one f32 product rounded once."""
+    plan, e = _plan(C)
+    g = torch.Generator().manual_seed(C)
+    x = torch.randn(plan.num_nodes, C, generator=g).to(card, dtype)
+    scale = torch.randn(e, _HEADS[C], generator=g).to(card)
+    before = kops.expand_dst_csr.launches
+    got = kops.expand_dst_csr(x, plan)
+    scaled = _expand(x, plan, scale)
+    torch.cuda.synchronize()
+    assert kops.expand_dst_csr.launches == before + 2
+    assert got.dtype == dtype and got.shape == (e, C)
+    assert torch.equal(got, kops.expand_dst_csr_reference(x, plan))
+    _close(scaled, kops.expand_dst_csr_reference(x, plan, scale), rtol)
+    assert torch.equal(scaled, _expand(x, plan, scale))
+
+
+@pytest.mark.parametrize("C", sorted(_HEADS))
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("weights", ["unit", "edge", "head"])
+def test_segment_sum_kernel_matches_plain(card, C, dtype, rtol, weights):
+    plan, e = _plan(C + 1)
+    g = torch.Generator().manual_seed(C)
+    v = torch.randn(e, C, generator=g).to(card, dtype)
+    w = {"unit": None, "edge": torch.rand(e, generator=g),
+         "head": torch.rand(e, _HEADS[C], generator=g)}[weights]
+    w = None if w is None else w.to(card)
+    before = kops.segment_sum_csr.launches
+    got = kops.segment_sum_csr(v, plan, w)
+    torch.cuda.synchronize()
+    assert kops.segment_sum_csr.launches == before + 1
+    assert got.dtype == dtype and got.shape == (plan.num_nodes, C)
+    _close(got, kops.segment_sum_csr_reference(v, plan, w), rtol)
+    empty = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    assert bool((got[empty] == 0).all())
+    assert torch.equal(got, kops.segment_sum_csr(v, plan, w))
+
+
+@pytest.mark.parametrize("H,F", [(1, 7), (8, 8), (1, 40), (1, 256),
+                                 (2, 640)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gather", [False, True])
+def test_sddmm_kernel_matches_plain(card, H, F, dtype, gather):
+    """f32 dots of the same products, summed in another order: 1e-5."""
+    plan, e = _plan(F)
+    g = torch.Generator().manual_seed(F)
+    rows = plan.num_src if gather else e
+    a = torch.randn(rows, H * F, generator=g).to(card, dtype)
+    xd = torch.randn(plan.num_nodes, H * F, generator=g).to(card, dtype)
+    before = kops.sddmm_csr.launches
+    got = _sddmm(a, xd, plan, H, gather)
+    torch.cuda.synchronize()
+    assert kops.sddmm_csr.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (e, H)
+    _close(got, kops.sddmm_csr_reference(a, xd, plan, H, gather), 1e-5)
+    assert torch.equal(got, _sddmm(a, xd, plan, H, gather))
+
+
+def _edge_op_cases(plan, e, g):
+    """name -> (fn, feature inputs, f32 weight inputs, launches of
+    (expand, segment sum, sddmm, spmm) for one forward and backward)."""
+    H, F = 2, 8
+    xs = torch.randn(plan.num_src, H, F, generator=g)
+    xd = torch.randn(plan.num_nodes, H, F, generator=g)
+    msg = torch.randn(e, H, F, generator=g)
+    w = torch.rand(e, H, generator=g)
+    return {
+        "expand": (lambda x: kops.expand_dst_csr(x, plan), (xd,), (),
+                   (1, 1, 0, 0)),
+        "segment_sum": (lambda v, w: kops.segment_sum_csr(v, plan, w),
+                        (msg.reshape(e, H * F),), (w,), (1, 1, 1, 0)),
+        "sddmm": (lambda a, b: kops.sddmm_csr_mh(a, b, plan), (xs, xd), (),
+                  (0, 0, 1, 2)),
+        "sddmm_msg": (lambda m, b: kops.sddmm_csr_mh(None, b, plan, msg=m),
+                      (msg, xd), (), (1, 1, 1, 0)),
+        "sddmm_single": (lambda a, b: kops.sddmm_csr(a, b, plan),
+                         (xs[:, 0], xd[:, 0]), (), (0, 0, 1, 2)),
+        "gather_src": (lambda x: kops.gather_rows(x, plan, "src"), (xs,), (),
+                       (0, 0, 0, 1)),
+    }
+
+
+def _counts():
+    return (kops.expand_dst_csr.launches, kops.segment_sum_csr.launches,
+            kops.sddmm_csr.launches, kops.spmm_csr.launches)
+
+
+@pytest.mark.parametrize("op", ["expand", "segment_sum", "sddmm",
+                                "sddmm_msg", "sddmm_single", "gather_src"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_edge_op_gradients_match_the_plain_version(card, op, dtype, rtol):
+    """Each autograd op forward and backward on the card (kernels only)
+    against the same op on the CPU (plain versions), same inputs."""
+    plan, e = _plan(11)
+    g = torch.Generator().manual_seed(11)
+    fn, feats, weights, launches = _edge_op_cases(plan, e, g)[op]
+    results = []
+    for dev in ("cpu", card):
+        args = ([t.clone().to(dev, dtype).requires_grad_() for t in feats]
+                + [t.clone().to(dev).requires_grad_() for t in weights])
+        before = _counts()
+        out = fn(*args)
+        cot = torch.randn(out.shape, generator=torch.Generator()
+                          .manual_seed(12)).to(dev)
+        (out.float() * cot).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert tuple(a - b for a, b in zip(_counts(), before)) == launches
+        results.append([out.detach()] + [a.grad for a in args])
+    for got, want in zip(results[1], results[0]):
+        _close(got, want, rtol)
+
+
+def test_edge_ops_without_edges(card):
+    none = np.zeros(0, np.int64)
+    plan = kops.build_csr_plan(none, none, 33, num_src=5)
+    x = torch.randn(33, 16, device=card)
+    assert kops.expand_dst_csr(x, plan).shape == (0, 16)
+    out = kops.segment_sum_csr(torch.zeros(0, 16, device=card), plan)
+    assert out.shape == (33, 16) and bool((out == 0).all())
+    s = kops.sddmm_csr_mh(torch.randn(5, 2, 8, device=card),
+                          x.view(33, 2, 8), plan)
+    torch.cuda.synchronize()
+    assert s.shape == (0, 2)
+
+
+def test_edge_op_wrappers_reject_what_the_kernels_do_not_take(card):
+    plan, e = _plan(13)
+    x = torch.randn(plan.num_nodes, 16, device=card)
+    with pytest.raises(TypeError, match="dtype"):
+        kops.expand_dst_csr(x.half(), plan)
+    with pytest.raises(ValueError, match="inputs on"):
+        _sddmm(torch.randn(plan.num_src, 16), x, plan, 1, True)
+    with pytest.raises(TypeError, match="float32"):
+        _expand(x, plan, torch.ones(e, 2, device=card).double())
+
+
+def _gatv2_setup(card, seed, n, e, f_in):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f_in)).astype(np.float32)
+    graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    return (graph, torch.tensor(x, device=card),
+            torch.tensor(graph.edge_index, device=card))
+
+
+@pytest.mark.parametrize("share_weights", [False, True])
+def test_gatv2_training_through_the_kernels_matches_the_plain_path(
+        card, share_weights):
+    """A GATV2Model step in training mode, f32: the plan path (expand and
+    flash kernels forward; flash, segment sum and SpMM kernels backward)
+    against the COO path. One generator state gives both paths the same
+    input dropout and the same attention masks, drawn in CSR order."""
+    graph, xt, ei = _gatv2_setup(card, 14, 1200, 9000, 24)
+    torch.manual_seed(15)
+    base = GATV2Model(hidden_dim=8, num_class=5, heads=4, in_channels=24)
+    if share_weights:
+        for conv in base.convs:
+            conv.lin_r = None
+            conv.share_weights = True
+    y = torch.arange(xt.shape[0], device=card) % 5
+    results = []
+    for plan in (graph.csr_plan(), None):
+        model = copy.deepcopy(base).to(card).train()
+        gen = torch.Generator(device=card).manual_seed(16)
+        before = _counts() + (kops.flash_forward.launches,
+                              kops.flash_backward.launches)
+        out = model(xt, ei, plan=plan, generator=gen)
+        torch.nn.functional.cross_entropy(out, y).backward()
+        torch.cuda.synchronize()
+        after = _counts() + (kops.flash_forward.launches,
+                             kops.flash_backward.launches)
+        # expand, segment sum, sddmm, spmm, flash forward, flash backward
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (2, 2, 0, 2, 2, 2) if plan is not None else (0,) * 6)
+        results.append((out.detach(), [p.grad for p in model.parameters()]))
+    (out_k, grads_k), (out_p, grads_p) = results
+    _close(out_k, out_p, 1e-4)
+    for g_, w_ in zip(grads_k, grads_p):
+        torch.testing.assert_close(g_, w_, rtol=0,
+                                   atol=1e-4 * float(w_.abs().max()))
+
+
+def test_gatv2_session_on_card_matches_the_plain_path(card):
+    graph, xt, ei = _gatv2_setup(card, 17, 2000, 16000, 48)
+    model = GATV2Model(hidden_dim=8, num_class=7, heads=8, in_channels=48)
+    with compute_dtype(torch.bfloat16):
+        sess = InferenceSession(model, (graph.x, graph.edge_index),
+                                compute_dtype=torch.bfloat16,
+                                plan=graph.csr_plan())
+        before = (kops.expand_dst_csr.launches, kops.flash_forward.launches)
+        got = sess(graph.x, graph.edge_index)
+        torch.cuda.synchronize()
+        assert (kops.expand_dst_csr.launches,
+                kops.flash_forward.launches) == (before[0] + 2, before[1] + 2)
+        with torch.inference_mode():
+            want = sess.model(xt.bfloat16(), ei)
+    assert sess.device.type == "cuda" and got.shape == (2000, 7)
     scale = float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=3e-2 * scale)

@@ -202,7 +202,8 @@ def test_session_serves_gat_with_a_plan():
     graph = Graph(x=x, edge_index=ei)
     model = load_jax_params(GATModel(4, 5, heads=2, dtype=torch.bfloat16),
                             _model_params(4, 2, 5, seed=14))
-    sess = InferenceSession(model, (x, ei), compute_dtype=torch.bfloat16,
+    sess = InferenceSession(model, (x, ei), device="cpu",
+                            compute_dtype=torch.bfloat16,
                             plan=graph.csr_plan())
     got = sess(x, ei)
     assert got.shape == (N, 5) and not model.training

@@ -59,6 +59,7 @@ def test_session_matches_jax_session_bf16_with_plan():
 
     graph = Graph(x=x, edge_index=ei).add_self_loop()
     sess = InferenceSession(_port_model(params), (x, graph.edge_index),
+                            device="cpu",
                             compute_dtype=torch.bfloat16,
                             plan=graph.csr_plan())
     got = sess(x, graph.edge_index)
@@ -85,8 +86,8 @@ def test_session_casts_inputs_for_an_f32_model():
                                compute_dtype=jnp.bfloat16)(x, ei)
     model = load_jax_params(GCNModel(hidden_dim=HIDDEN, num_class=N_CLASS),
                             params)
-    got = InferenceSession(model, (x, ei), compute_dtype=torch.bfloat16)(
-        x, ei)
+    got = InferenceSession(model, (x, ei), device="cpu",
+                           compute_dtype=torch.bfloat16)(x, ei)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5 * float(np.abs(want).max()))
@@ -129,7 +130,10 @@ def test_load_jax_params_transposes_kernels():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, gammagl_tpu_torch; "
+    code = ("import importlib, pkgutil, sys, gammagl_tpu_torch as p; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "p.__path__, 'gammagl_tpu_torch.')]; "
+            "assert 'gammagl_tpu_torch.examples.gatv2_trainer' in sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'gammagl_tpu.')) or "
             "m == 'gammagl_tpu']; print(bad); sys.exit(1 if bad else 0)")
@@ -160,3 +164,13 @@ def test_cuda_device_without_a_card_raises():
         InferenceSession(GCNModel(), (np.zeros((2, 3), np.float32),
                                       np.zeros((2, 0), np.int64)),
                          device="cuda")
+
+
+def test_session_without_a_device_asks_for_the_card():
+    """``device=None`` means the CUDA card: without one the session
+    raises instead of running on the CPU (ROADMAP C3)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceSession(GCNModel(), (np.zeros((2, 3), np.float32),
+                                      np.zeros((2, 0), np.int64)))

@@ -1,13 +1,18 @@
 """The port's training pieces against the JAX package: the loss and metric,
 Adam with decayed weights, checkpoints, and the fusedgat trainer twin
 (`gammagl_tpu_torch.examples.fusedgat_trainer`) against the step of
-`examples/fusedgat/fusedgat_trainer.py`.
+`examples/fusedgat/fusedgat_trainer.py`, and the gatv2 and gcn twins
+(`gammagl_tpu_torch.examples.{gatv2,gcn}_trainer`, one shared loop)
+against the steps of `examples/gatv2/gatv2_trainer.py` and
+`examples/gcn/gcn_trainer.py`.
 
 Tolerances: metrics 1e-6 relative (float32, one formula); parameters
 after Adam steps 1e-6 (the two libraries order the update's float32
 operations differently, about 2e-7 after 4 steps of lr 0.01); the
-twin's loss curve rtol 1e-4 against the JAX trainer, whose plan path
-runs the Pallas kernels in interpret mode (bf16x3 products).
+twins' loss curves rtol 1e-4 against the JAX trainers (the fusedgat
+plan path runs the Pallas kernels in interpret mode, bf16x3 products;
+the gatv2 and gcn twins run the port's plan path, plain on the CPU,
+against the JAX trainers' XLA path, which they take off a TPU).
 A checkpoint resumes bit for bit.
 """
 
@@ -22,6 +27,8 @@ import optax
 
 from examples.fusedgat import fusedgat_trainer as jax_trainer
 from gammagl_tpu.datasets import synthetic_community_graph as jax_synthetic
+from gammagl_tpu.models import GATV2Model as JaxGATV2Model
+from gammagl_tpu.models import GCNModel as JaxGCNModel
 from gammagl_tpu.ops.pallas import build_csr_plan as jax_build_csr_plan
 from gammagl_tpu.train import TrainState as JaxTrainState
 from gammagl_tpu.train import accuracy as jax_accuracy
@@ -29,6 +36,7 @@ from gammagl_tpu.train import semi_supervised_loss as jax_loss
 from gammagl_tpu.utils import add_self_loops as jax_add_self_loops
 
 from gammagl_tpu_torch.examples import fusedgat_trainer as twin
+from gammagl_tpu_torch.examples import gatv2_trainer, gcn_trainer
 from gammagl_tpu_torch.train import (TrainState, accuracy, load_checkpoint,
                                      save_checkpoint, semi_supervised_loss)
 
@@ -86,7 +94,7 @@ def _tiny_data(seed=3):
 
 
 def _args(**kw):
-    args = twin.parser().parse_args([])
+    args = twin.parser().parse_args(["--device", "cpu"])
     for k, v in dict(n_epoch=5, hidden_dim=4, heads=2, **kw).items():
         setattr(args, k, v)
     return args
@@ -170,3 +178,83 @@ def test_twin_command_line_runs_on_the_cpu(capsys):
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
     assert 0.0 <= out["test_acc"] <= 1.0
     assert "final test acc" in capsys.readouterr().out
+
+
+TWINS = {"gatv2": (gatv2_trainer, lambda n_class: JaxGATV2Model(
+             hidden_dim=4, num_class=n_class, heads=8, drop_rate=0.0)),
+         "gcn": (gcn_trainer, lambda n_class: JaxGCNModel(
+             hidden_dim=4, num_class=n_class, drop_rate=0.0))}
+
+
+def _twin_args(module, *argv):
+    return module.parser().parse_args(["--device", "cpu", "--hidden_dim",
+                                       "4", *argv])
+
+
+@pytest.mark.parametrize("name", sorted(TWINS))
+def test_simple_twin_loss_curve_matches_the_jax_trainer(name):
+    """Same graph with self-loops, same initial params, dropout off, f32:
+    5 steps of the JAX trainers' step (Adam with decayed weights on the
+    masked cross-entropy) and of the twin."""
+    module, jax_model = TWINS[name]
+    data = _tiny_data(8)
+    n = data["x"].shape[0]
+    ei, _ = jax_add_self_loops(data["edge_index"], num_nodes=n)
+    x, jei = jnp.asarray(data["x"]), jnp.asarray(ei)
+    y, mask = jnp.asarray(data["y"]), jnp.asarray(data["train_mask"])
+    model = jax_model(int(data["y"].max()) + 1)
+    args = _twin_args(module, "--n_epoch", "5", "--drop_rate", "0.0")
+    key = jax.random.PRNGKey(0)
+    params = jax.jit(lambda k: model.init({"params": k, "dropout": k}, x,
+                                          jei))(key)
+    tx = optax.chain(optax.add_decayed_weights(args.l2_coef),
+                     optax.adam(args.lr))
+    state = JaxTrainState.create(params=params, tx=tx)
+
+    @jax.jit
+    def step(state, x, ei, y, train_mask):
+        loss, grads = jax.value_and_grad(lambda p: jax_loss(model.apply(
+            p, x, ei, train=True, rngs={"dropout": key}), y,
+            train_mask))(state.params)
+        return state.apply_gradients(grads), loss
+
+    want = []
+    for _ in range(5):
+        state, loss = step(state, x, jei, y, mask)
+        want.append(float(loss))
+    got = module.main(args, data=data,
+                      params=jax.tree_util.tree_map(np.asarray, params))
+    np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
+    assert got["losses"][-1] < got["losses"][0]
+
+
+@pytest.mark.parametrize("name", sorted(TWINS))
+def test_simple_twin_trains_with_dropout(name, tmp_path, capsys):
+    """Dropout on (the trainers' defaults), the twin's own init: the run
+    ends, the loss falls, the accuracies are fractions."""
+    module = TWINS[name][0]
+    argv = ["--n_epoch", "30", "--lr", "0.02"]
+    if name == "gcn":
+        argv += ["--best_model_path", str(tmp_path / "best.pt")]
+    args = _twin_args(module, *argv)
+    assert args.drop_rate == 0.5 and args.device == "cpu"
+    out = module.main(args, data=_tiny_data(9))
+    losses = out["losses"]
+    assert len(losses) == 30 and np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < losses[0]
+    assert 0.0 <= out["best_test"] <= 1.0 and 0.0 <= out["best_val"] <= 1.0
+    assert "best val" in capsys.readouterr().out
+    if name == "gcn":
+        ckpt = torch.load(tmp_path / "best.pt", weights_only=True)
+        assert ckpt["step"] == 30 and "opt_state" in ckpt
+
+
+@pytest.mark.parametrize("module", [twin, gatv2_trainer, gcn_trainer])
+def test_twins_default_to_the_card(module, monkeypatch):
+    """``--device`` defaults to cuda; without a card the twin raises
+    rather than falling back to the CPU."""
+    assert module.parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(module.parser().parse_args(["--n_epoch", "1"]),
+                    data=_tiny_data(10))
