@@ -9,11 +9,14 @@ at first use, never at import. This package imports neither JAX nor
 
 Layer map:
   ops/        -- segment reductions, edge softmax, COO SpMM and SDDMM; the
-                 kernels: CSR SpMM and per-edge segment sum, fused edge
-                 attention, destination expand and SDDMM, with backwards
-  data/       -- Graph (host-side structure, cached CSR plan)
-  layers/     -- MessagePassing, GCNConv, GATConv, GATV2Conv
-  models/     -- GCNModel, GATModel, GATV2Model
+                 kernels: CSR SpMM and per-edge segment sum, segment max
+                 and min, fused edge attention, HGT attention, destination
+                 expand and SDDMM, with backwards
+  data/       -- Graph, HeteroGraph (host-side structure, cached CSR plans)
+  layers/     -- MessagePassing, GCNConv, GATConv, GATV2Conv, SAGEConv,
+                 HeteroConv, HGTConv
+  models/     -- GCNModel, GATModel, GATV2Model, GraphSAGEModel,
+                 GraphSAGESampleModel, HGTModel
   train/      -- loss, accuracy, the Adam train state and checkpoints
   utils/      -- self-loops, compute dtype, flax parameter loading, the
                  default device (the CUDA card)

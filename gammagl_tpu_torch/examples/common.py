@@ -1,13 +1,19 @@
-"""What the trainer twins share: the synthetic graph, the flags and the
-full-batch node-classification loop (counterpart of `examples/common.py`'s
-`base_parser` and `run_simple_node_trainer`).
+"""What the trainer twins share: the synthetic graphs, the flags and the
+full-batch node-classification loops (counterpart of `examples/common.py`'s
+`base_parser`, `run_simple_node_trainer`, `synthetic_hetero` and
+`run_hetero_trainer`).
 
-The loop reads no dataset files: the graph is `synthetic_community_graph`
+The loops read no dataset files: the graph is `synthetic_community_graph`
 (the JAX package's stochastic-block-model graph, drawn from the same numpy
-stream) or numpy arrays handed in. It hands the model a `CSRPlan` when its
-forward takes one, on the card and on the CPU alike: on the card the plan
-path runs the hand-written kernels, on the CPU their plain versions. (The
-JAX loop plans only on a TPU, where its kernels are not interpreted.)
+stream) or numpy arrays handed in, and for typed graphs `synthetic_hetero`
+(the JAX package's movie/director graph, the same stream) or a
+`HeteroGraph` handed in. The homogeneous loop hands the model a `CSRPlan`
+when its forward takes one, on the card and on the CPU alike: on the card
+the plan path runs the hand-written kernels, on the CPU their plain
+versions. The typed loop hands the model `HeteroGraph.csr_plans()` on the
+card, where the JAX loop hands its plans to a TPU; on the CPU both take
+the COO route. (The JAX loops plan only on a TPU, where their kernels are
+not interpreted.)
 """
 
 import argparse
@@ -18,13 +24,15 @@ import numpy as np
 import torch
 from torch.nn.parameter import UninitializedParameter
 
+from gammagl_tpu_torch.data import HeteroGraph
 from gammagl_tpu_torch.ops.cuda import build_csr_plan
 from gammagl_tpu_torch.train import TrainState, accuracy, semi_supervised_loss
 from gammagl_tpu_torch.utils import (add_self_loops, load_jax_params,
                                      resolve_device)
 
 __all__ = ["synthetic_community_graph", "base_parser", "loss_and_grad",
-           "train_step", "run_simple_node_trainer"]
+           "train_step", "run_simple_node_trainer", "synthetic_hetero",
+           "hetero_tensors", "predict", "run_hetero_trainer"]
 
 
 def synthetic_community_graph(num_nodes=1000, num_classes=7, feat_dim=128,
@@ -155,11 +163,9 @@ def run_simple_node_trainer(model, args, data=None, params=None,
     for epoch in range(args.n_epoch):
         loss = float(train_step(state, x, edge_index, y, masks["train_mask"],
                                 **train_kw))
-        model.eval()
-        with torch.no_grad():
-            logits = model(x, edge_index, **fkw)
-            val = float(accuracy(logits, y, masks["val_mask"]))
-            test = float(accuracy(logits, y, masks["test_mask"]))
+        logits = predict(model, x, edge_index, **fkw)
+        val = float(accuracy(logits, y, masks["val_mask"]))
+        test = float(accuracy(logits, y, masks["test_mask"]))
         losses.append(loss)
         if val > best_val:
             best_val, best_test = val, test
@@ -170,3 +176,110 @@ def run_simple_node_trainer(model, args, data=None, params=None,
     print(f"best val {best_val:.4f} -> test {best_test:.4f} ({dev})")
     return {"losses": losses, "best_val": best_val, "best_test": best_test,
             "best_params": best_params, "state": state}
+
+
+def synthetic_hetero(seed=0, n_m=200, n_d=60, c=3, f=32):
+    """The JAX package's synthetic movie/director graph
+    (`examples/common.py` `synthetic_hetero`), drawn from the same numpy
+    stream: classes shape which director made a movie, a 2.0 class signal
+    in the movie features, a movie-director-movie relation, and half the
+    movies for training. Returns (HeteroGraph, "movie")."""
+    rng = np.random.default_rng(seed)
+    hg = HeteroGraph()
+    y = rng.integers(0, c, n_m)
+    x = rng.normal(size=(n_m, f)).astype(np.float32)
+    x[np.arange(n_m), y] += 2.0
+    hg["movie"].x = x
+    hg["movie"].y = y
+    hg["director"].x = rng.normal(size=(n_d, f)).astype(np.float32)
+    d_of = rng.integers(0, n_d // c, n_m) + (n_d // c) * y
+    hg[("director", "directs", "movie")].edge_index = np.stack(
+        [d_of, np.arange(n_m)])
+    hg[("movie", "by", "director")].edge_index = np.stack(
+        [np.arange(n_m), d_of])
+    mdm = [(a, b) for d in range(n_d) for a in np.nonzero(d_of == d)[0]
+           for b in np.nonzero(d_of == d)[0]]
+    hg[("movie", "mdm", "movie")].edge_index = np.asarray(mdm).T
+    mask = np.zeros(n_m, bool)
+    mask[rng.permutation(n_m)[:n_m // 2]] = True
+    hg["movie"].train_mask = mask
+    hg["movie"].test_mask = ~mask
+    return hg, "movie"
+
+
+def hetero_tensors(hg, target, device):
+    """(x_dict, edge_index_dict, y, train_mask, test_mask) of ``hg`` as
+    tensors on ``device``: features float32, labels and masks of the
+    target type."""
+    def put(a, dtype=None):
+        a = np.asarray(a) if dtype is None else np.asarray(a, dtype)
+        return torch.from_numpy(a).to(device)
+
+    x_dict = {nt: put(x, np.float32) for nt, x in hg.x_dict.items()}
+    ei_dict = {et: put(ei) for et, ei in hg.edge_index_dict.items()}
+    store = hg[target]
+    return (x_dict, ei_dict, put(store.y), put(store.train_mask),
+            put(store.test_mask))
+
+
+def predict(model, x, edge_index, **forward_kwargs):
+    """The eval-mode forward, without gradients: how the loops score a
+    model, and how a typed-graph model is served (the JAX package serves
+    hetero models by its trainer's eval forward too)."""
+    model.eval()
+    with torch.no_grad():
+        return model(x, edge_index, **forward_kwargs)
+
+
+def run_hetero_trainer(make_model, args, data=None, params=None,
+                       log_every=10):
+    """Typed-graph node classification, the JAX `run_hetero_trainer`'s
+    loop: ``args.n_epoch`` steps of Adam (``args.lr``, no decay) on the
+    masked cross-entropy of the target type in training mode, and test
+    accuracy in eval mode every ``log_every`` epochs and at the end, on
+    ``args.device``. ``make_model(metadata, num_classes, target,
+    in_channels)`` builds the model; a forward that takes ``plan_dict``
+    gets `HeteroGraph.csr_plans()` on the card, and one that takes a
+    ``generator`` gets one seeded from ``args.seed + 1`` for its attention
+    dropout. ``data``: (HeteroGraph, target type), None for
+    `synthetic_hetero`; ``params``: a flax-shaped tree for
+    `load_jax_params` (None: the model's own init from ``args.seed``).
+
+    Returns {"losses", "test_acc", "state"}.
+    """
+    dev = resolve_device(args.device)
+    hg, target = data if data is not None else synthetic_hetero()
+    x_dict, ei_dict, y, train_mask, test_mask = hetero_tensors(hg, target,
+                                                               dev)
+    torch.manual_seed(args.seed)
+    model = make_model(hg.metadata(), int(y.max()) + 1, target,
+                       {nt: x.shape[1] for nt, x in x_dict.items()})
+    if params is not None:
+        load_jax_params(model, params)
+    state = TrainState(model.to(dev), args.lr)
+    takes = inspect.signature(model.forward).parameters
+    fkw = {}
+    if "plan_dict" in takes and dev.type == "cuda":
+        fkw["plan_dict"] = hg.csr_plans()
+    train_kw = dict(fkw)
+    if "generator" in takes:
+        train_kw["generator"] = torch.Generator(device=dev).manual_seed(
+            args.seed + 1)
+
+    def test_acc():
+        return float(accuracy(predict(model, x_dict, ei_dict, **fkw), y,
+                              test_mask))
+
+    losses = []
+    for epoch in range(args.n_epoch):
+        state.model.train()
+        loss = loss_and_grad(model, x_dict, ei_dict, y, train_mask,
+                             **train_kw)
+        state.apply_gradients()
+        losses.append(float(loss))
+        if epoch % log_every == 0 or epoch == args.n_epoch - 1:
+            print(f"epoch {epoch:3d} loss {losses[-1]:.4f} "
+                  f"test {test_acc():.4f}")
+    acc = test_acc()
+    print(f"final test acc {acc:.4f} ({dev})")
+    return {"losses": losses, "test_acc": acc, "state": state}

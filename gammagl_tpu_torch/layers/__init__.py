@@ -4,7 +4,11 @@ from gammagl_tpu_torch.layers.conv import (  # noqa: F401
     GATConv,
     GATV2Conv,
     GCNConv,
+    HeteroConv,
+    HGTConv,
     MessagePassing,
+    SAGEConv,
 )
 
-__all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv"]
+__all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
+           "HeteroConv", "HGTConv"]

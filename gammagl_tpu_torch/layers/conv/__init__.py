@@ -8,5 +8,11 @@ from gammagl_tpu_torch.layers.conv.gat_conv import (  # noqa: F401
     GATConv,
     GATV2Conv,
 )
+from gammagl_tpu_torch.layers.conv.sage_conv import SAGEConv  # noqa: F401
+from gammagl_tpu_torch.layers.conv.hetero_conv import (  # noqa: F401
+    HeteroConv,
+    HGTConv,
+)
 
-__all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv"]
+__all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
+           "HeteroConv", "HGTConv"]

@@ -30,6 +30,7 @@ from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
 from gammagl_tpu_torch.layers.conv.message_passing import MessagePassing
+from gammagl_tpu_torch.layers.dense import dense, glorot_uniform_
 from gammagl_tpu_torch.ops import (bspmm, expand_dst_csr, flash_gat_attention,
                                    flash_softmax_spmm_mh, gather_rows,
                                    segment_softmax)
@@ -204,15 +205,6 @@ class GATV2Conv(MessagePassing):
             tree["bias"] = self.bias
         return tree
 
-    def _dense(self, lin, x, dtype):
-        if isinstance(lin.weight, UninitializedParameter):
-            with torch.inference_mode(False), torch.no_grad():
-                lin.initialize_parameters(x)
-                nn.init.xavier_uniform_(lin.weight)
-        if dtype is None:  # flax promotes the input and the kernel
-            dtype = torch.promote_types(x.dtype, lin.weight.dtype)
-        return F.linear(x.to(dtype), lin.weight.to(dtype))
-
     def _keep(self, keep, generator, edge_index, plan, device):
         """keep (E, H) float32 in the order the path reads, or None."""
         if not self.training or self.dropout_rate == 0:
@@ -236,8 +228,9 @@ class GATV2Conv(MessagePassing):
         if num_nodes is None:
             num_nodes = x.shape[0]
         dtype = resolve_dtype(self.dtype)
-        x_l = self._dense(self.lin_l, x, dtype)
-        x_r = x_l if self.lin_r is None else self._dense(self.lin_r, x, dtype)
+        x_l = dense(self.lin_l, x, dtype, glorot_uniform_)
+        x_r = (x_l if self.lin_r is None
+               else dense(self.lin_r, x, dtype, glorot_uniform_))
         att = self.att if dtype is None else self.att.to(dtype)
         keep = self._keep(keep, generator, edge_index, plan, x.device)
         if plan is not None:

@@ -7,11 +7,11 @@ SpMM propagate, then the bias.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
 from gammagl_tpu_torch.layers.conv.message_passing import MessagePassing
+from gammagl_tpu_torch.layers.dense import dense, glorot_uniform_
 from gammagl_tpu_torch.ops.segment import segment_count
 from gammagl_tpu_torch.utils.compute_dtype import resolve_dtype
 
@@ -66,21 +66,11 @@ class GCNConv(MessagePassing):
             tree["bias"] = self.bias
         return tree
 
-    def _dense(self, x, dtype):
-        if isinstance(self.linear.weight, UninitializedParameter):
-            with torch.inference_mode(False), torch.no_grad():
-                self.linear.initialize_parameters(x)
-                self.reset_parameters()
-        weight = self.linear.weight
-        if dtype is None:  # flax promotes the input and the kernel
-            dtype = torch.promote_types(x.dtype, weight.dtype)
-        return F.linear(x.to(dtype), weight.to(dtype))
-
     def forward(self, x, edge_index, edge_weight=None, num_nodes=None,
                 plan=None):
         if num_nodes is None:
             num_nodes = x.shape[0]
-        x = self._dense(x, resolve_dtype(self.dtype))
+        x = dense(self.linear, x, resolve_dtype(self.dtype), glorot_uniform_)
         src, dst = edge_index[0].long(), edge_index[1].long()
         weights = (torch.ones(edge_index.shape[1], device=x.device)
                    if edge_weight is None else edge_weight.float())

@@ -3,7 +3,8 @@
 Counterpart of `gammagl_tpu/layers/conv/message_passing.py`. When a
 subclass overrides neither `message` nor `aggregate`, `propagate` takes
 the fused path: the COO `spmm`, or with a `CSRPlan` (`Graph.csr_plan()`)
-the CSR SpMM, which runs the hand-written kernel on the card.
+the CSR SpMM ('sum', 'mean') or segment max ('max'), which run the
+hand-written kernels on the card.
 """
 
 from typing import Optional
@@ -11,7 +12,7 @@ from typing import Optional
 from torch import nn
 
 from gammagl_tpu_torch.ops import (segment_count, segment_max, segment_mean,
-                                   segment_sum, spmm, spmm_csr)
+                                   segment_sum, spmm, spmm_csr, spmm_max_csr)
 
 __all__ = ["MessagePassing"]
 
@@ -45,7 +46,8 @@ class MessagePassing(nn.Module):
     def message_aggregate(self, x, edge_index, edge_weight=None, aggr="sum",
                           num_nodes=None, plan=None):
         """Fused message + aggregate. With a plan, 'sum' and 'mean' go to
-        `spmm_csr`; 'mean' as a sum with 1/deg(dst) edge weights."""
+        `spmm_csr` ('mean' as a sum with 1/deg(dst) edge weights) and 'max'
+        to `spmm_max_csr`."""
         if plan is None:
             return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
                         reduce=aggr)
@@ -59,10 +61,7 @@ class MessagePassing(nn.Module):
                 w = w * edge_weight
             return spmm_csr(x, w, plan)
         if aggr == "max":
-            raise NotImplementedError(
-                "aggr='max' with a plan needs the segment-max kernel, which "
-                "is not ported yet (ROADMAP queue B, B9); call without a "
-                "plan for the plain path")
+            return spmm_max_csr(x, edge_weight, plan)
         raise NotImplementedError(f"aggr {aggr!r} not supported")
 
     def update(self, x):

@@ -1,0 +1,61 @@
+"""flax's ``Dense`` on an ``nn.Linear``, and flax's initialisers.
+
+The port's layers keep their linear maps as ``nn.Linear`` modules (so
+`load_jax_params` can carry a flax ``kernel`` across, transposed) and apply
+them through `dense`, which follows flax's dtype rule and its lazy
+in-features.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.parameter import UninitializedParameter
+
+__all__ = ["dense", "glorot_uniform_", "fan_in_normal_"]
+
+
+def glorot_uniform_(t):
+    """flax's ``glorot_uniform``: fan_in the second-to-last dimension,
+    fan_out the last, both times the product of the leading ones. The limit
+    is symmetric in the two fans, so an (out, in) ``nn.Linear`` weight, the
+    transpose of a flax kernel, draws from the same law."""
+    receptive = t[..., 0, 0].numel()
+    fan_in, fan_out = t.shape[-2] * receptive, t.shape[-1] * receptive
+    lim = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-lim, lim)
+
+
+def fan_in_normal_(weight, scale):
+    """flax's truncated-normal ``variance_scaling(scale, "fan_in")`` on an
+    (out, in) weight: a unit normal cut at +-2, scaled to variance
+    scale / in. ``he_normal`` is scale 2, ``lecun_normal`` (the default
+    ``Dense`` kernel) scale 1."""
+    std = math.sqrt(scale / weight.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0).mul_(std)
+
+
+def dense(lin, x, dtype, init):
+    """flax ``Dense(dtype=dtype)`` of ``x`` with ``lin``'s parameters.
+
+    A lazy ``lin`` first takes its in-features from ``x`` (and, when its
+    out-features are 0, those too: a square map), draws its weight with
+    ``init`` and zeroes its bias. ``x`` and the parameters are cast to
+    ``dtype``; None promotes x's dtype and the weight's, as flax does.
+    """
+    if isinstance(lin.weight, UninitializedParameter):
+        out = lin.out_features or x.shape[-1]
+        with torch.inference_mode(False), torch.no_grad():
+            lin.weight.materialize((out, x.shape[-1]))
+            init(lin.weight)
+            if lin.bias is not None:
+                lin.bias.materialize((out,))
+                lin.bias.zero_()
+        lin.in_features, lin.out_features = x.shape[-1], out
+    if dtype is None:
+        dtype = torch.promote_types(x.dtype, lin.weight.dtype)
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)

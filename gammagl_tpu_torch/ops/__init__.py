@@ -1,7 +1,7 @@
 """Message-passing ops: plain PyTorch segment reductions, edge softmax,
 COO SpMM and SDDMM, with the kernels of `gammagl_tpu_torch.ops.cuda` (CSR
-SpMM and segment sum, fused edge attention, destination expand and SDDMM)
-for the plan path."""
+SpMM and segment sum, segment max and min, fused edge attention, HGT
+attention, destination expand and SDDMM) for the plan path."""
 
 from gammagl_tpu_torch.ops.segment import (  # noqa: F401
     segment_count,
@@ -30,6 +30,11 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     flash_gat_attention,
     flash_softmax_spmm,
     flash_softmax_spmm_mh,
+    hgt_flash_packed,
+    segment_max_csr,
+    segment_min_csr,
+    spmm_max_csr,
+    spmm_min_csr,
 )
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
@@ -41,4 +46,5 @@ __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
            "sddmm_csr_mh",
            "flash_edge_attention", "flash_edge_attention_mh",
            "flash_gat_attention", "flash_softmax_spmm",
-           "flash_softmax_spmm_mh"]
+           "flash_softmax_spmm_mh", "spmm_max_csr", "spmm_min_csr",
+           "segment_max_csr", "segment_min_csr", "hgt_flash_packed"]

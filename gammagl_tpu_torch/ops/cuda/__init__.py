@@ -28,6 +28,25 @@ from gammagl_tpu_torch.ops.cuda.attention import (  # noqa: F401
     plan_gather_src,
     plan_gather_src_compact,
 )
+from gammagl_tpu_torch.ops.cuda.segment_max import (  # noqa: F401
+    segment_max_bwd,
+    segment_max_bwd_reference,
+    segment_max_csr,
+    segment_max_csr_reference,
+    segment_min_csr,
+    segment_min_csr_reference,
+    spmm_max_csr,
+    spmm_max_csr_reference,
+    spmm_min_csr,
+    spmm_min_csr_reference,
+)
+from gammagl_tpu_torch.ops.cuda.hetero_flash import (  # noqa: F401
+    hgt_backward,
+    hgt_backward_reference,
+    hgt_flash_packed,
+    hgt_forward,
+    hgt_forward_reference,
+)
 from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
     attention_keep_mask,
     flash_backward,
@@ -51,4 +70,10 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "segment_sum_csr_reference", "gather_rows", "expand_dst_csr",
            "expand_dst_csr_reference", "sddmm_csr", "sddmm_csr_mh",
            "sddmm_csr_reference", "plan_gather_src",
-           "plan_gather_src_compact", "plan_gather_dst"]
+           "plan_gather_src_compact", "plan_gather_dst", "spmm_max_csr",
+           "spmm_min_csr", "segment_max_csr", "segment_min_csr",
+           "spmm_max_csr_reference", "spmm_min_csr_reference",
+           "segment_max_csr_reference", "segment_min_csr_reference",
+           "segment_max_bwd", "segment_max_bwd_reference",
+           "hgt_flash_packed", "hgt_forward", "hgt_backward",
+           "hgt_forward_reference", "hgt_backward_reference"]

@@ -41,7 +41,7 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _csr_rows
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _first_order_only
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
-from gammagl_tpu_torch.ops.cuda.segment_matmul import spmm_csr
+from gammagl_tpu_torch.ops.cuda.segment_matmul import _raise_on, spmm_csr
 
 __all__ = ["attention_keep_mask", "flash_edge_attention",
            "flash_edge_attention_mh", "flash_softmax_spmm",
@@ -196,12 +196,6 @@ def _check(score, a_dst, msg, keep, plan, gather):
         raise ValueError(f"flash attention: no kernel for device "
                          f"{msg.device}")
     return H, msg.shape[1] // H
-
-
-def _raise_on(code, what, err):
-    if code != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{err(code).decode()} ({code})")
 
 
 def flash_forward(score, a_dst, msg, keep, plan, slope, gather):

@@ -42,7 +42,7 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
                                                        _first_order_only,
                                                        _forward, _pad_rows,
-                                                       _weigh)
+                                                       _raise_on, _weigh)
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["expand_dst_csr", "sddmm_csr", "sddmm_csr_mh",
@@ -96,12 +96,6 @@ def _check_cuda(op, *tensors):
                             f"{_KERNEL_DTYPES}, the same for every operand")
         if not t.is_contiguous():
             raise ValueError(f"{op}: operands must be contiguous")
-
-
-def _raise_on(code, what, err):
-    if code != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{err(code).decode()} ({code})")
 
 
 def _expand(x, plan, scale=None):

@@ -47,11 +47,18 @@ class CSRPlan:
     col    : (num_edges,) int32, source of each CSR edge
     perm   : (num_edges,) int64, caller's index of each CSR edge
 
+    window : the ``window`` keyword it was built with. It changes no
+             layout here; it is kept because the JAX package's layers pick
+             a route by it (`HGTConv` fuses on window plans only), so the
+             port's take the same route for the same call.
+
     One copy of the arrays is kept per device (`arrays`); the transpose
     plans of the backward are built on first use and kept too.
     """
 
-    def __init__(self, rowptr, col, perm, num_nodes, num_src, num_edges):
+    def __init__(self, rowptr, col, perm, num_nodes, num_src, num_edges,
+                 window=False):
+        self.window = bool(window)
         self.rowptr = rowptr
         self.col = col
         self.perm = perm
@@ -102,7 +109,7 @@ class CSRPlan:
 
     def __repr__(self):
         return (f"CSRPlan(N={self.num_nodes}, N_src={self.num_src}, "
-                f"E={self.num_edges})")
+                f"E={self.num_edges}, window={self.window})")
 
 
 def build_csr_plan(src, dst, num_nodes, num_src=None, R=None, ET=None,
@@ -111,9 +118,10 @@ def build_csr_plan(src, dst, num_nodes, num_src=None, R=None, ET=None,
 
     ``src``/``dst`` need not be sorted. Out-of-range endpoints raise.
     ``R``, ``ET`` and ``window`` are the TPU tiling keywords of the JAX
-    package; a CSR needs none of them, so they are accepted and ignored.
+    package; a CSR needs none of them, so R and ET are ignored and
+    ``window`` (None: False, the JAX default) is only kept on the plan.
     """
-    del R, ET, window
+    del R, ET
     src = np.asarray(src, dtype=np.int64).reshape(-1)
     dst = np.asarray(dst, dtype=np.int64).reshape(-1)
     if src.shape != dst.shape:
@@ -136,7 +144,7 @@ def build_csr_plan(src, dst, num_nodes, num_src=None, R=None, ET=None,
     rowptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(np.bincount(dst, minlength=num_nodes), out=rowptr[1:])
     return CSRPlan(rowptr, src[perm].astype(np.int32), perm.astype(np.int64),
-                   num_nodes, num_src, E)
+                   num_nodes, num_src, E, window=bool(window))
 
 
 def build_csr_plan_blocked(src, dst, num_nodes, num_src=None, R=None,
@@ -240,6 +248,14 @@ def _kernel():
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _raise_on(code, what, err):
+    """Raise for a nonzero status of a kernel's C entry point (the launch
+    was refused: its error string, by ``err``)."""
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{err(code).decode()} ({code})")
+
+
 def _launch(x, w, plan, per_edge=False):
     """Run the kernel on CUDA tensors: x f32 or bf16, (N_src, F) node rows
     or (E, F) per-edge rows (``per_edge``); w f32 (E,) or (E, H) in CSR
@@ -271,9 +287,7 @@ def _launch(x, w, plan, per_edge=False):
                   plan.num_nodes, x.shape[1], heads, int(per_edge),
                   int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
-    if code != 0:
-        raise RuntimeError(f"{op} kernel launch failed: "
-                           f"{err(code).decode()} ({code})")
+    _raise_on(code, op, err)
     if per_edge:
         segment_sum_csr.launches += 1
     else:

@@ -1,0 +1,293 @@
+"""Segment max and min over a CSR plan: the max-aggregation kernels.
+
+PyTorch counterpart of `gammagl_tpu/ops/pallas/segment_max.py`. For each
+destination row d of the plan, over its CSR edges e:
+
+* `spmm_max_csr` / `spmm_min_csr`: ``out[d] = max_e w_e * x[src_e]`` (min),
+  the source rows gathered inside the kernel;
+* `segment_max_csr` / `segment_min_csr`: ``out[d] = max_e msg[e]`` (min)
+  over per-edge rows already in the plan's CSR order.
+
+Exactness is the spec, as in the JAX module: each message is ``w * x``
+with the weight rounded to x's dtype, the product rounded to it, and the
+result is the winning message bit for bit; the min is ``-max(-msg)``
+(negation is exact); a row without edges gives 0.
+
+The gradient (`segment_max_bwd`, counterpart of `_segment_max_bwd`) splits
+each row's cotangent evenly among the edges whose message equals the
+output, per column, and writes the per-edge cotangents in CSR order; the
+gathered form then sums them into source rows with `spmm_csr` on the plan's
+edge-scatter transpose, the weight folded in, and the weight's own gradient
+``<dmsg_e, x[src_e]>`` comes from the same backward kernel.
+
+On a CUDA tensor the forward launches the kernel of ``csrc/segment_max.cu``
+and the backward its backward kernel, or they raise; on a CPU tensor both
+run their plain versions. Each public function counts its forward launches
+in its ``.launches``; the backward counts in ``segment_max_bwd.launches``.
+The op is differentiable once: a backward with ``create_graph=True``
+raises on every device.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from gammagl_tpu_torch.ops.cuda._build import load_library
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (_check_x, _csr_rows,
+                                                       _csr_weights,
+                                                       _first_order_only,
+                                                       _forward, _pad_rows,
+                                                       _raise_on)
+from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
+
+__all__ = ["spmm_max_csr", "spmm_min_csr", "segment_max_csr",
+           "segment_min_csr", "spmm_max_csr_reference",
+           "spmm_min_csr_reference", "segment_max_csr_reference",
+           "segment_min_csr_reference", "segment_max_bwd",
+           "segment_max_bwd_reference"]
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _messages(x, w, plan, per_edge):
+    """(E, F) messages in CSR order and x's dtype: x[col[e]] (or x[e] for
+    per-edge rows) times w_e rounded to x's dtype, the product rounded."""
+    msg = x if per_edge else x[plan.arrays(x.device)[1].long()]
+    if w is not None:
+        msg = msg * w.to(x.dtype)[:, None]
+    return msg
+
+
+def _extreme_reference(x, w, plan, per_edge, negate):
+    """Plain PyTorch forward: scatter_reduce of the messages into zeros
+    without the zeros (include_self=False), so a row without edges keeps
+    its 0."""
+    msg = _messages(x, w, plan, per_edge)
+    rows = _csr_rows(plan, x.device)[:, None].expand_as(msg)
+    out = msg.new_zeros(plan.num_nodes, x.shape[1])
+    return out.scatter_reduce_(0, rows, msg, "amin" if negate else "amax",
+                               include_self=False)
+
+
+def spmm_max_csr_reference(x, edge_weight, plan, weights_padded=False):
+    """Plain PyTorch version of `spmm_max_csr`."""
+    _check_x(x, plan)
+    w = _csr_weights(edge_weight, plan, weights_padded)
+    return _extreme_reference(x, w, plan, False, False)
+
+
+def spmm_min_csr_reference(x, edge_weight, plan, weights_padded=False):
+    """Plain PyTorch version of `spmm_min_csr`."""
+    _check_x(x, plan)
+    w = _csr_weights(edge_weight, plan, weights_padded)
+    return _extreme_reference(x, w, plan, False, True)
+
+
+def segment_max_csr_reference(msg, plan):
+    """Plain PyTorch version of `segment_max_csr`."""
+    return _extreme_reference(msg, None, plan, True, False)
+
+
+def segment_min_csr_reference(msg, plan):
+    """Plain PyTorch version of `segment_min_csr`."""
+    return _extreme_reference(msg, None, plan, True, True)
+
+
+def segment_max_bwd_reference(x, w, out, grad, plan, per_edge, want_dw):
+    """Plain PyTorch backward: (dmsg (E, F) of x's dtype in CSR order, dw
+    (E,) float32 or None). Each winner of a row and column (its message
+    equals the output) gets g / (number of winners), rounded to x's
+    dtype."""
+    msg = _messages(x, w, plan, per_edge)
+    rows = _csr_rows(plan, x.device)
+    eq = msg == out[rows]
+    cnt = torch.zeros(plan.num_nodes, x.shape[1], device=x.device)
+    cnt.index_add_(0, rows, eq.float())
+    share = grad.to(x.dtype).float() / cnt.clamp_min(1.0)
+    dmsg = torch.where(eq, share[rows], 0.0).to(x.dtype)
+    dw = None
+    if want_dw:
+        raw = x[plan.arrays(x.device)[1].long()]
+        dw = (dmsg.float() * raw.float()).sum(1)
+    return dmsg, dw
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    lib = load_library()
+    fwd = lib.gammagl_segment_max_fwd
+    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    bwd = lib.gammagl_segment_max_bwd
+    bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
+                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    bwd.restype = ctypes.c_int
+    return fwd, bwd, _spmm_kernel()[1]
+
+
+def _check_cuda(op, x, w):
+    if x.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {x.device}")
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{op}: dtype {x.dtype} is not one of "
+                        f"{_KERNEL_DTYPES}")
+    if not x.is_contiguous():
+        raise ValueError(f"{op}: x must be contiguous")
+    if w is not None and w.device != x.device:
+        raise ValueError(f"{op}: edge weights on {w.device}, x on "
+                         f"{x.device}")
+
+
+def _extreme(x, w, plan, per_edge, negate, counter):
+    """The forward: a CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (counted in ``counter.launches``) or raises."""
+    if x.device.type == "cpu":
+        return _extreme_reference(x, w, plan, per_edge, negate)
+    _check_cuda(counter.__name__, x, w)
+    out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    fwd, _, err = _kernels()
+    rowptr, col, _ = plan.arrays(x.device)
+    w = None if w is None else w.contiguous()
+    with torch.cuda.device(x.device):
+        code = fwd(x.data_ptr(), 0 if w is None else w.data_ptr(),
+                   rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
+                   plan.num_nodes, x.shape[1], int(per_edge), int(negate),
+                   int(x.dtype == torch.bfloat16),
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(code, counter.__name__, err)
+    counter.launches += 1
+    return out
+
+
+def segment_max_bwd(x, w, out, grad, plan, per_edge, want_dw):
+    """One backward: (dmsg (E, F) of x's dtype in CSR order, dw (E,)
+    float32 or None). A CPU tensor takes `segment_max_bwd_reference`; a
+    CUDA tensor launches the kernel (counted in
+    ``segment_max_bwd.launches``) or raises."""
+    want_dw = want_dw and w is not None
+    if x.device.type == "cpu":
+        return segment_max_bwd_reference(x, w, out, grad, plan, per_edge,
+                                         want_dw)
+    _check_cuda("segment_max_bwd", x, w)
+    grad = grad.to(x.dtype).contiguous()
+    E, F = plan.num_edges, x.shape[1]
+    dmsg = torch.empty(E, F, dtype=x.dtype, device=x.device)
+    dw = torch.zeros(E, device=x.device) if want_dw else None
+    if dmsg.numel() == 0:
+        return dmsg, dw
+    _, bwd, err = _kernels()
+    rowptr, col, _ = plan.arrays(x.device)
+    w = None if w is None else w.contiguous()
+    with torch.cuda.device(x.device):
+        code = bwd(x.data_ptr(), 0 if w is None else w.data_ptr(),
+                   rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
+                   grad.data_ptr(), dmsg.data_ptr(),
+                   0 if dw is None else dw.data_ptr(), plan.num_nodes, F,
+                   int(per_edge), int(x.dtype == torch.bfloat16),
+                   torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(code, "segment_max_bwd", err)
+    segment_max_bwd.launches += 1
+    return dmsg, dw
+
+
+segment_max_bwd.launches = 0
+
+
+class _SegmentExtreme(torch.autograd.Function):
+    """x (node rows, or per-edge rows in CSR order), w (E,) f32 in CSR
+    order or None -> (N_dst, F). The backward kernel gives the per-edge
+    cotangents (and dw); for node rows `spmm_csr` on the edge-scatter
+    transpose sums them, times the weight, into the source rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan, per_edge, negate, counter):
+        out = _extreme(x, w, plan, per_edge, negate, counter)
+        ctx.save_for_backward(x, w, out)
+        ctx.plan, ctx.per_edge = plan, per_edge
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        _first_order_only("segment max")
+        x, w, out = ctx.saved_tensors
+        plan = ctx.plan
+        dmsg, dw = segment_max_bwd(x, w, out, g, plan, ctx.per_edge,
+                                   ctx.needs_input_grad[1])
+        dx = None
+        if ctx.needs_input_grad[0]:
+            if ctx.per_edge:
+                dx = dmsg
+            else:
+                scatter = plan.edge_scatter_plan()
+                w_t = None
+                if w is not None:  # the message's weight, rounded to x's
+                    w_t = w.to(x.dtype).float()[
+                        scatter.arrays(w.device)[2]]
+                dx = _pad_rows(_forward(dmsg, w_t, scatter), x.shape[0])
+        return dx, dw, None, None, None, None
+
+
+def _gathered(x, edge_weight, plan, weights_padded, negate, counter):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{counter.__name__}: no kernel for device "
+                         f"{x.device}")
+    _check_x(x, plan)
+    w = _csr_weights(edge_weight, plan, weights_padded)
+    return _SegmentExtreme.apply(x, w, plan, False, negate, counter)
+
+
+def _per_edge(msg, plan, negate, counter):
+    if msg.dim() != 2 or msg.shape[0] != plan.num_edges:
+        raise ValueError(f"msg must be (E={plan.num_edges}, F), got "
+                         f"{tuple(msg.shape)}")
+    if msg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{counter.__name__}: no kernel for device "
+                         f"{msg.device}")
+    return _SegmentExtreme.apply(msg, None, plan, True, negate, counter)
+
+
+def spmm_max_csr(x, edge_weight, plan, weights_padded=False):
+    """out[d] = max_{(s,d)} w_sd * x[s] over the plan's edges, exact.
+
+    x : (N_src, F) float32 or bfloat16; the result has x's dtype and is
+        the winning message bit for bit; rows without edges are 0.
+    edge_weight : (E,) in the caller's edge order, None for unit weights,
+        or the output of `pad_edge_weights` with ``weights_padded=True``;
+        rounded to x's dtype before the product, as in the JAX module.
+
+    A CPU tensor takes `spmm_max_csr_reference`; a CUDA tensor launches the
+    kernel (counted in ``spmm_max_csr.launches``) or raises.
+    Differentiable once in x and edge_weight; ties split the cotangent
+    evenly.
+    """
+    return _gathered(x, edge_weight, plan, weights_padded, False,
+                     spmm_max_csr)
+
+
+def spmm_min_csr(x, edge_weight, plan, weights_padded=False):
+    """out[d] = min_{(s,d)} w_sd * x[s]: `spmm_max_csr` of the negated
+    messages, negated (``spmm_min_csr.launches``)."""
+    return _gathered(x, edge_weight, plan, weights_padded, True,
+                     spmm_min_csr)
+
+
+def segment_max_csr(msg, plan):
+    """Max of per-edge rows ``msg`` (E, F) in the plan's CSR order into
+    their destination rows; rows without edges are 0
+    (``segment_max_csr.launches``). Differentiable once."""
+    return _per_edge(msg, plan, False, segment_max_csr)
+
+
+def segment_min_csr(msg, plan):
+    """Min of per-edge rows in CSR order (``segment_min_csr.launches``)."""
+    return _per_edge(msg, plan, True, segment_min_csr)
+
+
+for _fn in (spmm_max_csr, spmm_min_csr, segment_max_csr, segment_min_csr):
+    _fn.launches = 0
+del _fn

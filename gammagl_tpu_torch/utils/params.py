@@ -4,7 +4,9 @@ A port module that has parameters names its flax counterparts in a
 ``flax_tree()`` method: a mapping from the flax name (``"GCNConv_0"``,
 ``"Dense_0"``, ``"bias"``) to a submodule or a parameter. An
 ``nn.Linear`` stands for a flax ``Dense``: its (out, in) weight is the
-transpose of the (in, out) ``kernel``.
+transpose of the (in, out) ``kernel``. Raw parameters keep their flax
+shape, whatever their rank: HGT's (H, D, D) relation matrices, its (H,)
+priors and its scalar skip gates.
 """
 
 from collections.abc import Mapping
@@ -76,7 +78,8 @@ def load_jax_params(model, params):
                     f"transpose: {transpose}) != port shape "
                     f"{tuple(param.shape)}")
             param.copy_(torch.tensor(value))
-    for m in model.modules():  # lazy layers learn their in-features here
-        if isinstance(m, nn.Linear) and m.in_features == 0:
-            m.in_features = m.weight.shape[1]
+    for m in model.modules():  # lazy layers learn their sizes here
+        if (isinstance(m, nn.Linear)
+                and not isinstance(m.weight, UninitializedParameter)):
+            m.out_features, m.in_features = m.weight.shape
     return model

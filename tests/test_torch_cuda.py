@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CSR SpMM (and per-edge segment sum),
-flash attention, destination expand and SDDMM kernels against their plain
-versions, forward and backward, the launch counts, the wrappers' checks,
-gradients of GCN, GAT and GATv2 through the kernels, and the serving path.
+flash attention, destination expand, SDDMM, segment max and HGT attention
+kernels against their plain versions, forward and backward, the launch
+counts, the wrappers' checks, gradients of GCN, GAT, GATv2 and HGT
+through the kernels, and the serving paths (GraphSAGE and HGT too).
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -10,7 +11,8 @@ neither JAX nor the JAX package, so it runs on a machine without them:
 
 Tolerances, elementwise, |kernel - plain| <= rtol*|plain| + 1e-5*max|plain|
 (the second term for the two f32 summation orders): f32 rtol 1e-5; bf16
-rtol 1e-2, one bf16 ulp, since both round once from f32. Model
+rtol 1e-2, one bf16 ulp, since both round once from f32. The segment max
+and its per-edge cotangents: bitwise. Model
 gradients through the kernels against the plain path, f32: 1e-4 of each
 parameter's max |grad| (the paths form scores and sums in other orders).
 """
@@ -22,7 +24,9 @@ import pytest
 import torch
 
 from gammagl_tpu_torch.data import Graph
-from gammagl_tpu_torch.models import GATModel, GATV2Model, GCNModel
+from gammagl_tpu_torch.examples.common import synthetic_hetero
+from gammagl_tpu_torch.models import (GATModel, GATV2Model, GCNModel,
+                                      GraphSAGEModel, HGTModel)
 from gammagl_tpu_torch.ops import cuda as kops
 from gammagl_tpu_torch.ops.cuda.sddmm_csr import _expand, _sddmm
 from gammagl_tpu_torch.serve import InferenceSession
@@ -538,3 +542,199 @@ def test_gatv2_session_on_card_matches_the_plain_path(card):
     scale = float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=3e-2 * scale)
+
+
+@pytest.mark.parametrize("F", [1, 7, 40, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("op", ["max", "min"])
+def test_segment_max_kernel_is_bitwise_equal_to_plain(card, F, dtype,
+                                                      weighted, op):
+    plan, e = _plan(F + 3)
+    g = torch.Generator().manual_seed(F)
+    x = torch.randn(plan.num_src, F, generator=g).to(card, dtype)
+    x[1::5] = x[0]  # ties
+    w = torch.randn(e, generator=g).to(card) if weighted else None
+    fn, ref = ((kops.spmm_max_csr, kops.spmm_max_csr_reference) if op == "max"
+               else (kops.spmm_min_csr, kops.spmm_min_csr_reference))
+    before = fn.launches
+    got = fn(x, w, plan)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, ref(x, w, plan))
+    empty = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    assert bool((got[empty] == 0).all())
+    # per-edge rows in CSR order, and the backward: per-edge cotangents
+    # bitwise, ties split evenly, dw through the same kernel
+    msg = x[plan.arrays(card)[1].long()]
+    per_edge = (kops.segment_max_csr if op == "max"
+                else kops.segment_min_csr)
+    assert torch.equal(per_edge(msg, plan), ref(x, None, plan))
+    wp = None if w is None else kops.pad_edge_weights(plan, w)
+    gy = torch.randn(got.shape, generator=g).to(card, dtype)
+    before = kops.segment_max_bwd.launches
+    dmsg, dw = kops.segment_max_bwd(x, wp, got, gy, plan, False, True)
+    torch.cuda.synchronize()
+    assert kops.segment_max_bwd.launches == before + 1
+    rdmsg, rdw = kops.segment_max_bwd_reference(x, wp, got, gy, plan, False,
+                                                weighted)
+    assert torch.equal(dmsg, rdmsg)
+    if weighted:
+        _close(dw, rdw, 1e-5)
+    else:
+        assert dw is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_max_gradients_and_no_edges(card, dtype):
+    plan, e = _plan(4)
+    g = torch.Generator().manual_seed(4)
+    x0 = torch.randn(plan.num_src, 40, generator=g).to(dtype)
+    w0 = torch.randn(e, generator=g)
+    gy = torch.randn(plan.num_nodes, 40, generator=g).to(dtype)
+    grads = []
+    for dev in (card, torch.device("cpu")):
+        x = x0.to(dev).requires_grad_()
+        w = w0.to(dev).requires_grad_()
+        (kops.spmm_max_csr(x, w, plan).float() * gy.to(dev).float()
+         ).sum().backward()
+        grads.append((x.grad.cpu(), w.grad.cpu()))
+    rt = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    _close(grads[0][0], grads[1][0], rt)
+    _close(grads[0][1], grads[1][1], 1e-5)
+    none = np.zeros(0, np.int64)
+    empty = kops.build_csr_plan(none, none, 33, num_src=5)
+    x = torch.randn(5, 8, device=card, dtype=dtype, requires_grad=True)
+    out = kops.spmm_max_csr(x, None, empty)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert out.shape == (33, 8) and bool((out == 0).all())
+    assert bool((x.grad == 0).all())
+
+
+def _hgt_case(card, H, D, dtype, plan, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    kv = torch.randn(plan.num_src, 2 * H * D, generator=g).to(card, dtype)
+    q = (torch.randn(plan.num_nodes, H, D, generator=g) / D ** 0.5).to(
+        card, dtype)
+    gy = torch.randn(plan.num_nodes, H * D, generator=g).to(card, dtype)
+    return kv, q, gy
+
+
+@pytest.mark.parametrize("H,D", [(2, 64), (4, 64), (8, 32), (1, 256),
+                                 (3, 5), (1, 300)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_hgt_kernels_match_plain(card, H, D, dtype, rtol):
+    plan, _ = _plan(H * D)
+    kv, q, gy = _hgt_case(card, H, D, dtype, plan)
+    before = (kops.hgt_forward.launches, kops.hgt_backward.launches)
+    out, m, l = kops.hgt_forward(kv, q, plan)
+    dq, dkv = kops.hgt_backward(kv, q, out, gy, m, l, plan)
+    torch.cuda.synchronize()
+    assert (kops.hgt_forward.launches,
+            kops.hgt_backward.launches) == (before[0] + 1, before[1] + 1)
+    r_out, r_m, r_l = kops.hgt_forward_reference(kv, q, plan)
+    # the plain backward from the kernel's (out, m, l)
+    r_dq, r_dkv = kops.hgt_backward_reference(kv, q, out, gy, m, l, plan)
+    for got, want, r in ((out, r_out, rtol), (m, r_m, 1e-5), (l, r_l, 1e-5),
+                         (dq, r_dq, rtol), (dkv, r_dkv, rtol)):
+        _close(got, want, r)
+    empty = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    assert bool((out[empty] == 0).all()) and bool((dq[empty] == 0).all())
+    assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+    again = kops.hgt_forward(kv, q, plan)[0]  # no atomics
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hgt_flash_packed_gradients_and_launches(card, dtype):
+    plan, _ = _plan(9)
+    kv0, q0, gy = _hgt_case(card, 4, 64, dtype, plan, seed=9)
+    results = []
+    for dev in (card, torch.device("cpu")):
+        kv = kv0.detach().to(dev).requires_grad_()
+        q = q0.detach().to(dev).requires_grad_()
+        before = (kops.hgt_forward.launches, kops.hgt_backward.launches,
+                  kops.spmm_csr.launches)
+        out = kops.hgt_flash_packed(kv, q, plan)
+        (out.float() * gy.to(dev).float()).sum().backward()
+        torch.cuda.synchronize()
+        after = (kops.hgt_forward.launches, kops.hgt_backward.launches,
+                 kops.spmm_csr.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            (1, 1, 1) if dev.type == "cuda" else (0, 0, 0))
+        results.append((out.cpu(), kv.grad.cpu(), q.grad.cpu()))
+    rt = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    for got, want in zip(*results):
+        # bf16: the backward's cotangents round once more on each device
+        _close(got, want, rt if dtype == torch.float32 else 3e-2)
+    none = np.zeros(0, np.int64)
+    empty = kops.build_csr_plan(none, none, 6, num_src=4)
+    kv, q, _ = _hgt_case(card, 2, 8, dtype, empty)
+    out = kops.hgt_flash_packed(kv, q, empty)
+    torch.cuda.synchronize()
+    assert out.shape == (6, 16) and bool((out == 0).all())
+
+
+def test_graphsage_pool_session_on_card_matches_the_plain_path(card):
+    rng = np.random.default_rng(21)
+    n, e = 2000, 16000
+    graph = Graph(x=rng.normal(size=(n, 48)).astype(np.float32),
+                  edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    model = GraphSAGEModel(64, 7, num_layers=3, aggr="pool",
+                           dtype=torch.bfloat16, in_channels=48)
+    sess = InferenceSession(model, (graph.x, graph.edge_index),
+                            compute_dtype=torch.bfloat16,
+                            plan=graph.csr_plan())
+    before = kops.spmm_max_csr.launches
+    got = sess(graph.x, graph.edge_index)
+    torch.cuda.synchronize()
+    assert kops.spmm_max_csr.launches == before + 3
+    with torch.inference_mode():
+        want = sess.model(torch.tensor(graph.x, device=card).bfloat16(),
+                          torch.tensor(graph.edge_index, device=card))
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=3e-2 * scale)
+
+
+def test_hgt_model_on_card_takes_the_routes_of_the_plans(card):
+    """bf16 eval on window plans: the fused kernels (6 forwards, 2 layers x
+    3 relations); f32 training with dropout: the decomposed route, against
+    the COO route under one generator state."""
+    hg, target = synthetic_hetero()
+    x_dict = {nt: torch.tensor(x, device=card) for nt, x in hg.x_dict.items()}
+    ei = {et: torch.tensor(v, device=card)
+          for et, v in hg.edge_index_dict.items()}
+    torch.manual_seed(0)
+    model = HGTModel(hg.metadata(), 128, 3, target, heads=2,
+                     in_channels=32).to(card)
+    plans = hg.csr_plans()
+    with compute_dtype(torch.bfloat16), torch.no_grad():
+        model.eval()
+        before = kops.hgt_forward.launches
+        got = model(x_dict, ei, plan_dict=plans)
+        torch.cuda.synchronize()
+        assert kops.hgt_forward.launches == before + 6
+        want = model(x_dict, ei)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=3e-2 * float(want.abs().max()))
+    model.train()
+    y = torch.tensor(hg[target].y, device=card)
+    results = []
+    for p in (plans, None):
+        model.zero_grad()
+        gen = torch.Generator(device=card).manual_seed(3)
+        out = model(x_dict, ei, plan_dict=p, generator=gen)
+        torch.nn.functional.cross_entropy(out, y).backward()
+        results.append((out.detach(), [q.grad.clone() for q in
+                                       model.parameters()
+                                       if q.grad is not None]))
+    (out_k, g_k), (out_p, g_p) = results
+    _close(out_k, out_p, 1e-4)
+    scale = max(float(w.abs().max()) for w in g_p)
+    for a, b in zip(g_k, g_p):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * max(float(b.abs().max()),
+                                                   0.05 * scale))

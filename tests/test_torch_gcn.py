@@ -164,12 +164,14 @@ def test_mean_with_plan_matches_plain_mean(weighted):
 
 
 def test_max_with_plan_names_the_missing_kernel():
+    """The segment-max kernel is ported: with a plan, 'max' runs
+    `spmm_max_csr` (its plain version here) and equals the plain path bit
+    for bit, where it used to raise naming the missing kernel."""
     x, ei = _graph()
     plan = Graph(x=x, edge_index=ei).csr_plan()
-    with pytest.raises(NotImplementedError, match="B9"):
-        _Aggr("max")(torch.from_numpy(x), torch.from_numpy(ei), plan=plan)
+    got = _Aggr("max")(torch.from_numpy(x), torch.from_numpy(ei), plan=plan)
     plain = _Aggr("max")(torch.from_numpy(x), torch.from_numpy(ei))
-    assert plain.shape == (N, F_IN)
+    assert plain.shape == (N, F_IN) and torch.equal(got, plain)
 
 
 def test_bf16_degrees_do_not_saturate_unlike_the_reference():

@@ -36,7 +36,7 @@ from gammagl_tpu.train import semi_supervised_loss as jax_loss
 from gammagl_tpu.utils import add_self_loops as jax_add_self_loops
 
 from gammagl_tpu_torch.examples import fusedgat_trainer as twin
-from gammagl_tpu_torch.examples import gatv2_trainer, gcn_trainer
+from gammagl_tpu_torch.examples import gatv2_trainer, gcn_trainer, hgt_trainer
 from gammagl_tpu_torch.train import (TrainState, accuracy, load_checkpoint,
                                      save_checkpoint, semi_supervised_loss)
 
@@ -249,10 +249,12 @@ def test_simple_twin_trains_with_dropout(name, tmp_path, capsys):
         assert ckpt["step"] == 30 and "opt_state" in ckpt
 
 
-@pytest.mark.parametrize("module", [twin, gatv2_trainer, gcn_trainer])
+@pytest.mark.parametrize("module", [twin, gatv2_trainer, gcn_trainer,
+                                    hgt_trainer])
 def test_twins_default_to_the_card(module, monkeypatch):
     """``--device`` defaults to cuda; without a card the twin raises
-    rather than falling back to the CPU."""
+    rather than falling back to the CPU (the hgt twin before it reads the
+    data it is handed)."""
     assert module.parser().parse_args([]).device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
