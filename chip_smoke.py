@@ -87,7 +87,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
 17. Drive `hgt_flash_packed` as bench.py:185 does (the gradient of
    sum(out^2) in kv and q, bf16): per call 1 HGT forward, 1 HGT backward
    and 1 SpMM launch; the gradients held against the plain versions.
-18. Print the card's name and power limit, one JSON line on the kernels
+18. Build the banded graph (the arxiv shape: dst + U[-128, 128] with ids
+   scrambled), order it with `Graph.reorder_rcm()` and fail unless
+   `Graph.auto_plan()` gives a `BlockPairPlan` of fill >= 0.8. Hold the
+   block-pair forward and dw kernels against their plain versions: f32 and
+   bf16, F in {7, 40, 256}, weighted and unweighted, R = S = 8 with ET = 16
+   and the 256 defaults, N_src != N_dst with empty destination blocks, no
+   edges, a `reorder=True` plan, dx on the transpose plan, repeats bitwise
+   equal; on the banded graph time the forward at F = 256 and 40 beside
+   its plain version, `torch.sparse.mm` and the port's `spmm_csr` on the
+   same graph, and the dw kernel at F = 256.
+19. Serve GCN (the phase 5 model) on the banded graph through
+   `InferenceSession` with that plan: 8 requests against the plain COO
+   path, exactly 3 block-pair launches a request and nothing else; a
+   trace of 3 more; then the same 8 requests with the graph's
+   `csr_plan()` (3 SpMM launches each), the other side of the choice.
+20. Train that GCN for 5 steps with the gcn twin's step (Adam lr 0.01,
+   decay 5e-4, dropout 0.5) against the plain COO path under one
+   generator state: a forward launches the block-pair kernel 3 times and
+   its backward 3 more (dx on the transpose plan), 6 a step; step-0
+   gradients held in float32 compute; a trace of 3 more steps.
+21. Serve that GCN on the clustered graph (75% of the edges inside runs of
+   256 ids, 25% uniform), where `auto_plan()` must give a `HybridPlan`:
+   8 requests, exactly 3 block-pair and 3 `spmm_csr` launches each.
+22. Drive `spmm_block_pair` as the JAX package's test does (the gradient
+   of sum(out^2) in x and w, bf16, F = 256, the banded graph): per call 1
+   forward, 1 dx and 1 dw launch; the gradients held against the plain
+   version's.
+23. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path), and as the last
    line {"ok": true, "device": {...}}.
@@ -120,6 +147,13 @@ HGT_PAPERS, HGT_AUTHORS, HGT_FEAT, HGT_CLASSES = 100_000, 200_000, 128, 349
 HGT_WRITES, HGT_CITES = 2_000_000, 1_000_000
 HGT_HIDDEN, HGT_HEADS, HGT_LAYERS, HGT_LR = 256, 4, 2, 0.005
 N_HGT_CALLS = 3
+# the block-pair slice: the arxiv-shape graph with banded edges (dst + U[-128,
+# 128], clipped; ids scrambled, then recovered by reorder_rcm) and with
+# clustered edges (75% inside 256 consecutive ids, 25% uniform); the gcn
+# twin's Adam lr and decay, GCNModel's dropout
+BAND, CLUSTER, CLUSTER_SHARE = 128, 256, 0.75
+GCN_LR, GCN_L2, GCN_DROP = 0.01, 5e-4, 0.5
+N_BP_CALLS = 3
 N_REQUESTS, N_STEPS = 8, 5
 SEED = 0
 # step-0 gradients, each parameter: max |kernel - plain| <= GRAD_TOL *
@@ -143,6 +177,7 @@ FLASH_SOURCE = "gammagl_tpu_torch/csrc/flash_attention.cu"
 EDGE_SOURCE = "gammagl_tpu_torch/csrc/sddmm_csr.cu"
 MAX_SOURCE = "gammagl_tpu_torch/csrc/segment_max.cu"
 HGT_SOURCE = "gammagl_tpu_torch/csrc/hetero_flash.cu"
+BP_SOURCE = "gammagl_tpu_torch/csrc/block_pair.cu"
 PALLAS = "gammagl_tpu/ops/pallas/"
 # name -> (source, the TPU kernel it replaces, other TPU kernels it covers)
 KERNELS = {
@@ -160,7 +195,11 @@ KERNELS = {
     "segment_max_bwd": (MAX_SOURCE, PALLAS + "segment_max.py:195", []),
     "hgt_forward": (HGT_SOURCE, PALLAS + "hetero_flash.py:206", []),
     "hgt_backward": (HGT_SOURCE, PALLAS + "hetero_flash.py:257", []),
+    "spmm_block_pair": (BP_SOURCE, PALLAS + "block_pair.py:198", []),
+    "block_pair_dw": (BP_SOURCE, PALLAS + "block_pair.py:264", []),
 }
+NOTES = {"block_pair_dw": "the JAX VJP _bwd (block_pair.py:264) is XLA, not "
+                          "a Pallas kernel: it gathers both endpoint rows"}
 
 
 def fail(msg):
@@ -370,7 +409,9 @@ def counters(k):
             "spmm_max_csr": [k.spmm_max_csr, k.spmm_min_csr,
                              k.segment_max_csr, k.segment_min_csr],
             "segment_max_bwd": [k.segment_max_bwd],
-            "hgt_forward": [k.hgt_forward], "hgt_backward": [k.hgt_backward]}
+            "hgt_forward": [k.hgt_forward], "hgt_backward": [k.hgt_backward],
+            "spmm_block_pair": [k.spmm_block_pair],
+            "block_pair_dw": [k.block_pair_dw]}
 
 
 def reset_counts(k):
@@ -732,12 +773,9 @@ def phase_edge_checks(k, slice_plan):
 def phase_gcn_serve(k, GCNModel, InferenceSession, load_jax_params, plan, x,
                     ei):
     phase_start("phase 5: serve GCN through InferenceSession")
-    model = GCNModel(hidden_dim=HIDDEN, num_class=N_CLASS,
-                     num_layers=N_LAYERS, drop_rate=0.5,
-                     dtype=torch.bfloat16)
-    load_jax_params(model, random_params())
-    sess = InferenceSession(model, (x, ei), device="cuda",
-                            compute_dtype=torch.bfloat16, plan=plan)
+    sess = InferenceSession(gcn_model(GCNModel, load_jax_params), (x, ei),
+                            device="cuda", compute_dtype=torch.bfloat16,
+                            plan=plan)
     return serve(k, sess, x, ei, {"spmm_csr": N_LAYERS}, "GCN")
 
 
@@ -1430,6 +1468,314 @@ def phase_hgt_entry(k, plan):
     return counts, err
 
 
+def banded_graph(Graph):
+    """The arxiv-shape graph with banded edges: dst uniform, src = dst +
+    U[-BAND, BAND] clipped, 128 features; 40 classes in contiguous runs of
+    ids (neighbours share a class), each adding twice its own random
+    direction to its nodes' features, so GCN training has a signal to
+    follow. Node ids are scrambled: `reorder_rcm()` must find the band.
+    Returns the scrambled graph with self-loops."""
+    rng = np.random.default_rng(SEED + 20)
+    dst = rng.integers(0, N_NODES, N_EDGES)
+    src = np.clip(dst + rng.integers(-BAND, BAND + 1, N_EDGES), 0,
+                  N_NODES - 1)
+    y = np.arange(N_NODES) * N_CLASS // N_NODES
+    direction = rng.normal(size=(N_CLASS, N_FEAT))
+    x = (rng.normal(size=(N_NODES, N_FEAT)) + 2 * direction[y]).astype(
+        np.float32)
+    perm = rng.permutation(N_NODES)  # new id i holds old node perm[i]
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(N_NODES)
+    return Graph(x=x[perm], y=y[perm], edge_index=inv[np.stack([src, dst])]
+                 ).add_self_loop()
+
+
+def clustered_graph(Graph):
+    """The arxiv-shape graph with CLUSTER_SHARE of its edges inside
+    clusters of CLUSTER consecutive ids and the rest uniform: a dense
+    diagonal and a scattered tail, with self-loops."""
+    rng = np.random.default_rng(SEED + 21)
+    n_in = int(CLUSTER_SHARE * N_EDGES)
+    base = rng.integers(0, -(-N_NODES // CLUSTER), n_in) * CLUSTER
+    src = np.concatenate([
+        np.minimum(base + rng.integers(0, CLUSTER, n_in), N_NODES - 1),
+        rng.integers(0, N_NODES, N_EDGES - n_in)])
+    dst = np.concatenate([
+        np.minimum(base + rng.integers(0, CLUSTER, n_in), N_NODES - 1),
+        rng.integers(0, N_NODES, N_EDGES - n_in)])
+    x = rng.normal(size=(N_NODES, N_FEAT)).astype(np.float32)
+    return Graph(x=x, edge_index=np.stack([src, dst])).add_self_loop()
+
+
+def gcn_weights(ei, n):
+    """The first GCN layer's normalised edge weights, in the caller's
+    order: deg_src^-1/2 * deg_dst^-1/2."""
+    deg = torch.bincount(ei[1], minlength=n).float()
+    deg_src = torch.bincount(ei[0], minlength=n).float()
+    return deg_src.rsqrt()[ei[0]] * deg.rsqrt()[ei[1]]
+
+
+def _bp_small_case(rng, n_dst, n_src, e, R):
+    """Edges near the diagonal; every third destination block empty."""
+    dst = rng.integers(0, n_dst, e)
+    dst = dst[(dst // R) % 3 != 1]
+    src = np.clip(dst * n_src // n_dst
+                  + rng.integers(-2 * R, 2 * R + 1, dst.size), 0, n_src - 1)
+    return src, dst
+
+
+def phase_block_pair_checks(k, plan, csr_plan, w):
+    """The block-pair forward and dw kernels against their plain versions
+    on small cases, then on the banded slice graph (``plan``, its CSR
+    ``csr_plan`` and GCN weights ``w`` in the caller's order), where the
+    forward is timed beside the plain version, cuSPARSE (`torch.sparse.mm`)
+    and the port's own `spmm_csr` on the same graph. Returns (max abs error
+    by kernel, timings)."""
+    phase_start("phase 18: block-pair SpMM and dw kernels vs plain versions "
+                "on the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 22)
+    rng = np.random.default_rng(SEED + 22)
+    err = {"spmm_block_pair": 0.0, "block_pair_dw": 0.0}
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    plans = []
+    for R, S, ET in ((8, 8, 16), (256, 256, 256)):
+        n_dst, n_src = 40 * R // 8 + 3, 50 * R // 8 + 5  # N_src != N_dst
+        src, dst = _bp_small_case(rng, n_dst, n_src, 30 * n_dst, R)
+        p = k.build_block_pair_plan(src, dst, n_dst, num_src=n_src, R=R, S=S,
+                                    ET=ET)
+        if not (np.bincount(dst // R, minlength=p.nblocks) == 0).any():
+            fail("the small case has no empty destination block")
+        plans.append((f"R={R} S={S} ET={ET}", p))
+    none = np.zeros(0, np.int64)
+    plans.append(("E=0", k.build_block_pair_plan(none, none, 33, num_src=5,
+                                                 R=8, S=8, ET=16)))
+    n = 300
+    dst = rng.integers(0, n, 3000)
+    src = np.clip(dst + rng.integers(-6, 7, 3000), 0, n - 1)
+    scramble = rng.permutation(n)
+    plans.append(("reorder=True", k.build_block_pair_plan(
+        scramble[src], scramble[dst], n, R=8, S=8, ET=16, reorder=True)))
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for F in (7, 40, 256):
+            for pname, p in plans:
+                x = rand(p.num_src, F, dtype=dtype)
+                for weighted in (False, True):
+                    tag = f"{dtype} F={F} {pname} weighted={weighted}"
+                    wv = rand(p.num_edges).abs() if weighted else None
+                    got = k.spmm_block_pair(x, wv, p)
+                    err["spmm_block_pair"] = max(
+                        err["spmm_block_pair"], check_close(
+                            f"forward {tag}", got,
+                            k.spmm_block_pair_reference(x, wv, p), rtol))
+                    if not torch.equal(got, k.spmm_block_pair(x, wv, p)):
+                        fail(f"block pair {tag}: repeated launches differ")
+                g = rand(p.num_nodes, F, dtype=dtype)
+                tag = f"{dtype} F={F} {pname}"
+                # dx: the forward kernel on the transpose plan
+                tp = p.transpose()
+                wv = rand(p.num_edges).abs()
+                err["spmm_block_pair"] = max(
+                    err["spmm_block_pair"], check_close(
+                        f"dx (transpose plan) {tag}",
+                        k.spmm_block_pair(g, wv, tp),
+                        k.spmm_block_pair_reference(g, wv, tp), rtol))
+                err["block_pair_dw"] = max(
+                    err["block_pair_dw"], check_close(
+                        f"dw {tag}", k.block_pair_dw(x, g, p),
+                        k.block_pair_dw_reference(x, g, p), 1e-5))
+
+    # the slice graph: forward at GCN's widths, the dw kernel at F = 256
+    N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
+    n_pairs = plan.pair_src.shape[0]
+    plan_bytes = (E * 12 + plan.seg_ptr.nbytes + plan.block_ptr.nbytes
+                  + plan.pair_src.nbytes)  # row, col, w_perm and the index
+    rowptr, col, _ = csr_plan.arrays(dev)
+    w_csr = k.pad_edge_weights(csr_plan, w)
+    A = torch.sparse_csr_tensor(rowptr, col.long(), w_csr.to(torch.bfloat16),
+                                size=(N, Ns))
+    timings = {"spmm_block_pair": [], "block_pair_dw": []}
+    print(f"  slice graph: {N} nodes, {E} edges, {n_pairs} (dst block, src "
+          f"block) pairs, fill {plan.fill_ratio:.4f}")
+    for F in (HIDDEN, N_CLASS):
+        x = rand(Ns, F, dtype=torch.bfloat16)
+        e = check_close(f"slice graph forward bf16 F={F}",
+                        k.spmm_block_pair(x, w, plan),
+                        k.spmm_block_pair_reference(x, w, plan), 1e-2)
+        err["spmm_block_pair"] = max(err["spmm_block_pair"], e)
+        csr_ms = cuda_ms(lambda: k.spmm_csr(x, w_csr, csr_plan,
+                                            weights_padded=True))
+        row = timing(
+            f"spmm_block_pair F={F} bf16", lambda: k.spmm_block_pair(x, w,
+                                                                     plan),
+            lambda: k.spmm_block_pair_reference(x, w, plan),
+            # x, w and the plan's arrays in, out
+            nbytes=Ns * F * 2 + E * 4 + plan_bytes + N * F * 2,
+            flops=2 * E * F, library=lambda: torch.sparse.mm(A, x))
+        # where the time goes: weights read through w_perm (the route's),
+        # already in the plan's order, and none
+        w_plan = w[torch.from_numpy(plan.w_perm).to(dev).long()]
+        plan_order_ms = cuda_ms(lambda: k.spmm_block_pair(
+            x, w_plan, plan, weights_padded=True))
+        unit_ms = cuda_ms(lambda: k.spmm_block_pair(x, None, plan))
+        print(f"  the port's spmm_csr on the same graph, F={F} bf16: "
+              f"{csr_ms:.4f} ms (block pair {row['ms']:.4f} ms; with the "
+              f"weights in the plan's order {plan_order_ms:.4f} ms, unit "
+              f"weights {unit_ms:.4f} ms)")
+        timings["spmm_block_pair"].append({
+            "F": F, "max_abs_err": e, "spmm_csr_ms": csr_ms,
+            "plan_order_weights_ms": plan_order_ms, "unit_weights_ms": unit_ms,
+            **row})
+    F = HIDDEN
+    x = rand(Ns, F, dtype=torch.bfloat16)
+    # where the time goes, unit weights, F = 256: the same blocks with no
+    # edges (zero and write the output) and with the self-loops only (one
+    # slab and R edges a block)
+    none = np.zeros(0, np.int64)
+    ids = np.arange(N)
+    for name, p in (("no_edges", k.build_block_pair_plan(none, none, N)),
+                    ("self_loops_only", k.build_block_pair_plan(ids, ids,
+                                                                N))):
+        ms = cuda_ms(lambda: k.spmm_block_pair(x, None, p))
+        print(f"  spmm_block_pair F={F} bf16, unit weights, on {name}: "
+              f"{ms:.4f} ms")
+        timings["spmm_block_pair"][0][f"{name}_ms"] = ms
+    g = rand(N, F, dtype=torch.bfloat16)
+    e = check_close("slice graph dw bf16 F=256", k.block_pair_dw(x, g, plan),
+                    k.block_pair_dw_reference(x, g, plan), 1e-5)
+    err["block_pair_dw"] = max(err["block_pair_dw"], e)
+    mask = torch.sparse_csr_tensor(rowptr, col.long(),
+                                   torch.ones(E, device=dev,
+                                              dtype=torch.bfloat16),
+                                   size=(N, Ns))
+    timings["block_pair_dw"].append({"F": F, "max_abs_err": e, **timing(
+        f"block_pair_dw F={F} bf16", lambda: k.block_pair_dw(x, g, plan),
+        lambda: k.block_pair_dw_reference(x, g, plan),
+        # x, g, row, col and the slots in, dw out
+        nbytes=Ns * F * 2 + N * F * 2 + E * 12 + E * 4, flops=2 * E * F,
+        library=lambda: torch.sparse.sampled_addmm(mask, g, x.t(),
+                                                   beta=0.0))})
+    return err, timings
+
+
+def gcn_model(GCNModel, load_jax_params, dtype=torch.bfloat16):
+    model = GCNModel(hidden_dim=HIDDEN, num_class=N_CLASS,
+                     num_layers=N_LAYERS, drop_rate=GCN_DROP, dtype=dtype)
+    return load_jax_params(model, random_params())
+
+
+def phase_gcn_plan_serve(k, title, name, GCNModel, InferenceSession,
+                         load_jax_params, plan, x, ei, per_request,
+                         csr_plan=None):
+    """GCN served through `InferenceSession` with an `auto_plan()` plan:
+    N_REQUESTS requests held against the plain COO path, the launches a
+    request, then a trace of 3 more. With ``csr_plan``, the same requests
+    through the graph's CSR plan too (the other side of `auto_plan`'s
+    choice); returns their latencies as well."""
+    phase_start(title)
+    sess = InferenceSession(gcn_model(GCNModel, load_jax_params), (x, ei),
+                            compute_dtype=torch.bfloat16, plan=plan)
+    if sess.device.type != "cuda":
+        fail(f"InferenceSession's default device is {sess.device}")
+    counts, lat = serve(k, sess, x, ei, per_request, name)
+    prof = profile(name.replace(" ", "_"), lambda: sess(x, ei))
+    csr_lat = None
+    if csr_plan is not None:
+        csr_sess = InferenceSession(sess.model, (x, ei),
+                                    compute_dtype=torch.bfloat16,
+                                    plan=csr_plan)
+        _, csr_lat = serve(k, csr_sess, x, ei, {"spmm_csr": N_LAYERS},
+                           f"{name} (CSR plan)")
+    return counts, lat, prof, csr_lat
+
+
+def phase_gcn_banded_train(k, common, GCNModel, load_jax_params, plan, x,
+                           ei, y):
+    """The gcn twin's step (`common.train_step`: Adam lr 0.01 with decayed
+    weights 5e-4, dropout 0.5 drawn from one generator state on both
+    paths) on the banded graph with its `BlockPairPlan`, against the plain
+    COO path. A forward launches the block-pair kernel 3 times and its
+    backward 3 more (dx on the transpose plan; the weights need no
+    gradient): checked once apart, then 6 a step. Step-0 gradients are
+    held in float32 compute; the 5 steps run in bf16."""
+    phase_start("phase 20: train GCN (the gcn twin's step) on the banded "
+                "graph against the plain path")
+    per_step = {"spmm_block_pair": 2 * N_LAYERS}
+    rng = np.random.default_rng(SEED + 23)
+    mask = torch.from_numpy(rng.random(x.shape[0]) < 0.54).to(x.device)
+    model = gcn_model(GCNModel, load_jax_params).to(x.device).train()
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 24)
+    sync()
+    reset_counts(k)
+    loss = torch.nn.functional.cross_entropy(
+        model(x, ei, plan=plan, generator=gen)[mask], y[mask])
+    sync()
+    fwd = read_counts(k)["spmm_block_pair"]
+    loss.backward()
+    sync()
+    both = read_counts(k)
+    print(f"  one step: {fwd} block-pair launches in the forward, "
+          f"{both['spmm_block_pair'] - fwd} in the backward; {both}")
+    if (fwd, both) != (N_LAYERS, every_kernel(per_step)):
+        fail(f"GCN step launches: forward {fwd}, in all {both}")
+    grad_err, _ = f32_step0_grads(
+        k, "GCN", lambda: gcn_model(GCNModel, load_jax_params, None), common,
+        per_step, plan, x, ei, (y, mask))
+    launches, losses, step_ms, _, (state, _, _, _) = train_phase(
+        k, "GCN", lambda: gcn_model(GCNModel, load_jax_params), common,
+        per_step, GCN_LR, GCN_L2, plan, x, ei, check_step0=False,
+        labels=(y, mask))
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 200)
+    prof = profile("gcn_banded_train", lambda: common.train_step(
+        state, x, ei, y, mask, plan=plan, generator=gen))
+    return launches, losses, step_ms, grad_err, prof
+
+
+def phase_block_pair_entry(k, plan, w):
+    """`spmm_block_pair` as the JAX package's test_block_pair_grads drives
+    it: the gradient of sum(out^2) in x and w (bf16 x, F = 256, the banded
+    graph's GCN weights). Per call 1 forward, 1 dx (the same kernel on the
+    transpose plan) and 1 dw launch. The last call's gradients are held
+    against the plain versions on the same cotangent, 2 * out (bf16, as
+    autograd hands it over): dx within one bf16 rounding, dw within 1e-5.
+    (The plain forward's own autograd is no yardstick in bf16: it adds the
+    per-edge bf16 cotangents of x in bf16.)"""
+    phase_start("phase 22: the spmm_block_pair entry point, forward and "
+                "backward")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 25)
+    x0 = torch.randn(plan.num_src, HIDDEN, generator=gen).to(
+        dev, torch.bfloat16)
+    sync()
+    reset_counts(k)
+    for r in range(N_BP_CALLS):
+        x = (x0 + r * 1e-3).requires_grad_()
+        wr = w.clone().requires_grad_()
+        out = k.spmm_block_pair(x, wr, plan)
+        (out.float() ** 2).sum().backward()
+    sync()
+    counts = read_counts(k)
+    want = every_kernel({"spmm_block_pair": 2, "block_pair_dw": 1},
+                        N_BP_CALLS)
+    print(f"  {N_BP_CALLS} calls, launches {counts}")
+    if counts != want:
+        fail(f"block-pair entry point: expected launches {want}, counted "
+             f"{counts}")
+    g = (2 * out.detach().float()).to(torch.bfloat16)
+    if not torch.isfinite(out).all():
+        fail("block-pair entry point: non-finite output")
+    err = {"spmm_block_pair": check_close(
+               "entry point dx", x.grad,
+               k.spmm_block_pair_reference(g, w, plan.transpose()), 1e-2),
+           "block_pair_dw": check_close(
+               "entry point dw", wr.grad,
+               k.block_pair_dw_reference(x.detach(), g, plan), 1e-5)}
+    return counts, err
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this smoke run needs the card")
@@ -1469,12 +1815,8 @@ def main():
         fail("slice graph has the wrong size")
     x = torch.from_numpy(graph.x).to(dev)
     ei = torch.from_numpy(graph.edge_index).to(dev)
-    # the first GCN layer's normalised edge weights, in CSR order
-    deg = torch.bincount(ei[1], minlength=N_NODES).float()
-    deg_src = torch.bincount(ei[0], minlength=N_NODES).float()
-    w = deg_src.rsqrt()[ei[0]] * deg.rsqrt()[ei[1]]
-    spmm_err, spmm_ms = phase_spmm_checks(k, plan,
-                                          k.pad_edge_weights(plan, w))
+    spmm_err, spmm_ms = phase_spmm_checks(
+        k, plan, k.pad_edge_weights(plan, gcn_weights(ei, N_NODES)))
     flash_err, flash_ms = phase_flash_checks(k, plan)
     edge_err, edge_ms = phase_edge_checks(k, plan)
     gcn_counts, gcn_lat = phase_gcn_serve(k, GCNModel, InferenceSession,
@@ -1512,6 +1854,50 @@ def main():
                                        ei_dict, hgt_plans)
     hgt_entry_counts, hgt_entry_err = phase_hgt_entry(k, hgt_plan)
 
+    t0 = time.perf_counter()
+    banded = banded_graph(Graph)
+    fill_scrambled = banded.block_pair_fill()
+    t1 = time.perf_counter()
+    banded, _ = banded.reorder_rcm()
+    t_rcm = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    bp_plan = banded.auto_plan()
+    t_plan = time.perf_counter() - t1
+    print(f"  banded graph: {banded.num_nodes} nodes, {banded.num_edges} "
+          f"edges with self-loops; block-pair fill {fill_scrambled:.4f} "
+          f"scrambled; reorder_rcm {t_rcm:.2f} s; auto_plan {t_plan:.2f} s: "
+          f"{bp_plan!r}; built in {time.perf_counter() - t0:.2f} s")
+    if not (isinstance(bp_plan, k.BlockPairPlan)
+            and bp_plan.fill_ratio >= 0.8):
+        fail(f"auto_plan on the RCM-ordered banded graph gave {bp_plan!r}")
+    bx = torch.from_numpy(banded.x).to(dev)
+    bei = torch.from_numpy(banded.edge_index).to(dev)
+    bw = gcn_weights(bei, N_NODES)
+    bp_err, bp_ms = phase_block_pair_checks(k, bp_plan, banded.csr_plan(), bw)
+    bserve_counts, bserve_lat, bserve_prof, bcsr_lat = phase_gcn_plan_serve(
+        k, "phase 19: serve GCN on the banded graph (reorder_rcm, "
+        "auto_plan: block pair)", "GCN banded", GCNModel, InferenceSession,
+        load_jax_params, bp_plan, bx, bei, {"spmm_block_pair": N_LAYERS},
+        csr_plan=banded.csr_plan())
+    (btrain_counts, btrain_losses, btrain_step_ms, btrain_grad_err,
+     btrain_prof) = phase_gcn_banded_train(
+        k, common, GCNModel, load_jax_params, bp_plan, bx, bei,
+        torch.from_numpy(banded.y).to(dev))
+    t0 = time.perf_counter()
+    clustered = clustered_graph(Graph)
+    hy_plan = clustered.auto_plan()
+    print(f"  clustered graph: {clustered.num_edges} edges with self-loops; "
+          f"auto_plan {hy_plan!r} in {time.perf_counter() - t0:.2f} s")
+    if not isinstance(hy_plan, k.HybridPlan):
+        fail(f"auto_plan on the clustered graph gave {hy_plan!r}")
+    cserve_counts, cserve_lat, cserve_prof, _ = phase_gcn_plan_serve(
+        k, "phase 21: serve GCN on the clustered graph (auto_plan: hybrid)",
+        "GCN clustered", GCNModel, InferenceSession, load_jax_params,
+        hy_plan, torch.from_numpy(clustered.x).to(dev),
+        torch.from_numpy(clustered.edge_index).to(dev),
+        {"spmm_block_pair": N_LAYERS, "spmm_csr": N_LAYERS})
+    bp_entry_counts, bp_entry_err = phase_block_pair_entry(k, bp_plan, bw)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1523,13 +1909,18 @@ def main():
             "gatv2_train": v2_train_counts, "sddmm": sddmm_counts,
             "sage_serve": sage_counts, "sage_train": sage_train_counts,
             "hgt_serve": hgt_counts, "hgt_train": hgt_train_counts,
-            "hgt_entry": hgt_entry_counts}
+            "hgt_entry": hgt_entry_counts, "gcn_banded_serve": bserve_counts,
+            "gcn_banded_train": btrain_counts,
+            "gcn_clustered_serve": cserve_counts,
+            "block_pair_entry": bp_entry_counts}
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err}
     errs["hgt_backward"] = max(errs["hgt_backward"], hgt_entry_err)
+    for name in bp_err:
+        errs[name] = max(bp_err[name], bp_entry_err[name])
     # each kernel's headline shape: the widest its main path runs
     shapes = {"spmm_csr": [spmm_ms[HIDDEN], spmm_ms[N_CLASS]], **flash_ms,
-              **edge_ms, **max_ms, **hgt_ms}
+              **edge_ms, **max_ms, **hgt_ms, **bp_ms}
     entries = []
     for name, (source, replaces, also) in KERNELS.items():
         head = shapes[name][0]
@@ -1543,6 +1934,8 @@ def main():
                  "library_ms": head["library_ms"], "by_shape": shapes[name]}
         if also:
             entry["also_replaces"] = also
+        if name in NOTES:
+            entry["note"] = NOTES[name]
         if entry["launches"] == 0:
             fail(f"{name} was launched on no path")
         entries.append(entry)
@@ -1584,11 +1977,28 @@ def main():
             np.median(hgt_step_ms["plain"][1:])),
         "hgt_train_losses": hgt_losses["kernel"],
         "hgt_step0_f32_grad_max_abs_err": hgt_grad_err,
-        "hgt_profile": {"serve": hgt_serve_prof, "train": hgt_train_prof}}))
-    # the run used one card, whatever the machine holds
+        "hgt_profile": {"serve": hgt_serve_prof, "train": hgt_train_prof},
+        "banded_fill_scrambled": fill_scrambled,
+        "banded_fill": bp_plan.fill_ratio, "banded_reorder_rcm_s": t_rcm,
+        "banded_auto_plan_s": t_plan,
+        "clustered_dense_frac": hy_plan.dense_frac,
+        "gcn_banded_request_p50_ms": float(np.median(bserve_lat)),
+        "gcn_banded_request_max_ms": float(bserve_lat.max()),
+        "gcn_banded_csr_plan_request_p50_ms": float(np.median(bcsr_lat)),
+        "gcn_clustered_request_p50_ms": float(np.median(cserve_lat)),
+        "gcn_clustered_request_max_ms": float(cserve_lat.max()),
+        "gcn_banded_train_step_ms": float(np.median(
+            btrain_step_ms["kernel"][1:])),
+        "gcn_banded_train_step_plain_ms": float(np.median(
+            btrain_step_ms["plain"][1:])),
+        "gcn_banded_train_losses": btrain_losses["kernel"],
+        "gcn_banded_step0_f32_grad_max_abs_err": btrain_grad_err,
+        "gcn_profile": {"banded_serve": bserve_prof,
+                        "clustered_serve": cserve_prof,
+                        "banded_train": btrain_prof}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -9,10 +9,12 @@ at first use, never at import. This package imports neither JAX nor
 
 Layer map:
   ops/        -- segment reductions, edge softmax, COO SpMM and SDDMM; the
-                 kernels: CSR SpMM and per-edge segment sum, segment max
-                 and min, fused edge attention, HGT attention, destination
-                 expand and SDDMM, with backwards
-  data/       -- Graph, HeteroGraph (host-side structure, cached CSR plans)
+                 kernels: CSR SpMM and per-edge segment sum, block-pair
+                 SpMM, segment max and min, fused edge attention, HGT
+                 attention, destination expand and SDDMM, with backwards
+  data/       -- Graph (cached CSR and block-pair plans, node reorderings,
+                 auto_plan), HeteroGraph
+  parallel/   -- the node orderings (RCM, label propagation)
   layers/     -- MessagePassing, GCNConv, GATConv, GATV2Conv, SAGEConv,
                  HeteroConv, HGTConv
   models/     -- GCNModel, GATModel, GATV2Model, GraphSAGEModel,

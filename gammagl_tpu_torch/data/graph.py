@@ -3,13 +3,19 @@
 
 Attributes live in one flat mapping. The structure stays on the host:
 ``edge_index`` is a (2, E) numpy array, from which `csr_plan()` builds the
-destination-sorted CSR once. Tensors for the device are made by the
-caller (or by `InferenceSession`), not by the container.
+destination-sorted CSR once, and `auto_plan()` picks between it and the
+block-pair layouts; `reorder_rcm()`, `reorder_cluster()` and
+`reorder_best()` relabel the nodes for the latter. Tensors for the device
+are made by the caller (or by `InferenceSession`), not by the container.
 """
 
 import numpy as np
+import torch
 
-from gammagl_tpu_torch.ops.cuda import build_csr_plan_blocked
+from gammagl_tpu_torch.ops.cuda import (build_block_pair_plan,
+                                        build_csr_plan_blocked,
+                                        build_hybrid_plan)
+from gammagl_tpu_torch.parallel import cluster_permutation, reorder_bandwidth
 from gammagl_tpu_torch.utils.loop import add_self_loops
 
 __all__ = ["Graph"]
@@ -29,6 +35,7 @@ class Graph:
         object.__setattr__(self, "_store", store)
         object.__setattr__(self, "_num_nodes", num_nodes)
         object.__setattr__(self, "_csr_plan", None)
+        object.__setattr__(self, "_bp_plans", {})  # (R, S, ET) -> (fill, plan)
 
     # -- attribute access ---------------------------------------------------
     def __getattr__(self, key):
@@ -91,8 +98,118 @@ class Graph:
                 num_src_blocks=num_src_blocks, window=window))
         return self._csr_plan
 
+    def reorder_rcm(self):
+        """Bandwidth-reducing (reverse Cuthill-McKee) node relabeling.
+
+        Returns (graph', perm): graph' has every per-node attribute
+        permuted and the edge ids remapped (new id i holds old node
+        perm[i]); the edge order is kept. Run it once before `auto_plan()`:
+        a banded adjacency is what the block-pair kernel needs."""
+        perm, inv = reorder_bandwidth(np.asarray(self.edge_index),
+                                      self.num_nodes)
+        return self._permuted(perm, inv), perm
+
+    def _permuted(self, perm, inv):
+        n = self.num_nodes
+        ei = np.asarray(self.edge_index)
+        attrs = {}
+        for k, v in self._store.items():
+            if k == "edge_index":
+                attrs[k] = inv[ei]
+            elif hasattr(v, "shape") and len(v.shape) >= 1 and v.shape[0] == n:
+                attrs[k] = (v[torch.from_numpy(perm).to(v.device)]
+                            if isinstance(v, torch.Tensor)
+                            else np.asarray(v)[perm])
+            else:
+                attrs[k] = v
+        return Graph(num_nodes=n, **attrs)
+
+    def reorder_cluster(self, rounds=8):
+        """Community-clustering relabeling (label propagation,
+        `parallel.partition.cluster_permutation`): nodes laid out
+        cluster-contiguously, so the (dst block, src block) tiling of the
+        block-pair kernel is dense on clustered graphs, where RCM's band
+        is loose. Returns (graph', perm)."""
+        perm, inv = cluster_permutation(np.asarray(self.edge_index),
+                                        self.num_nodes, rounds=rounds)
+        return self._permuted(perm, inv), perm
+
+    def reorder_best(self, R=256, S=256, ET=256, rounds=8):
+        """Try the natural, RCM and label-propagation orders and keep the
+        one with the highest block-pair fill. Returns (graph', perm, name,
+        fill); the natural order returns (self, identity, 'natural',
+        fill)."""
+        ei = np.asarray(self.edge_index)
+        n = self.num_nodes
+
+        def fill_of(e):
+            pair = ((e[1] // R).astype(np.int64) * (1 + n // S)
+                    + e[0] // S)
+            _, counts = np.unique(pair, return_counts=True)
+            return e.shape[1] / max(int((-(-counts // ET) * ET).sum()), 1)
+
+        best = ("natural", np.arange(n), np.arange(n), fill_of(ei))
+        for name, fn in (("rcm", lambda: reorder_bandwidth(ei, n)),
+                         ("cluster", lambda: cluster_permutation(
+                             ei, n, rounds=rounds))):
+            try:
+                perm, inv = fn()
+            except Exception:  # scipy missing etc., as in the JAX package
+                continue
+            f = fill_of(inv[ei])
+            if f > best[3]:
+                best = (name, perm, inv, f)
+        name, perm, inv, fill = best
+        if name == "natural":
+            return self, perm, name, fill
+        return self._permuted(perm, inv), perm, name, fill
+
+    def block_pair_fill(self, R=256, S=256, ET=256):
+        """O(E) estimate of the block-pair plan's ``fill_ratio``: the
+        (dst block, src block) pair counts, each padded to a multiple of
+        ET, without building the plan."""
+        ei = np.asarray(self.edge_index)
+        pair = ((ei[1] // R).astype(np.int64)
+                * (1 + self.num_nodes // S) + ei[0] // S)
+        _, counts = np.unique(pair, return_counts=True)
+        e_pad = int((-(-counts // ET) * ET).sum())
+        return ei.shape[1] / max(e_pad, 1)
+
+    def auto_plan(self, fill_threshold=0.8, R=256, S=256, ET=256,
+                  hybrid_threshold=0.25):
+        """The SpMM plan for this graph, by the JAX package's rule: a
+        `BlockPairPlan` when the (dst block, src block) tiling fills to at
+        least ``fill_threshold`` (typical after `reorder_rcm()` or
+        `reorder_cluster()`); a `HybridPlan` when at least
+        ``hybrid_threshold`` of the edges sit in pairs of 0.75 * ET edges or
+        more (those go to the block-pair kernel, the tail to the CSR
+        kernel); `csr_plan()` otherwise. Cached per (R, S, ET); the result
+        goes into any conv's ``plan=``."""
+        key = (R, S, ET)
+        if key in self._bp_plans:
+            return self._bp_plans[key][1]
+        ei = np.asarray(self.edge_index)
+        fill = self.block_pair_fill(R, S, ET)
+        if fill >= fill_threshold:
+            plan = build_block_pair_plan(ei[0], ei[1], self.num_nodes, R=R,
+                                         S=S, ET=ET)
+        else:
+            pair = ((ei[1] // R).astype(np.int64)
+                    * (1 + self.num_nodes // S) + ei[0] // S)
+            _, inverse, counts = np.unique(pair, return_inverse=True,
+                                           return_counts=True)
+            dense_frac = float((counts[inverse.reshape(-1)]
+                                >= (3 * ET) // 4).mean())
+            if dense_frac >= hybrid_threshold:
+                plan = build_hybrid_plan(ei[0], ei[1], self.num_nodes, R=R,
+                                         S=S, ET=ET)
+            else:
+                plan = self.csr_plan()
+        self._bp_plans[key] = (fill, plan)
+        return plan
+
     def clone(self):
-        """Shallow copy of the attributes; the cached plan is not shared."""
+        """Shallow copy of the attributes; no cached plan is shared."""
         g = Graph(num_nodes=self._num_nodes)
         g._store.update(self._store)
         return g

@@ -129,6 +129,15 @@ def run_simple_node_trainer(model, args, data=None, params=None,
     ``params``: a flax-shaped tree for `load_jax_params` (None: the model's
     own init from ``args.seed``). A model whose forward takes a
     ``generator`` gets one, seeded from ``args.seed + 1``, for its dropout.
+    ``forward_kwargs`` go to every forward; a ``plan`` there replaces the
+    CSR plan. It must be a plan of the edges the loop trains on, which are
+    ``data["edge_index"]`` with self-loops appended; for the block-pair
+    route, relabel ``data`` first (`Graph.reorder_rcm`), then::
+
+        ei, _ = add_self_loops(data["edge_index"], num_nodes=n)
+        plan = Graph(edge_index=ei, num_nodes=n).auto_plan()
+        run_simple_node_trainer(model, args, data,
+                                forward_kwargs={"plan": plan})
 
     Returns {"losses", "best_val", "best_test", "best_params", "state"}:
     the test accuracy at the best validation accuracy, and a copy of the

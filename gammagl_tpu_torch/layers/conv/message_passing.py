@@ -2,17 +2,21 @@
 
 Counterpart of `gammagl_tpu/layers/conv/message_passing.py`. When a
 subclass overrides neither `message` nor `aggregate`, `propagate` takes
-the fused path: the COO `spmm`, or with a `CSRPlan` (`Graph.csr_plan()`)
-the CSR SpMM ('sum', 'mean') or segment max ('max'), which run the
-hand-written kernels on the card.
+the fused path: the COO `spmm`, or with a plan the hand-written kernels on
+the card: with a `CSRPlan` (`Graph.csr_plan()`) the CSR SpMM ('sum',
+'mean') or segment max ('max'), with a `BlockPairPlan` or `HybridPlan`
+(`Graph.auto_plan()`) the block-pair SpMM (with the CSR SpMM for the
+hybrid's tail).
 """
 
 from typing import Optional
 
 from torch import nn
 
-from gammagl_tpu_torch.ops import (segment_count, segment_max, segment_mean,
-                                   segment_sum, spmm, spmm_csr, spmm_max_csr)
+from gammagl_tpu_torch.ops import (BlockPairPlan, HybridPlan, segment_count,
+                                   segment_max, segment_mean, segment_sum,
+                                   spmm, spmm_block_pair, spmm_csr,
+                                   spmm_hybrid, spmm_max_csr)
 
 __all__ = ["MessagePassing"]
 
@@ -45,23 +49,33 @@ class MessagePassing(nn.Module):
 
     def message_aggregate(self, x, edge_index, edge_weight=None, aggr="sum",
                           num_nodes=None, plan=None):
-        """Fused message + aggregate. With a plan, 'sum' and 'mean' go to
-        `spmm_csr` ('mean' as a sum with 1/deg(dst) edge weights) and 'max'
-        to `spmm_max_csr`."""
+        """Fused message + aggregate, dispatched by the plan's type as the
+        JAX layer does: 'sum' and 'mean' ('mean' as a sum with 1/deg(dst)
+        edge weights) go to `spmm_csr` with a `CSRPlan`, to
+        `spmm_block_pair` with a `BlockPairPlan` and to `spmm_hybrid` with
+        a `HybridPlan` (`Graph.auto_plan()`); 'max' goes to `spmm_max_csr`
+        with a `CSRPlan` and to the COO `spmm` with the other two."""
         if plan is None:
             return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
                         reduce=aggr)
+        blocked = isinstance(plan, (BlockPairPlan, HybridPlan))
+        if aggr == "max":
+            if blocked:
+                return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
+                            reduce="max")
+            return spmm_max_csr(x, edge_weight, plan)
+        kernel = (spmm_block_pair if isinstance(plan, BlockPairPlan)
+                  else spmm_hybrid if isinstance(plan, HybridPlan)
+                  else spmm_csr)
         if aggr == "sum":
-            return spmm_csr(x, edge_weight, plan)
+            return kernel(x, edge_weight, plan)
         if aggr == "mean":
             deg = segment_count(edge_index[1], num_nodes)
             inv = deg.reciprocal().masked_fill_(deg == 0, 0.0)
             w = inv[edge_index[1].long()]
             if edge_weight is not None:
                 w = w * edge_weight
-            return spmm_csr(x, w, plan)
-        if aggr == "max":
-            return spmm_max_csr(x, edge_weight, plan)
+            return kernel(x, w, plan)
         raise NotImplementedError(f"aggr {aggr!r} not supported")
 
     def update(self, x):

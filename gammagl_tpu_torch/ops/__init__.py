@@ -1,7 +1,8 @@
 """Message-passing ops: plain PyTorch segment reductions, edge softmax,
 COO SpMM and SDDMM, with the kernels of `gammagl_tpu_torch.ops.cuda` (CSR
-SpMM and segment sum, segment max and min, fused edge attention, HGT
-attention, destination expand and SDDMM) for the plan path."""
+SpMM and segment sum, block-pair SpMM, segment max and min, fused edge
+attention, HGT attention, destination expand and SDDMM) for the plan
+path."""
 
 from gammagl_tpu_torch.ops.segment import (  # noqa: F401
     segment_count,
@@ -35,6 +36,13 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     segment_min_csr,
     spmm_max_csr,
     spmm_min_csr,
+    BlockPairPlan,
+    build_block_pair_plan,
+    spmm_block_pair,
+    spmm_block_pair_reference,
+    HybridPlan,
+    build_hybrid_plan,
+    spmm_hybrid,
 )
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
@@ -47,4 +55,7 @@ __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
            "flash_edge_attention", "flash_edge_attention_mh",
            "flash_gat_attention", "flash_softmax_spmm",
            "flash_softmax_spmm_mh", "spmm_max_csr", "spmm_min_csr",
-           "segment_max_csr", "segment_min_csr", "hgt_flash_packed"]
+           "segment_max_csr", "segment_min_csr", "hgt_flash_packed",
+           "BlockPairPlan", "build_block_pair_plan", "spmm_block_pair",
+           "spmm_block_pair_reference", "HybridPlan", "build_hybrid_plan",
+           "spmm_hybrid"]

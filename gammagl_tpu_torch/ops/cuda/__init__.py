@@ -47,6 +47,17 @@ from gammagl_tpu_torch.ops.cuda.hetero_flash import (  # noqa: F401
     hgt_forward,
     hgt_forward_reference,
 )
+from gammagl_tpu_torch.ops.cuda.block_pair import (  # noqa: F401
+    BlockPairPlan,
+    HybridPlan,
+    block_pair_dw,
+    block_pair_dw_reference,
+    build_block_pair_plan,
+    build_hybrid_plan,
+    spmm_block_pair,
+    spmm_block_pair_reference,
+    spmm_hybrid,
+)
 from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
     attention_keep_mask,
     flash_backward,
@@ -76,4 +87,8 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "segment_max_csr_reference", "segment_min_csr_reference",
            "segment_max_bwd", "segment_max_bwd_reference",
            "hgt_flash_packed", "hgt_forward", "hgt_backward",
-           "hgt_forward_reference", "hgt_backward_reference"]
+           "hgt_forward_reference", "hgt_backward_reference",
+           "BlockPairPlan", "build_block_pair_plan", "spmm_block_pair",
+           "spmm_block_pair_reference", "block_pair_dw",
+           "block_pair_dw_reference", "HybridPlan", "build_hybrid_plan",
+           "spmm_hybrid"]

@@ -42,6 +42,7 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import _csr_rows
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _first_order_only
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _raise_on, spmm_csr
+from gammagl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["attention_keep_mask", "flash_edge_attention",
            "flash_edge_attention_mh", "flash_softmax_spmm",
@@ -55,8 +56,14 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 def attention_keep_mask(generator, rate, shape, device=None):
     """Pre-scaled dropout weights for ``keep``: {0, 1/(1-rate)} float32
-    of ``shape``, each kept with probability 1 - rate. ``generator`` is a
-    `torch.Generator` on ``device`` (None: the default generator)."""
+    of ``shape``, each kept with probability 1 - rate, drawn from
+    ``generator`` (None: the default generator of the device). ``device``
+    None means the generator's device, and without a generator the current
+    CUDA card (`utils.device.resolve_device`, which raises when torch sees
+    none): the mask is drawn on the host only when asked for."""
+    if device is None:
+        device = (generator.device if generator is not None
+                  else resolve_device(None))
     kp = 1.0 - rate
     u = torch.rand(shape, generator=generator, device=device)
     return (u < kp).float() / kp

@@ -10,6 +10,15 @@ steady-state cost.
                             compute_dtype=torch.bfloat16,
                             plan=graph.csr_plan())
     logits = sess(x, edge_index)
+
+On a graph with locality, relabel the nodes once and let the graph pick
+its plan: the block-pair kernel when the (dst block, src block) tiling is
+dense, a hybrid of it and the CSR kernel when part of it is:
+
+    g2, perm = graph.reorder_rcm()          # g2.x == graph.x[perm]
+    sess = InferenceSession(model, (g2.x, g2.edge_index), device="cuda",
+                            compute_dtype=torch.bfloat16,
+                            plan=g2.auto_plan())
 """
 
 import numpy as np

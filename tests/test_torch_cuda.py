@@ -738,3 +738,154 @@ def test_hgt_model_on_card_takes_the_routes_of_the_plans(card):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * max(float(b.abs().max()),
                                                    0.05 * scale))
+
+
+def _bp_case(seed, n_dst, n_src, e, R):
+    """Edges near the diagonal, every third destination block empty."""
+    rng = np.random.default_rng(seed)
+    dst = rng.integers(0, n_dst, e)
+    dst = dst[(dst // R) % 3 != 1]
+    src = np.clip(dst * n_src // n_dst + rng.integers(-2 * R, 2 * R + 1,
+                                                      dst.size),
+                  0, n_src - 1)
+    return src, dst
+
+
+@pytest.mark.parametrize("F", [7, 40, 256])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("weights", ["none", "given", "padded"])
+@pytest.mark.parametrize("tiling", [(8, 8, 16), (256, 256, 256)])
+def test_block_pair_kernel_matches_plain(card, F, dtype, rtol, weights,
+                                         tiling):
+    R, S, ET = tiling
+    n_dst, n_src = 40 * R // 8 + 3, 50 * R // 8 + 5
+    src, dst = _bp_case(F, n_dst, n_src, 30 * n_dst, R)
+    plan = kops.build_block_pair_plan(src, dst, n_dst, num_src=n_src, R=R,
+                                      S=S, ET=ET)
+    g = torch.Generator().manual_seed(F)
+    x = torch.randn(n_src, F, generator=g).to(card, dtype)
+    w = None
+    if weights != "none":
+        w = torch.rand(dst.size, generator=g).to(card)
+    padded = weights == "padded"
+    if padded:
+        w = w[torch.from_numpy(plan.w_perm).long().to(card)]
+    before = kops.spmm_block_pair.launches
+    got = kops.spmm_block_pair(x, w, plan, weights_padded=padded)
+    torch.cuda.synchronize()
+    assert kops.spmm_block_pair.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n_dst, F)
+    _close(got, kops.spmm_block_pair_reference(x, w, plan,
+                                               weights_padded=padded), rtol)
+    empty = (np.bincount(dst // R, minlength=plan.nblocks) == 0)
+    assert empty.any()
+    rows = torch.from_numpy(np.repeat(empty, R)[:n_dst]).to(card)
+    assert bool((got[rows] == 0).all())
+    # deterministic: no atomics, a fixed order in every row
+    assert torch.equal(got, kops.spmm_block_pair(x, w, plan,
+                                                 weights_padded=padded))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_pair_no_edges_and_reordered_plan(card, dtype):
+    none = np.zeros(0, np.int64)
+    empty = kops.build_block_pair_plan(none, none, 33, num_src=5, R=8, S=8,
+                                       ET=16)
+    out = kops.spmm_block_pair(torch.ones(5, 40, device=card, dtype=dtype),
+                               torch.zeros(0, device=card), empty)
+    torch.cuda.synchronize()
+    assert out.shape == (33, 40) and bool((out == 0).all())
+    rng = np.random.default_rng(5)
+    n = 300
+    dst = rng.integers(0, n, 3000)
+    src = np.clip(dst + rng.integers(-6, 7, 3000), 0, n - 1)
+    p = rng.permutation(n)
+    plan = kops.build_block_pair_plan(p[src], p[dst], n, R=8, S=8, ET=16,
+                                      reorder=True)
+    x = torch.randn(n, 64).to(card, dtype)
+    w = torch.rand(3000, device=card)
+    perm = torch.from_numpy(plan.perm_nodes).to(card).long()
+    got = torch.empty_like(x).index_copy_(
+        0, perm, kops.spmm_block_pair(x[perm], w, plan))
+    want = kops.spmm_csr_reference(x, w, kops.build_csr_plan(p[src], p[dst],
+                                                             n))
+    _close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("F", [7, 256])
+def test_block_pair_backward_matches_plain(card, dtype, rtol, F):
+    """dx through the forward kernel on the transpose plan, dw through the
+    dw kernel: 1 forward, 1 dx and 1 dw launch."""
+    src, dst = _bp_case(7, 290, 330, 6000, 32)
+    plan = kops.build_block_pair_plan(src, dst, 290, num_src=330, R=32,
+                                      S=32, ET=64)
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(333, F, generator=g).to(card, dtype).requires_grad_()
+    w = torch.rand(dst.size, generator=g).to(card).requires_grad_()
+    gy = torch.randn(290, F, generator=g).to(card, dtype)
+    before = (kops.spmm_block_pair.launches, kops.block_pair_dw.launches)
+    kops.spmm_block_pair(x, w, plan).backward(gy)
+    torch.cuda.synchronize()
+    assert (kops.spmm_block_pair.launches - before[0],
+            kops.block_pair_dw.launches - before[1]) == (2, 1)
+    xc, wc = x.detach().cpu().requires_grad_(), w.detach().cpu()
+    wc.requires_grad_()
+    kops.spmm_block_pair(xc, wc, plan).backward(gy.cpu())
+    _close(x.grad, xc.grad, rtol)
+    assert bool((x.grad[330:] == 0).all())
+    _close(w.grad, wc.grad, 1e-5)
+    _close(kops.block_pair_dw(x.detach(), gy, plan),
+           kops.block_pair_dw_reference(x.detach(), gy, plan), 1e-5)
+
+
+def test_hybrid_plan_on_card_runs_both_kernels(card):
+    rng = np.random.default_rng(9)
+    n = 2048
+    sd, dd = [], []
+    for b in range(n // 256):
+        sd.append(b * 256 + rng.integers(0, 256, 600))
+        dd.append(b * 256 + rng.integers(0, 256, 600))
+    sd.append(rng.integers(0, n, 2000))
+    dd.append(rng.integers(0, n, 2000))
+    src, dst = np.concatenate(sd), np.concatenate(dd)
+    plan = kops.build_hybrid_plan(src, dst, n)
+    assert plan.bp is not None and plan.csr is not None
+    x = torch.randn(n, 40, device=card)
+    w = torch.rand(src.size, device=card)
+    before = (kops.spmm_block_pair.launches, kops.spmm_csr.launches)
+    got = kops.spmm_hybrid(x, w, plan)
+    torch.cuda.synchronize()
+    assert (kops.spmm_block_pair.launches - before[0],
+            kops.spmm_csr.launches - before[1]) == (1, 1)
+    _close(got, kops.spmm_csr_reference(x, w, kops.build_csr_plan(src, dst,
+                                                                  n)), 1e-5)
+
+
+def test_gcn_session_on_card_takes_the_block_pair_route(card):
+    rng = np.random.default_rng(12)
+    n, e = 4000, 40000
+    dst = rng.integers(0, n, e)
+    src = np.clip(dst + rng.integers(-64, 65, e), 0, n - 1)
+    p = rng.permutation(n)
+    graph = Graph(x=rng.normal(size=(n, 48)).astype(np.float32),
+                  edge_index=np.stack([p[src], p[dst]])).add_self_loop()
+    g2, _ = graph.reorder_rcm()
+    plan = g2.auto_plan()
+    assert isinstance(plan, kops.BlockPairPlan), plan
+    model = GCNModel(hidden_dim=64, num_class=7, num_layers=3,
+                     dtype=torch.bfloat16)
+    cpu = InferenceSession(model, (g2.x, g2.edge_index), device="cpu",
+                           compute_dtype=torch.bfloat16, plan=plan)
+    want = cpu(g2.x, g2.edge_index)
+    gpu = InferenceSession(model, (g2.x, g2.edge_index), device="cuda",
+                           compute_dtype=torch.bfloat16, plan=plan)
+    before = (kops.spmm_block_pair.launches, kops.spmm_csr.launches)
+    got = gpu(g2.x, g2.edge_index)
+    torch.cuda.synchronize()
+    assert (kops.spmm_block_pair.launches - before[0],
+            kops.spmm_csr.launches - before[1]) == (3, 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=3e-2 * float(want.abs().max()))

@@ -292,6 +292,20 @@ def test_keep_mask_values_and_rate():
     assert torch.equal(keep, again)
 
 
+def test_keep_mask_is_drawn_where_its_generator_lives(monkeypatch):
+    """``device=None`` means the generator's device; without a generator
+    the current CUDA card, which raises without one rather than drawing on
+    the CPU. A named device is used as given."""
+    keep = kops.attention_keep_mask(torch.Generator().manual_seed(1), 0.5,
+                                    (40, 2))
+    assert keep.device.type == "cpu"
+    assert kops.attention_keep_mask(None, 0.5, (3,), "cpu").device.type == (
+        "cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kops.attention_keep_mask(None, 0.5, (40, 2))
+
+
 def test_segment_softmax_and_bspmm_match_jax():
     rng = np.random.default_rng(21)
     n, e, H, F = 20, 90, 2, 5

@@ -137,6 +137,8 @@ def test_port_imports_no_jax():
             "assert 'gammagl_tpu_torch.examples.hgt_trainer' in sys.modules; "
             "assert 'gammagl_tpu_torch.ops.cuda.hetero_flash' in sys.modules; "
             "assert 'gammagl_tpu_torch.ops.cuda.segment_max' in sys.modules; "
+            "assert 'gammagl_tpu_torch.ops.cuda.block_pair' in sys.modules; "
+            "assert 'gammagl_tpu_torch.parallel.partition' in sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'gammagl_tpu.')) or "
             "m == 'gammagl_tpu']; print(bad); sys.exit(1 if bad else 0)")

@@ -207,9 +207,9 @@ def test_build_name_follows_source_content(tmp_path):
     src.write_text("int g();")
     assert _build._digest([src]) != before
     units, _ = _build._sources()
-    assert [u.name for u in units] == ["flash_attention.cu", "hetero_flash.cu",
-                                       "sddmm_csr.cu", "segment_max.cu",
-                                       "spmm_csr.cu"]
+    assert [u.name for u in units] == ["block_pair.cu", "flash_attention.cu",
+                                       "hetero_flash.cu", "sddmm_csr.cu",
+                                       "segment_max.cu", "spmm_csr.cu"]
 
 
 @pytest.mark.parametrize("weights", ["none", "given", "padded"])
