@@ -105,8 +105,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 20. Train that GCN for 5 steps with the gcn twin's step (Adam lr 0.01,
    decay 5e-4, dropout 0.5) against the plain COO path under one
    generator state: a forward launches the block-pair kernel 3 times and
-   its backward 3 more (dx on the transpose plan), 6 a step; step-0
-   gradients held in float32 compute; a trace of 3 more steps.
+   its backward 3 more (dx on the transpose plan), 6 a step; both paths'
+   dropout masks equal; step-0 gradients held in float32 compute; a
+   trace of 3 more steps.
 21. Serve that GCN on the clustered graph (75% of the edges inside runs of
    256 ids, 25% uniform), where `auto_plan()` must give a `HybridPlan`:
    8 requests, exactly 3 block-pair and 3 `spmm_csr` launches each.
@@ -122,6 +123,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
 
+import inspect
 import json
 import os
 import subprocess
@@ -871,6 +873,17 @@ def train_labels(x):
             torch.from_numpy(rng.random(n) < 0.54).to(dev))
 
 
+def dropout_rng(model, seed):
+    """The same dropout masks on both paths of a train phase: a generator
+    for a model whose forward takes one (its layers draw from it), else
+    the default generators seeded (`nn.Dropout` draws from them). Returns
+    the forward's keyword arguments."""
+    if "generator" in inspect.signature(model.forward).parameters:
+        return {"generator": torch.Generator(device="cuda").manual_seed(seed)}
+    torch.manual_seed(seed)
+    return {}
+
+
 def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
                 keeps_for=None, check_step0=True, labels=None,
                 plan_key="plan"):
@@ -896,9 +909,8 @@ def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
         keeps = keeps_for(step) if keeps_for is not None else None
         for path in ("kernel", "plain"):
             state = states[path]
-            gen = torch.Generator(device=dev).manual_seed(SEED + 100 + step)
             kw = {plan_key: plan if path == "kernel" else None,
-                  "generator": gen}
+                  **dropout_rng(state.model, SEED + 100 + step)}
             if keeps is not None:
                 kw["keeps"] = keeps
             sync()
@@ -1315,10 +1327,10 @@ def f32_step0_grads(k, label, make_model, common, per_step, plan, x, ei,
     grads = {}
     for path in ("kernel", "plain"):
         model = make_model().to(y.device)
-        gen = torch.Generator(device=y.device).manual_seed(SEED + 100)
+        kw = dropout_rng(model, SEED + 100)
         sync()
         reset_counts(k)
-        common.loss_and_grad(model.train(), x, ei, y, mask, generator=gen,
+        common.loss_and_grad(model.train(), x, ei, y, mask, **kw,
                              **{plan_key: plan if path == "kernel" else None})
         sync()
         counts = read_counts(k)
@@ -1591,8 +1603,9 @@ def phase_block_pair_checks(k, plan, csr_plan, w):
     # the slice graph: forward at GCN's widths, the dw kernel at F = 256
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
     n_pairs = plan.pair_src.shape[0]
-    plan_bytes = (E * 12 + plan.seg_ptr.nbytes + plan.block_ptr.nbytes
-                  + plan.pair_src.nbytes)  # row, col, w_perm and the index
+    # the least the function must read for the graph, whatever the layout:
+    # a source column per edge and a CSR row pointer (spmm_csr's yardstick)
+    graph_bytes = E * 4 + (N + 1) * 8
     rowptr, col, _ = csr_plan.arrays(dev)
     w_csr = k.pad_edge_weights(csr_plan, w)
     A = torch.sparse_csr_tensor(rowptr, col.long(), w_csr.to(torch.bfloat16),
@@ -1612,8 +1625,8 @@ def phase_block_pair_checks(k, plan, csr_plan, w):
             f"spmm_block_pair F={F} bf16", lambda: k.spmm_block_pair(x, w,
                                                                      plan),
             lambda: k.spmm_block_pair_reference(x, w, plan),
-            # x, w and the plan's arrays in, out
-            nbytes=Ns * F * 2 + E * 4 + plan_bytes + N * F * 2,
+            # x, w and the graph in, out
+            nbytes=Ns * F * 2 + E * 4 + graph_bytes + N * F * 2,
             flops=2 * E * F, library=lambda: torch.sparse.mm(A, x))
         # where the time goes: weights read through w_perm (the route's),
         # already in the plan's order, and none
@@ -1654,8 +1667,8 @@ def phase_block_pair_checks(k, plan, csr_plan, w):
     timings["block_pair_dw"].append({"F": F, "max_abs_err": e, **timing(
         f"block_pair_dw F={F} bf16", lambda: k.block_pair_dw(x, g, plan),
         lambda: k.block_pair_dw_reference(x, g, plan),
-        # x, g, row, col and the slots in, dw out
-        nbytes=Ns * F * 2 + N * F * 2 + E * 12 + E * 4, flops=2 * E * F,
+        # x, g and the graph in, dw out
+        nbytes=Ns * F * 2 + N * F * 2 + graph_bytes + E * 4, flops=2 * E * F,
         library=lambda: torch.sparse.sampled_addmm(mask, g, x.t(),
                                                    beta=0.0))})
     return err, timings
@@ -1699,19 +1712,19 @@ def phase_gcn_banded_train(k, common, GCNModel, load_jax_params, plan, x,
     paths) on the banded graph with its `BlockPairPlan`, against the plain
     COO path. A forward launches the block-pair kernel 3 times and its
     backward 3 more (dx on the transpose plan; the weights need no
-    gradient): checked once apart, then 6 a step. Step-0 gradients are
-    held in float32 compute; the 5 steps run in bf16."""
+    gradient): checked once apart, then 6 a step. The two paths' dropout
+    masks are compared once. Step-0 gradients are held in float32
+    compute; the 5 steps run in bf16."""
     phase_start("phase 20: train GCN (the gcn twin's step) on the banded "
                 "graph against the plain path")
     per_step = {"spmm_block_pair": 2 * N_LAYERS}
     rng = np.random.default_rng(SEED + 23)
     mask = torch.from_numpy(rng.random(x.shape[0]) < 0.54).to(x.device)
     model = gcn_model(GCNModel, load_jax_params).to(x.device).train()
-    gen = torch.Generator(device=x.device).manual_seed(SEED + 24)
     sync()
     reset_counts(k)
     loss = torch.nn.functional.cross_entropy(
-        model(x, ei, plan=plan, generator=gen)[mask], y[mask])
+        model(x, ei, plan=plan)[mask], y[mask])
     sync()
     fwd = read_counts(k)["spmm_block_pair"]
     loss.backward()
@@ -1721,6 +1734,25 @@ def phase_gcn_banded_train(k, common, GCNModel, load_jax_params, plan, x,
           f"{both['spmm_block_pair'] - fwd} in the backward; {both}")
     if (fwd, both) != (N_LAYERS, every_kernel(per_step)):
         fail(f"GCN step launches: forward {fwd}, in all {both}")
+    # nn.Dropout draws from the default generators, seeded alike before
+    # each path: its keep masks must agree wherever both inputs are nonzero
+    seen = {"kernel": [], "plain": []}
+    for path, out in seen.items():
+        hook = model.drop.register_forward_hook(
+            lambda m, i, o, out=out: out.append((i[0] != 0, o != 0)))
+        with torch.no_grad():
+            model(x, ei, plan=plan if path == "kernel" else None,
+                  **dropout_rng(model, SEED + 100))
+        hook.remove()
+    for j, ((live_k, kept_k), (live_p, kept_p)) in enumerate(zip(
+            seen["kernel"], seen["plain"])):
+        live = live_k & live_p
+        differ = int((live & (kept_k != kept_p)).sum())
+        print(f"  dropout {j}: keep masks of the two paths differ at "
+              f"{differ} of {int(live.sum())} entries nonzero in both")
+        if differ:
+            fail("the two paths drew different dropout masks")
+    del seen
     grad_err, _ = f32_step0_grads(
         k, "GCN", lambda: gcn_model(GCNModel, load_jax_params, None), common,
         per_step, plan, x, ei, (y, mask))
@@ -1728,9 +1760,8 @@ def phase_gcn_banded_train(k, common, GCNModel, load_jax_params, plan, x,
         k, "GCN", lambda: gcn_model(GCNModel, load_jax_params), common,
         per_step, GCN_LR, GCN_L2, plan, x, ei, check_step0=False,
         labels=(y, mask))
-    gen = torch.Generator(device=x.device).manual_seed(SEED + 200)
     prof = profile("gcn_banded_train", lambda: common.train_step(
-        state, x, ei, y, mask, plan=plan, generator=gen))
+        state, x, ei, y, mask, plan=plan))
     return launches, losses, step_ms, grad_err, prof
 
 
@@ -1777,6 +1808,11 @@ def phase_block_pair_entry(k, plan, w):
 
 
 def main():
+    # the run uses one card: show it only the first, whatever the machine
+    # holds (before CUDA starts, which reads this once)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (
+        "0" if visible is None else visible.split(",")[0])
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this smoke run needs the card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1996,6 +2032,7 @@ def main():
         "gcn_profile": {"banded_serve": bserve_prof,
                         "clustered_serve": cserve_prof,
                         "banded_train": btrain_prof}}))
+    # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,7 @@ import torch
 from gammagl_tpu_torch.ops.cuda import (build_block_pair_plan,
                                         build_csr_plan_blocked,
                                         build_hybrid_plan)
+from gammagl_tpu_torch.ops.cuda.block_pair import padded_fill, pair_occupancy
 from gammagl_tpu_torch.parallel import cluster_permutation, reorder_bandwidth
 from gammagl_tpu_torch.utils.loop import add_self_loops
 
@@ -143,10 +144,8 @@ class Graph:
         n = self.num_nodes
 
         def fill_of(e):
-            pair = ((e[1] // R).astype(np.int64) * (1 + n // S)
-                    + e[0] // S)
-            _, counts = np.unique(pair, return_counts=True)
-            return e.shape[1] / max(int((-(-counts // ET) * ET).sum()), 1)
+            return padded_fill(e.shape[1],
+                               pair_occupancy(e[0], e[1], n, R, S)[1], ET)
 
         best = ("natural", np.arange(n), np.arange(n), fill_of(ei))
         for name, fn in (("rcm", lambda: reorder_bandwidth(ei, n)),
@@ -169,11 +168,8 @@ class Graph:
         (dst block, src block) pair counts, each padded to a multiple of
         ET, without building the plan."""
         ei = np.asarray(self.edge_index)
-        pair = ((ei[1] // R).astype(np.int64)
-                * (1 + self.num_nodes // S) + ei[0] // S)
-        _, counts = np.unique(pair, return_counts=True)
-        e_pad = int((-(-counts // ET) * ET).sum())
-        return ei.shape[1] / max(e_pad, 1)
+        _, counts = pair_occupancy(ei[0], ei[1], self.num_nodes, R, S)
+        return padded_fill(ei.shape[1], counts, ET)
 
     def auto_plan(self, fill_threshold=0.8, R=256, S=256, ET=256,
                   hybrid_threshold=0.25):
@@ -189,22 +185,17 @@ class Graph:
         if key in self._bp_plans:
             return self._bp_plans[key][1]
         ei = np.asarray(self.edge_index)
-        fill = self.block_pair_fill(R, S, ET)
+        occupancy, counts = pair_occupancy(ei[0], ei[1], self.num_nodes, R,
+                                           S)
+        fill = padded_fill(ei.shape[1], counts, ET)
         if fill >= fill_threshold:
             plan = build_block_pair_plan(ei[0], ei[1], self.num_nodes, R=R,
                                          S=S, ET=ET)
+        elif float((occupancy >= (3 * ET) // 4).mean()) >= hybrid_threshold:
+            plan = build_hybrid_plan(ei[0], ei[1], self.num_nodes, R=R, S=S,
+                                     ET=ET, occupancy=occupancy)
         else:
-            pair = ((ei[1] // R).astype(np.int64)
-                    * (1 + self.num_nodes // S) + ei[0] // S)
-            _, inverse, counts = np.unique(pair, return_inverse=True,
-                                           return_counts=True)
-            dense_frac = float((counts[inverse.reshape(-1)]
-                                >= (3 * ET) // 4).mean())
-            if dense_frac >= hybrid_threshold:
-                plan = build_hybrid_plan(ei[0], ei[1], self.num_nodes, R=R,
-                                         S=S, ET=ET)
-            else:
-                plan = self.csr_plan()
+            plan = self.csr_plan()
         self._bp_plans[key] = (fill, plan)
         return plan
 

@@ -3,7 +3,6 @@
 from torch import nn
 
 from gammagl_tpu_torch.layers.conv import GCNConv
-from gammagl_tpu_torch.models.gat import dropout
 
 __all__ = ["GCNModel"]
 
@@ -13,9 +12,8 @@ class GCNModel(nn.Module):
     Welling). The first layer's in-features come from the first input or
     from `load_jax_params`, as flax infers them. ``dtype`` is the compute
     dtype; parameters stay float32. Dropout is active in training mode
-    only (``model.eval()`` turns it off), drawn from ``generator`` (None:
-    the default one), so the plan and COO paths can share masks. ``plan``
-    is any plan of `Graph`: `csr_plan()` or `auto_plan()`'s."""
+    only (``model.eval()`` turns it off). ``plan`` is any plan of `Graph`:
+    `csr_plan()` or `auto_plan()`'s."""
 
     def __init__(self, hidden_dim=16, num_class=7, drop_rate=0.5,
                  num_layers=2, norm="both", dtype=None):
@@ -24,17 +22,16 @@ class GCNModel(nn.Module):
         self.convs = nn.ModuleList(
             GCNConv(dims[i], dims[i + 1], norm=norm, dtype=dtype)
             for i in range(num_layers))
-        self.drop_rate = drop_rate
+        self.drop = nn.Dropout(drop_rate)
         self.act = nn.ReLU()
 
     def flax_tree(self):
         return {f"GCNConv_{i}": conv for i, conv in enumerate(self.convs)}
 
     def forward(self, x, edge_index, edge_weight=None, num_nodes=None,
-                plan=None, generator=None):
-        rate = self.drop_rate if self.training else 0.0
+                plan=None):
         for conv in self.convs[:-1]:
-            x = dropout(self.act(conv(x, edge_index, edge_weight, num_nodes,
-                                      plan=plan)), rate, generator)
+            x = self.drop(self.act(conv(x, edge_index, edge_weight,
+                                        num_nodes, plan=plan)))
         return self.convs[-1](x, edge_index, edge_weight, num_nodes,
                               plan=plan)

@@ -481,23 +481,41 @@ class HybridPlan:
                 f"csr={self.csr!r})")
 
 
+def pair_occupancy(src, dst, num_src, R=256, S=256):
+    """The (dst block, src block) tiling's counts, on the host: (the edges
+    of each edge's pair (E,), the edges of each pair (pairs,))."""
+    pair = ((np.asarray(dst, np.int64).reshape(-1) // R)
+            * (1 + int(num_src) // S)
+            + np.asarray(src, np.int64).reshape(-1) // S)
+    _, inverse, counts = np.unique(pair, return_inverse=True,
+                                   return_counts=True)
+    return counts[inverse.reshape(-1)], counts
+
+
+def padded_fill(num_edges, counts, ET=256):
+    """The block-pair plan's ``fill_ratio`` from its pairs' edge counts:
+    edges over the slots of ceil(count / ET) tiles a pair."""
+    return num_edges / max(int((-(-counts // ET) * ET).sum()), 1)
+
+
 def build_hybrid_plan(src, dst, num_nodes, num_src=None, R=256, S=256,
-                      ET=256, dense_threshold=None, csr_R=128, csr_ET=512):
+                      ET=256, dense_threshold=None, csr_R=128, csr_ET=512,
+                      occupancy=None):
     """Split edges by (dst block, src block) pair occupancy (host-side):
     pairs with at least ``dense_threshold`` edges (default 0.75 * ET) go to
     the block-pair plan, the rest to the CSR plan (``csr_R`` and
     ``csr_ET`` are the TPU tiling keywords, ignored there). The sub-plans'
-    edge indices are remapped to the caller's edges."""
+    edge indices are remapped to the caller's edges. ``occupancy``: each
+    edge's pair count, as `pair_occupancy` gives it (None: computed)."""
     src = np.asarray(src, np.int64).reshape(-1)
     dst = np.asarray(dst, np.int64).reshape(-1)
     E = int(src.shape[0])
     num_src = int(num_src if num_src is not None else num_nodes)
     if dense_threshold is None:
         dense_threshold = (3 * ET) // 4
-    pair = (dst // R) * (1 + num_src // S) + (src // S)
-    _, inverse, counts = np.unique(pair, return_inverse=True,
-                                   return_counts=True)
-    dense = counts[inverse.reshape(-1)] >= dense_threshold
+    if occupancy is None:
+        occupancy, _ = pair_occupancy(src, dst, num_src, R, S)
+    dense = occupancy >= dense_threshold
     d_idx = np.nonzero(dense)[0]
     t_idx = np.nonzero(~dense)[0]
     bp = None
