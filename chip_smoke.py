@@ -115,10 +115,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of sum(out^2) in x and w, bf16, F = 256, the banded graph): per call 1
    forward, 1 dx and 1 dw launch; the gradients held against the plain
    version's.
-23. Print the card's name and power limit, one JSON line on the kernels
+23. Hold the accumulating CSR SpMM (`spmm_csr_acc`, out = prev + A x)
+   against its plain version: f32 and bf16, F in {7, 40, 128, 256}, prev
+   None, a separate tensor and out itself (in place), rows without edges
+   (prev bitwise), N_src != N_dst, E = 0 (out == prev bitwise), a row-slice
+   x, repeats bitwise equal.
+24. Build the papers twin's synthetic shard at 1% of papers100M
+   (1,110,599 nodes, 16,156,858 edges plus self-loops, 128 features, 172
+   classes) and its planned halo partition of one part with
+   `auto_src_blocks` source blocks (fail unless there are at least 2, with
+   as many interior plans); print the host seconds. Hold the tier's
+   forward and transpose against the port's single-plan `spmm_csr` on the
+   same graph (bf16, F = 256, 3e-2 of max |out|), with the exact launches
+   the block counts give; time `spmm_csr_acc` on one interior block at
+   F = 256 and 128 beside its plain version, its bound and `torch.addmm`.
+25. Train scripts/papers100m_single_chip.py's GCN (128 -> 256 -> 256 ->
+   172, bf16, AdamW lr 0.01) on that shard for 5 steps with the twin's
+   staged step, against the plain path (the port's COO `spmm` over the
+   whole graph, autograd, the same parameters and AdamW): float32 step-0
+   gradients, the 5 losses, the fall of the loss, eval logits at init, and
+   per step exactly 5 `spmm_csr` and 5 x (blocks - 1) `spmm_csr_acc`
+   launches; then a trace of 3 more steps.
+26. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
-   the same function, the bound and launches by path), and as the last
-   line {"ok": true, "device": {...}}.
+   the same function, the bound and launches by path) and the paths, and
+   as the last line {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
@@ -156,6 +177,10 @@ N_HGT_CALLS = 3
 BAND, CLUSTER, CLUSTER_SHARE = 128, 256, 0.75
 GCN_LR, GCN_L2, GCN_DROP = 0.01, 5e-4, 0.5
 N_BP_CALLS = 3
+# the papers100M slice: scripts/papers100m_single_chip.py's GCN (hidden
+# 256, 3 layers, 172 classes, AdamW lr 0.01, no decay) on the papers
+# twin's synthetic shard at 1% of papers100M, one part
+PAPERS_SCALE, PAPERS_LAYERS, PAPERS_LR = 0.01, 3, 1e-2
 N_REQUESTS, N_STEPS = 8, 5
 SEED = 0
 # step-0 gradients, each parameter: max |kernel - plain| <= GRAD_TOL *
@@ -169,6 +194,12 @@ MIN_FALL = 10 * LOSS_TOL
 # float32 step-0 gradients of each parameter (GATv2): the paths sum in
 # other orders, nothing else differs
 F32_GRAD_TOL = 1e-4
+# float32 step-0 gradients of the papers GCN's layers behind a ReLU: a
+# ReLU input within f32 rounding of 0 takes opposite signs on the two
+# paths' sum orders and moves the gradient by its row's share (the plain
+# versions alone on the CPU: w0 2.5e-5 of max |grad| at 222,111 nodes,
+# 1.1e-3 at 22,211; the last layer's within 2.1e-7 at both)
+F32_RELU_GRAD_TOL = 1e-3
 # the bound of a kernel: the larger of its bytes (each input read once,
 # each output written once) over HBM's rate and its arithmetic over the
 # f32 rate outside the tensor cores (every kernel here sums in f32 on
@@ -199,6 +230,7 @@ KERNELS = {
     "hgt_backward": (HGT_SOURCE, PALLAS + "hetero_flash.py:257", []),
     "spmm_block_pair": (BP_SOURCE, PALLAS + "block_pair.py:198", []),
     "block_pair_dw": (BP_SOURCE, PALLAS + "block_pair.py:264", []),
+    "spmm_csr_acc": (SPMM_SOURCE, PALLAS + "segment_matmul.py:897", []),
 }
 NOTES = {"block_pair_dw": "the JAX VJP _bwd (block_pair.py:264) is XLA, not "
                           "a Pallas kernel: it gathers both endpoint rows"}
@@ -413,7 +445,8 @@ def counters(k):
             "segment_max_bwd": [k.segment_max_bwd],
             "hgt_forward": [k.hgt_forward], "hgt_backward": [k.hgt_backward],
             "spmm_block_pair": [k.spmm_block_pair],
-            "block_pair_dw": [k.block_pair_dw]}
+            "block_pair_dw": [k.block_pair_dw],
+            "spmm_csr_acc": [k.spmm_csr_acc]}
 
 
 def reset_counts(k):
@@ -1124,6 +1157,25 @@ def phase_max_checks(k, slice_plan):
     print("  forward bitwise equal in every case (f32, bf16; F 7, 40, 128, "
           "256; max, min; gathered with and without weights, per edge; "
           "ties, empty rows, E=0); backward per-edge cotangents bitwise")
+    # a winner of -inf (+inf for the min) gives 0, as in the JAX package,
+    # and takes no cotangent
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rand(sparse.num_src, 40, dtype=dtype)
+        x[:, 0], x[:, 1] = -np.inf, np.inf
+        for fn, ref, c in ((k.spmm_max_csr, k.spmm_max_csr_reference, 0),
+                           (k.spmm_min_csr, k.spmm_min_csr_reference, 1)):
+            got = fn(x, None, sparse)
+            if not (torch.equal(got, ref(x, None, sparse))
+                    and bool((got[:, c] == 0).all())):
+                fail(f"{fn.__name__} {dtype}: an infinite winner did not "
+                     "give 0 as the plain version does")
+        out = k.spmm_max_csr(x, None, sparse)
+        dmsg = k.segment_max_bwd(x, None, out, rand(out.shape, dtype=dtype),
+                                 sparse, False, False)[0]
+        if bool((dmsg[:, 0] != 0).any()):
+            fail(f"segment_max_bwd {dtype}: a -inf winner took a cotangent")
+    print("  infinite winners: 0, bitwise equal to the plain version, no "
+          "cotangent (f32, bf16)")
 
     plan, bf16 = slice_plan, torch.bfloat16
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
@@ -1807,6 +1859,344 @@ def phase_block_pair_entry(k, plan, w):
     return counts, err
 
 
+def phase_acc_checks(k):
+    """`spmm_csr_acc` against its plain version: f32 and bf16, F in {7, 40,
+    128, 256}, prev None, separate and in place, empty rows (bitwise prev),
+    N_src != N_dst, E = 0 (out == prev bitwise), a row-slice x, repeats
+    bitwise equal. Returns the max abs error."""
+    phase_start("phase 23: accumulating CSR SpMM kernel vs plain version on "
+                "the card")
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 23)
+    rng = np.random.default_rng(SEED + 23)
+    n_dst, n_src, e = 1000, 1500, 6000
+    dst = 2 * rng.integers(0, 450, e)  # odd rows and the tail: empty
+    sparse = k.build_csr_plan(rng.integers(0, n_src, e), dst, n_dst,
+                              num_src=n_src)
+    none = np.zeros(0, np.int64)
+    empty = k.build_csr_plan(none, none, 50, num_src=30)
+    bare = torch.from_numpy(np.diff(sparse.rowptr) == 0).to(dev)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    err = 0.0
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for F in (7, 40, 128, 256):
+            x, w, prev = rand(n_src, F, dtype=dtype), rand(e), rand(
+                n_dst, F, dtype=dtype)
+            for mode in ("prev None", "prev separate", "in place"):
+                p = None if mode == "prev None" else prev.clone()
+                counter = k.spmm_csr if p is None else k.spmm_csr_acc
+                before = counter.launches
+                got = k.spmm_csr_acc(x, w, sparse, prev=p,
+                                     out=p if mode == "in place" else None)
+                sync()
+                if counter.launches != before + 1:
+                    fail(f"spmm_csr_acc {mode}: launches not counted")
+                if mode == "in place" and got.data_ptr() != p.data_ptr():
+                    fail("spmm_csr_acc in place wrote elsewhere")
+                want = k.spmm_csr_acc_reference(
+                    x, w, sparse, prev=None if p is None else prev)
+                err = max(err, check_close(f"{dtype} F={F} {mode}", got,
+                                           want, rtol))
+                if p is not None and not torch.equal(got[bare], prev[bare]):
+                    fail(f"spmm_csr_acc {dtype} F={F} {mode}: rows without "
+                         "edges are not prev bit for bit")
+                again = k.spmm_csr_acc(x, w, sparse, prev=None if p is None
+                                       else prev)
+                if not torch.equal(got, again):
+                    fail(f"spmm_csr_acc {dtype} F={F} {mode}: repeats differ")
+            pe = rand(50, F, dtype=dtype)
+            if not torch.equal(k.spmm_csr_acc(rand(30, F, dtype=dtype),
+                                              rand(0), empty, prev=pe), pe):
+                fail(f"spmm_csr_acc {dtype} F={F} E=0: out != prev")
+        table = rand(3 * n_src, 256, dtype=dtype)
+        xs = table[n_src:2 * n_src]  # a row slice: a pointer offset
+        w, prev = rand(e), rand(n_dst, 256, dtype=dtype)
+        err = max(err, check_close(
+            f"{dtype} F=256 row-slice x",
+            k.spmm_csr_acc(xs, w, sparse, prev=prev),
+            k.spmm_csr_acc_reference(xs, w, sparse, prev=prev), rtol))
+    print("  rows without edges keep prev bitwise, E=0 gives prev, repeats "
+          "bitwise equal, in place writes prev")
+    return err
+
+
+def papers_shard(k):
+    """The papers twin's synthetic shard at PAPERS_SCALE with self-loops,
+    its GCN norms, and its planned partition of one part with
+    `auto_src_blocks` source blocks; host seconds of each step."""
+    from gammagl_tpu_torch.examples import papers100m_trainer as papers
+    from gammagl_tpu_torch.parallel import (auto_src_blocks,
+                                            build_halo_partition_planned)
+    from gammagl_tpu_torch.utils import calc_gcn_norm_np
+    t0 = time.perf_counter()
+    ei, x, y, train, _, c = papers.synthetic_papers(PAPERS_SCALE)
+    n = x.shape[0]
+    ei = np.concatenate([ei, np.tile(np.arange(n, dtype=np.int64), (2, 1))],
+                        1)
+    w = calc_gcn_norm_np(ei, n)
+    t_gen = time.perf_counter() - t0
+    nsb = auto_src_blocks(n, max(x.shape[1], HIDDEN), torch.bfloat16)
+    t0 = time.perf_counter()
+    part = build_halo_partition_planned(ei, n, 1, w, num_src_blocks=nsb)
+    t_part = time.perf_counter() - t0
+    print(f"  papers shard: {n} nodes, {ei.shape[1]} edges with self-loops, "
+          f"{c} classes; generated in {t_gen:.2f} s; planned partition "
+          f"(num_src_blocks {nsb}: {len(part.interior)} interior plans, "
+          f"transpose {len(part.transpose.interior)}) built in "
+          f"{t_part:.2f} s")
+    if nsb < 2 or len(part.interior) < nsb or len(
+            part.transpose.interior) < nsb:
+        fail(f"the papers shard has {nsb} source blocks and "
+             f"{len(part.interior)} / {len(part.transpose.interior)} "
+             "interior plans: the accumulating chain would not run")
+    return {"ei": ei, "w": w, "x": x, "y": y, "train": train, "c": c,
+            "part": part, "nsb": nsb, "t_part": t_part}
+
+
+def tier_launches(part):
+    """Kernel launches of one call of the planned tier on ``part`` (one
+    part): block 0 is `spmm_csr`, every later block with edges
+    `spmm_csr_acc` (the boundary class is empty with one part)."""
+    acc = sum(1 for blk in part.interior[1:] if blk[0].num_edges)
+    return {"spmm_csr": 1, "spmm_csr_acc": acc}
+
+
+def phase_papers_tier(k, shard):
+    """The planned tier (forward and transpose) against the port's
+    single-plan `spmm_csr` on the same graph, bf16 F = 256, with its exact
+    launches, and both directions timed beside the single plan's; then
+    `spmm_csr_acc` timed on one interior block at F = 256 and 128.
+    Returns (launches, max error, timings, the directions' times)."""
+    from gammagl_tpu_torch.parallel import make_halo_spmm_planned_pair
+    phase_start("phase 24: the planned halo tier on the papers shard vs one "
+                "CSR plan")
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    part = shard["part"]
+    N = part.rows_per
+    ei, w = shard["ei"], shard["w"]
+    t0 = time.perf_counter()
+    single = k.build_csr_plan(ei[0], ei[1], N, num_src=N)
+    print(f"  single CSR plan of the whole graph in "
+          f"{time.perf_counter() - t0:.2f} s")
+    w_single = torch.from_numpy(w[single.perm]).to(dev)
+    tp = single.transpose()
+    w_single_t = w_single[tp.arrays(dev)[2]]
+    gen = torch.Generator().manual_seed(SEED + 24)
+    x = torch.randn(N, HIDDEN, generator=gen).to(dev, bf16)
+    g = torch.randn(N, HIDDEN, generator=gen).to(dev, bf16)
+    spmm, spmm_t = make_halo_spmm_planned_pair(part)
+    want_calls = {"forward": tier_launches(part),
+                  "transpose": tier_launches(part.transpose)}
+    launches = every_kernel({})
+    err = 0.0
+    for label, fn, inp, plan, wp in (
+            ("forward", spmm, x, single, w_single),
+            ("transpose", spmm_t, g, tp, w_single_t)):
+        sync()
+        reset_counts(k)
+        out = fn(inp)
+        sync()
+        counts = read_counts(k)
+        if counts != every_kernel(want_calls[label]):
+            fail(f"papers tier {label}: expected launches "
+                 f"{want_calls[label]}, counted {counts}")
+        for name in launches:
+            launches[name] += counts[name]
+        want = k.spmm_csr(inp, wp, plan, weights_padded=True)
+        err = max(err, check_close(f"tier {label} vs one plan bf16 F=256",
+                                   out, want, 0.0, atol=3e-2))
+    print(f"  launches a call: forward {want_calls['forward']}, transpose "
+          f"{want_calls['transpose']}")
+    # where the tier's time goes: each direction against one plan of the
+    # whole graph; the transpose's rows are the generator's zipf sources
+    indeg = np.bincount(ei[0], minlength=N)
+    calls = {"tier_forward_ms": cuda_ms(lambda: spmm(x), iters=3, warmup=1),
+             "tier_transpose_ms": cuda_ms(lambda: spmm_t(g), iters=3,
+                                          warmup=1),
+             "one_plan_forward_ms": cuda_ms(lambda: k.spmm_csr(
+                 x, w_single, single, weights_padded=True), iters=3,
+                 warmup=1),
+             "one_plan_transpose_ms": cuda_ms(lambda: k.spmm_csr(
+                 g, w_single_t, tp, weights_padded=True), iters=3, warmup=1),
+             "transpose_max_row_edges": int(indeg.max()),
+             "forward_max_row_edges": int(np.diff(single.rowptr).max())}
+    print("  bf16 F=256 a call: " + ", ".join(
+        f"{name} {v:.3f}" if isinstance(v, float) else f"{name} {v}"
+        for name, v in calls.items()))
+
+    # one interior block of the shard: x's rows in its span, prev the
+    # running sum of the rows
+    lo, hi = part.src_spans[1]
+    plan = part.interior[1][0]
+    wb = torch.from_numpy(part.interior_w[1][0]).to(dev)
+    Ns, E = hi - lo, plan.num_edges
+    rowptr, col, _ = plan.arrays(dev)
+    A = torch.sparse_csr_tensor(rowptr, col.long(), wb.to(bf16),
+                                size=(N, Ns))
+    timings = []
+    for F in (HIDDEN, N_FEAT):
+        xb = torch.randn(Ns, F, generator=gen).to(dev, bf16)
+        prev = torch.randn(N, F, generator=gen).to(dev, bf16)
+        run = prev.clone()
+        timings.append({"F": F, "block": 1, "E": E, **timing(
+            f"spmm_csr_acc F={F} bf16, interior block 1 ({E} edges, "
+            f"{Ns} source rows)",
+            lambda: k.spmm_csr_acc(xb, wb, plan, prev=run,
+                                   weights_padded=True, out=run),
+            lambda: k.spmm_csr_acc_reference(xb, wb, plan, prev=prev,
+                                             weights_padded=True),
+            # x's rows in the span, w and col, the row pointer, prev read
+            # and out written
+            nbytes=Ns * F * 2 + E * 8 + (N + 1) * 8 + 2 * N * F * 2,
+            flops=2 * E * F, plain_iters=3,
+            library=lambda: torch.addmm(prev, A, xb))})
+    return launches, err, timings, calls
+
+
+def papers_plain_step(ei, w, rows, num_layers, dtype):
+    """The plain path of the papers GCN: the port's COO `spmm` over the
+    whole graph, autograd, the recipe's loss (f32 cross-entropy over the
+    masked rows). Rows enter `spmm` in float32, which its messages are
+    formed in anyway, so autograd sums their cotangents in float32 too (a
+    bf16 gather would add them in bf16: the kernel path's dx is summed in
+    f32)."""
+    from gammagl_tpu_torch.ops import spmm
+
+    def forward(p, x):
+        h = x.to(dtype)
+        for i in range(num_layers):
+            a = spmm(ei, w, h.float(), num_nodes=rows).to(dtype)
+            h = a @ p[f"w{i}"].to(dtype) + p[f"b{i}"].to(dtype)
+            if i < num_layers - 1:
+                h = torch.relu(h)
+        return h
+
+    def loss_and_grads(p, x, y, mask):
+        m = mask.float()
+        ls = torch.nn.functional.cross_entropy(forward(p, x).float(),
+                                               y.long(), reduction="none")
+        loss = (ls * m).sum() / m.sum().clamp_min(1.0)
+        return loss.detach(), dict(zip(p, torch.autograd.grad(
+            loss, list(p.values()))))
+
+    return forward, loss_and_grads
+
+
+def phase_papers_train(k, shard):
+    """N_STEPS steps of the twin's staged step (bf16) against the plain
+    COO path with the same parameters and AdamW; f32 step-0 gradients;
+    launches a step; a trace of 3 more steps. Returns (launches, losses,
+    step ms, f32 gradient error, profile, edges a step)."""
+    from gammagl_tpu_torch.parallel import (make_partitioned_gcn_train_staged,
+                                            shard_nodes)
+    phase_start("phase 25: train GCN on the papers shard (the twin's staged "
+                "step) against the plain COO path")
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    part, c = shard["part"], shard["c"]
+    rows = part.rows_per
+    ys = shard_nodes(shard["y"], part, device=dev)
+    ms = shard_nodes(shard["train"].astype(np.float32), part, device=dev)
+    ei = torch.from_numpy(shard["ei"]).to(dev)
+    w = torch.from_numpy(shard["w"]).to(dev)
+    f = shard["x"].shape[1]
+    fwd_calls = {name: PAPERS_LAYERS * n
+                 for name, n in tier_launches(part).items()}
+    per_step = {name: fwd_calls[name] + (PAPERS_LAYERS - 1) * n
+                for name, n in tier_launches(part.transpose).items()}
+    print(f"  launches a step: {per_step} ({PAPERS_LAYERS} tier calls "
+          f"forward, {PAPERS_LAYERS - 1} on the transpose; a_i is kept from "
+          "the forward, not recomputed)")
+
+    # float32 step-0 gradients of both paths
+    x32 = shard_nodes(shard["x"], part, device=dev, dtype=torch.float32)
+    params, _, step, _ = make_partitioned_gcn_train_staged(
+        part, f, HIDDEN, c, num_layers=PAPERS_LAYERS,
+        compute_dtype=torch.float32, learning_rate=PAPERS_LR, device=dev)
+    reset_counts(k)
+    _, g_kernel = step.loss_and_grads(params, x32, ys, ms)
+    sync()
+    if read_counts(k) != every_kernel(per_step):
+        fail(f"papers f32 gradients: expected {per_step}, counted "
+             f"{read_counts(k)}")
+    pp = {n: t.detach().clone().requires_grad_() for n, t in params.items()}
+    _, plain_grads = papers_plain_step(ei, w, rows, PAPERS_LAYERS,
+                                       torch.float32)
+    _, g_plain = plain_grads(pp, x32, ys, ms)
+    grad_err = 0.0
+    for name, want in g_plain.items():
+        behind_relu = int(name[1:]) < PAPERS_LAYERS - 1
+        grad_err = max(grad_err, check_close(
+            f"f32 step-0 grad {name}", g_kernel[name], want, 0.0,
+            atol=F32_RELU_GRAD_TOL if behind_relu else F32_GRAD_TOL))
+    del x32, g_kernel, g_plain
+
+    xs = shard_nodes(shard["x"], part, device=dev, dtype=bf16)
+    params, opt, step, eval_logits = make_partitioned_gcn_train_staged(
+        part, f, HIDDEN, c, num_layers=PAPERS_LAYERS, compute_dtype=bf16,
+        learning_rate=PAPERS_LR, device=dev)
+    pp = {n: t.detach().clone().requires_grad_() for n, t in params.items()}
+    popt = torch.optim.AdamW(list(pp.values()), lr=PAPERS_LR,
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    plain_fwd, plain_grads = papers_plain_step(ei, w, rows, PAPERS_LAYERS,
+                                               bf16)
+    with torch.no_grad():
+        got, want = eval_logits(params, xs), plain_fwd(pp, xs).float()
+    if got.shape != (rows, c):
+        fail(f"papers eval logits shape {tuple(got.shape)}")
+    check_close("eval logits at init vs plain bf16", got, want, 0.0,
+                atol=3e-2)
+    losses = {"kernel": [], "plain": []}
+    step_ms = {"kernel": [], "plain": []}
+    launches = every_kernel({})
+    for i in range(N_STEPS):
+        sync()
+        reset_counts(k)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, xs, ys, ms)
+        losses["kernel"].append(float(loss))
+        sync()
+        step_ms["kernel"].append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(k)
+        if counts != every_kernel(per_step):
+            fail(f"papers step {i}: expected launches {per_step}, counted "
+                 f"{counts}")
+        for name in launches:
+            launches[name] += counts[name]
+        reset_counts(k)
+        t0 = time.perf_counter()
+        loss, grads = plain_grads(pp, xs, ys, ms)
+        for name, t in pp.items():
+            t.grad = grads[name]
+        popt.step()
+        popt.zero_grad(set_to_none=True)
+        losses["plain"].append(float(loss))
+        sync()
+        step_ms["plain"].append((time.perf_counter() - t0) * 1e3)
+        if any(read_counts(k).values()):
+            fail(f"the plain path launched kernels: {read_counts(k)}")
+        lk, lp = losses["kernel"][-1], losses["plain"][-1]
+        print(f"  step {i}: loss kernel {lk:.5f}, plain {lp:.5f}; "
+              f"{step_ms['kernel'][-1]:.2f} ms kernel path, "
+              f"{step_ms['plain'][-1]:.2f} ms plain path")
+        if not np.isfinite(lk) or abs(lk - lp) > LOSS_TOL * abs(lp):
+            fail(f"papers step {i}: loss {lk} vs plain {lp}")
+    if not losses["kernel"][-1] < (1 - MIN_FALL) * losses["kernel"][0]:
+        fail(f"papers: loss did not fall by {MIN_FALL:.0%}: "
+             f"{losses['kernel']}")
+    del pp, popt
+    prof = profile("papers_train",
+                   lambda: step(params, opt, xs, ys, ms))
+    E = int(shard["ei"].shape[1])
+    med = float(np.median(step_ms["kernel"][1:]))
+    print(f"  papers train step (steps 1-{N_STEPS - 1}): median {med:.2f} ms "
+          f"kernel path ({E / med * 1e3:.4e} edges/s), "
+          f"{np.median(step_ms['plain'][1:]):.2f} ms plain path")
+    return launches, losses, step_ms, grad_err, prof, E
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -1933,6 +2323,11 @@ def main():
         torch.from_numpy(clustered.edge_index).to(dev),
         {"spmm_block_pair": N_LAYERS, "spmm_csr": N_LAYERS})
     bp_entry_counts, bp_entry_err = phase_block_pair_entry(k, bp_plan, bw)
+    acc_err = phase_acc_checks(k)
+    shard = papers_shard(k)
+    tier_counts, tier_err, acc_ms, tier_calls = phase_papers_tier(k, shard)
+    (papers_counts, papers_losses, papers_step_ms, papers_grad_err,
+     papers_prof, papers_edges) = phase_papers_train(k, shard)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1948,15 +2343,16 @@ def main():
             "hgt_entry": hgt_entry_counts, "gcn_banded_serve": bserve_counts,
             "gcn_banded_train": btrain_counts,
             "gcn_clustered_serve": cserve_counts,
-            "block_pair_entry": bp_entry_counts}
+            "block_pair_entry": bp_entry_counts,
+            "papers_tier": tier_counts, "papers_train": papers_counts}
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
-            **hgt_err}
+            **hgt_err, "spmm_csr_acc": acc_err}
     errs["hgt_backward"] = max(errs["hgt_backward"], hgt_entry_err)
     for name in bp_err:
         errs[name] = max(bp_err[name], bp_entry_err[name])
     # each kernel's headline shape: the widest its main path runs
     shapes = {"spmm_csr": [spmm_ms[HIDDEN], spmm_ms[N_CLASS]], **flash_ms,
-              **edge_ms, **max_ms, **hgt_ms, **bp_ms}
+              **edge_ms, **max_ms, **hgt_ms, **bp_ms, "spmm_csr_acc": acc_ms}
     entries = []
     for name, (source, replaces, also) in KERNELS.items():
         head = shapes[name][0]
@@ -2031,7 +2427,20 @@ def main():
         "gcn_banded_step0_f32_grad_max_abs_err": btrain_grad_err,
         "gcn_profile": {"banded_serve": bserve_prof,
                         "clustered_serve": cserve_prof,
-                        "banded_train": btrain_prof}}))
+                        "banded_train": btrain_prof},
+        "papers_partition_s": shard["t_part"],
+        "papers_tier": {**tier_calls,
+                        "vs_one_plan_max_abs_err": tier_err},
+        "papers_src_blocks": shard["nsb"],
+        "papers_train_step_ms": float(np.median(
+            papers_step_ms["kernel"][1:])),
+        "papers_train_step_plain_ms": float(np.median(
+            papers_step_ms["plain"][1:])),
+        "papers_train_losses": papers_losses["kernel"],
+        "papers_edges_per_s": papers_edges / float(np.median(
+            papers_step_ms["kernel"][1:])) * 1e3,
+        "papers_step0_f32_grad_max_abs_err": papers_grad_err,
+        "papers_profile": papers_prof}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

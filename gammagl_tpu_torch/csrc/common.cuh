@@ -15,35 +15,44 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// One load of U at p: through the read-only data cache (__ldg) by default;
+// a plain load when kLdg is false, for memory the same kernel also writes.
+template <bool kLdg, typename U>
+__device__ __forceinline__ U ld(const U* p) {
+  if constexpr (kLdg) return __ldg(p);
+  return *p;
+}
+
 // Load V consecutive elements at p (aligned to V elements) as f32.
-template <typename T, int V>
+template <typename T, int V, bool kLdg = true>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p,
                                          float (&f)[V]) {
   if constexpr (std::is_same<T, float>::value) {
     if constexpr (V == 4) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      const float4 v = ld<kLdg>(reinterpret_cast<const float4*>(p));
       f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
     } else if constexpr (V == 2) {
-      const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+      const float2 v = ld<kLdg>(reinterpret_cast<const float2*>(p));
       f[0] = v.x; f[1] = v.y;
     } else {
-      f[0] = __ldg(p);
+      f[0] = ld<kLdg>(p);
     }
   } else {
     constexpr int kWords = V / 2;
     unsigned words[kWords > 0 ? kWords : 1];
     if constexpr (V == 8) {
-      const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
+      const uint4 r = ld<kLdg>(reinterpret_cast<const uint4*>(p));
       words[0] = r.x; words[1] = r.y; words[2] = r.z; words[3] = r.w;
     } else if constexpr (V == 4) {
-      const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+      const uint2 r = ld<kLdg>(reinterpret_cast<const uint2*>(p));
       words[0] = r.x; words[1] = r.y;
     } else if constexpr (V == 2) {
-      words[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+      words[0] = ld<kLdg>(reinterpret_cast<const unsigned*>(p));
     }
     if constexpr (V == 1) {
       f[0] = __uint_as_float(
-          static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+          static_cast<unsigned>(
+              ld<kLdg>(reinterpret_cast<const unsigned short*>(p)))
           << 16);
     } else {
 #pragma unroll

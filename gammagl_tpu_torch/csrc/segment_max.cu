@@ -6,7 +6,8 @@
 //   out[d, c] = max_e msg[e, c]        (negate: -max_e -msg[e, c], the min)
 // where r(e) = col[e] (source rows gathered) or e (per-edge rows in CSR
 // order), w_T is the weight rounded to T (1 when w is null), and a row
-// without edges gives 0. The running value starts at -inf and takes a
+// without edges gives 0, as does a winner of -inf (+inf for the min), whose
+// gradient is then 0. The running value starts at -inf and takes a
 // message only when it is larger, so the output is the winning message, bit
 // for bit (negation is a sign flip, so the min is exact too).
 //
@@ -40,6 +41,10 @@
 namespace {
 
 constexpr int kUnroll = 4;
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
 
 // f32 v rounded to T and widened back.
 template <typename T>
@@ -106,7 +111,7 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     const bool active = c < F;  // V divides F whenever V > 1
     float m[V];
 #pragma unroll
-    for (int i = 0; i < V; ++i) m[i] = __int_as_float(0xff800000);  // -inf
+    for (int i = 0; i < V; ++i) m[i] = neg_inf();
 
     for (int64_t base = begin; base < end; base += kWarp) {
       const int64_t left = end - base;
@@ -141,9 +146,12 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
       }
     }
     if (active) {
+      // m is still -inf in a row without edges and where every message is
+      // -inf (+inf for the min): both give 0, as the JAX kernel's `where`
       float o[V];
 #pragma unroll
-      for (int i = 0; i < V; ++i) o[i] = begin == end ? 0.f : sign * m[i];
+      for (int i = 0; i < V; ++i)
+        o[i] = m[i] == neg_inf() ? 0.f : sign * m[i];
       store_vec<T, V>(out + row * F + c, o);
     }
   }

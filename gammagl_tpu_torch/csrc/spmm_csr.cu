@@ -37,6 +37,25 @@
 // Row blocking, load balancing for skewed degrees, TMA, an L2-aware edge
 // order and more lanes at work for narrow rows (F = 40 bf16 uses 5 of 32)
 // are left for later.
+//
+// The accumulating form (kAcc, entry gammagl_spmm_csr_acc) computes
+//
+//   out[d, c] = prev[d, c]
+//             + sum_{e in [rowptr[d], rowptr[d+1])} w[e] * x[col[e], c]
+//
+// and replaces the TPU kernel segment_matmul_dyn_packed
+// (gammagl_tpu/ops/pallas/segment_matmul.py:897, with out_acc), which the
+// JAX package's planned halo tiers (gammagl_tpu/parallel/halo_plan.py) run
+// once per source block of a partition, folding each block's partial sum
+// into the previous one. Each warp reads prev[row] into its f32 accumulator
+// before its edge loop, so a row with no edges in this block stores prev
+// unchanged, bit for bit, and the sum is rounded once to T. prev may be out
+// itself (in place): neither is restrict-qualified, and prev is read with
+// plain loads, not through the read-only data cache, since the kernel
+// writes that memory. Each element of prev is read by the warp that then
+// writes the same element of out, so the in-place form has no race. x may
+// be a row slice of a larger table (a pointer offset into it). Its bound is
+// spmm_csr's plus prev read once: bytes.
 
 #include "common.cuh"
 
@@ -66,12 +85,13 @@ __device__ __forceinline__ void add_row(float (&acc)[V], const float (&v)[V],
 
 // One warp per destination row. kPerEdge: row e of x is read for CSR edge e
 // (col is not read); else row col[e]. kHeads: w is (E, H) and column c takes
-// w[e, c / Fh]; else w is (E,) or null (every weight 1).
-template <typename T, int V, bool kPerEdge, bool kHeads>
+// w[e, c / Fh]; else w is (E,) or null (every weight 1). kAcc: the sum starts
+// from prev[row] (which may alias out), else from 0.
+template <typename T, int V, bool kPerEdge, bool kHeads, bool kAcc>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     spmm_csr_kernel(const T* __restrict__ x, const float* __restrict__ w,
                     const int64_t* __restrict__ rowptr,
-                    const int32_t* __restrict__ col, T* __restrict__ out,
+                    const int32_t* __restrict__ col, const T* prev, T* out,
                     int64_t n_dst, int64_t F, int64_t H) {
   const int lane = threadIdx.x % kWarp;
   const int64_t row =
@@ -91,6 +111,7 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
     float acc[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
+    if (kAcc && active) load_vec<T, V, false>(prev + row * F + c, acc);
 
     for (int64_t base = begin; base < end; base += kWarp) {
       const int64_t left = end - base;
@@ -132,24 +153,25 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
   }
 }
 
-template <typename T, bool kPerEdge, bool kHeads>
+template <typename T, bool kPerEdge, bool kHeads, bool kAcc = false>
 void launch(const void* x, const float* w, const int64_t* rowptr,
-            const int32_t* col, void* out, int64_t n_dst, int64_t F,
-            int64_t H, cudaStream_t stream) {
+            const int32_t* col, const void* prev, void* out, int64_t n_dst,
+            int64_t F, int64_t H, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const dim3 block(kWarp * kWarpsPerBlock);
-  const void* ptrs[] = {x, out};
-  const bool vec = pick_vec<T>(F, ptrs, 2) == kVec;
+  const void* ptrs[] = {x, out, prev};
+  const bool vec = pick_vec<T>(F, ptrs, kAcc ? 3 : 2) == kVec;
   const T* xt = static_cast<const T*>(x);
+  const T* pt = static_cast<const T*>(prev);
   T* ot = static_cast<T*>(out);
   if (vec)
-    spmm_csr_kernel<T, kVec, kPerEdge, kHeads><<<grid_for(n_dst), block, 0,
-                                                 stream>>>(
-        xt, w, rowptr, col, ot, n_dst, F, H);
+    spmm_csr_kernel<T, kVec, kPerEdge, kHeads, kAcc>
+        <<<grid_for(n_dst), block, 0, stream>>>(xt, w, rowptr, col, pt, ot,
+                                                n_dst, F, H);
   else
-    spmm_csr_kernel<T, 1, kPerEdge, kHeads><<<grid_for(n_dst), block, 0,
-                                              stream>>>(
-        xt, w, rowptr, col, ot, n_dst, F, H);
+    spmm_csr_kernel<T, 1, kPerEdge, kHeads, kAcc>
+        <<<grid_for(n_dst), block, 0, stream>>>(xt, w, rowptr, col, pt, ot,
+                                                n_dst, F, H);
 }
 
 template <typename T>
@@ -158,13 +180,17 @@ void launch_mode(const void* x, const float* w, const int64_t* rowptr,
                  int64_t H, int per_edge, cudaStream_t stream) {
   const bool heads = w != nullptr && H > 1;
   if (per_edge && heads)
-    launch<T, true, true>(x, w, rowptr, col, out, n_dst, F, H, stream);
+    launch<T, true, true>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
+                          stream);
   else if (per_edge)
-    launch<T, true, false>(x, w, rowptr, col, out, n_dst, F, H, stream);
+    launch<T, true, false>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
+                           stream);
   else if (heads)
-    launch<T, false, true>(x, w, rowptr, col, out, n_dst, F, H, stream);
+    launch<T, false, true>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
+                           stream);
   else
-    launch<T, false, false>(x, w, rowptr, col, out, n_dst, F, H, stream);
+    launch<T, false, false>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
+                            stream);
 }
 
 }  // namespace
@@ -193,6 +219,32 @@ int gammagl_spmm_csr(const void* x, const void* w, const void* rowptr,
                                  s);
     else
       launch_mode<float>(x, wf, rp, cl, out, n_dst, F, H, per_edge, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The accumulating form: out = prev + A x over node rows (col gathered),
+// x, prev and out as gammagl_spmm_csr's x and out; prev (n_dst, F) of x's
+// type, contiguous, may be out itself. w: (E,) f32 in CSR order or null.
+// Launches on `stream` and returns cudaGetLastError(); does not
+// synchronise.
+int gammagl_spmm_csr_acc(const void* x, const void* w, const void* rowptr,
+                         const void* col, const void* prev, void* out,
+                         int64_t n_dst, int64_t F, int x_is_bf16,
+                         void* stream) {
+  if (n_dst < 0 || F < 0 || prev == nullptr || grid_too_large(n_dst))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_dst > 0 && F > 0) {
+    const float* wf = static_cast<const float*>(w);
+    const int64_t* rp = static_cast<const int64_t*>(rowptr);
+    const int32_t* cl = static_cast<const int32_t*>(col);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (x_is_bf16)
+      launch<__nv_bfloat16, false, false, true>(x, wf, rp, cl, prev, out,
+                                                n_dst, F, 1, s);
+    else
+      launch<float, false, false, true>(x, wf, rp, cl, prev, out, n_dst, F,
+                                        1, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,274 @@
+"""ogbn-papers100M-scale full-graph GCN (or SIGN) training on a halo
+partition, in one process.
+
+Twin of `examples/papers100m/papers100m_trainer.py` and of the one-chip
+recipe `scripts/papers100m_single_chip.py`: a synthetic power-law,
+homophilous citation graph at ``--scale`` of papers100M (the same
+generator, seed and arrays), self-loops, GCN norms on the host, a planned
+halo partition of one part with `auto_src_blocks` source blocks, node
+features resident in the compute dtype, and the layer-staged trainer
+(`make_partitioned_gcn_train_staged`; ``--monolithic`` for the autograd
+one). On the card every aggregation runs the CSR SpMM kernel and its
+accumulating form; on the CPU their plain versions. Without ``--scale``
+the shard is the largest whose `estimate_hbm_gb` fits ``--hbm-gb``.
+
+    python -m gammagl_tpu_torch.examples.papers100m_trainer          # card
+    python -m gammagl_tpu_torch.examples.papers100m_trainer \\
+        --device cpu --scale 0.00002 --epochs 3
+
+Prints per-epoch loss, ms and edges/s, and one JSON line (the median
+epoch from the third on). The JAX script's pod-slice extrapolation is
+left out: its model (`parallel/scaling.py`) holds TPU link constants.
+"""
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from gammagl_tpu_torch.parallel import (auto_src_blocks,
+                                        build_halo_partition,
+                                        build_halo_partition_planned,
+                                        estimate_hbm_gb,
+                                        make_partitioned_gcn_train,
+                                        make_partitioned_gcn_train_staged,
+                                        shard_nodes, sign_precompute)
+from gammagl_tpu_torch.utils import calc_gcn_norm_np, resolve_device
+
+__all__ = ["synthetic_papers", "solve_scale", "parser", "main"]
+
+PAPERS_N = 111_059_956
+PAPERS_E = 1_615_685_872
+AVG_DEG = PAPERS_E / PAPERS_N
+
+
+def synthetic_papers(scale, seed=0, homophily=0.7):
+    """Power-law-ish homophilous citation graph at ``scale`` x papers100M
+    (citations stay within the field ~70% of the time; features carry the
+    label's direction so training has signal). Returns (edge_index (2, E)
+    int64, x (N, 128) float32, y (N,) int32, train mask, val mask, 172)."""
+    n = max(int(PAPERS_N * scale), 256)
+    e = max(int(PAPERS_E * scale), 4 * n)
+    f, c = 128, 172
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, c, n).astype(np.int32)
+    dst = rng.integers(0, n, e)
+    # src: same class as dst w.p. homophily, else zipf-clamped anywhere
+    order = np.argsort(y, kind="stable")
+    counts = np.bincount(y, minlength=c)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    same = order[starts[y[dst]]
+                 + (rng.random(e) * counts[y[dst]]).astype(np.int64)]
+    anywhere = (rng.zipf(1.35, e).astype(np.int64) - 1) % n
+    src = np.where(rng.random(e) < homophily, same, anywhere)
+    ei = np.stack([src, dst])
+    x = rng.normal(size=(n, f)).astype(np.float32) * 0.5
+    proto = rng.normal(size=(c, f)).astype(np.float32)
+    x += proto[y]
+    train = rng.random(n) < 0.01
+    val = ~train & (rng.random(n) < 0.005)
+    return ei, x, y, train, val, c
+
+
+def solve_scale(hbm_gb, feat_dim, hidden, layers):
+    """The largest scale whose one-part `estimate_hbm_gb` (bf16, remat)
+    fits ``hbm_gb``: the estimate is linear in the node count at a fixed
+    degree, so one evaluation gives the slope."""
+    probe_n = 1_000_000
+    gb = estimate_hbm_gb(probe_n, feat_dim, hidden, layers, 1, AVG_DEG,
+                         torch.bfloat16, True)
+    return int(probe_n * hbm_gb / float(gb)) / PAPERS_N
+
+
+def parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--recipe", choices=["gcn", "sign"], default="gcn")
+    p.add_argument("--scale", type=float, default=None,
+                   help="synthetic fraction of papers100M (default: the "
+                        "largest that --hbm-gb fits)")
+    p.add_argument("--hbm-gb", type=float, default=8.0,
+                   help="device budget for the shard when --scale is not "
+                        "given")
+    p.add_argument("--hidden", type=int, default=256)
+    p.add_argument("--layers", type=int, default=3)
+    p.add_argument("--hops", type=int, default=3, help="SIGN sweeps")
+    p.add_argument("--lr", type=float, default=1e-2)
+    p.add_argument("--epochs", type=int, default=12)
+    p.add_argument("--f32", action="store_true",
+                   help="float32 activations and features (default bf16)")
+    p.add_argument("--no-remat", action="store_true",
+                   help="--monolithic without per-layer recomputation")
+    p.add_argument("--monolithic", action="store_true",
+                   help="autograd through the tier "
+                        "(make_partitioned_gcn_train) instead of the "
+                        "layer-staged step")
+    p.add_argument("--flat", action="store_true",
+                   help="the flat halo tier (plain PyTorch segment sum) "
+                        "instead of the planned tier's kernels")
+    p.add_argument("--src-blocks", type=int, default=None,
+                   help="interior source blocks (default auto_src_blocks)")
+    p.add_argument("--no-balance", action="store_true",
+                   help="keep the natural node order (no degree-balanced "
+                        "relabeling; the identity with one part anyway)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default, the card) or cpu")
+    return p
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _val_acc(logits, ys, vs):
+    pred = logits.argmax(1)
+    return float(((pred == ys.long()) & (vs > 0)).sum()
+                 / vs.sum().clamp_min(1))
+
+
+def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
+    """SIGN: K sweeps once, then a two-layer MLP on the concatenated
+    operands (optax.adamw's default decay 1e-4, as in the JAX trainer)."""
+    t = time.perf_counter()
+    feats = torch.cat(sign_precompute(part, xs, args.hops,
+                                      store_dtype=cdtype), 1)
+    _sync(device)
+    print(f"SIGN precompute ({args.hops} sweeps): "
+          f"{time.perf_counter() - t:.2f}s; training is graph-free")
+    rng = np.random.default_rng(0)
+    d_in = feats.shape[1]
+    p = {"w1": rng.normal(size=(d_in, args.hidden)) * (2.0 / d_in) ** 0.5,
+         "b1": np.zeros(args.hidden),
+         "w2": rng.normal(size=(args.hidden, c)) * (2.0 / args.hidden) ** 0.5,
+         "b2": np.zeros(c)}
+    p = {k: torch.tensor(v, dtype=torch.float32, device=device,
+                         requires_grad=True) for k, v in p.items()}
+    opt = torch.optim.AdamW(list(p.values()), lr=args.lr, eps=1e-8,
+                            weight_decay=1e-4)
+
+    def fwd(h):
+        h = torch.relu(h @ p["w1"].to(cdtype) + p["b1"].to(cdtype))
+        return (h @ p["w2"].to(cdtype) + p["b2"].to(cdtype)).float()
+
+    losses, times = [], []
+    m = ms.float()
+    for epoch in range(args.epochs):
+        t = time.perf_counter()
+        ls = torch.nn.functional.cross_entropy(fwd(feats), ys.long(),
+                                               reduction="none")
+        loss = (ls * m).sum() / m.sum().clamp_min(1.0)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        _sync(device)
+        times.append(time.perf_counter() - t)
+        losses.append(float(loss))
+        if epoch % 5 == 0 or epoch == args.epochs - 1:
+            with torch.no_grad():
+                va = _val_acc(fwd(feats), ys, vs)
+            print(f"epoch {epoch:3d}  loss {losses[-1]:.4f}  val acc "
+                  f"{va:.4f}  {times[-1] * 1e3:.1f} ms")
+    return losses, times
+
+
+def main(args, data=None):
+    """Train; returns a dict with ``losses``, ``epoch_ms`` and the JSON
+    line's fields. ``data`` replaces the generator's output
+    (edge_index, x, y, train, val, num_classes)."""
+    device = resolve_device(args.device)
+    cdtype = torch.float32 if args.f32 else torch.bfloat16
+    scale = args.scale or solve_scale(args.hbm_gb, 128, args.hidden,
+                                      args.layers)
+    t0 = time.perf_counter()
+    ei, x, y, train, val, c = (data if data is not None
+                               else synthetic_papers(scale))
+    n, f = x.shape
+    est = estimate_hbm_gb(n, f, args.hidden, args.layers, 1,
+                          ei.shape[1] / max(n, 1), cdtype,
+                          not args.no_remat)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"graph: scale {scale:.6f} -> {n:,} nodes, {ei.shape[1]:,} edges, "
+          f"{f} feats, {c} classes; est {est:.2f} GB on {name} "
+          f"(gen {time.perf_counter() - t0:.1f}s)", flush=True)
+
+    t0 = time.perf_counter()
+    ei = np.concatenate(  # self-loops, as the reference gcn_trainer
+        [np.asarray(ei), np.tile(np.arange(n, dtype=np.int64), (2, 1))], 1)
+    w = calc_gcn_norm_np(ei, n)
+    nsb = None
+    if args.flat:
+        part = build_halo_partition(ei, n, 1, w,
+                                    balance=not args.no_balance)
+    else:
+        nsb = args.src_blocks or auto_src_blocks(n, max(f, args.hidden),
+                                                 cdtype)
+        part = build_halo_partition_planned(ei, n, 1, w,
+                                            num_src_blocks=nsb,
+                                            balance=not args.no_balance)
+    t_part = time.perf_counter() - t0
+    tier = "flat" if args.flat else "planned"
+    blocks = "" if args.flat else (f", {len(part.interior)} interior "
+                                   f"plans over {nsb} source blocks")
+    print(f"partition ({tier}): rows {part.rows_per:,}{blocks} "
+          f"({t_part:.1f}s)", flush=True)
+
+    t0 = time.perf_counter()
+    xs = shard_nodes(x, part, device=device, dtype=cdtype)
+    ys = shard_nodes(y, part, device=device)
+    ms = shard_nodes(train.astype(np.float32), part, device=device)
+    vs = shard_nodes(val.astype(np.float32), part, device=device)
+    _sync(device)
+    print(f"transfer: {xs.numel() * xs.element_size() / 1e9:.2f} GB in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    if args.recipe == "sign":
+        losses, times = _train_sign(args, part, xs, ys, ms, vs, c, cdtype,
+                                    device)
+    else:
+        if args.monolithic:
+            params, opt, step, eval_logits = make_partitioned_gcn_train(
+                part, f, args.hidden, c, num_layers=args.layers,
+                compute_dtype=cdtype, remat=not args.no_remat,
+                learning_rate=args.lr, device=device)
+        else:
+            params, opt, step, eval_logits = \
+                make_partitioned_gcn_train_staged(
+                    part, f, args.hidden, c, num_layers=args.layers,
+                    compute_dtype=cdtype, learning_rate=args.lr,
+                    device=device)
+        losses, times = [], []
+        for epoch in range(args.epochs):
+            t = time.perf_counter()
+            params, opt, loss = step(params, opt, xs, ys, ms)
+            loss = float(loss)  # waits for the step
+            times.append(time.perf_counter() - t)
+            losses.append(loss)
+            line = (f"epoch {epoch:3d}  loss {loss:.4f}  "
+                    f"{times[-1] * 1e3:.1f} ms  "
+                    f"({ei.shape[1] / times[-1]:.3e} edges/s)")
+            if epoch % 5 == 0 or epoch == args.epochs - 1:
+                va = _val_acc(eval_logits(params, xs), ys, vs)
+                line += f"  val acc {va:.4f}"
+            print(line, flush=True)
+
+    steady = times[2:] or times
+    sustained = sorted(steady)[len(steady) // 2]
+    payload = {
+        "metric": f"papers100m_{args.recipe}_epoch",
+        "shard_nodes": int(n), "shard_edges": int(ei.shape[1]),
+        "scale": scale, "layers": args.layers, "hidden": args.hidden,
+        "feat_dim": int(f), "dtype": str(cdtype).replace("torch.", ""),
+        "tier": tier, "src_blocks": nsb,
+        "staged": not args.monolithic, "partition_s": t_part,
+        "sustained_epoch_ms": sustained * 1e3,
+        "edges_per_s": ei.shape[1] / sustained,
+        "est_hbm_gb": float(est), "device": name, "losses": losses}
+    print(json.dumps(payload), flush=True)
+    return {**payload, "epoch_ms": [t * 1e3 for t in times]}
+
+
+if __name__ == "__main__":
+    main(parser().parse_args())

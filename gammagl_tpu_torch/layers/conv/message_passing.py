@@ -54,8 +54,10 @@ class MessagePassing(nn.Module):
         edge weights) go to `spmm_csr` with a `CSRPlan`, to
         `spmm_block_pair` with a `BlockPairPlan` and to `spmm_hybrid` with
         a `HybridPlan` (`Graph.auto_plan()`); 'max' goes to `spmm_max_csr`
-        with a `CSRPlan` and to the COO `spmm` with the other two."""
-        if plan is None:
+        with a `CSRPlan` and to the COO `spmm` with the other two. Without
+        a plan, and for every other aggr ('min') with any plan, the COO
+        `spmm(reduce=aggr)` runs, as in the JAX layer."""
+        if plan is None or aggr not in ("sum", "mean", "max"):
             return spmm(edge_index, edge_weight, x, num_nodes=num_nodes,
                         reduce=aggr)
         blocked = isinstance(plan, (BlockPairPlan, HybridPlan))
@@ -69,14 +71,12 @@ class MessagePassing(nn.Module):
                   else spmm_csr)
         if aggr == "sum":
             return kernel(x, edge_weight, plan)
-        if aggr == "mean":
-            deg = segment_count(edge_index[1], num_nodes)
-            inv = deg.reciprocal().masked_fill_(deg == 0, 0.0)
-            w = inv[edge_index[1].long()]
-            if edge_weight is not None:
-                w = w * edge_weight
-            return kernel(x, w, plan)
-        raise NotImplementedError(f"aggr {aggr!r} not supported")
+        deg = segment_count(edge_index[1], num_nodes)
+        inv = deg.reciprocal().masked_fill_(deg == 0, 0.0)
+        w = inv[edge_index[1].long()]
+        if edge_weight is not None:
+            w = w * edge_weight
+        return kernel(x, w, plan)
 
     def update(self, x):
         return x

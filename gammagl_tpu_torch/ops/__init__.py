@@ -21,6 +21,7 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
     pad_edge_weights,
     spmm_csr,
     spmm_csr_reference,
+    spmm_csr_acc,
     segment_sum_csr,
     gather_rows,
     expand_dst_csr,
@@ -50,7 +51,7 @@ __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
            "sddmm", "sddmm_dot",
            "CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
-           "segment_sum_csr", "gather_rows", "expand_dst_csr", "sddmm_csr",
+           "spmm_csr_acc", "segment_sum_csr", "gather_rows", "expand_dst_csr", "sddmm_csr",
            "sddmm_csr_mh",
            "flash_edge_attention", "flash_edge_attention_mh",
            "flash_gat_attention", "flash_softmax_spmm",

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the hot message-passing primitives.
+"""Hand-written Hopper kernels for the hot message-passing primitives and
+the planned halo tier's accumulating SpMM.
 
 Counterpart of `gammagl_tpu.ops.pallas`. Each kernel is CUDA C++ under
 ``gammagl_tpu_torch/csrc/``, built at first use (`_build`); nothing is
@@ -14,6 +15,8 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (  # noqa: F401
     segment_sum_csr,
     segment_sum_csr_reference,
     spmm_csr,
+    spmm_csr_acc,
+    spmm_csr_acc_reference,
     spmm_csr_reference,
 )
 from gammagl_tpu_torch.ops.cuda.sddmm_csr import (  # noqa: F401
@@ -73,7 +76,7 @@ from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
 
 __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
-           "attention_keep_mask", "flash_edge_attention",
+           "spmm_csr_acc", "spmm_csr_acc_reference", "attention_keep_mask", "flash_edge_attention",
            "flash_edge_attention_mh", "flash_softmax_spmm",
            "flash_softmax_spmm_mh", "flash_gat_attention", "flash_forward",
            "flash_backward", "flash_forward_reference",

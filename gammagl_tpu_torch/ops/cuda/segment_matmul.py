@@ -24,6 +24,13 @@ and `segment_sum_win`; launches counted in ``segment_sum_csr.launches``).
 `gather_rows` is the per-edge endpoint gather with a kernel-backed
 backward. A CSR has no window layout, so the JAX package's padded and
 compact edge orders are both the port's CSR order.
+
+`spmm_csr_acc` is the accumulating form, ``out = prev + A x``, which the
+planned halo tier (`parallel.halo_plan`) chains over a partition's source
+blocks: counterpart of `segment_matmul_dyn_packed` with ``out_acc``, the
+same kernel with a flag (launches counted in ``spmm_csr_acc.launches``).
+The JAX kernel gathers a pre-packed table of bf16 halves; this one gathers
+its own rows in every dtype and width.
 """
 
 import ctypes
@@ -36,7 +43,8 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 
 __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
-           "segment_sum_csr", "segment_sum_csr_reference", "gather_rows"]
+           "spmm_csr_acc", "spmm_csr_acc_reference", "segment_sum_csr",
+           "segment_sum_csr_reference", "gather_rows"]
 
 
 class CSRPlan:
@@ -206,16 +214,21 @@ def _weigh(v, w):
     return (v.view(E, H, C // H) * w[:, :, None]).view(E, C)
 
 
-def _csr_sum_reference(x, w, plan, per_edge):
-    """Plain PyTorch version of the kernel: ``out[d] = sum_e w_e * x[r(e)]``
-    over the CSR edges of d, with r(e) = e (``per_edge``) or col[e], w None,
-    (E,) or (E, H) in CSR order; float32 sums, cast once to x's dtype."""
+def _csr_sum_reference(x, w, plan, per_edge, prev=None):
+    """Plain PyTorch version of the kernel: ``out[d] = prev[d] + sum_e w_e *
+    x[r(e)]`` over the CSR edges of d, with r(e) = e (``per_edge``) or
+    col[e], w None, (E,) or (E, H) in CSR order, prev None (0) or (N_dst,
+    F); float32 sums from prev, in CSR order, cast once to x's dtype."""
     col = plan.arrays(x.device)[1]
     acc = torch.promote_types(x.dtype, torch.float32)
     msg = (x[:plan.num_edges] if per_edge else x[col.long()]).to(acc)
     if w is not None:
         msg = _weigh(msg, w.to(acc))
-    out = torch.zeros(plan.num_nodes, x.shape[1], dtype=acc, device=x.device)
+    if prev is None:
+        out = torch.zeros(plan.num_nodes, x.shape[1], dtype=acc,
+                          device=x.device)
+    else:
+        out = prev.to(acc, copy=True)
     return out.index_add_(0, _csr_rows(plan, x.device), msg).to(x.dtype)
 
 
@@ -225,6 +238,17 @@ def spmm_csr_reference(x, edge_weight, plan, weights_padded=False):
     _check_x(x, plan)
     w = _csr_weights(edge_weight, plan, weights_padded)
     return _csr_sum_reference(x, w, plan, False)
+
+
+def spmm_csr_acc_reference(x, edge_weight, plan, prev=None,
+                           weights_padded=False):
+    """Plain PyTorch version of `spmm_csr_acc`: ``prev + A x`` with the
+    edges added to prev in float32, in CSR order, cast once to ``x``'s
+    dtype (rows without edges keep prev's bits)."""
+    _check_x(x, plan)
+    _check_prev(prev, x, plan)
+    w = _csr_weights(edge_weight, plan, weights_padded)
+    return _csr_sum_reference(x, w, plan, False, prev)
 
 
 def segment_sum_csr_reference(v, plan, w=None):
@@ -245,6 +269,15 @@ def _kernel():
     return fn, err
 
 
+@functools.lru_cache(maxsize=None)
+def _acc_kernel():
+    fn = load_library().gammagl_spmm_csr_acc
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -256,12 +289,15 @@ def _raise_on(code, what, err):
                            f"{err(code).decode()} ({code})")
 
 
-def _launch(x, w, plan, per_edge=False):
+def _launch(x, w, plan, per_edge=False, prev=None, out=None):
     """Run the kernel on CUDA tensors: x f32 or bf16, (N_src, F) node rows
     or (E, F) per-edge rows (``per_edge``); w f32 (E,) or (E, H) in CSR
-    order, or None. Counts the launch in `spmm_csr` or, per edge, in
-    `segment_sum_csr`."""
-    op = "segment_sum_csr" if per_edge else "spmm_csr"
+    order, or None; with ``prev`` (node rows and (E,) weights only) the
+    accumulating form. Writes into ``out`` when given (it may be prev).
+    Counts the launch in `spmm_csr`, per edge in `segment_sum_csr`, with
+    prev in `spmm_csr_acc`."""
+    op = ("segment_sum_csr" if per_edge else "spmm_csr" if prev is None
+          else "spmm_csr_acc")
     if x.device.type != "cuda":
         raise ValueError(f"{op}: no kernel for device {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -276,22 +312,29 @@ def _launch(x, w, plan, per_edge=False):
             raise ValueError(f"edge weights on {w.device}, x on {x.device}")
         w = w.contiguous()
         heads = 1 if w.dim() == 1 else w.shape[1]
-    out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
-                      device=x.device)
+    if out is None:
+        out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
+                          device=x.device)
     if out.numel() == 0:
         return out
     fn, err = _kernel()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    w_ptr = 0 if w is None else w.data_ptr()
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), 0 if w is None else w.data_ptr(),
-                  rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
-                  plan.num_nodes, x.shape[1], heads, int(per_edge),
-                  int(x.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(x.device).cuda_stream)
+        if prev is None:
+            code = fn(x.data_ptr(), w_ptr, rowptr.data_ptr(),
+                      col.data_ptr(), out.data_ptr(), plan.num_nodes,
+                      x.shape[1], heads, int(per_edge), bf16, stream)
+        else:
+            code = _acc_kernel()(x.data_ptr(), w_ptr, rowptr.data_ptr(),
+                                 col.data_ptr(), prev.data_ptr(),
+                                 out.data_ptr(), plan.num_nodes, x.shape[1],
+                                 bf16, stream)
     _raise_on(code, op, err)
-    if per_edge:
-        segment_sum_csr.launches += 1
-    else:
-        spmm_csr.launches += 1
+    counter = (segment_sum_csr if per_edge else spmm_csr if prev is None
+               else spmm_csr_acc)
+    counter.launches += 1
     return out
 
 
@@ -299,6 +342,19 @@ def _forward(x, w, plan, per_edge=False):
     if x.device.type == "cpu":
         return _csr_sum_reference(x, w, plan, per_edge)
     return _launch(x, w, plan, per_edge)
+
+
+def _check_prev(prev, x, plan):
+    if prev is None:
+        return
+    if (prev.shape != (plan.num_nodes, x.shape[1]) or prev.dtype != x.dtype
+            or prev.device != x.device):
+        raise ValueError(
+            f"prev must be ({plan.num_nodes}, {x.shape[1]}) {x.dtype} on "
+            f"{x.device}, got {tuple(prev.shape)} {prev.dtype} on "
+            f"{prev.device}")
+    if not prev.is_contiguous():
+        raise ValueError("prev must be contiguous")
 
 
 def _pad_rows(d, n_rows):
@@ -369,6 +425,52 @@ def spmm_csr(x, edge_weight, plan, weights_padded=False):
 
 
 spmm_csr.launches = 0
+
+
+def spmm_csr_acc(x, edge_weight, plan, prev=None, weights_padded=False,
+                 out=None):
+    """out = prev + A x: `spmm_csr` added to a previous partial sum.
+
+    x : (N_src, F) float32 or bfloat16, contiguous; it may be a row slice
+        of a larger table (``table[lo:hi]``).
+    edge_weight : (E,) as for `spmm_csr`, or None for unit weights.
+    prev : (plan.num_nodes, F) of x's dtype, contiguous, or None, which
+        makes this `spmm_csr` (its kernel, counted in
+        ``spmm_csr.launches``).
+    out : where to write, None for a new tensor; it may be ``prev``
+        itself (in place).
+
+    The edges are added to prev in float32, in CSR order, and the sum is
+    rounded once to x's dtype, so a row without edges keeps prev bit for
+    bit. A CPU tensor takes `spmm_csr_acc_reference`; a CUDA tensor
+    launches the kernel (counted in ``spmm_csr_acc.launches``) or raises.
+    Not differentiable, like the TPU kernel it replaces: a call autograd
+    would have to record raises (the planned halo tier takes its backward
+    from the transpose partition).
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spmm_csr_acc: no kernel for device {x.device}")
+    _check_x(x, plan)
+    _check_prev(prev, x, plan)
+    if out is not None and (out.shape != (plan.num_nodes, x.shape[1])
+                            or out.dtype != x.dtype
+                            or out.device != x.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({plan.num_nodes}, "
+                         f"{x.shape[1]}) {x.dtype} tensor on {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, edge_weight, prev)):
+        raise RuntimeError("spmm_csr_acc is not differentiable; call it "
+                           "under torch.no_grad(), or take spmm_csr")
+    w = _csr_weights(edge_weight, plan, weights_padded)
+    if x.device.type == "cpu":
+        res = _csr_sum_reference(x, w, plan, False, prev)
+        return res if out is None else out.copy_(res)
+    return _launch(x, w, plan, prev=prev, out=out)
+
+
+spmm_csr_acc.launches = 0
 
 
 class _SegmentSum(torch.autograd.Function):

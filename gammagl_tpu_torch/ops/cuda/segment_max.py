@@ -11,7 +11,9 @@ destination row d of the plan, over its CSR edges e:
 Exactness is the spec, as in the JAX module: each message is ``w * x``
 with the weight rounded to x's dtype, the product rounded to it, and the
 result is the winning message bit for bit; the min is ``-max(-msg)``
-(negation is exact); a row without edges gives 0.
+(negation is exact); a row without edges gives 0, and so does a winner
+of -inf (+inf for the min), as under the JAX module's ``where``; its
+gradient is then 0 (no message equals the output).
 
 The gradient (`segment_max_bwd`, counterpart of `_segment_max_bwd`) splits
 each row's cotangent evenly among the edges whose message equals the
@@ -30,6 +32,7 @@ raises on every device.
 
 import ctypes
 import functools
+from math import inf
 
 import torch
 
@@ -62,12 +65,13 @@ def _messages(x, w, plan, per_edge):
 def _extreme_reference(x, w, plan, per_edge, negate):
     """Plain PyTorch forward: scatter_reduce of the messages into zeros
     without the zeros (include_self=False), so a row without edges keeps
-    its 0."""
+    its 0; a winner of -inf (+inf for the min) becomes 0."""
     msg = _messages(x, w, plan, per_edge)
     rows = _csr_rows(plan, x.device)[:, None].expand_as(msg)
     out = msg.new_zeros(plan.num_nodes, x.shape[1])
-    return out.scatter_reduce_(0, rows, msg, "amin" if negate else "amax",
-                               include_self=False)
+    out.scatter_reduce_(0, rows, msg, "amin" if negate else "amax",
+                        include_self=False)
+    return out.masked_fill_(out == (inf if negate else -inf), 0.0)
 
 
 def spmm_max_csr_reference(x, edge_weight, plan, weights_padded=False):

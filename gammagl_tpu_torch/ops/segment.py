@@ -11,6 +11,8 @@ Counts are taken in float32 whatever the dtype asked for, so a bfloat16
 degree does not saturate at 256 as it would when summed in bfloat16.
 """
 
+from math import inf
+
 import torch
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
@@ -66,15 +68,22 @@ def _segment_extreme(data, segment_ids, num_segments, reduce):
     index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     # include_self=False: a segment with rows takes their max/min alone;
     # an empty one keeps the zero it started from.
-    return _zeros(data, num_segments).scatter_reduce_(
+    out = _zeros(data, num_segments).scatter_reduce_(
         0, index, data, reduce=reduce, include_self=False)[:num_segments]
+    if not data.is_floating_point():
+        return out
+    # a -inf winner of a max (+inf of a min) gives 0, as in the JAX
+    # package, so an edge softmax over all-masked scores gives 0, not NaN
+    return out.masked_fill(out == (-inf if reduce == "amax" else inf), 0.0)
 
 
 def segment_max(data, segment_ids, num_segments):
-    """Max of ``data`` rows per segment; empty segments give 0."""
+    """Max of ``data`` rows per segment; empty segments, and a winner of
+    -inf, give 0."""
     return _segment_extreme(data, segment_ids, num_segments, "amax")
 
 
 def segment_min(data, segment_ids, num_segments):
-    """Min of ``data`` rows per segment; empty segments give 0."""
+    """Min of ``data`` rows per segment; empty segments, and a winner of
+    +inf, give 0."""
     return _segment_extreme(data, segment_ids, num_segments, "amin")

@@ -1,12 +1,12 @@
-"""Graph partitioning, counterpart of `gammagl_tpu/parallel/partition.py`.
-
-Only the community ordering is here so far; the edge partitions come
-with the ``torch.distributed`` tiers.
+"""Graph partitioning, counterpart of `gammagl_tpu/parallel/partition.py`:
+the community ordering of the block-pair route and the degree-balanced
+node relabeling of the halo partitions (host numpy, bit for bit the JAX
+package's).
 """
 
 import numpy as np
 
-__all__ = ["cluster_permutation"]
+__all__ = ["cluster_permutation", "balance_permutation"]
 
 
 def cluster_permutation(edge_index, num_nodes, rounds=8):
@@ -46,4 +46,49 @@ def cluster_permutation(edge_index, num_nodes, rounds=8):
     perm = np.lexsort((np.arange(num_nodes), labels)).astype(np.int64)
     inv = np.empty(num_nodes, np.int64)
     inv[perm] = np.arange(num_nodes)
+    return perm, inv
+
+
+def balance_permutation(edge_index, num_nodes, num_parts, row_align=8):
+    """Degree-balanced node relabeling for the block-owner halo partitions.
+
+    The halo tiers give node v to part ``v // rows_per``; on power-law
+    graphs a natural order piles high in-degree nodes into a few blocks.
+    This deals nodes to the P owner blocks greedily by in-degree (largest
+    first, into the lightest block that is not full), so every block owns
+    about as many edges.
+
+    Returns ``(perm, inv)`` with the `reorder_bandwidth` contract:
+    relabel edges with ``inv[edge_index]``, node rows with ``x[perm]``.
+    Parts 0..P-2 get exactly ``rows_per`` nodes, the last the rest; the
+    identity when the graph is too small to fill P-1 aligned blocks.
+    """
+    ei = np.asarray(edge_index)
+    ceil_rows = -(-num_nodes // num_parts)
+    rows_per = -(-ceil_rows // row_align) * row_align
+    caps = np.full(num_parts, rows_per, np.int64)
+    caps[-1] = num_nodes - (num_parts - 1) * rows_per
+    if caps[-1] < 0:
+        ident = np.arange(num_nodes, dtype=np.int64)
+        return ident, ident
+    indeg = np.bincount(ei[1], minlength=num_nodes).astype(np.int64)
+    order = np.argsort(-indeg, kind="stable")
+    load = np.zeros(num_parts, np.float64)
+    fill = np.zeros(num_parts, np.int64)
+    assign = np.empty(num_nodes, np.int64)
+    for v in order:
+        p = int(np.argmin(np.where(fill < caps, load, np.inf)))
+        assign[v] = p
+        fill[p] += 1
+        load[p] += indeg[v]
+    # new id = block offset + arrival order within the block
+    starts = np.arange(num_parts, dtype=np.int64) * rows_per
+    fill[:] = 0
+    inv = np.empty(num_nodes, np.int64)
+    for v in order:
+        p = assign[v]
+        inv[v] = starts[p] + fill[p]
+        fill[p] += 1
+    perm = np.empty(num_nodes, np.int64)
+    perm[inv] = np.arange(num_nodes)
     return perm, inv

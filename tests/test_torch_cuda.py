@@ -889,3 +889,131 @@ def test_gcn_session_on_card_takes_the_block_pair_route(card):
             kops.spmm_csr.launches - before[1]) == (3, 0)
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=3e-2 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("F", [1, 7, 40, 128, 256, 300])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("mode", ["none", "separate", "in place"])
+def test_spmm_csr_acc_kernel_matches_plain(card, F, dtype, rtol, mode):
+    plan, e = _plan(F + 11)
+    g = torch.Generator().manual_seed(F)
+    x = torch.randn(plan.num_src, F, generator=g).to(card, dtype)
+    w = torch.rand(e, generator=g).to(card)
+    prev = torch.randn(plan.num_nodes, F, generator=g).to(card, dtype)
+    p = None if mode == "none" else prev.clone()
+    counter = kops.spmm_csr if p is None else kops.spmm_csr_acc
+    before = counter.launches
+    got = kops.spmm_csr_acc(x, w, plan, prev=p,
+                            out=p if mode == "in place" else None)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    if mode == "in place":
+        assert got.data_ptr() == p.data_ptr()
+    want = kops.spmm_csr_acc_reference(x, w, plan,
+                                       prev=None if p is None else prev)
+    _close(got, want, rtol)
+    if p is not None:  # rows without edges keep prev bit for bit
+        bare = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+        assert torch.equal(got[bare], prev[bare])
+        assert torch.equal(got, kops.spmm_csr_acc(x, w, plan, prev=prev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_csr_acc_no_edges_and_row_slice(card, dtype):
+    none = np.zeros(0, np.int64)
+    empty = kops.build_csr_plan(none, none, 33, num_src=5)
+    prev = torch.randn(33, 40, device=card).to(dtype)
+    out = kops.spmm_csr_acc(torch.ones(5, 40, device=card, dtype=dtype),
+                            torch.zeros(0, device=card), empty, prev=prev)
+    torch.cuda.synchronize()
+    assert torch.equal(out, prev)
+    plan, e = _plan(3)
+    table = torch.randn(3 * plan.num_src, 64, device=card).to(dtype)
+    x = table[plan.num_src:2 * plan.num_src]  # a pointer offset
+    w = torch.rand(e, device=card)
+    prev = torch.randn(plan.num_nodes, 64, device=card).to(dtype)
+    _close(kops.spmm_csr_acc(x, w, plan, prev=prev),
+           kops.spmm_csr_acc_reference(x, w, plan, prev=prev),
+           1e-2 if dtype == torch.bfloat16 else 1e-5)
+    with pytest.raises(TypeError, match="dtype"):
+        kops.spmm_csr_acc(x.half(), w, plan, prev=prev.half())
+
+
+def test_planned_tier_on_card_matches_the_cpu(card):
+    from gammagl_tpu_torch import parallel as tpar
+    rng = np.random.default_rng(5)
+    n, e = 3000, 40000
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    w = rng.normal(size=e).astype(np.float32)
+    x = rng.normal(size=(n, 96)).astype(np.float32)
+    part = tpar.build_halo_partition_planned(ei, n, 1, w, num_src_blocks=4)
+    assert len(part.interior) >= 4
+    outs, grads = [], []
+    for dev in (card, torch.device("cpu")):
+        xt = tpar.shard_nodes(x, part, device=dev).requires_grad_()
+        before = (kops.spmm_csr.launches, kops.spmm_csr_acc.launches)
+        out = tpar.make_halo_spmm_planned(part)(xt)
+        (out ** 2).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            acc = (len(part.interior) - 1
+                   + len(part.transpose.interior) - 1)
+            assert (kops.spmm_csr.launches - before[0],
+                    kops.spmm_csr_acc.launches - before[1]) == (2, acc)
+        outs.append(out.detach().cpu())
+        grads.append(xt.grad.cpu())
+    _close(outs[0], outs[1], 1e-5)
+    _close(grads[0], grads[1], 1e-5)
+
+
+def test_staged_gcn_on_card_matches_the_cpu(card):
+    from gammagl_tpu_torch import parallel as tpar
+    rng = np.random.default_rng(6)
+    n, e, f, c = 2000, 30000, 32, 5
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    ei = np.concatenate([ei, np.tile(np.arange(n), (2, 1))], 1)
+    from gammagl_tpu_torch.utils import calc_gcn_norm_np
+    part = tpar.build_halo_partition_planned(ei, n, 1, calc_gcn_norm_np(
+        ei, n), num_src_blocks=3)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    y = rng.integers(0, c, n)
+    m = (rng.random(n) < 0.3).astype(np.float32)
+    losses = []
+    for dev in (card, torch.device("cpu")):
+        params, opt, step, ev = tpar.make_partitioned_gcn_train_staged(
+            part, f, 32, c, num_layers=3, compute_dtype=torch.float32,
+            device=dev)
+        xs, ys, ms = (tpar.shard_nodes(a, part, device=dev)
+                      for a in (x, y, m))
+        run = []
+        for _ in range(3):
+            params, opt, loss = step(params, opt, xs, ys, ms)
+            run.append(float(loss))
+        losses.append(run)
+        assert ev(params, xs).shape == (part.rows_per, c)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_max_infinite_winner_gives_zero(card, dtype):
+    plan, e = _plan(7)
+    x = torch.randn(plan.num_src, 16, device=card).to(dtype)
+    x[:, 0], x[:, 1] = -float("inf"), float("inf")
+    got = kops.spmm_max_csr(x, None, plan)
+    assert torch.equal(got, kops.spmm_max_csr_reference(x, None, plan))
+    assert bool((got[:, 0] == 0).all()) and bool(torch.isinf(got[:, 1]).any())
+    got = kops.spmm_min_csr(x, None, plan)
+    assert torch.equal(got, kops.spmm_min_csr_reference(x, None, plan))
+    assert bool((got[:, 1] == 0).all())
+
+
+def test_hgt_flash_packed_create_graph_raises_on_card(card):
+    plan, _ = _plan(8)
+    g = torch.Generator().manual_seed(8)
+    kv = torch.randn(plan.num_src, 2 * 2 * 8, generator=g).to(card)
+    kv.requires_grad_()
+    q = torch.randn(plan.num_nodes, 2, 8, generator=g).to(card)
+    loss = kops.hgt_flash_packed(kv, q, plan).sum()
+    with pytest.raises(RuntimeError, match="differentiable once"):
+        torch.autograd.grad(loss, kv, create_graph=True)

@@ -21,6 +21,7 @@ from gammagl_tpu import ops as jops
 from gammagl_tpu.ops.pallas import build_csr_plan as jax_build_csr_plan
 from gammagl_tpu.ops.pallas import segment_max as jsm
 
+from gammagl_tpu_torch import ops as tops
 from gammagl_tpu_torch.layers.conv import MessagePassing
 from gammagl_tpu_torch.ops import cuda as k
 from gammagl_tpu_torch.ops import spmm
@@ -272,3 +273,108 @@ def test_plan_keeps_window(window):
     for name in ("rowptr", "col", "perm"):  # no layout changes
         np.testing.assert_array_equal(getattr(plan, name),
                                       getattr(other, name))
+
+
+def _equal_with_inf(got, want):
+    got = got.float().detach().numpy()
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape and not np.isnan(got).any()
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_infinite_winners_give_zero_as_jax(dtype):
+    """A winner of -inf (+inf for the min) gives 0 in the plain CSR
+    versions, as the JAX kernel's and XLA's ``where`` (ROADMAP C7); the
+    other infinity stays; its gradient is 0."""
+    jdt, tdt = DTYPES[dtype]
+    src, dst, x, _ = _case(13)
+    x[:, 0], x[:, 1] = -np.inf, np.inf
+    jplan, tplan = _plans(src, dst, 30, 40, False)
+    for op in ("max", "min"):
+        port, pallas, xla = FNS[op]
+        tx = torch.tensor(x).to(tdt).requires_grad_()
+        got = port(tx, None, tplan)
+        want = np.asarray(pallas(jnp.asarray(x, jdt), None, jplan,
+                                 interpret=True), np.float32)
+        # the Pallas bf16 pick is a one-hot matmul, whose 0 * inf gives NaN
+        # in the infinite columns: there the port is held to XLA alone
+        cols = slice(2, None) if dtype == "bf16" else slice(None)
+        _equal_with_inf(got[:, cols], want[:, cols])
+        _equal_with_inf(got, xla(_messages(x, None, src, jdt),
+                                 jnp.asarray(dst), 30))
+        col = 0 if op == "max" else 1
+        assert bool((got[:, col] == 0).all())
+        got[:, col].float().sum().backward()
+        assert bool((tx.grad == 0).all())
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+def test_segment_reductions_of_infinite_segments_match_jax(op):
+    """ops.segment_max / segment_min and the per-edge CSR form on
+    segments whose every entry is -inf (+inf for the min)."""
+    inf = -np.inf if op == "max" else np.inf
+    data = np.random.default_rng(14).normal(size=(7, 3)).astype(np.float32)
+    data[:3] = inf           # segment 0: all infinite
+    data[5, 1] = inf         # segment 2: one infinite entry among others
+    ids = np.array([0, 0, 0, 2, 2, 2, 3])
+    tfn = tops.segment_max if op == "max" else tops.segment_min
+    jfn = jops.segment_max if op == "max" else jops.segment_min
+    got = tfn(torch.from_numpy(data), torch.from_numpy(ids), 5)
+    _equal_with_inf(got, jfn(jnp.asarray(data), jnp.asarray(ids), 5))
+    assert bool((got[0] == 0).all()) and bool((got[1] == 0).all())
+    plan = k.build_csr_plan(np.zeros(7, np.int64), ids, 5, num_src=1)
+    per_edge = k.segment_max_csr if op == "max" else k.segment_min_csr
+    msg = torch.from_numpy(data)[torch.from_numpy(plan.perm)]
+    torch.testing.assert_close(per_edge(msg, plan), got, rtol=0, atol=0)
+
+
+def test_softmax_of_masked_segments_gives_zero_as_jax():
+    """Scores [-inf, -inf | 1, 2] over two segments: [0, 0, 0.2689,
+    0.7311], not NaN (ROADMAP C7)."""
+    scores = np.array([-np.inf, -np.inf, 1.0, 2.0], np.float32)
+    ids = np.array([0, 0, 1, 1])
+    got = tops.segment_softmax(torch.from_numpy(scores),
+                               torch.from_numpy(ids), 2)
+    want = np.asarray(jops.segment_softmax(jnp.asarray(scores),
+                                           jnp.asarray(ids), 2))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.numpy(), [0, 0, 0.26894142, 0.73105858],
+                               rtol=1e-6)
+    heads = torch.from_numpy(np.stack([scores, scores[::-1].copy()], 1))
+    assert not bool(torch.isnan(tops.segment_softmax(
+        heads, torch.from_numpy(ids), 2)).any())
+
+
+@pytest.mark.parametrize("kind", ["csr", "block_pair", "hybrid"])
+def test_message_passing_min_with_any_plan_takes_the_coo_path(kind):
+    """`message_aggregate(aggr='min', plan=...)` runs the COO spmm with
+    every plan kind, as the JAX layer does (it raised before: ROADMAP
+    C8)."""
+    from gammagl_tpu.layers.conv import MessagePassing as JaxMP
+    from gammagl_tpu.ops.pallas import (build_block_pair_plan as jbp,
+                                        build_hybrid_plan as jhy)
+    rng = np.random.default_rng(15)
+    n, e = 128, 900
+    src = rng.integers(0, n, e)
+    dst = np.clip(src + rng.integers(-8, 9, e), 0, n - 1)
+    x = rng.normal(size=(n, 6)).astype(np.float32)
+    w = rng.normal(size=e).astype(np.float32)
+    build = {"csr": (k.build_csr_plan, jax_build_csr_plan),
+             "block_pair": (k.build_block_pair_plan, jbp),
+             "hybrid": (k.build_hybrid_plan, jhy)}[kind]
+    kw = {} if kind == "csr" else {"R": 32, "S": 32, "ET": 64}
+    plan, jplan = (b(src, dst, n, **kw) for b in build)
+    ei = np.stack([src, dst])
+    got = MessagePassing().message_aggregate(
+        torch.from_numpy(x), torch.from_numpy(ei), torch.from_numpy(w),
+        aggr="min", num_nodes=n, plan=plan)
+    want = JaxMP().message_aggregate(jnp.asarray(x), jnp.asarray(ei),
+                                     jnp.asarray(w), aggr="min",
+                                     num_nodes=n, plan=jplan)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(got, spmm(torch.from_numpy(ei),
+                                         torch.from_numpy(w),
+                                         torch.from_numpy(x), num_nodes=n,
+                                         reduce="min"))

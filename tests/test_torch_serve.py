@@ -139,6 +139,12 @@ def test_port_imports_no_jax():
             "assert 'gammagl_tpu_torch.ops.cuda.segment_max' in sys.modules; "
             "assert 'gammagl_tpu_torch.ops.cuda.block_pair' in sys.modules; "
             "assert 'gammagl_tpu_torch.parallel.partition' in sys.modules; "
+            "assert 'gammagl_tpu_torch.parallel.halo_plan' in sys.modules; "
+            "assert 'gammagl_tpu_torch.parallel.full_graph' in sys.modules; "
+            "assert 'gammagl_tpu_torch.parallel.mesh' in sys.modules; "
+            "assert 'gammagl_tpu_torch.utils.norm' in sys.modules; "
+            "assert 'gammagl_tpu_torch.examples.papers100m_trainer' in "
+            "sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'gammagl_tpu.')) or "
             "m == 'gammagl_tpu']; print(bad); sys.exit(1 if bad else 0)")
