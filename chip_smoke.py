@@ -10,8 +10,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    compiler's register report.
 2. Hold the CSR SpMM kernel against its plain PyTorch version on the card:
    bf16 and f32, F in {7, 40, 256}, a graph with empty rows and
-   N_src != N_dst, a graph with no edges, a misaligned x, and the slice's
-   own graph at F = 256 and F = 40; then its backward (dx through the
+   N_src != N_dst, a graph with no edges, a misaligned x, a graph with
+   hub rows (a star of 1,200,000 edges into one row and one of 5,000 into
+   another, cut into work items whose partials the fold adds; F in {7, 40,
+   64, 128, 256}, one launch and one fold a call, repeats bitwise equal;
+   the work items printed), and the slice's own graph at F = 256 and
+   F = 40, whose rows are not cut; then its backward (dx through the
    kernel on the transpose plan, dw through the SDDMM kernel) on the slice
    graph at F = 256 and 40, bf16 and f32.
 3. Hold the flash attention kernels (forward and backward) against their
@@ -23,7 +27,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    destination expand (unscaled: bitwise equal; scaled per edge and head),
    the per-edge segment sum (unit, (E,) and (E, H) weights) and the SDDMM
    (gathered and per-edge rows), f32 and bf16, C in {7, 40, 64}, empty
-   rows with N_src != N_dst, no edges, bitwise-equal repeats; on the slice
+   rows with N_src != N_dst, no edges, bitwise-equal repeats; the segment
+   sum on the hub graph (C in {7, 40, 64}, unit, (E,) and (E, H)
+   weights, one launch and one fold a call); on the slice
    graph the expand and segment sum at GATv2's widths, and the SDDMM at
    bench.py's shape (F = 256 bf16, gathered) and per edge (H = 8, F = 8),
    forward and backward; time each.
@@ -119,7 +125,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against its plain version: f32 and bf16, F in {7, 40, 128, 256}, prev
    None, a separate tensor and out itself (in place), rows without edges
    (prev bitwise), N_src != N_dst, E = 0 (out == prev bitwise), a row-slice
-   x, repeats bitwise equal.
+   x, repeats bitwise equal; the hub graph at F in {7, 40, 128, 256},
+   prev separate and in place (one launch and one fold a call, rows
+   without edges prev bitwise).
 24. Build the papers twin's synthetic shard at 1% of papers100M
    (1,110,599 nodes, 16,156,858 edges plus self-loops, 128 features, 172
    classes) and its planned halo partition of one part with
@@ -127,19 +135,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    as many interior plans); print the host seconds. Hold the tier's
    forward and transpose against the port's single-plan `spmm_csr` on the
    same graph (bf16, F = 256, 3e-2 of max |out|), with the exact launches
-   the block counts give; time `spmm_csr_acc` on one interior block at
-   F = 256 and 128 beside its plain version, its bound and `torch.addmm`.
+   the block counts give (a fold for each plan with cut rows); time both
+   directions beside one plan's, the one-plan transpose beside
+   `torch.sparse.mm` and with its rows cut at other K, the fold alone on
+   it; time `spmm_csr_acc` on forward interior block 1 and on the
+   transpose interior block that holds the hub at F = 256 and 128 beside
+   its plain version, its bound and `torch.addmm`.
 25. Train scripts/papers100m_single_chip.py's GCN (128 -> 256 -> 256 ->
    172, bf16, AdamW lr 0.01) on that shard for 5 steps with the twin's
    staged step, against the plain path (the port's COO `spmm` over the
    whole graph, autograd, the same parameters and AdamW): float32 step-0
    gradients, the 5 losses, the fall of the loss, eval logits at init, and
    per step exactly 5 `spmm_csr` and 5 x (blocks - 1) `spmm_csr_acc`
-   launches; then a trace of 3 more steps.
+   launches and a fold for each of those plans with cut rows; then a trace
+   of 3 more steps.
 26. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
-   the same function, the bound and launches by path) and the paths, and
-   as the last line {"ok": true, "device": {...}}.
+   the same function, the bound and launches by path; the fold of cut
+   rows under spmm_csr's entry) and the paths, and as the last line {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
@@ -183,6 +196,8 @@ N_BP_CALLS = 3
 PAPERS_SCALE, PAPERS_LAYERS, PAPERS_LR = 0.01, 3, 1e-2
 N_REQUESTS, N_STEPS = 8, 5
 SEED = 0
+# K of the work items, measured on the papers transpose beside ROW_SPLIT
+SPLIT_SWEEP = (512, 1024, 4096, 8192)
 # step-0 gradients, each parameter: max |kernel - plain| <= GRAD_TOL *
 # max |plain|; losses: |kernel - plain| <= LOSS_TOL * |plain|. Both paths
 # compute in bf16 and round at different points (the plain path rounds
@@ -232,6 +247,10 @@ KERNELS = {
     "block_pair_dw": (BP_SOURCE, PALLAS + "block_pair.py:264", []),
     "spmm_csr_acc": (SPMM_SOURCE, PALLAS + "segment_matmul.py:897", []),
 }
+# the kernels whose launches each path counts: every kernel of the kernels
+# line, and the fold of cut rows, which runs under spmm_csr's entry (it is
+# the second pass of the CSR kernel's three forms, no TPU kernel of its own)
+COUNTED = (*KERNELS, "csr_fold")
 NOTES = {"block_pair_dw": "the JAX VJP _bwd (block_pair.py:264) is XLA, not "
                           "a Pallas kernel: it gathers both endpoint rows"}
 
@@ -446,7 +465,7 @@ def counters(k):
             "hgt_forward": [k.hgt_forward], "hgt_backward": [k.hgt_backward],
             "spmm_block_pair": [k.spmm_block_pair],
             "block_pair_dw": [k.block_pair_dw],
-            "spmm_csr_acc": [k.spmm_csr_acc]}
+            "spmm_csr_acc": [k.spmm_csr_acc], "csr_fold": [k.csr_fold]}
 
 
 def reset_counts(k):
@@ -461,8 +480,69 @@ def read_counts(k):
 
 
 def every_kernel(per_call, n=1):
-    """{kernel: launches} over every kernel, n calls of per_call."""
-    return {name: per_call.get(name, 0) * n for name in KERNELS}
+    """{kernel: launches} over every counted kernel (the fold of cut rows
+    too), n calls of per_call."""
+    return {name: per_call.get(name, 0) * n for name in COUNTED}
+
+
+# a graph with hub rows (phases 2, 4 and 23): a star of HUB_EDGES edges
+# into row 0 (the papers shard's transpose has a row of 1,401,814), one of
+# HUB2_EDGES into row 2, HUB_RANDOM random edges into even rows below
+# 2,000 of HUB_ROWS (odd rows and the top third: no edges), HUB_SRC sources
+HUB_EDGES, HUB2_EDGES, HUB_RANDOM = 1_200_000, 5_000, 60_000
+HUB_ROWS, HUB_SRC = 3_000, 4_500
+
+
+def exact(gen, *shape, weights=False):
+    """Values whose every f32 partial sum over the hub graph is exact:
+    integers in [-4, 4], or weights that are multiples of 1/8 in [0, 1]
+    (a row's partial sums stay far below 2^21). Any summation order then
+    gives the same bits, so a 1.2M-edge row is held bitwise to the plain
+    version, whose GPU `index_add_` adds in no fixed order."""
+    if weights:
+        return torch.randint(0, 9, shape, generator=gen).float() / 8
+    return torch.randint(-4, 5, shape, generator=gen).float()
+
+
+def hub_plan(k, seed):
+    """The hub graph's plan; prints its work items (`CSRPlan.row_split`)."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.zeros(HUB_EDGES, np.int64),
+                          np.full(HUB2_EDGES, 2, np.int64),
+                          2 * rng.integers(0, 1000, HUB_RANDOM)])
+    src = rng.integers(0, HUB_SRC, dst.shape[0])
+    plan = k.build_csr_plan(src, dst, HUB_ROWS, num_src=HUB_SRC)
+    split = plan.row_split()
+    print(f"  hub graph: {plan.num_nodes} rows, {plan.num_src} sources, "
+          f"{plan.num_edges} edges, largest row "
+          f"{int(np.diff(plan.rowptr).max())}; work items (ROW_SPLIT "
+          f"{k.ROW_SPLIT}): {split.item_row.shape[0]} items, "
+          f"{split.cut_row.shape[0]} cut rows, {int(split.cut_ptr[-1])} "
+          "scratch slots")
+    if split.cut_row.shape[0] != 2:
+        fail("the hub graph's two hubs are not both cut")
+    return plan
+
+
+def hub_check(k, label, counter, run, want, rtol, same=None):
+    """One kernel call on the hub graph: exactly one launch of ``counter``
+    and one fold, the result bitwise equal to the plain version (the
+    inputs are `exact`), and a repeat bitwise equal (``same`` checks more
+    bits). Returns the max abs error."""
+    c0, f0 = counter.launches, k.csr_fold.launches
+    got = run()
+    sync()
+    if (counter.launches - c0, k.csr_fold.launches - f0) != (1, 1):
+        fail(f"hub {label}: launches {counter.launches - c0}, folds "
+             f"{k.csr_fold.launches - f0} (want 1 and 1)")
+    err = check_close(f"hub {label}", got, want, rtol)
+    if not torch.equal(got, want):
+        fail(f"hub {label}: not bitwise equal to the plain version")
+    if not torch.equal(got, run()):
+        fail(f"hub {label}: repeated launches differ")
+    if same is not None:
+        same(got)
+    return err
 
 
 def phase_spmm_checks(k, slice_plan, slice_w):
@@ -496,7 +576,19 @@ def phase_spmm_checks(k, slice_plan, slice_w):
         torch.cuda.synchronize()
         check_close(label, got, k.spmm_csr_reference(x, w, plan), rtol)
 
-    main_err, timings = 0.0, {}
+    # hub rows: cut into work items, their partials folded
+    hub = hub_plan(k, SEED + 2)
+    main_err = 0.0
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for F in (7, 40, 64, 128, 256):
+            x = exact(g, hub.num_src, F).to(dev, dtype)
+            w = exact(g, hub.num_edges, weights=True).to(dev)
+            main_err = max(main_err, hub_check(
+                k, f"spmm_csr {dtype} F={F}", k.spmm_csr,
+                lambda: k.spmm_csr(x, w, hub, weights_padded=True),
+                k.spmm_csr_reference(x, w, hub, weights_padded=True), rtol))
+
+    timings = {}
     for F in (HIDDEN, N_CLASS):
         x = torch.randn(slice_plan.num_src, F, generator=g).to(
             dev, torch.bfloat16)
@@ -506,6 +598,8 @@ def phase_spmm_checks(k, slice_plan, slice_w):
                                     weights_padded=True)
         err = check_close(f"slice graph bf16 F={F}", got, want, 1e-2)
         main_err = max(main_err, err)
+        if slice_plan.row_split().cut_row.shape[0]:
+            fail("the slice graph has rows cut into work items")
         N, E = slice_plan.num_nodes, slice_plan.num_edges
         rowptr, col, _ = slice_plan.arrays(dev)
         # cuSPARSE's SpMM over the same CSR and weights
@@ -719,6 +813,22 @@ def phase_edge_checks(k, slice_plan):
                             and torch.equal(_sddmm(v, xd, p, H, False),
                                             _sddmm(v, xd, p, H, False))):
                         fail(f"{tag}: repeated launches differ")
+
+    # hub rows: the per-edge form's rows cut into work items and folded
+    hub = hub_plan(k, SEED + 8)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for C, H in ((7, 7), (40, 1), (64, 8)):
+            v = exact(gen, hub.num_edges, C).to(dev, dtype)
+            for wname, w in (
+                    ("unit", None),
+                    ("(E,)", exact(gen, hub.num_edges, weights=True)),
+                    ("(E, H)", exact(gen, hub.num_edges, H, weights=True))):
+                w = None if w is None else w.to(dev)
+                err["segment_sum_csr"] = max(err["segment_sum_csr"], hub_check(
+                    k, f"segment sum {wname} {dtype} C={C} H={H}",
+                    k.segment_sum_csr, lambda: k.segment_sum_csr(v, hub, w),
+                    k.segment_sum_csr_reference(v, hub, w), rtol))
+    del v
 
     plan, bf16 = slice_plan, torch.bfloat16
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
@@ -1671,8 +1781,6 @@ def phase_block_pair_checks(k, plan, csr_plan, w):
                         k.spmm_block_pair(x, w, plan),
                         k.spmm_block_pair_reference(x, w, plan), 1e-2)
         err["spmm_block_pair"] = max(err["spmm_block_pair"], e)
-        csr_ms = cuda_ms(lambda: k.spmm_csr(x, w_csr, csr_plan,
-                                            weights_padded=True))
         row = timing(
             f"spmm_block_pair F={F} bf16", lambda: k.spmm_block_pair(x, w,
                                                                      plan),
@@ -1680,6 +1788,10 @@ def phase_block_pair_checks(k, plan, csr_plan, w):
             # x, w and the graph in, out
             nbytes=Ns * F * 2 + E * 4 + graph_bytes + N * F * 2,
             flops=2 * E * F, library=lambda: torch.sparse.mm(A, x))
+        # timed after the block pair's runs, which bring the card's clocks
+        # up from the idle of the graph's host-side build
+        csr_ms = cuda_ms(lambda: k.spmm_csr(x, w_csr, csr_plan,
+                                            weights_padded=True))
         # where the time goes: weights read through w_perm (the route's),
         # already in the plan's order, and none
         w_plan = w[torch.from_numpy(plan.w_perm).to(dev).long()]
@@ -1918,8 +2030,38 @@ def phase_acc_checks(k):
             f"{dtype} F=256 row-slice x",
             k.spmm_csr_acc(xs, w, sparse, prev=prev),
             k.spmm_csr_acc_reference(xs, w, sparse, prev=prev), rtol))
+    # hub rows: items that own their rows start from prev, the fold starts
+    # a cut row from prev; in place too
+    hub = hub_plan(k, SEED + 23)
+    hub_bare = torch.from_numpy(np.diff(hub.rowptr) == 0).to(dev)
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for F in (7, 40, 128, 256):
+            x = exact(gen, hub.num_src, F).to(dev, dtype)
+            w = exact(gen, hub.num_edges, weights=True).to(dev)
+            prev = exact(gen, hub.num_nodes, F).to(dev, dtype)
+            want = k.spmm_csr_acc_reference(x, w, hub, prev=prev)
+
+            def keeps_prev(got, tag):
+                if not torch.equal(got[hub_bare], prev[hub_bare]):
+                    fail(f"hub spmm_csr_acc {tag}: rows without edges are "
+                         "not prev bit for bit")
+
+            tag = f"{dtype} F={F}"
+            err = max(err, hub_check(
+                k, f"spmm_csr_acc {tag} prev separate", k.spmm_csr_acc,
+                lambda: k.spmm_csr_acc(x, w, hub, prev=prev), want, rtol,
+                same=lambda got: keeps_prev(got, tag)))
+            run = prev.clone()
+
+            def in_place():
+                run.copy_(prev)
+                return k.spmm_csr_acc(x, w, hub, prev=run, out=run).clone()
+
+            err = max(err, hub_check(
+                k, f"spmm_csr_acc {tag} in place", k.spmm_csr_acc, in_place,
+                want, rtol, same=lambda got: keeps_prev(got, tag)))
     print("  rows without edges keep prev bitwise, E=0 gives prev, repeats "
-          "bitwise equal, in place writes prev")
+          "bitwise equal, in place writes prev (the hub graph too)")
     return err
 
 
@@ -1959,9 +2101,22 @@ def papers_shard(k):
 def tier_launches(part):
     """Kernel launches of one call of the planned tier on ``part`` (one
     part): block 0 is `spmm_csr`, every later block with edges
-    `spmm_csr_acc` (the boundary class is empty with one part)."""
-    acc = sum(1 for blk in part.interior[1:] if blk[0].num_edges)
-    return {"spmm_csr": 1, "spmm_csr_acc": acc}
+    `spmm_csr_acc` (the boundary class is empty with one part), and each
+    of those plans with cut rows one fold."""
+    run = [part.interior[0][0]] + [blk[0] for blk in part.interior[1:]
+                                   if blk[0].num_edges]
+    return {"spmm_csr": 1, "spmm_csr_acc": len(run) - 1,
+            "csr_fold": sum(1 for p in run if p.row_split().cut_row.size)}
+
+
+def split_at(k, plan, K):
+    """``plan`` with its work items cut at K edges in place of ROW_SPLIT
+    (the same arrays; a measurement of the choice of K)."""
+    other = k.CSRPlan(plan.rowptr, plan.col, plan.perm, plan.num_nodes,
+                      plan.num_src, plan.num_edges)
+    other._placed = plan._placed
+    other._split = k.build_row_split(plan.rowptr, K)
+    return other
 
 
 def phase_papers_tier(k, shard):
@@ -2023,9 +2178,38 @@ def phase_papers_tier(k, shard):
                  g, w_single_t, tp, weights_padded=True), iters=3, warmup=1),
              "transpose_max_row_edges": int(indeg.max()),
              "forward_max_row_edges": int(np.diff(single.rowptr).max())}
+    split = tp.row_split()
+    calls.update({
+        "transpose_items": int(split.item_row.shape[0]),
+        "transpose_cut_rows": int(split.cut_row.shape[0]),
+        "transpose_slots": int(split.cut_ptr[-1]),
+        "forward_cut_rows": int(single.row_split().cut_row.shape[0])})
+    # the same function through one PyTorch call (cuSPARSE, bf16 CSR)
+    At = torch.sparse_csr_tensor(tp.arrays(dev)[0], tp.arrays(dev)[1].long(),
+                                 w_single_t.to(bf16), size=(N, N))
+    calls["one_plan_transpose_library_ms"] = library_ms(
+        "torch.sparse.mm, one-plan transpose", lambda: torch.sparse.mm(At, g))
+    # the choice of K: the one-plan transpose with its rows cut at other K
+    for K in SPLIT_SWEEP:
+        other = split_at(k, tp, K)
+        calls[f"one_plan_transpose_ms_K{K}"] = cuda_ms(
+            lambda: k.spmm_csr(g, w_single_t, other, weights_padded=True),
+            iters=3, warmup=1)
     print("  bf16 F=256 a call: " + ", ".join(
-        f"{name} {v:.3f}" if isinstance(v, float) else f"{name} {v}"
+        f"{name} {v:.4f}" if isinstance(v, float) else f"{name} {v}"
         for name, v in calls.items()))
+    # the fold alone, on the one-plan transpose's slots
+    item_ptr, meta, cut_row, cut_ptr, n_slots = tp.split_arrays(dev)
+    part_buf = torch.randn(n_slots, HIDDEN, generator=gen).to(dev)
+    folded = torch.empty(N, HIDDEN, dtype=bf16, device=dev)
+    fold = {"ms": cuda_ms(lambda: k.csr_fold(part_buf, cut_row, cut_ptr,
+                                             None, folded)),
+            **bound(n_slots * HIDDEN * 4 + cut_row.shape[0] * (
+                HIDDEN * 2 + 12), n_slots * HIDDEN),
+            "cut_rows": int(cut_row.shape[0]), "slots": n_slots}
+    print(f"  csr_fold on the one-plan transpose ({fold['cut_rows']} cut "
+          f"rows, {n_slots} slots, F={HIDDEN} bf16): {fold['ms']:.4f} ms, "
+          f"bound {fold['bound_ms']:.4f} ms")
 
     # one interior block of the shard: x's rows in its span, prev the
     # running sum of the rows
@@ -2053,7 +2237,43 @@ def phase_papers_tier(k, shard):
             nbytes=Ns * F * 2 + E * 8 + (N + 1) * 8 + 2 * N * F * 2,
             flops=2 * E * F, plain_iters=3,
             library=lambda: torch.addmm(prev, A, xb))})
-    return launches, err, timings, calls
+    # the transpose's interior block with the most edges in one row (the
+    # hub's share of it): where one warp a row lost to torch.addmm
+    tpart = part.transpose
+    hb = max(range(len(tpart.interior)), key=lambda b: int(np.diff(
+        tpart.interior[b][0].rowptr).max()))
+    lo, hi = tpart.src_spans[hb]
+    plan = tpart.interior[hb][0]
+    wb = torch.from_numpy(tpart.interior_w[hb][0]).to(dev)
+    Ns, E = hi - lo, plan.num_edges
+    rowptr, col, _ = plan.arrays(dev)
+    A = torch.sparse_csr_tensor(rowptr, col.long(), wb.to(bf16),
+                                size=(N, Ns))
+    split = plan.row_split()
+    for F in (N_FEAT, HIDDEN):
+        xb = torch.randn(Ns, F, generator=gen).to(dev, bf16)
+        prev = torch.randn(N, F, generator=gen).to(dev, bf16)
+        run = prev.clone()
+        check_close(f"transpose block {hb} F={F} vs plain",
+                    k.spmm_csr_acc(xb, wb, plan, prev=prev,
+                                   weights_padded=True),
+                    k.spmm_csr_acc_reference(xb, wb, plan, prev=prev,
+                                             weights_padded=True), 1e-2)
+        timings.append({"F": F, "transpose_block": hb, "E": E,
+                        "max_row_edges": int(np.diff(plan.rowptr).max()),
+                        "cut_rows": int(split.cut_row.shape[0]), **timing(
+            f"spmm_csr_acc F={F} bf16, transpose interior block {hb} ({E} "
+            f"edges, {Ns} source rows, largest row "
+            f"{int(np.diff(plan.rowptr).max())} edges, "
+            f"{split.cut_row.shape[0]} cut rows)",
+            lambda: k.spmm_csr_acc(xb, wb, plan, prev=run,
+                                   weights_padded=True, out=run),
+            lambda: k.spmm_csr_acc_reference(xb, wb, plan, prev=prev,
+                                             weights_padded=True),
+            nbytes=Ns * F * 2 + E * 8 + (N + 1) * 8 + 2 * N * F * 2,
+            flops=2 * E * F, plain_iters=3,
+            library=lambda: torch.addmm(prev, A, xb))})
+    return launches, err, timings, calls, fold
 
 
 def papers_plain_step(ei, w, rows, num_layers, dtype):
@@ -2325,7 +2545,8 @@ def main():
     bp_entry_counts, bp_entry_err = phase_block_pair_entry(k, bp_plan, bw)
     acc_err = phase_acc_checks(k)
     shard = papers_shard(k)
-    tier_counts, tier_err, acc_ms, tier_calls = phase_papers_tier(k, shard)
+    (tier_counts, tier_err, acc_ms, tier_calls,
+     fold_ms) = phase_papers_tier(k, shard)
     (papers_counts, papers_losses, papers_step_ms, papers_grad_err,
      papers_prof, papers_edges) = phase_papers_train(k, shard)
 
@@ -2368,6 +2589,13 @@ def main():
             entry["also_replaces"] = also
         if name in NOTES:
             entry["note"] = NOTES[name]
+        if name == "spmm_csr":  # its second pass, under all three forms
+            entry["fold"] = {
+                "name": "csr_fold", "source": SPMM_SOURCE,
+                "launches": sum(c["csr_fold"] for c in runs.values()),
+                "launches_by_path": {p: c["csr_fold"]
+                                     for p, c in runs.items()},
+                **fold_ms}
         if entry["launches"] == 0:
             fail(f"{name} was launched on no path")
         entries.append(entry)

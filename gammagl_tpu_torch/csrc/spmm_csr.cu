@@ -15,28 +15,50 @@
 // and gather engine; here the destination-sorted CSR is read directly, and
 // a window layout has no counterpart: per-edge rows are read in CSR order.
 //
-// What bounds it on the card: bytes. Every edge reads one row of x (F
-// elements; a random source row for the SpMM, the next row in order for the
-// segment sum) and does 2 flops per element read, far below the ridge point
-// of the H100. At the ogbn-arxiv shape (2.48M edges with self-loops, F =
-// 256, bf16) the SpMM gathers about 1.27 GB per call, against about 0.09 GB
-// of output and 0.03 GB of CSR arrays.
+// What bounds it on the card: bytes, and the latency of reaching them.
+// Every edge reads one row of x (F elements; a random source row for the
+// SpMM, the next row in order for the segment sum) and does 2 flops per
+// element read, far below the H100's ridge point; a gathered row that
+// misses L2 costs a full trip to HBM. Two shapes of graph starve the card
+// of bytes in flight when one warp walks one destination row:
+//  * skewed in-degree: a hub row of power-law sources (1.4M edges on the
+//    papers shard's transpose) runs on one warp while the rest of the card
+//    idles;
+//  * narrow rows: 8 bf16 columns a lane leave most of a warp idle at
+//    F <= 128 (F = 40 uses 5 lanes of 32), and short rows spend the
+//    row's fixed cost (offsets, prev, the store) on a couple of edges.
 //
-// What this simple design does about it:
-//  * one warp per destination row; its lanes cover the feature columns
-//    with 16-byte loads where F and the pointers allow (8 bf16 or 4 f32
-//    columns a lane), so each row is read in whole 32-byte sectors;
-//    otherwise one column a lane with scalar loads;
-//  * a loop over column chunks when F is wider than one warp pass;
-//  * the warp reads 32 (col, w) pairs with one coalesced load and hands
-//    them out by shuffle; per-head weights are read per column from L1;
-//  * kUnroll rows are loaded before they are summed, so each warp keeps
-//    several loads in flight;
-//  * sums are kept in f32 registers in CSR edge order, and out is written
-//    once, rounded once. No atomics: the result is deterministic.
-// Row blocking, load balancing for skewed degrees, TMA, an L2-aware edge
-// order and more lanes at work for narrow rows (F = 40 bf16 uses 5 of 32)
-// are left for later.
+// What the design does about it:
+//  * work items of at most K consecutive CSR edges (K is the wrappers'
+//    ROW_SPLIT, built once per plan on the host): a row of up to K edges
+//    is one item, a longer row is cut into ceil(deg / K) items, an empty
+//    row is one empty item. An item that owns its row stores prev (or 0)
+//    plus its sum, rounded once. An item of a cut row stores its f32
+//    partial in a scratch slot, and a second kernel (csr_fold_kernel)
+//    sums each cut row's partials in item order, starting from prev, and
+//    rounds once. No atomics: the result is deterministic, and it differs
+//    from one warp's walk of the row only by f32 reassociation. A plan
+//    without cut rows passes no item table: item i is row i;
+//  * lane groups sized by the row: an item is taken by L lanes, the power
+//    of two >= F / V (at most 32, with a loop over column chunks above
+//    32 V), so a warp runs 32 / L items at once (F = 128 bf16: 2; C = 40
+//    or 64: 4). Consecutive groups take consecutive items, so per-edge rows
+//    stay coalesced across a warp, and groups never combine results;
+//  * 16-byte loads where F and the pointers allow (8 bf16 or 4 f32 columns
+//    a lane), so each row is read in whole 32-byte sectors; else one
+//    column a lane;
+//  * each lane keeps kStages gathered rows in flight through a ring in
+//    shared memory filled by cp.async (a lone bf16 column, which no async
+//    copy carries, by a plain load), so latency is hidden without holding
+//    the rows in registers. Each lane reads back only what it copied, so
+//    the ring needs no barrier. The copies go through L1 (.ca): rows that
+//    neighbouring rows share, as on a banded or a halo block's graph, are
+//    read from L2 once an SM (on the H100, .cg, past L1, took the
+//    accumulating form 12% longer at F = 128 and was within 4% elsewhere:
+//    scripts/csr_variants_probe.py).
+//    The next edge's source index and weight are loaded one step ahead;
+//  * sums in f32 registers in CSR edge order, stored once, rounded once.
+// Tensor cores do not apply: the kernel does 2 flops per byte it reads.
 //
 // The accumulating form (kAcc, entry gammagl_spmm_csr_acc) computes
 //
@@ -47,28 +69,92 @@
 // (gammagl_tpu/ops/pallas/segment_matmul.py:897, with out_acc), which the
 // JAX package's planned halo tiers (gammagl_tpu/parallel/halo_plan.py) run
 // once per source block of a partition, folding each block's partial sum
-// into the previous one. Each warp reads prev[row] into its f32 accumulator
-// before its edge loop, so a row with no edges in this block stores prev
-// unchanged, bit for bit, and the sum is rounded once to T. prev may be out
-// itself (in place): neither is restrict-qualified, and prev is read with
-// plain loads, not through the read-only data cache, since the kernel
-// writes that memory. Each element of prev is read by the warp that then
-// writes the same element of out, so the in-place form has no race. x may
-// be a row slice of a larger table (a pointer offset into it). Its bound is
+// into the previous one. An item that owns its row reads prev[row] into
+// its f32 accumulator before its edge loop, so a row with no edges in
+// this block stores prev unchanged, bit for bit, and the sum is rounded
+// once to T; a cut row's prev is read by the fold. prev may be out itself
+// (in place): neither is restrict-qualified, and prev is read with plain
+// loads, not through the read-only data cache, since the kernels write
+// that memory. Each element of prev is read by the lane that then writes
+// the same element of out, so the in-place form has no race. x may be a
+// row slice of a larger table (a pointer offset into it). Its bound is
 // spmm_csr's plus prev read once: bytes.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kUnroll = 4;
+constexpr int kThreads = kWarp * kWarpsPerBlock;
+// Rows in flight per lane: 16 bytes each in shared memory, so a block of
+// 256 lanes holds kStages * 4 KB (32 KB: seven blocks an SM). On the H100,
+// 4 stages took the per-edge segment sum 20-35% longer and the accumulating
+// form at F = 256 5% less (scripts/csr_variants_probe.py).
+constexpr int kStages = 8;
 
-// The row of x that CSR edge e reads: e itself (kPerEdge), else col[e],
-// handed out by shuffle from the lane that loaded it (`mine`).
-template <bool kPerEdge>
-__device__ __forceinline__ int64_t row_of(int mine, int j, int64_t e) {
-  if constexpr (kPerEdge) return e;
-  return static_cast<int64_t>(__shfl_sync(kFullMask, mine, j));
+// The items of one launch. Item i holds CSR edges [ptr[i], ptr[i + 1]);
+// meta[i] = {its row, its scratch slot or -1 for an item that owns its
+// row}, or meta is null and item i is row i (ptr is then rowptr).
+struct Items {
+  const int64_t* ptr;
+  const int2* meta;
+  int64_t n;
+  float* part;     // (slots, stride) f32 partial sums of cut rows
+  int64_t stride;  // a multiple of 4 that is >= F
+};
+
+// Copy V elements of T (16, 8, 4 or 2 bytes, aligned to their size) from
+// global memory into this lane's ring slot.
+template <typename T, int V>
+__device__ __forceinline__ void stage_copy(void* dst, const T* src) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+  } else {  // one bf16: no async copy of 2 bytes
+    static_assert(kBytes == 2, "unsupported row piece");
+    *static_cast<unsigned short*>(dst) =
+        __ldg(reinterpret_cast<const unsigned short*>(src));
+  }
+}
+
+__device__ __forceinline__ void commit_stage() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this lane's committed stages are in flight.
+template <int N>
+__device__ __forceinline__ void wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// V f32 values at p (aligned to min(V, 4) floats).
+template <int V>
+__device__ __forceinline__ void load_f32(const float* __restrict__ p,
+                                         float (&f)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
+      f[i] = v.x; f[i + 1] = v.y; f[i + 2] = v.z; f[i + 3] = v.w;
+    }
+  } else {
+    load_vec<float, V>(p, f);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f32(float* __restrict__ p,
+                                          const float (&f)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
+  } else {
+    store_vec<float, V>(p, f);
+  }
 }
 
 // acc += weight * v, with the weight of column i w[e, head[i]] (kHeads) or
@@ -83,114 +169,228 @@ __device__ __forceinline__ void add_row(float (&acc)[V], const float (&v)[V],
     acc[i] = fmaf(kHeads ? __ldg(w + e * H + head[i]) : wv, v[i], acc[i]);
 }
 
-// One warp per destination row. kPerEdge: row e of x is read for CSR edge e
-// (col is not read); else row col[e]. kHeads: w is (E, H) and column c takes
-// w[e, c / Fh]; else w is (E,) or null (every weight 1). kAcc: the sum starts
-// from prev[row] (which may alias out), else from 0.
+// One group of L = 2^lg lanes per item. kPerEdge: row e of x is read for
+// CSR edge e (col is not read); else row col[e]. kHeads: w is (E, H) and
+// column c takes w[e, c / Fh]; else w is (E,) or null (every weight 1).
+// kAcc: an item that owns its row starts from prev[row] (which may alias
+// out), else from 0.
 template <typename T, int V, bool kPerEdge, bool kHeads, bool kAcc>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+__global__ void __launch_bounds__(kThreads)
     spmm_csr_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                    const int64_t* __restrict__ rowptr,
                     const int32_t* __restrict__ col, const T* prev, T* out,
-                    int64_t n_dst, int64_t F, int64_t H) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_dst) return;  // the whole warp leaves together
-  const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
+                    Items items, int lg, int64_t F, int64_t H) {
+  __shared__ uint4 ring[kStages][kThreads];
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t item = t >> lg;
+  if (item >= items.n) return;  // no lane waits on another
+  const int64_t L = int64_t{1} << lg;
+  const int64_t lane = t & (L - 1);
+  int64_t row = item;
+  int slot = -1;
+  if (items.meta != nullptr) {
+    const int2 m = __ldg(items.meta + item);
+    row = m.x;
+    slot = m.y;
+  }
+  const int64_t lo = __ldg(items.ptr + item);
+  const int64_t n = __ldg(items.ptr + item + 1) - lo;
   const int64_t Fh = F / H;
+  auto source = [&](int64_t e) -> int64_t {
+    if constexpr (kPerEdge) return e;
+    return static_cast<int64_t>(__ldg(col + e));
+  };
+  auto weight = [&](int64_t e) -> float {
+    return (kHeads || w == nullptr) ? 1.f : __ldg(w + e);
+  };
 
-  // Every lane runs every chunk, so the shuffles below see the full warp.
-  for (int64_t chunk = 0; chunk < F; chunk += kWarp * V) {
-    const int64_t c = chunk + static_cast<int64_t>(lane) * V;
-    const bool active = c < F;  // V divides F whenever V > 1
+  for (int64_t c = lane * V; c < F; c += L * V) {
     int64_t head[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) head[i] = kHeads ? (c + i) / Fh : 0;
     float acc[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    if (kAcc && active) load_vec<T, V, false>(prev + row * F + c, acc);
+    if (kAcc && slot < 0) load_vec<T, V, false>(prev + row * F + c, acc);
+    const T* xc = x + c;
 
-    for (int64_t base = begin; base < end; base += kWarp) {
-      const int64_t left = end - base;
-      const int n = left < kWarp ? static_cast<int>(left) : kWarp;
-      int my_col = 0;
-      float my_w = 1.f;
-      if (lane < n) {
-        if constexpr (!kPerEdge) my_col = __ldg(col + base + lane);
-        if (!kHeads && w != nullptr) my_w = __ldg(w + base + lane);
-      }
-      int j = 0;
-      for (; j + kUnroll <= n; j += kUnroll) {
-        float v[kUnroll][V];
-        float wj[kUnroll];
-        int64_t r[kUnroll];
+    // the first kStages edges: all their indices, then all their copies
+    int64_t r0[kStages + 1];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          r[u] = row_of<kPerEdge>(my_col, j + u, base + j + u);
-          wj[u] = __shfl_sync(kFullMask, my_w, j + u);
-          if (active) load_vec<T, V>(x + r[u] * F + c, v[u]);
-        }
-        if (active) {
+    for (int s = 0; s <= kStages; ++s) r0[s] = s < n ? source(lo + s) : 0;
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u)
-            add_row<V, kHeads>(acc, v[u], wj[u], w, base + j + u, H, head);
-        }
-      }
-      for (; j < n; ++j) {
-        const int64_t r = row_of<kPerEdge>(my_col, j, base + j);
-        const float wv = __shfl_sync(kFullMask, my_w, j);
-        if (active) {
-          float v[V];
-          load_vec<T, V>(x + r * F + c, v);
-          add_row<V, kHeads>(acc, v, wv, w, base + j, H, head);
-        }
-      }
+    for (int s = 0; s < kStages; ++s) {
+      if (s < n) stage_copy<T, V>(&ring[s][threadIdx.x], xc + r0[s] * F);
+      commit_stage();
     }
-    if (active) store_vec<T, V>(out + row * F + c, acc);
+    int64_t r_next = r0[kStages];
+    float w_cur = n > 0 ? weight(lo) : 0.f;
+    for (int64_t j = 0; j < n; ++j) {
+      const float w_next = j + 1 < n ? weight(lo + j + 1) : 0.f;
+      wait_stages<kStages - 1>();  // edge j has landed
+      const int s = static_cast<int>(j % kStages);
+      float v[V];
+      load_vec<T, V, false>(reinterpret_cast<const T*>(&ring[s][threadIdx.x]),
+                            v);
+      add_row<V, kHeads>(acc, v, w_cur, w, lo + j, H, head);
+      // the slot's read above leaves the load/store unit before this
+      // lane's next copy into it (shared-memory accesses of a warp are
+      // issued in order; the copy lands a global round trip later)
+      if (j + kStages < n) {
+        stage_copy<T, V>(&ring[s][threadIdx.x], xc + r_next * F);
+        if (j + kStages + 1 < n) r_next = source(lo + j + kStages + 1);
+      }
+      commit_stage();
+      w_cur = w_next;
+    }
+    if (slot < 0)
+      store_vec<T, V>(out + row * F + c, acc);
+    else
+      store_f32<V>(items.part + slot * items.stride + c, acc);
   }
 }
 
-template <typename T, bool kPerEdge, bool kHeads, bool kAcc = false>
-void launch(const void* x, const float* w, const int64_t* rowptr,
-            const int32_t* col, const void* prev, void* out, int64_t n_dst,
-            int64_t F, int64_t H, cudaStream_t stream) {
+// The fold: cut row i (row cut_row[i]) owns scratch slots [cut_ptr[i],
+// cut_ptr[i + 1]), one per item in item order; out[row] = prev[row] (kAcc,
+// else 0) plus each slot in turn, in f32, rounded once. Groups of 2^lg
+// lanes as in spmm_csr_kernel.
+template <typename T, int V, bool kAcc>
+__global__ void __launch_bounds__(kThreads)
+    csr_fold_kernel(const float* __restrict__ part,
+                    const int32_t* __restrict__ cut_row,
+                    const int64_t* __restrict__ cut_ptr, const T* prev,
+                    T* out, int64_t n_cut, int lg, int64_t F,
+                    int64_t stride) {
+  constexpr int kUnroll = 8;  // slots in flight: a hub row has hundreds
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t i = t >> lg;
+  if (i >= n_cut) return;
+  const int64_t L = int64_t{1} << lg;
+  const int64_t row = __ldg(cut_row + i);
+  const int64_t s0 = __ldg(cut_ptr + i), s1 = __ldg(cut_ptr + i + 1);
+  for (int64_t c = (t & (L - 1)) * V; c < F; c += L * V) {
+    float acc[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = 0.f;
+    if (kAcc) load_vec<T, V, false>(prev + row * F + c, acc);
+    const float* p = part + c;
+    int64_t s = s0;
+    for (; s + kUnroll <= s1; s += kUnroll) {
+      float a[kUnroll][V];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) load_f32<V>(p + (s + u) * stride, a[u]);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] += a[u][k];
+    }
+    for (; s < s1; ++s) {
+      float a[V];
+      load_f32<V>(p + s * stride, a);
+#pragma unroll
+      for (int k = 0; k < V; ++k) acc[k] += a[k];
+    }
+    store_vec<T, V>(out + row * F + c, acc);
+  }
+}
+
+// log2 of the lanes an item takes: the power of two >= ceil(F / V), at
+// most 32.
+int lanes_log2(int64_t F, int V) {
+  const int64_t per = (F + V - 1) / V;
+  int lg = 0;
+  while (lg < 5 && (int64_t{1} << lg) < per) ++lg;
+  return lg;
+}
+
+bool grid_ok(int64_t n, int lg) {
+  return n >= 0 && ((n << lg) + kThreads - 1) / kThreads <= 0x7fffffff;
+}
+
+dim3 grid_of(int64_t n, int lg) {
+  return dim3(static_cast<unsigned>(((n << lg) + kThreads - 1) / kThreads));
+}
+
+// 16-byte rows where F and every row pointer allow them, else one column
+// a lane.
+template <typename T, bool kPerEdge, bool kHeads, bool kAcc>
+void launch(const void* x, const float* w, const int32_t* col,
+            const void* prev, void* out, Items items, int64_t F, int64_t H,
+            cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  const dim3 block(kWarp * kWarpsPerBlock);
   const void* ptrs[] = {x, out, prev};
   const bool vec = pick_vec<T>(F, ptrs, kAcc ? 3 : 2) == kVec;
   const T* xt = static_cast<const T*>(x);
   const T* pt = static_cast<const T*>(prev);
   T* ot = static_cast<T*>(out);
+  const int lg = lanes_log2(F, vec ? kVec : 1);
   if (vec)
     spmm_csr_kernel<T, kVec, kPerEdge, kHeads, kAcc>
-        <<<grid_for(n_dst), block, 0, stream>>>(xt, w, rowptr, col, pt, ot,
-                                                n_dst, F, H);
+        <<<grid_of(items.n, lg), kThreads, 0, stream>>>(xt, w, col, pt, ot,
+                                                         items, lg, F, H);
   else
     spmm_csr_kernel<T, 1, kPerEdge, kHeads, kAcc>
-        <<<grid_for(n_dst), block, 0, stream>>>(xt, w, rowptr, col, pt, ot,
-                                                n_dst, F, H);
+        <<<grid_of(items.n, lg), kThreads, 0, stream>>>(xt, w, col, pt, ot,
+                                                         items, lg, F, H);
 }
 
 template <typename T>
-void launch_mode(const void* x, const float* w, const int64_t* rowptr,
-                 const int32_t* col, void* out, int64_t n_dst, int64_t F,
-                 int64_t H, int per_edge, cudaStream_t stream) {
+void launch_mode(const void* x, const float* w, const int32_t* col,
+                 void* out, Items items, int64_t F, int64_t H, int per_edge,
+                 cudaStream_t stream) {
   const bool heads = w != nullptr && H > 1;
   if (per_edge && heads)
-    launch<T, true, true>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
-                          stream);
+    launch<T, true, true, false>(x, w, col, nullptr, out, items, F, H,
+                                 stream);
   else if (per_edge)
-    launch<T, true, false>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
-                           stream);
+    launch<T, true, false, false>(x, w, col, nullptr, out, items, F, H,
+                                  stream);
   else if (heads)
-    launch<T, false, true>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
-                           stream);
+    launch<T, false, true, false>(x, w, col, nullptr, out, items, F, H,
+                                  stream);
   else
-    launch<T, false, false>(x, w, rowptr, col, nullptr, out, n_dst, F, H,
-                            stream);
+    launch<T, false, false, false>(x, w, col, nullptr, out, items, F, H,
+                                   stream);
+}
+
+template <typename T>
+void launch_fold(const float* part, const int32_t* cut_row,
+                 const int64_t* cut_ptr, const void* prev, void* out,
+                 int64_t n_cut, int64_t F, int64_t stride,
+                 cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const void* ptrs[] = {out, prev};
+  const bool vec = pick_vec<T>(F, ptrs, 2) == kVec;
+  const T* pt = static_cast<const T*>(prev);
+  T* ot = static_cast<T*>(out);
+  const int lg = lanes_log2(F, vec ? kVec : 1);
+  const dim3 grid = grid_of(n_cut, lg);
+  if (vec && prev)
+    csr_fold_kernel<T, kVec, true><<<grid, kThreads, 0, stream>>>(
+        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+  else if (vec)
+    csr_fold_kernel<T, kVec, false><<<grid, kThreads, 0, stream>>>(
+        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+  else if (prev)
+    csr_fold_kernel<T, 1, true><<<grid, kThreads, 0, stream>>>(
+        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+  else
+    csr_fold_kernel<T, 1, false><<<grid, kThreads, 0, stream>>>(
+        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+}
+
+// The items as the entry points receive them; false where they cannot be
+// launched.
+bool make_items(const void* item_ptr, const void* item_meta, int64_t n_items,
+                void* part, int64_t stride, int64_t F, Items* items) {
+  if (n_items < 0 || item_ptr == nullptr || stride < F || stride % 4 != 0 ||
+      !grid_ok(n_items, 5))
+    return false;
+  items->ptr = static_cast<const int64_t*>(item_ptr);
+  items->meta = static_cast<const int2*>(item_meta);
+  items->n = n_items;
+  items->part = static_cast<float*>(part);
+  items->stride = stride;
+  return item_meta == nullptr || part != nullptr;
 }
 
 }  // namespace
@@ -200,51 +400,88 @@ extern "C" {
 // x: (rows, F) bf16 (x_is_bf16 != 0) or f32, contiguous, whose rows are
 // read at col[e] (per_edge == 0: node rows) or at e (per_edge != 0: one row
 // per CSR edge; col may then be null); w: f32 in CSR order, (E,) for H == 1
-// or (E, H) with F % H == 0, or null for unit weights; rowptr: (n_dst + 1,)
-// int64; col: (E,) int32; out: (n_dst, F) of x's type. Launches on `stream`
-// and returns cudaGetLastError() (0 on success); does not synchronise.
-int gammagl_spmm_csr(const void* x, const void* w, const void* rowptr,
-                     const void* col, void* out, int64_t n_dst, int64_t F,
+// or (E, H) with F % H == 0, or null for unit weights; col: (E,) int32;
+// out: (n_dst, F) of x's type.
+// The items: item_ptr (n_items + 1,) int64 edge offsets; item_meta
+// (n_items, 2) int32 {row, slot} with slot -1 for an item that owns its
+// row, or null, and then item i is row i and item_ptr is the plan's rowptr
+// (n_items = n_dst); part: f32 scratch of (slots, part_stride), written
+// for the items of cut rows (null when no item has a slot), part_stride a
+// multiple of 4 that is >= F. A cut row is written by gammagl_csr_fold,
+// launched after this on the same stream.
+// Launches on `stream` and returns cudaGetLastError() (0 on success);
+// does not synchronise.
+int gammagl_spmm_csr(const void* x, const void* w, const void* item_ptr,
+                     const void* item_meta, int64_t n_items, const void* col,
+                     void* part, int64_t part_stride, void* out, int64_t F,
                      int64_t H, int per_edge, int x_is_bf16, void* stream) {
-  if (n_dst < 0 || F < 0 || H < 1 || (F > 0 && F % H != 0) ||
-      grid_too_large(n_dst))
+  Items items;
+  if (F < 0 || H < 1 || (F > 0 && F % H != 0) ||
+      !make_items(item_ptr, item_meta, n_items, part, part_stride, F, &items))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_dst > 0 && F > 0) {
+  if (n_items > 0 && F > 0) {
     const float* wf = static_cast<const float*>(w);
-    const int64_t* rp = static_cast<const int64_t*>(rowptr);
     const int32_t* cl = static_cast<const int32_t*>(col);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_is_bf16)
-      launch_mode<__nv_bfloat16>(x, wf, rp, cl, out, n_dst, F, H, per_edge,
-                                 s);
+      launch_mode<__nv_bfloat16>(x, wf, cl, out, items, F, H, per_edge, s);
     else
-      launch_mode<float>(x, wf, rp, cl, out, n_dst, F, H, per_edge, s);
+      launch_mode<float>(x, wf, cl, out, items, F, H, per_edge, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The accumulating form: out = prev + A x over node rows (col gathered),
-// x, prev and out as gammagl_spmm_csr's x and out; prev (n_dst, F) of x's
-// type, contiguous, may be out itself. w: (E,) f32 in CSR order or null.
-// Launches on `stream` and returns cudaGetLastError(); does not
+// x, the items, part and out as gammagl_spmm_csr's; prev (n_dst, F) of
+// x's type, contiguous, may be out itself. w: (E,) f32 in CSR order or
+// null. Launches on `stream` and returns cudaGetLastError(); does not
 // synchronise.
-int gammagl_spmm_csr_acc(const void* x, const void* w, const void* rowptr,
-                         const void* col, const void* prev, void* out,
-                         int64_t n_dst, int64_t F, int x_is_bf16,
-                         void* stream) {
-  if (n_dst < 0 || F < 0 || prev == nullptr || grid_too_large(n_dst))
+int gammagl_spmm_csr_acc(const void* x, const void* w, const void* item_ptr,
+                         const void* item_meta, int64_t n_items,
+                         const void* col, void* part, int64_t part_stride,
+                         const void* prev, void* out, int64_t F,
+                         int x_is_bf16, void* stream) {
+  Items items;
+  if (F < 0 || prev == nullptr ||
+      !make_items(item_ptr, item_meta, n_items, part, part_stride, F, &items))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_dst > 0 && F > 0) {
+  if (n_items > 0 && F > 0) {
     const float* wf = static_cast<const float*>(w);
-    const int64_t* rp = static_cast<const int64_t*>(rowptr);
     const int32_t* cl = static_cast<const int32_t*>(col);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_is_bf16)
-      launch<__nv_bfloat16, false, false, true>(x, wf, rp, cl, prev, out,
-                                                n_dst, F, 1, s);
+      launch<__nv_bfloat16, false, false, true>(x, wf, cl, prev, out, items,
+                                                F, 1, s);
     else
-      launch<float, false, false, true>(x, wf, rp, cl, prev, out, n_dst, F,
-                                        1, s);
+      launch<float, false, false, true>(x, wf, cl, prev, out, items, F, 1,
+                                        s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fold of cut rows after gammagl_spmm_csr(_acc): part (slots,
+// part_stride) f32 as that launch wrote it; cut_row (n_cut,) int32 the
+// rows; cut_ptr (n_cut + 1,) int64, cut row i owning slots [cut_ptr[i],
+// cut_ptr[i + 1]) in item order; prev null (the sum starts from 0) or as
+// gammagl_spmm_csr_acc's; out (n_dst, F) of x's type. Launches on `stream`
+// and returns cudaGetLastError(); does not synchronise.
+int gammagl_csr_fold(const void* part, int64_t part_stride,
+                     const void* cut_row, const void* cut_ptr, int64_t n_cut,
+                     const void* prev, void* out, int64_t F, int x_is_bf16,
+                     void* stream) {
+  if (F < 0 || part_stride < F || part_stride % 4 != 0 ||
+      !grid_ok(n_cut, 5) || (n_cut > 0 && F > 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_cut > 0 && F > 0) {
+    const float* pf = static_cast<const float*>(part);
+    const int32_t* cr = static_cast<const int32_t*>(cut_row);
+    const int64_t* cp = static_cast<const int64_t*>(cut_ptr);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (x_is_bf16)
+      launch_fold<__nv_bfloat16>(pf, cr, cp, prev, out, n_cut, F,
+                                 part_stride, s);
+    else
+      launch_fold<float>(pf, cr, cp, prev, out, n_cut, F, part_stride, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

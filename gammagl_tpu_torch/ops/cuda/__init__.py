@@ -8,8 +8,11 @@ compiled or loaded when this package is imported.
 
 from gammagl_tpu_torch.ops.cuda.segment_matmul import (  # noqa: F401
     CSRPlan,
+    ROW_SPLIT,
     build_csr_plan,
     build_csr_plan_blocked,
+    build_row_split,
+    csr_fold,
     gather_rows,
     pad_edge_weights,
     segment_sum_csr,
@@ -75,6 +78,7 @@ from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
 )
 
 __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
+           "build_row_split", "ROW_SPLIT", "csr_fold",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
            "spmm_csr_acc", "spmm_csr_acc_reference", "attention_keep_mask", "flash_edge_attention",
            "flash_edge_attention_mh", "flash_softmax_spmm",

@@ -31,10 +31,18 @@ blocks: counterpart of `segment_matmul_dyn_packed` with ``out_acc``, the
 same kernel with a flag (launches counted in ``spmm_csr_acc.launches``).
 The JAX kernel gathers a pre-packed table of bf16 halves; this one gathers
 its own rows in every dtype and width.
+
+On the card a plan's rows are cut into work items of at most `ROW_SPLIT`
+edges (`build_row_split`, built once per plan and cached per device by
+`CSRPlan.split_arrays`): a hub row of a power-law graph is spread over
+many lanes instead of walked by one warp. The partial sums of a cut row
+are folded in item order by a second kernel (`csr_fold`, launches counted
+in ``csr_fold.launches``), so the result stays deterministic.
 """
 
 import ctypes
 import functools
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -42,9 +50,63 @@ import torch
 from gammagl_tpu_torch.ops.cuda._build import load_library
 
 __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
+           "build_row_split", "RowSplit", "ROW_SPLIT", "csr_fold",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",
            "spmm_csr_acc", "spmm_csr_acc_reference", "segment_sum_csr",
            "segment_sum_csr_reference", "gather_rows"]
+
+
+# The most CSR edges one work item of the kernel walks. A row of more
+# edges is cut into ceil(deg / ROW_SPLIT) items whose f32 partial sums the
+# fold adds up. Rows of graphs without hubs stay whole (the arxiv-shape
+# graph's largest in-degree is ~760): those plans carry no item table and
+# launch no fold. On the papers shard's transpose (a hub of 1,401,814
+# edges: 685 items) the one-plan call moves by a few percent between K =
+# 1024 and 8192 (chip_smoke.py phase 24 times the sweep); smaller items
+# leave more slots to fold, larger ones a longer walk on one lane group.
+ROW_SPLIT = 2048
+
+RowSplit = namedtuple("RowSplit", [
+    "item_ptr",   # (n_items + 1,) int64: item i holds CSR edges
+                  # [item_ptr[i], item_ptr[i + 1])
+    "item_row",   # (n_items,) int32: the row of each item
+    "item_slot",  # (n_items,) int32: scratch slot of an item of a cut row,
+                  # -1 for an item that owns its row
+    "cut_row",    # (n_cut,) int32: the rows cut into more than one item
+    "cut_ptr",    # (n_cut + 1,) int64: cut row i owns slots
+                  # [cut_ptr[i], cut_ptr[i + 1]), one per item, in order
+])
+
+
+def build_row_split(rowptr, K=ROW_SPLIT):
+    """The kernel's work items for a CSR row pointer, in numpy.
+
+    A row of up to ``K`` edges is one item (an empty row too, so it is
+    still written); a longer row is cut into ``ceil(deg / K)`` items of K
+    consecutive CSR edges, the last one shorter, each with a scratch slot.
+    Items follow CSR order, so ``item_ptr`` ends at the edge count.
+    """
+    rowptr = np.asarray(rowptr, np.int64)
+    K = int(K)
+    if K < 1:
+        raise ValueError(f"K must be positive, got {K}")
+    n_rows = rowptr.shape[0] - 1
+    if n_rows >= 2 ** 31:
+        raise ValueError(f"{n_rows} rows do not fit the int32 item rows")
+    deg = np.diff(rowptr)
+    per_row = np.maximum(1, -(-deg // K))
+    item_row = np.repeat(np.arange(n_rows, dtype=np.int64), per_row)
+    first = np.cumsum(per_row) - per_row  # the first item of each row
+    k = np.arange(item_row.shape[0], dtype=np.int64) - first[item_row]
+    item_ptr = np.append(rowptr[item_row] + k * K, rowptr[-1])
+    cut = per_row > 1
+    in_cut = cut[item_row]
+    item_slot = np.where(in_cut, np.cumsum(in_cut) - 1, -1)
+    cut_ptr = np.zeros(int(cut.sum()) + 1, np.int64)
+    np.cumsum(per_row[cut], out=cut_ptr[1:])
+    return RowSplit(item_ptr, item_row.astype(np.int32),
+                    item_slot.astype(np.int32),
+                    np.flatnonzero(cut).astype(np.int32), cut_ptr)
 
 
 class CSRPlan:
@@ -60,8 +122,9 @@ class CSRPlan:
              a route by it (`HGTConv` fuses on window plans only), so the
              port's take the same route for the same call.
 
-    One copy of the arrays is kept per device (`arrays`); the transpose
-    plans of the backward are built on first use and kept too.
+    One copy of the arrays is kept per device (`arrays`), and of the
+    kernel's work items (`split_arrays`); the transpose plans of the
+    backward are built on first use and kept too.
     """
 
     def __init__(self, rowptr, col, perm, num_nodes, num_src, num_edges,
@@ -74,6 +137,8 @@ class CSRPlan:
         self.num_src = int(num_src)
         self.num_edges = int(num_edges)
         self._placed = {}
+        self._split = None
+        self._split_placed = {}
         self._transpose = None
         self._edge_scatter = None
 
@@ -102,9 +167,7 @@ class CSRPlan:
 
     def arrays(self, device):
         """(rowptr, col, perm) as tensors on ``device``, copied once."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = _placed_device(device)
         placed = self._placed.get(device)
         if placed is None:
             # ordinary tensors even when first placed under inference
@@ -115,9 +178,46 @@ class CSRPlan:
                     for a in (self.rowptr, self.col, self.perm))
         return placed
 
+    def row_split(self):
+        """The kernel's work items (`build_row_split` at `ROW_SPLIT`),
+        built on first use."""
+        if self._split is None:
+            self._split = build_row_split(self.rowptr)
+        return self._split
+
+    def split_arrays(self, device):
+        """The work items as the kernel reads them on ``device``, copied
+        once: (item_ptr, item_meta, cut_row, cut_ptr, n_slots). A plan
+        without cut rows has one item per row: item_ptr is rowptr itself
+        and the others are None (and 0)."""
+        device = _placed_device(device)
+        placed = self._split_placed.get(device)
+        if placed is None:
+            split = self.row_split()
+            if split.cut_row.shape[0] == 0:
+                placed = (self.arrays(device)[0], None, None, None, 0)
+            else:
+                with torch.inference_mode(False):
+                    meta = np.stack([split.item_row, split.item_slot], 1)
+                    placed = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                                   .to(device) for a in (
+                                       split.item_ptr, meta, split.cut_row,
+                                       split.cut_ptr)) + (
+                                           int(split.cut_ptr[-1]),)
+            self._split_placed[device] = placed
+        return placed
+
     def __repr__(self):
         return (f"CSRPlan(N={self.num_nodes}, N_src={self.num_src}, "
                 f"E={self.num_edges}, window={self.window})")
+
+
+def _placed_device(device):
+    """``device`` with the current card's index filled in, a cache key."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def build_csr_plan(src, dst, num_nodes, num_src=None, R=None, ET=None,
@@ -260,7 +360,9 @@ def segment_sum_csr_reference(v, plan, w=None):
 def _kernel():
     lib = load_library()
     fn = lib.gammagl_spmm_csr
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_void_p]
+                   + [ctypes.c_int64] * 2
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = lib.gammagl_cuda_error_string
@@ -272,8 +374,20 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _acc_kernel():
     fn = load_library().gammagl_spmm_csr_acc
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
                    + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _fold_kernel():
+    fn = load_library().gammagl_csr_fold
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -289,13 +403,17 @@ def _raise_on(code, what, err):
                            f"{err(code).decode()} ({code})")
 
 
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch(x, w, plan, per_edge=False, prev=None, out=None):
     """Run the kernel on CUDA tensors: x f32 or bf16, (N_src, F) node rows
     or (E, F) per-edge rows (``per_edge``); w f32 (E,) or (E, H) in CSR
     order, or None; with ``prev`` (node rows and (E,) weights only) the
     accumulating form. Writes into ``out`` when given (it may be prev).
     Counts the launch in `spmm_csr`, per edge in `segment_sum_csr`, with
-    prev in `spmm_csr_acc`."""
+    prev in `spmm_csr_acc`; a plan with cut rows then runs `csr_fold`."""
     op = ("segment_sum_csr" if per_edge else "spmm_csr" if prev is None
           else "spmm_csr_acc")
     if x.device.type != "cuda":
@@ -305,7 +423,7 @@ def _launch(x, w, plan, per_edge=False, prev=None, out=None):
                         f"{_KERNEL_DTYPES}")
     if not x.is_contiguous():
         raise ValueError(f"{op}: x must be contiguous")
-    rowptr, col, _ = plan.arrays(x.device)
+    col = plan.arrays(x.device)[1]
     heads = 1
     if w is not None:
         if w.device != x.device:
@@ -317,25 +435,59 @@ def _launch(x, w, plan, per_edge=False, prev=None, out=None):
                           device=x.device)
     if out.numel() == 0:
         return out
+    F = x.shape[1]
+    item_ptr, meta, cut_row, cut_ptr, n_slots = plan.split_arrays(x.device)
+    n_items = plan.num_nodes if meta is None else meta.shape[0]
+    stride = _part_stride(F)
+    part = (torch.empty(n_slots, stride, dtype=torch.float32,
+                        device=x.device) if n_slots else None)
     fn, err = _kernel()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    w_ptr = 0 if w is None else w.data_ptr()
     bf16 = int(x.dtype == torch.bfloat16)
+    items = (item_ptr.data_ptr(), _ptr(meta), n_items, col.data_ptr(),
+             _ptr(part), stride)
     with torch.cuda.device(x.device):
         if prev is None:
-            code = fn(x.data_ptr(), w_ptr, rowptr.data_ptr(),
-                      col.data_ptr(), out.data_ptr(), plan.num_nodes,
-                      x.shape[1], heads, int(per_edge), bf16, stream)
+            code = fn(x.data_ptr(), _ptr(w), *items, out.data_ptr(), F,
+                      heads, int(per_edge), bf16, stream)
         else:
-            code = _acc_kernel()(x.data_ptr(), w_ptr, rowptr.data_ptr(),
-                                 col.data_ptr(), prev.data_ptr(),
-                                 out.data_ptr(), plan.num_nodes, x.shape[1],
-                                 bf16, stream)
+            code = _acc_kernel()(x.data_ptr(), _ptr(w), *items,
+                                 prev.data_ptr(), out.data_ptr(), F, bf16,
+                                 stream)
     _raise_on(code, op, err)
     counter = (segment_sum_csr if per_edge else spmm_csr if prev is None
                else spmm_csr_acc)
     counter.launches += 1
+    if n_slots:
+        csr_fold(part, cut_row, cut_ptr, prev, out)
     return out
+
+
+def _part_stride(F):
+    """Floats a scratch slot takes for F columns: F rounded up to a
+    multiple of 4, so every slot starts on 16 bytes."""
+    return -(-F // 4) * 4
+
+
+def csr_fold(part, cut_row, cut_ptr, prev, out):
+    """The second pass of the CSR kernel on a plan with cut rows:
+    ``out[cut_row[i]] = prev[cut_row[i]] (or 0 without prev) + part[s]``
+    for each slot s of cut row i in item order, summed in float32 and
+    rounded once. The kernel wrappers call it after their launch; it
+    launches ``csr_fold_kernel`` (counted in ``csr_fold.launches``)."""
+    F = out.shape[1]
+    fn, err = _fold_kernel(), _kernel()[1]
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(out.device):
+        code = fn(part.data_ptr(), part.shape[1], cut_row.data_ptr(),
+                  cut_ptr.data_ptr(), cut_row.shape[0], _ptr(prev),
+                  out.data_ptr(), F, int(out.dtype == torch.bfloat16), stream)
+    _raise_on(code, "csr_fold", err)
+    csr_fold.launches += 1
+    return out
+
+
+csr_fold.launches = 0
 
 
 def _forward(x, w, plan, per_edge=False):
@@ -412,7 +564,8 @@ def spmm_csr(x, edge_weight, plan, weights_padded=False):
         or the output of `pad_edge_weights` with ``weights_padded=True``.
 
     A CPU tensor takes `spmm_csr_reference`. A CUDA tensor launches the
-    kernel or raises; it never falls back. Differentiable once in ``x``
+    kernel (and `csr_fold` after it when the plan has cut rows) or raises;
+    it never falls back. Differentiable once in ``x``
     and ``edge_weight`` (``create_graph=True`` raises on every device); the
     backward of ``x`` is another launch of the kernel on the card
     (counted in ``spmm_csr.launches`` too).

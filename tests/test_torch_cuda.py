@@ -1,4 +1,5 @@
-"""Card-only tests of the port: the CSR SpMM (and per-edge segment sum),
+"""Card-only tests of the port: the CSR SpMM (and per-edge segment sum,
+the accumulating form, hub rows cut into work items and their fold),
 flash attention, destination expand, SDDMM, segment max and HGT attention
 kernels against their plain versions, forward and backward, the launch
 counts, the wrappers' checks, gradients of GCN, GAT, GATv2 and HGT
@@ -917,6 +918,87 @@ def test_spmm_csr_acc_kernel_matches_plain(card, F, dtype, rtol, mode):
         bare = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
         assert torch.equal(got[bare], prev[bare])
         assert torch.equal(got, kops.spmm_csr_acc(x, w, plan, prev=prev))
+
+
+def _hub_plan(seed=0, n_dst=300, n_src=420, star=20_000, e=4000):
+    """A star of ``star`` edges into row 0 (cut into work items at
+    ROW_SPLIT) plus random edges; odd rows and the tail: empty."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.zeros(star, np.int64),
+                          2 * rng.integers(0, n_dst // 3, e)])
+    src = rng.integers(0, n_src, dst.shape[0])
+    return kops.build_csr_plan(src, dst, n_dst, num_src=n_src)
+
+
+@pytest.mark.parametrize("F", [7, 40, 64, 128, 256])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("op", ["spmm", "acc", "acc in place",
+                                "segment_sum"])
+def test_hub_rows_are_cut_and_folded(card, F, dtype, rtol, op):
+    """A row of 20,000 edges: its items' partials folded by the second
+    kernel; one launch and one fold a call; the result bitwise equal to the
+    plain version (integer inputs and weights in eighths: every f32
+    partial sum is exact), repeats too, rows without edges prev (or 0) bit
+    for bit."""
+    plan = _hub_plan(F)
+    assert plan.row_split().cut_row.tolist() == [0]
+    g = torch.Generator().manual_seed(F)
+    E = plan.num_edges
+
+    def ints(*shape):  # every f32 partial sum exact: any order, same bits
+        return torch.randint(-4, 5, shape, generator=g).to(card, dtype)
+
+    w = (torch.randint(0, 9, (E,), generator=g) / 8).to(card)
+    prev = ints(plan.num_nodes, F)
+    if op == "segment_sum":
+        v = ints(E, F)
+        counter, want = kops.segment_sum_csr, kops.segment_sum_csr_reference(
+            v, plan, w)
+
+        def run():
+            return kops.segment_sum_csr(v, plan, w)
+    else:
+        x = ints(plan.num_src, F)
+        acc = op != "spmm"
+        counter = kops.spmm_csr_acc if acc else kops.spmm_csr
+        want = kops.spmm_csr_acc_reference(x, w, plan,
+                                           prev=prev if acc else None)
+
+        def run():
+            if op == "acc in place":
+                out = prev.clone()
+                got = kops.spmm_csr_acc(x, w, plan, prev=out, out=out)
+                assert got.data_ptr() == out.data_ptr()
+                return got
+            return kops.spmm_csr_acc(x, w, plan, prev=prev if acc else None)
+    before = (counter.launches, kops.csr_fold.launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (counter.launches - before[0],
+            kops.csr_fold.launches - before[1]) == (1, 1)
+    _close(got, want, rtol)
+    assert torch.equal(got, want)
+    assert torch.equal(got, run())
+    bare = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    keep = prev[bare] if op.startswith("acc") else torch.zeros_like(
+        got[bare])
+    assert torch.equal(got[bare], keep)
+
+
+def test_fold_runs_exactly_when_a_plan_has_cut_rows(card):
+    g = torch.Generator().manual_seed(0)
+    for plan, cut in ((_plan(3)[0], False), (_hub_plan(3), True)):
+        assert bool(plan.row_split().cut_row.size) == cut
+        x = torch.randn(plan.num_src, 32, generator=g).to(card)
+        v = torch.randn(plan.num_edges, 32, generator=g).to(card)
+        prev = torch.randn(plan.num_nodes, 32, generator=g).to(card)
+        before = kops.csr_fold.launches
+        kops.spmm_csr(x, None, plan)
+        kops.spmm_csr_acc(x, None, plan, prev=prev)
+        kops.segment_sum_csr(v, plan)
+        torch.cuda.synchronize()
+        assert kops.csr_fold.launches - before == (3 if cut else 0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
