@@ -20,9 +20,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    graph at F = 256 and 40, bf16 and f32.
 3. Hold the flash attention kernels (forward and backward) against their
    plain versions: f32 and bf16, (H, F) in {(8, 8), (1, 40), (1, 64),
-   (2, 640)}, with and without a keep mask, per-edge and gathered inputs,
-   empty rows with N_src != N_dst, no edges, and the slice graph at both
-   GAT layers' shapes; time both kernels against the plain versions there.
+   (2, 640)}, with and without a keep mask (in CSR and in the caller's
+   order), per-edge and gathered inputs, empty rows with N_src != N_dst,
+   no edges, and the slice graph at both GAT layers' shapes, each case run
+   twice with every output bitwise equal; time both kernels against the
+   plain versions there.
 4. Hold the edge-endpoint kernels against their plain versions: the
    destination expand (unscaled: bitwise equal; scaled per edge and head),
    the per-edge segment sum (unit, (E,) and (E, H) weights) and the SDDMM
@@ -70,7 +72,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
 12. Hold the HGT attention kernels (forward and backward) against their
    plain versions: f32 and bf16, (H, D) in {(2, 64), (4, 64), (8, 32)},
    empty rows, no edges, and bench.py:185's relation (200,000 -> 100,000
-   nodes, 2,000,000 edges, H = 4, D = 64, bf16), where both are timed.
+   nodes, 2,000,000 edges, H = 4, D = 64, bf16), where both are timed;
+   there also hold the flash kernels at HGT's train shape (the decomposed
+   route's per-edge rows, keep in CSR order, (H, F) = (4, 64)) and time
+   them.
 13. Serve GraphSAGE (GraphSAGEModel, pool aggregator, 128 -> 256 -> 256 ->
    40, bf16) through `InferenceSession` with the slice graph's plan: 8
    requests against the plain COO path; exactly 3 segment-max launches a
@@ -99,8 +104,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    block-pair forward and dw kernels against their plain versions: f32 and
    bf16, F in {7, 40, 256}, weighted and unweighted, R = S = 8 with ET = 16
    and the 256 defaults, N_src != N_dst with empty destination blocks, no
-   edges, a `reorder=True` plan, dx on the transpose plan, repeats bitwise
-   equal; on the banded graph time the forward at F = 256 and 40 beside
+   edges, a `reorder=True` plan, dx on the transpose plan, and the block
+   pairs of the clustered graph's `HybridPlan` (F = 40 and 256), every
+   forward, dx and dw repeated bitwise equal; on the banded graph time the
+   forward at F = 256 and 40 beside
    its plain version, `torch.sparse.mm` and the port's `spmm_csr` on the
    same graph, and the dw kernel at F = 256.
 19. Serve GCN (the phase 5 model) on the banded graph through
@@ -115,8 +122,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    dropout masks equal; step-0 gradients held in float32 compute; a
    trace of 3 more steps.
 21. Serve that GCN on the clustered graph (75% of the edges inside runs of
-   256 ids, 25% uniform), where `auto_plan()` must give a `HybridPlan`:
-   8 requests, exactly 3 block-pair and 3 `spmm_csr` launches each.
+   256 ids, 25% uniform; built before phase 18), where `auto_plan()` must
+   give a `HybridPlan`: 8 requests, exactly 3 block-pair and 3 `spmm_csr`
+   launches each.
 22. Drive `spmm_block_pair` as the JAX package's test does (the gradient
    of sum(out^2) in x and w, bf16, F = 256, the banded graph): per call 1
    forward, 1 dx and 1 dw launch; the gradients held against the plain
@@ -653,12 +661,12 @@ def _flash_inputs(gen, plan, H, F, dtype, gather, keep, dev):
     return s, a, msg, kp
 
 
-def flash_check(k, label, plan, H, F, dtype, gather, keep, gen, dev,
-                repeat=False):
-    """Forward and backward kernels against the plain versions; returns
-    the max abs error of each: {"flash_forward": over out and l,
-    "flash_backward": over ds, dmsg and da}. With ``gather`` keep is in
-    the caller's edge order, read through the plan's perm."""
+def flash_check(k, label, plan, H, F, dtype, gather, keep, gen, dev):
+    """Forward and backward kernels against the plain versions, and a
+    second run of each bitwise equal to the first; returns the max abs
+    error of each: {"flash_forward": over out and l, "flash_backward":
+    over ds, dmsg and da}. With ``gather`` keep is in the caller's edge
+    order, read through the plan's perm."""
     s, a, msg, kp = _flash_inputs(gen, plan, H, F, dtype, gather, keep, dev)
     out, m, l = k.flash_forward(s, a, msg, kp, plan, 0.2, gather)
     g = torch.randn(out.shape, generator=gen).to(dev, dtype)
@@ -681,12 +689,14 @@ def flash_check(k, label, plan, H, F, dtype, gather, keep, gen, dev,
             ("flash_backward", "da", da, r_da, 1e-5)):
         err[kname] = max(err[kname],
                          check_close(f"{label} {name}", got, want, rtol))
-    if repeat:  # no atomics: a second run gives the same bits
-        out2 = k.flash_forward(s, a, msg, kp, plan, 0.2, gather)[0]
-        ds2 = k.flash_backward(s, a, msg, kp, m, l, out, g, plan, 0.2,
-                               gather)[0]
-        if not (torch.equal(out, out2) and torch.equal(ds, ds2)):
-            fail(f"{label}: repeated launches differ")
+    # no atomics, a fixed order (the backward's groups add their partial
+    # da in group order): a second run gives the same bits
+    again = (*k.flash_forward(s, a, msg, kp, plan, 0.2, gather),
+             *k.flash_backward(s, a, msg, kp, m, l, out, g, plan, 0.2,
+                               gather))
+    if not all(torch.equal(x, y) for x, y in zip((out, m, l, ds, dmsg, da),
+                                                 again)):
+        fail(f"{label}: repeated launches differ")
     return err
 
 
@@ -709,7 +719,7 @@ def phase_flash_checks(k, slice_plan):
             for keep, gather in ((False, True), (True, False), (True, True)):
                 flash_check(k, f"{dtype} H={H} F={F} keep={keep} "
                             f"gather={gather}", plan, H, F, dtype, gather,
-                            keep, gen, dev, repeat=keep)
+                            keep, gen, dev)
             flash_check(k, f"{dtype} H={H} F={F} E=0", empty, H, F, dtype,
                         True, True, gen, dev)
     main_err = {"flash_forward": 0.0, "flash_backward": 0.0}
@@ -1419,7 +1429,42 @@ def phase_hgt_checks(k):
             nbytes=Ns * 2 * HD * 2 + 3 * N * HD * 2 + 2 * N * H * 4
             + graph_bytes + N * HD * 2 + E * 2 * HD * 2,
             flops=10 * E * HD, plain_iters=3)}]}
-    return err, timings, plan
+    return err, timings, plan, flash_at_hgt_shape(k, plan, gen, dev)
+
+
+def flash_at_hgt_shape(k, plan, gen, dev):
+    """The flash kernels as HGT's decomposed train route calls them
+    (`flash_softmax_spmm_mh`: per-edge scores and messages in CSR order, no
+    a_dst, slope 1, keep in CSR order; H = 4, D = 64, bf16) on the 2M-edge
+    relation: held against the plain versions, then timed. Returns
+    ({kernel: max abs error}, {kernel: timing row})."""
+    H, D = HGT_HEADS, HIDDEN // HGT_HEADS
+    err = flash_check(k, f"HGT train shape bf16 H={H} F={D}", plan, H, D,
+                      torch.bfloat16, False, True, gen, dev)
+    s, _, msg, kp = _flash_inputs(gen, plan, H, D, torch.bfloat16, False,
+                                  True, dev)
+    args = (s, None, msg, kp)
+    out, m, l = k.flash_forward(*args, plan, 1.0, False)
+    g = torch.randn(out.shape, generator=gen).to(dev, torch.bfloat16)
+    bwd_args = (*args, m, l, out, g, plan, 1.0, False)
+    N, E, HD = plan.num_nodes, plan.num_edges, H * D
+    # in: the per-edge messages, scores and keep, rowptr; forward out: out,
+    # m and l; backward also in: m, l, out and the cotangent, out: ds, dmsg
+    # and da
+    nbytes = E * HD * 2 + 2 * E * H * 4 + (N + 1) * 8
+    timings = {}
+    for name, kern, plain, extra, flops in (
+            ("flash_forward", lambda: k.flash_forward(*args, plan, 1.0, False),
+             lambda: k.flash_forward_reference(*args, plan, 1.0, False),
+             N * HD * 2 + 2 * N * H * 4, 2 * E * HD + 6 * E * H),
+            ("flash_backward", lambda: k.flash_backward(*bwd_args),
+             lambda: k.flash_backward_reference(*bwd_args),
+             2 * N * H * 4 + 2 * N * HD * 2 + E * H * 4 + E * HD * 2
+             + N * H * 4, 4 * E * HD + 8 * E * H)):
+        timings[name] = {"H": H, "F": D, "graph": "hgt relation", **timing(
+            f"{name} H={H} F={D} (HGT train shape)", kern, plain,
+            nbytes + extra, flops, plain_iters=3)}
+    return err, timings
 
 
 def sage_params():
@@ -1698,13 +1743,14 @@ def _bp_small_case(rng, n_dst, n_src, e, R):
     return src, dst
 
 
-def phase_block_pair_checks(k, plan, csr_plan, w):
+def phase_block_pair_checks(k, plan, csr_plan, w, hybrid):
     """The block-pair forward and dw kernels against their plain versions
-    on small cases, then on the banded slice graph (``plan``, its CSR
-    ``csr_plan`` and GCN weights ``w`` in the caller's order), where the
-    forward is timed beside the plain version, cuSPARSE (`torch.sparse.mm`)
-    and the port's own `spmm_csr` on the same graph. Returns (max abs error
-    by kernel, timings)."""
+    on small cases and on the block pairs of the clustered graph's
+    ``hybrid`` plan, with repeats bitwise equal, then on the banded slice
+    graph (``plan``, its CSR ``csr_plan`` and GCN weights ``w`` in the
+    caller's order), where the forward is timed beside the plain version,
+    cuSPARSE (`torch.sparse.mm`) and the port's own `spmm_csr` on the same
+    graph. Returns (max abs error by kernel, timings)."""
     phase_start("phase 18: block-pair SpMM and dw kernels vs plain versions "
                 "on the card")
     dev = torch.device("cuda")
@@ -1752,15 +1798,33 @@ def phase_block_pair_checks(k, plan, csr_plan, w):
                 # dx: the forward kernel on the transpose plan
                 tp = p.transpose()
                 wv = rand(p.num_edges).abs()
+                dx = k.spmm_block_pair(g, wv, tp)
+                dw = k.block_pair_dw(x, g, p)
                 err["spmm_block_pair"] = max(
                     err["spmm_block_pair"], check_close(
-                        f"dx (transpose plan) {tag}",
-                        k.spmm_block_pair(g, wv, tp),
+                        f"dx (transpose plan) {tag}", dx,
                         k.spmm_block_pair_reference(g, wv, tp), rtol))
                 err["block_pair_dw"] = max(
                     err["block_pair_dw"], check_close(
-                        f"dw {tag}", k.block_pair_dw(x, g, p),
+                        f"dw {tag}", dw,
                         k.block_pair_dw_reference(x, g, p), 1e-5))
+                if not (torch.equal(dx, k.spmm_block_pair(g, wv, tp))
+                        and torch.equal(dw, k.block_pair_dw(x, g, p))):
+                    fail(f"block pair dx or dw {tag}: repeated launches "
+                         "differ")
+    # the clustered graph's hybrid plan: dense pairs whose blocks are not
+    # contiguous, as the clustering order leaves them
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for F in (N_CLASS, HIDDEN):
+            x = rand(hybrid.bp.num_src, F, dtype=dtype)
+            wv = rand(hybrid.num_edges).abs()
+            tag = f"clustered hybrid's block pairs {dtype} F={F}"
+            got = k.spmm_block_pair(x, wv, hybrid.bp)
+            err["spmm_block_pair"] = max(err["spmm_block_pair"], check_close(
+                tag, got, k.spmm_block_pair_reference(x, wv, hybrid.bp),
+                rtol))
+            if not torch.equal(got, k.spmm_block_pair(x, wv, hybrid.bp)):
+                fail(f"{tag}: repeated launches differ")
 
     # the slice graph: forward at GCN's widths, the dw kernel at F = 256
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
@@ -2480,7 +2544,11 @@ def main():
                                             plan, x, ei)
     sddmm_counts = phase_sddmm_path(k, plan)
     max_err, max_ms = phase_max_checks(k, plan)
-    hgt_err, hgt_ms, hgt_plan = phase_hgt_checks(k)
+    hgt_err, hgt_ms, hgt_plan, (hgt_flash_err, hgt_flash_ms) = (
+        phase_hgt_checks(k))
+    for name, row in hgt_flash_ms.items():
+        flash_ms[name].append(row)
+        flash_err[name] = max(flash_err[name], hgt_flash_err[name])
     sage_counts, sage_lat = phase_sage_serve(
         k, GraphSAGEModel, InferenceSession, load_jax_params, plan, x, ei)
     (sage_train_counts, sage_losses, sage_step_ms,
@@ -2519,7 +2587,15 @@ def main():
     bx = torch.from_numpy(banded.x).to(dev)
     bei = torch.from_numpy(banded.edge_index).to(dev)
     bw = gcn_weights(bei, N_NODES)
-    bp_err, bp_ms = phase_block_pair_checks(k, bp_plan, banded.csr_plan(), bw)
+    t0 = time.perf_counter()
+    clustered = clustered_graph(Graph)
+    hy_plan = clustered.auto_plan()
+    print(f"  clustered graph: {clustered.num_edges} edges with self-loops; "
+          f"auto_plan {hy_plan!r} in {time.perf_counter() - t0:.2f} s")
+    if not isinstance(hy_plan, k.HybridPlan):
+        fail(f"auto_plan on the clustered graph gave {hy_plan!r}")
+    bp_err, bp_ms = phase_block_pair_checks(k, bp_plan, banded.csr_plan(), bw,
+                                            hy_plan)
     bserve_counts, bserve_lat, bserve_prof, bcsr_lat = phase_gcn_plan_serve(
         k, "phase 19: serve GCN on the banded graph (reorder_rcm, "
         "auto_plan: block pair)", "GCN banded", GCNModel, InferenceSession,
@@ -2529,13 +2605,6 @@ def main():
      btrain_prof) = phase_gcn_banded_train(
         k, common, GCNModel, load_jax_params, bp_plan, bx, bei,
         torch.from_numpy(banded.y).to(dev))
-    t0 = time.perf_counter()
-    clustered = clustered_graph(Graph)
-    hy_plan = clustered.auto_plan()
-    print(f"  clustered graph: {clustered.num_edges} edges with self-loops; "
-          f"auto_plan {hy_plan!r} in {time.perf_counter() - t0:.2f} s")
-    if not isinstance(hy_plan, k.HybridPlan):
-        fail(f"auto_plan on the clustered graph gave {hy_plan!r}")
     cserve_counts, cserve_lat, cserve_prof, _ = phase_gcn_plan_serve(
         k, "phase 21: serve GCN on the clustered graph (auto_plan: hybrid)",
         "GCN clustered", GCNModel, InferenceSession, load_jax_params,

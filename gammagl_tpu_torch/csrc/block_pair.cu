@@ -19,45 +19,59 @@
 // (_bwd :264) gathers both endpoint rows in XLA. The gradient of x is this
 // forward kernel on the plan's transpose, as _bwd's segment_sum computes.
 //
-// What bounds the forward on the card: bytes, and the latency of reaching
-// them. After a bandwidth-reducing order (RCM) or a clustering order, each
-// destination block draws its sources from a few source blocks, so a CTA
-// reads a source block once from memory (mostly from L2: the neighbouring
-// destination blocks read the same one) and every edge of the pair reads
+// What bounds the forward on the card: bytes, and the instructions that
+// move them. After a bandwidth-reducing order (RCM) or a clustering order,
+// each destination block draws its sources from a few source blocks, so a
+// CTA reads a source block's slab once from memory (mostly from L2: the
+// neighbouring destination blocks read the same one) and every edge reads
 // its row from shared memory, where the CSR kernel gathers one row of x per
 // edge from L2 or HBM. At the ogbn-arxiv shape (2.48M edges, F = 256, bf16)
 // the function must move about 0.2 GB (x, out, the edge arrays, w); the
-// CSR kernel's per-edge rows alone are 1.27 GB of L2 or HBM reads.
+// CSR kernel's per-edge rows alone are 1.27 GB of L2 or HBM reads, the
+// slab rows read from shared memory here as many.
 //
-// What this simple design does about it:
-//  * one CTA of kBpWarps warps per (destination block, column chunk of
-//    FT = 64 columns; 32 where R and S leave no room for 64);
-//  * per (dst block, src block) pair: the S x FT source slab is staged in
-//    shared memory with 16-byte coalesced loads (scalar ones where F or the
-//    pointer does not allow them), each thread's loads in flight together;
-//    rows past N_src are not staged (no edge reads them);
-//  * lanes work in groups of L = FT / VC, each lane reading VC columns (16
-//    bytes: 8 bf16 or 4 f32) of an edge's slab row with one load, so a warp
-//    has 32 / L edges in flight at each step. Each pair's edges are sorted
-//    by destination row, then source, and cut into kSegs row segments (the
-//    plan's seg_ptr); each group owns whole segments, reads their edges 4L
-//    at a time with coalesced loads (the first 4L together with the slab,
-//    the next 4L while it works), and hands them out by shuffle within the
-//    group;
-//  * a group keeps the running sum of its current row in registers (VC
-//    columns a lane) and adds it into the R x FT f32 accumulator in shared
-//    memory when the row changes: one group owns each row, so there are no
-//    atomics, and each row is summed in a fixed order (pair by pair, source
-//    ascending). The result is deterministic;
-//  * the accumulator is written once, rounded once to x's dtype; a
-//    destination block without edges writes zeros.
-// At R = S = 256 the slab and accumulator take 96 KB (bf16) or 128 KB (f32)
-// of shared memory, above the 48 KB default, so the launch raises the
-// limit with cudaFuncSetAttribute. cp.async double buffering of the slabs,
-// TMA, wider chunks and mma are left for later. Two first versions, which
-// waited on one load at a time in the staging loop and on each edge batch
-// in turn, took about 70 us a CTA on an H100, whatever the lanes did with
-// the edges (PERF.md).
+// The design, for Hopper:
+//  * one CTA per (destination block, column chunk of FT = 16 L bytes),
+//    lanes in groups of L (4, 8 or 16: the fewest that cover F at 16
+//    bytes a lane, fewer where shared memory runs short), each lane
+//    reading VC columns (8 bf16 or 4 f32) of a slab row with one 16-byte
+//    load. At F = 256 bf16 that is 2 chunks of 128 columns, so every edge
+//    is walked twice, not four times as with a 64-column chunk;
+//  * each group owns kRowsPerGroup = 8 whole rows of the block (32 groups,
+//    512 threads, at R = 256 and L = 16) across all its pairs, and keeps
+//    their f32 sums in registers (8 rows x VC a lane), the row index
+//    static in an unrolled loop: no accumulator in shared memory and no
+//    read-modify-write when the row changes. Each row is written once,
+//    rounded once;
+//  * the CTA walks its block's pairs in steps of at most edge_chunk(L)
+//    edges (4096 at L = 16; a pair with more takes several steps on the
+//    same slab). The next step's sources (and weights in the plan's order)
+//    and, at a new pair, its S x FT source slab are copied into shared
+//    memory with cp.async into the second of two buffers while this step
+//    is summed: pair p + 1 streams in while pair p is summed. Weights in
+//    the caller's order (read through w_perm) are gathered into registers
+//    a step ahead, kWeightsAhead a thread, and stored beside the sources
+//    after the sum, so no step waits on them but a CTA's first;
+//  * the plan carries each pair's per-row edge offsets (row_ptr), so a
+//    group finds its rows' edges in a step without walking them. Each row
+//    is summed in a fixed order, pair by pair (source blocks ascending),
+//    sources ascending within a pair: no atomics, repeats are bitwise
+//    equal;
+//  * a destination block without edges writes zeros; rows past N_src are
+//    not staged (no edge reads them); where F or x's alignment rules out
+//    16-byte copies the slab is staged a column at a time (the sums still
+//    read 16 bytes of the slab row).
+// At R = S = 256, L = 16 the two slabs and edge buffers take 192 KB of
+// shared memory, above the 48 KB default, so the launch raises the limit
+// with cudaFuncSetAttribute. R above 256 (more than 32 groups) or an S
+// whose slabs do not fit even at L = 4 is refused. Tensor cores do not
+// help: a dense bf16 pair tile at the banded graph's fill does tens of
+// times the needed arithmetic, and the sum is bound by bytes.
+// On the H100 (scripts/bp_flash_probe.py): steps of half the edges cost
+// 3% at F = 256 and 6% at F = 40; 64-column chunks cost a first version
+// 7% at F = 256; persistent CTAs (a stream of items each) spilled and took 0.437 ms
+// against 0.359 at F = 256; weights read through w_perm cost 0.075 ms of
+// the 0.359 (0.284 with weights in the plan's order).
 //
 // The dw kernel (the weight gradient) walks the plan's edges, one warp per
 // 32 consecutive edges: each edge's two rows are read from L1/L2 (the plan's
@@ -69,18 +83,24 @@
 
 namespace {
 
-constexpr int kBpWarps = 8;          // warps of a forward CTA
-constexpr int kSegs = 32;            // row segments of a destination block
-                                     // in the plan's seg_ptr
+constexpr int kRowsPerGroup = 8;     // destination rows a lane group owns
+constexpr int kMaxGroups = 32;       // lane groups of a forward CTA: R <= 256
+constexpr int kWeightsAhead = 8;     // weights a thread gathers a step ahead
 constexpr size_t kMaxSmem = 232448;  // the opt-in limit of an H100 block
-constexpr int kUnrollEdges = 4;      // edges whose rows are read at once
+constexpr int kUnrollEdges = 4;      // edges whose rows the dw kernel reads
 
-__host__ __device__ inline size_t acc_bytes(int R, int FT) {
-  return (static_cast<size_t>(R) * FT * sizeof(float) + 15) / 16 * 16;
+// Edges a step of a CTA of groups of L lanes: as many as its full 32
+// groups gather kWeightsAhead weights each (4096 at L = 16).
+__host__ __device__ constexpr int edge_chunk(int L) {
+  return kMaxGroups * L * kWeightsAhead;
 }
 
-inline size_t fwd_smem(int R, int S, int FT, size_t elem) {
-  return acc_bytes(R, FT) + static_cast<size_t>(S) * FT * elem;
+// Shared memory of a forward CTA: two buffers, each an S x FT slab of T
+// and edge_chunk(L) sources and weights (int32 and f32).
+inline size_t fwd_smem(int S, int L, size_t elem) {
+  const int FT = L * 16 / static_cast<int>(elem);
+  return 2 * (static_cast<size_t>(S) * FT * elem +
+              2 * static_cast<size_t>(edge_chunk(L)) * sizeof(int32_t));
 }
 
 // 16 bytes of the slab at p (shared memory) as f32: 8 bf16 or 4 f32.
@@ -104,235 +124,204 @@ __device__ __forceinline__ void slab_vals(const T* p,
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T round_to(float v) {
-  if constexpr (std::is_same<T, float>::value)
-    return v;
-  else
-    return __float2bfloat16_rn(v);
-}
-
-// Copy rows [src0, src0 + srows) and columns [c0, c0 + fcols) of x (row
-// stride F) into the slab (row stride FT), VS elements a load; VS divides
-// fcols, F and c0. Each thread issues kStageUnroll loads before it stores
-// any, so they are in flight together.
-constexpr int kStageUnroll = 8;
-
-template <typename T, int VS>
-__device__ __forceinline__ void stage(const T* __restrict__ x, T* slab,
-                                      int64_t src0, int srows, int64_t F,
-                                      int64_t c0, int fcols, int FT) {
-  using Raw = typename RawBits<VS * static_cast<int>(sizeof(T))>::type;
-  const int per_row = fcols / VS;
-  const int n = srows * per_row;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kStageUnroll * blockDim.x) {
-    Raw v[kStageUnroll];
-#pragma unroll
-    for (int u = 0; u < kStageUnroll; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < n) {
-        const int r = i / per_row;
-        v[u] = __ldg(reinterpret_cast<const Raw*>(
-            x + (src0 + r) * F + c0 + (i - r * per_row) * VS));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kStageUnroll; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < n) {
-        const int r = i / per_row;
-        *reinterpret_cast<Raw*>(slab + r * FT + (i - r * per_row) * VS) =
-            v[u];
-      }
-    }
-  }
-}
-
-constexpr int kBatch = 4;  // edges a lane holds of a group's batch
-
-// A group's batch of kBatch * L edges: lane tl holds edges b + k * L + tl
-// (dummies past the group's last edge: slab row 0, never added).
-struct EdgeBatch {
-  int r[kBatch];
-  int s[kBatch];
-  float w[kBatch];
-};
-
-__device__ __forceinline__ EdgeBatch fetch_edges(
-    const float* __restrict__ w, const int32_t* __restrict__ wperm,
-    const int32_t* __restrict__ row, const int32_t* __restrict__ col,
-    int64_t lo, int n, int b, int L, int tl, int64_t src0) {
-  EdgeBatch eb;
-  int64_t at[kBatch];
-#pragma unroll
-  for (int k = 0; k < kBatch; ++k) {
-    const int j = b + k * L + tl;
-    eb.r[k] = 0;
-    eb.s[k] = static_cast<int>(src0);
-    eb.w[k] = 1.f;
-    at[k] = lo + j;
-    if (j < n) {
-      eb.r[k] = __ldg(row + at[k]);
-      eb.s[k] = __ldg(col + at[k]);
-      if (wperm != nullptr) at[k] = __ldg(wperm + at[k]);
-    }
-  }
-  if (w != nullptr) {
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k)
-      if (b + k * L + tl < n) eb.w[k] = __ldg(w + at[k]);
-  }
-  return eb;
-}
-
-// One lane group's edges [lo, lo + n) of one pair, the first batch already
-// fetched: adds w_e * slab[col_e - src0] into the accumulator row of
-// row_e - row0, through a running sum per row. A group of L = FT / VC lanes
-// covers the chunk's FT columns, VC = 16 bytes of them a lane; the warp's
-// 32 / L groups walk their own edges side by side, for as many steps as
-// the longest needs (the others idle).
-template <typename T, int FT>
-__device__ __forceinline__ void accumulate(
-    const T* slab, float* acc, const float* __restrict__ w,
-    const int32_t* __restrict__ wperm, const int32_t* __restrict__ row,
-    const int32_t* __restrict__ col, int64_t lo, int n, EdgeBatch eb,
-    int64_t row0, int64_t src0, int lane) {
-  constexpr int VC = 16 / static_cast<int>(sizeof(T));
-  constexpr int L = FT / VC;
-  const int tl = lane % L;
-  const int c = tl * VC;
-  int n_max = n;
-#pragma unroll
-  for (int off = L; off < kWarp; off *= 2)
-    n_max = max(n_max, __shfl_xor_sync(kFullMask, n_max, off));
-
-  int cur = -1;  // the row whose sum is in `part`
-  float part[VC];
-#pragma unroll
-  for (int i = 0; i < VC; ++i) part[i] = 0.f;
-  auto flush = [&]() {
-    if (cur >= 0) {
-      float* a = acc + (static_cast<int64_t>(cur) - row0) * FT + c;
-#pragma unroll
-      for (int i = 0; i < VC; i += 4) {
-        float4 o = *reinterpret_cast<float4*>(a + i);
-        o.x += part[i];
-        o.y += part[i + 1];
-        o.z += part[i + 2];
-        o.w += part[i + 3];
-        *reinterpret_cast<float4*>(a + i) = o;
-      }
-    }
-  };
-
-  for (int b = 0; b < n_max; b += kBatch * L) {
-    // the next batch is loaded while this one is summed
-    const EdgeBatch nx = fetch_edges(w, wperm, row, col, lo, n,
-                                     b + kBatch * L, L, tl, src0);
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      if (b + k * L >= n_max) break;  // the warp's groups are all done
-#pragma unroll
-      for (int j0 = 0; j0 < L; j0 += kUnrollEdges) {
-        int r[kUnrollEdges];
-        float wj[kUnrollEdges], v[kUnrollEdges][VC];
-#pragma unroll
-        for (int u = 0; u < kUnrollEdges; ++u) {
-          r[u] = __shfl_sync(kFullMask, eb.r[k], j0 + u, L);
-          wj[u] = __shfl_sync(kFullMask, eb.w[k], j0 + u, L);
-          const int s = __shfl_sync(kFullMask, eb.s[k], j0 + u, L);
-          slab_vals<T>(slab + (static_cast<int64_t>(s) - src0) * FT + c,
-                       v[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < kUnrollEdges; ++u) {
-          if (b + k * L + j0 + u < n) {  // the same for the whole group
-            if (r[u] != cur) {
-              flush();
-              cur = r[u];
-#pragma unroll
-              for (int i = 0; i < VC; ++i) part[i] = 0.f;
-            }
-#pragma unroll
-            for (int i = 0; i < VC; ++i)
-              part[i] = fmaf(wj[u], v[u][i], part[i]);
-          }
-        }
-      }
-    }
-    eb = nx;
-  }
-  flush();
-}
-
-// One CTA per (destination block, column chunk of FT): blockIdx.x = block *
-// nchunks + chunk, so the chunks of one block run side by side and share
-// its edge arrays in L2.
-template <typename T, int FT, int VS>
-__global__ void __launch_bounds__(kWarp * kBpWarps)
+// One CTA per (destination block, column chunk of FT = L * VC):
+// blockIdx.x = block * nchunks + chunk, so the chunks of one block run side
+// by side and share its edge arrays in L2. kVec: x's rows are staged 16
+// bytes a copy, else a column a copy. 16 / L blocks an SM, as many as
+// their shared memory allows (at S = 256), and 128 registers a thread.
+template <typename T, int L, bool kVec>
+__global__ void __launch_bounds__(kMaxGroups * L, 16 / L)
     block_pair_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                           const int32_t* __restrict__ wperm,
-                          const int32_t* __restrict__ row,
                           const int32_t* __restrict__ col,
-                          const int64_t* __restrict__ seg_ptr,
+                          const int32_t* __restrict__ row_ptr,
                           const int64_t* __restrict__ block_ptr,
                           const int32_t* __restrict__ pair_src,
                           T* __restrict__ out, int64_t n_dst, int64_t n_src,
                           int64_t F, int R, int S, int nchunks) {
-  constexpr int L = FT * static_cast<int>(sizeof(T)) / 16;
-  constexpr int kGroups = kBpWarps * (kWarp / L);
+  constexpr int VC = 16 / static_cast<int>(sizeof(T));
+  constexpr int FT = L * VC;
+  constexpr int RG = kRowsPerGroup;
+  constexpr int EC = edge_chunk(L);
+  constexpr int VS = kVec ? VC : 1;  // columns a staging copy moves
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);
-  T* slab = reinterpret_cast<T*>(smem + acc_bytes(R, FT));
-  const int lane = threadIdx.x % kWarp;
-  const int group = threadIdx.x / L;  // its segments of every pair:
-  const int seg_lo = group * kSegs / kGroups;
-  const int seg_hi = (group + 1) * kSegs / kGroups;
+  const int64_t slab_elems = static_cast<int64_t>(S) * FT;
+  T* slabs = reinterpret_cast<T*>(smem);  // [2][S][FT]
+  int32_t* srcs = reinterpret_cast<int32_t*>(slabs + 2 * slab_elems);
+  float* wts = reinterpret_cast<float*>(srcs + 2 * EC);
+  const int tid = threadIdx.x;
+  const int r0 = tid / L * RG;  // the group's first row in the block
+  const int c = tid % L * VC;   // the lane's first column in the chunk
   const int64_t b = blockIdx.x / nchunks;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x % nchunks) * FT;
   const int fcols = static_cast<int>(F - c0 < FT ? F - c0 : FT);
-  const int64_t row0 = b * R;
-  const int nrows = static_cast<int>(n_dst - row0 < R ? n_dst - row0 : R);
+  const bool live = r0 < R && c < fcols;  // the lane sums something
+  const bool gather = w != nullptr && wperm != nullptr;
+  const int64_t p_end = block_ptr[b + 1];
+  int64_t p = block_ptr[b];
 
-  for (int i = threadIdx.x; i < nrows * FT; i += blockDim.x) acc[i] = 0.f;
-  for (int64_t p = block_ptr[b]; p < block_ptr[b + 1]; ++p) {
-    const int64_t src0 = static_cast<int64_t>(pair_src[p]) * S;
-    const int srows =
-        static_cast<int>(n_src - src0 < S ? n_src - src0 : S);
-    const int64_t lo = seg_ptr[p * kSegs + seg_lo];
-    const int n = static_cast<int>(seg_ptr[p * kSegs + seg_hi] - lo);
-    // the group's first edges load while the slab does
-    const EdgeBatch eb = fetch_edges(w, wperm, row, col, lo, n, 0, L,
-                                     lane % L, src0);
-    __syncthreads();  // the accumulator is zeroed; the last slab is read
-    stage<T, VS>(x, slab, src0, srows, F, c0, fcols, FT);
-    __syncthreads();
-    accumulate<T, FT>(slab, acc, w, wperm, row, col, lo, n, eb, row0, src0,
-                      lane);
+  // Copy pair q's source slab into slab buffer `buf`.
+  auto stage_slab = [&](int64_t q, int buf) {
+    const int64_t src0 = static_cast<int64_t>(pair_src[q]) * S;
+    const int srows = static_cast<int>(n_src - src0 < S ? n_src - src0 : S);
+    const int per_row = fcols / VS;
+    const int n = srows * per_row;
+    T* slab = slabs + buf * slab_elems;
+    for (int i = tid; i < n; i += blockDim.x) {
+      const int r = i / per_row;
+      const int k = (i - r * per_row) * VS;
+      stage_copy<T, VS>(slab + r * FT + k, x + (src0 + r) * F + c0 + k);
+    }
+  };
+  // Copy the sources of edges [a, a_end) into edge buffer `buf`, and their
+  // weights where they lie in the plan's order (the caller's order is
+  // gathered by the threads themselves).
+  auto stage_edges = [&](int64_t a, int64_t a_end, int buf) {
+    const int ne = static_cast<int>(a_end - a);
+    for (int j = tid; j < ne; j += blockDim.x) {
+      stage_copy<int32_t, 1>(srcs + buf * EC + j, col + a + j);
+      if (w != nullptr && wperm == nullptr)
+        stage_copy<float, 1>(wts + buf * EC + j, w + a + j);
+    }
+  };
+  // The end of the step of pair q that starts at edge a.
+  auto step_end = [&](int64_t q, int64_t a) -> int64_t {
+    const int64_t qe = row_ptr[(q + 1) * R];
+    return a + EC < qe ? a + EC : qe;
+  };
+
+  float acc[RG][VC];
+#pragma unroll
+  for (int r = 0; r < RG; ++r)
+#pragma unroll
+    for (int i = 0; i < VC; ++i) acc[r][i] = 0.f;
+
+  int64_t a = p < p_end ? row_ptr[p * R] : 0;
+  int64_t a_end = p < p_end ? step_end(p, a) : 0;
+  int sbuf = 0, ebuf = 0;
+  if (p < p_end) {
+    stage_slab(p, 0);
+    stage_edges(a, a_end, 0);
+    if (gather)  // the first step's weights: the one gather not hidden
+      for (int j = tid; j < a_end - a; j += blockDim.x)
+        wts[j] = __ldg(w + __ldg(wperm + a + j));
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * FT; i += blockDim.x) {
-    const int r = i / FT;
-    const int cc = i - r * FT;
-    if (cc < fcols) out[(row0 + r) * F + c0 + cc] = round_to<T>(acc[i]);
+  commit_stage();
+  while (p < p_end) {
+    // the next step: the rest of pair p, or the next pair
+    const int64_t np = a_end < row_ptr[(p + 1) * R] ? p : p + 1;
+    const bool more = np < p_end;
+    const int64_t na_end = more ? step_end(np, a_end) : a_end;
+    const int nne = static_cast<int>(na_end - a_end);
+    if (more) {
+      if (np != p) stage_slab(np, sbuf ^ 1);
+      stage_edges(a_end, na_end, ebuf ^ 1);
+    }
+    commit_stage();
+    // the next step's weights in the caller's order, gathered into
+    // registers while this step is summed
+    float wnext[kWeightsAhead];
+    if (gather) {
+#pragma unroll
+      for (int u = 0; u < kWeightsAhead; ++u) {
+        const int j = tid + u * static_cast<int>(blockDim.x);
+        wnext[u] = j < nne ? __ldg(w + __ldg(wperm + a_end + j)) : 0.f;
+      }
+    }
+    // the group's rows' edge offsets in pair p (rows past R: none)
+    int off[RG + 1];
+#pragma unroll
+    for (int r = 0; r <= RG; ++r)
+      off[r] = __ldg(row_ptr + p * R + (r0 + r < R ? r0 + r : R));
+    const int src0 = pair_src[p] * S;
+    wait_stages<1>();  // this step's copies have landed, the next's may not
+    __syncthreads();
+    if (live) {
+      const T* slab = slabs + sbuf * slab_elems + c;
+      const int32_t* sb = srcs + ebuf * EC;
+      const float* wb = wts + ebuf * EC;
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const int lo = static_cast<int>((off[r] > a ? off[r] : a) - a);
+        const int hi =
+            static_cast<int>((off[r + 1] < a_end ? off[r + 1] : a_end) - a);
+        int j = lo;
+        for (; j + 1 < hi; j += 2) {  // two rows' loads in flight
+          float v0[VC], v1[VC];
+          slab_vals<T>(slab + (sb[j] - src0) * FT, v0);
+          slab_vals<T>(slab + (sb[j + 1] - src0) * FT, v1);
+          const float w0 = w != nullptr ? wb[j] : 1.f;
+          const float w1 = w != nullptr ? wb[j + 1] : 1.f;
+#pragma unroll
+          for (int i = 0; i < VC; ++i)
+            acc[r][i] = fmaf(w1, v1[i], fmaf(w0, v0[i], acc[r][i]));
+        }
+        if (j < hi) {
+          float v0[VC];
+          slab_vals<T>(slab + (sb[j] - src0) * FT, v0);
+          const float w0 = w != nullptr ? wb[j] : 1.f;
+#pragma unroll
+          for (int i = 0; i < VC; ++i) acc[r][i] = fmaf(w0, v0[i], acc[r][i]);
+        }
+      }
+    }
+    if (gather && more) {
+      float* wn = wts + (ebuf ^ 1) * EC;
+#pragma unroll
+      for (int u = 0; u < kWeightsAhead; ++u) {
+        const int j = tid + u * static_cast<int>(blockDim.x);
+        if (j < nne) wn[j] = wnext[u];
+      }
+      // a CTA of fewer than 32 groups (R < 256) gathers the rest here
+      for (int j = tid + kWeightsAhead * static_cast<int>(blockDim.x);
+           j < nne; j += blockDim.x)
+        wn[j] = __ldg(w + __ldg(wperm + a_end + j));
+    }
+    __syncthreads();  // the buffers are read before they are staged again
+    if (np != p) sbuf ^= 1;
+    ebuf ^= 1;
+    p = np;
+    a = a_end;
+    a_end = na_end;
+  }
+
+  if (!live) return;
+  const int64_t row0 = b * R + r0;
+#pragma unroll
+  for (int r = 0; r < RG; ++r) {
+    const int64_t row = row0 + r;
+    if (r0 + r >= R || row >= n_dst) break;
+    T* o = out + row * F + c0 + c;
+    if constexpr (kVec) {
+      store_vec<T, VC>(o, acc[r]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VC; ++i) {
+        const float one[1] = {acc[r][i]};
+        if (c + i < fcols) store_vec<T, 1>(o + i, one);
+      }
+    }
   }
 }
 
-template <typename T, int FT>
+template <typename T, int L>
 int launch_fwd(const void* x, const float* w, const int32_t* wperm,
-               const int32_t* row, const int32_t* col, const int64_t* seg_ptr,
+               const int32_t* col, const int32_t* row_ptr,
                const int64_t* block_ptr, const int32_t* pair_src, void* out,
                int64_t n_dst, int64_t n_src, int64_t F, int R, int S,
                cudaStream_t stream) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
-  const size_t smem = fwd_smem(R, S, FT, sizeof(T));
+  constexpr int VC = 16 / static_cast<int>(sizeof(T));
+  constexpr int FT = L * VC;
+  const size_t smem = fwd_smem(S, L, sizeof(T));
   const int64_t nchunks = (F + FT - 1) / FT;
   const int64_t grid = (n_dst + R - 1) / R * nchunks;
   if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const void* ptrs[] = {x};
-  auto kern = pick_vec<T>(F, ptrs, 1) == kVec
-                  ? block_pair_fwd_kernel<T, FT, kVec>
-                  : block_pair_fwd_kernel<T, FT, 1>;
+  const int groups = (R + kRowsPerGroup - 1) / kRowsPerGroup;
+  const int threads = (groups * L + kWarp - 1) / kWarp * kWarp;
+  const void* ptrs[] = {x, out};
+  auto kern = pick_vec<T>(F, ptrs, 2) == VC
+                  ? block_pair_fwd_kernel<T, L, true>
+                  : block_pair_fwd_kernel<T, L, false>;
   const cudaError_t set = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -340,27 +329,34 @@ int launch_fwd(const void* x, const float* w, const int32_t* wperm,
     cudaGetLastError();  // clear it, so no later launch reports it
     return static_cast<int>(set);
   }
-  kern<<<static_cast<unsigned>(grid), kWarp * kBpWarps, smem, stream>>>(
-      static_cast<const T*>(x), w, wperm, row, col, seg_ptr, block_ptr,
-      pair_src, static_cast<T*>(out), n_dst, n_src, F, R, S,
+  kern<<<static_cast<unsigned>(grid), threads, smem, stream>>>(
+      static_cast<const T*>(x), w, wperm, col, row_ptr, block_ptr, pair_src,
+      static_cast<T*>(out), n_dst, n_src, F, R, S,
       static_cast<int>(nchunks));
   return static_cast<int>(cudaGetLastError());
 }
 
+// L: the fewest lanes (4, 8 or 16) whose 16-byte loads cover F, halved
+// while the slabs do not fit shared memory.
 template <typename T>
 int launch_fwd_type(const void* x, const float* w, const int32_t* wperm,
-                    const int32_t* row, const int32_t* col,
-                    const int64_t* seg_ptr, const int64_t* block_ptr,
-                    const int32_t* pair_src, void* out, int64_t n_dst,
-                    int64_t n_src, int64_t F, int R, int S,
-                    cudaStream_t stream) {
-  if (fwd_smem(R, S, 64, sizeof(T)) <= kMaxSmem)
-    return launch_fwd<T, 64>(x, w, wperm, row, col, seg_ptr, block_ptr,
-                             pair_src, out, n_dst, n_src, F, R, S, stream);
-  if (fwd_smem(R, S, 32, sizeof(T)) <= kMaxSmem)
-    return launch_fwd<T, 32>(x, w, wperm, row, col, seg_ptr, block_ptr,
-                             pair_src, out, n_dst, n_src, F, R, S, stream);
-  return static_cast<int>(cudaErrorInvalidValue);  // R and S too large
+                    const int32_t* col, const int32_t* row_ptr,
+                    const int64_t* block_ptr, const int32_t* pair_src,
+                    void* out, int64_t n_dst, int64_t n_src, int64_t F, int R,
+                    int S, cudaStream_t stream) {
+  constexpr int VC = 16 / static_cast<int>(sizeof(T));
+  if (R > kMaxGroups * kRowsPerGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int L = 4;
+  while (L < 16 && static_cast<int64_t>(L) * VC < F) L *= 2;
+  while (L > 4 && fwd_smem(S, L, sizeof(T)) > kMaxSmem) L /= 2;
+  if (fwd_smem(S, L, sizeof(T)) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);  // S too large
+  auto launch = L == 16 ? launch_fwd<T, 16>
+                : L == 8  ? launch_fwd<T, 8>
+                          : launch_fwd<T, 4>;
+  return launch(x, w, wperm, col, row_ptr, block_ptr, pair_src, out, n_dst,
+                n_src, F, R, S, stream);
 }
 
 // One warp per kWarp consecutive plan edges; lane j keeps edge j's dot.
@@ -441,38 +437,35 @@ void launch_dw(const void* g, const void* x, const int32_t* row,
 extern "C" {
 
 // x: (>= n_src, F) bf16 (x_is_bf16 != 0) or f32, contiguous; w: f32 weights
-// read at wperm[e] (int32; null: at e), or null for unit weights; row, col:
-// (E,) int32 destination and source of each plan edge, grouped by
-// destination block, then by source block (pair_src order), then sorted by
-// row and source; seg_ptr: (n_pairs * 8 + 1,) int64, the edges of warp k's
-// rows in pair p are [seg_ptr[p * 8 + k], seg_ptr[p * 8 + k + 1]), warp k
-// owning rows [k * ceil(R / 8), (k + 1) * ceil(R / 8)) of the block;
-// block_ptr: (ceil(n_dst / R) + 1,) int64 into the pairs; pair_src: the
-// source block of each pair, ascending within a destination block; out:
-// (n_dst, F) of x's type. Launches on `stream` and returns the CUDA error
-// (0 on success); does not synchronise.
+// read at wperm[e] (int32; null: at e), or null for unit weights; col: (E,)
+// int32 source of each plan edge, the edges grouped by destination block,
+// then by source block (pair_src order), then sorted by row and source;
+// row_ptr: (n_pairs * R + 1,) int32, the edges of row r of pair p's block
+// are [row_ptr[p * R + r], row_ptr[p * R + r + 1]); block_ptr:
+// (ceil(n_dst / R) + 1,) int64 into the pairs; pair_src: the source block
+// of each pair, ascending within a destination block; out: (n_dst, F) of
+// x's type. R <= 256. Launches on `stream` and returns the CUDA error (0 on
+// success); does not synchronise.
 int gammagl_block_pair_fwd(const void* x, const void* w, const void* wperm,
-                           const void* row, const void* col,
-                           const void* seg_ptr, const void* block_ptr,
-                           const void* pair_src, void* out, int64_t n_dst,
-                           int64_t n_src, int64_t F, int R, int S,
-                           int x_is_bf16, void* stream) {
+                           const void* col, const void* row_ptr,
+                           const void* block_ptr, const void* pair_src,
+                           void* out, int64_t n_dst, int64_t n_src, int64_t F,
+                           int R, int S, int x_is_bf16, void* stream) {
   if (n_dst < 0 || n_src < 0 || F < 0 || R < 1 || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_dst == 0 || F == 0) return static_cast<int>(cudaGetLastError());
   const float* wf = static_cast<const float*>(w);
   const int32_t* wp = static_cast<const int32_t*>(wperm);
-  const int32_t* rw = static_cast<const int32_t*>(row);
   const int32_t* cl = static_cast<const int32_t*>(col);
-  const int64_t* sp = static_cast<const int64_t*>(seg_ptr);
+  const int32_t* rp = static_cast<const int32_t*>(row_ptr);
   const int64_t* bp = static_cast<const int64_t*>(block_ptr);
   const int32_t* ps = static_cast<const int32_t*>(pair_src);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_is_bf16)
-    return launch_fwd_type<__nv_bfloat16>(x, wf, wp, rw, cl, sp, bp, ps, out,
+    return launch_fwd_type<__nv_bfloat16>(x, wf, wp, cl, rp, bp, ps, out,
                                           n_dst, n_src, F, R, S, s);
-  return launch_fwd_type<float>(x, wf, wp, rw, cl, sp, bp, ps, out, n_dst,
-                                n_src, F, R, S, s);
+  return launch_fwd_type<float>(x, wf, wp, cl, rp, bp, ps, out, n_dst, n_src,
+                                F, R, S, s);
 }
 
 // g: (>= max row + 1, F), x: (>= max col + 1, F), both bf16 (x_is_bf16 != 0)

@@ -1,6 +1,7 @@
 // Helpers shared by the package's kernels: vector loads and stores that
-// widen bf16 to f32, the per-head lane layout of a warp over one row of
-// H heads of F columns, and grid sizing for one warp per destination row.
+// widen bf16 to f32, cp.async copies into shared memory, the per-head lane
+// layout of a warp over one row of H heads of F columns, and grid sizing
+// for one warp per destination row.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,6 +99,34 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p,
         *reinterpret_cast<unsigned*>(p) = words[0];
     }
   }
+}
+
+// Copy V elements of T (16, 8, 4 or 2 bytes, aligned to their size) from
+// global memory into shared memory at dst: cp.async through L1, or a plain
+// load and store for a lone bf16, which no async copy carries.
+template <typename T, int V>
+__device__ __forceinline__ void stage_copy(void* dst, const T* src) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes >= 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes)
+                 : "memory");
+  } else {  // one bf16: no async copy of 2 bytes
+    static_assert(kBytes == 2, "unsupported row piece");
+    *static_cast<unsigned short*>(dst) =
+        __ldg(reinterpret_cast<const unsigned short*>(src));
+  }
+}
+
+__device__ __forceinline__ void commit_stage() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this lane's committed stages are in flight.
+template <int N>
+__device__ __forceinline__ void wait_stages() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // The bits of B bytes (2, 4, 8 or 16), moved with one load or store.

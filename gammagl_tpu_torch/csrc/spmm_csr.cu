@@ -102,33 +102,6 @@ struct Items {
   int64_t stride;  // a multiple of 4 that is >= F
 };
 
-// Copy V elements of T (16, 8, 4 or 2 bytes, aligned to their size) from
-// global memory into this lane's ring slot.
-template <typename T, int V>
-__device__ __forceinline__ void stage_copy(void* dst, const T* src) {
-  constexpr int kBytes = V * static_cast<int>(sizeof(T));
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes >= 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(kBytes)
-                 : "memory");
-  } else {  // one bf16: no async copy of 2 bytes
-    static_assert(kBytes == 2, "unsupported row piece");
-    *static_cast<unsigned short*>(dst) =
-        __ldg(reinterpret_cast<const unsigned short*>(src));
-  }
-}
-
-__device__ __forceinline__ void commit_stage() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this lane's committed stages are in flight.
-template <int N>
-__device__ __forceinline__ void wait_stages() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // V f32 values at p (aligned to min(V, 4) floats).
 template <int V>
 __device__ __forceinline__ void load_f32(const float* __restrict__ p,

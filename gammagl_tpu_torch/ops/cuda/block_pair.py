@@ -5,8 +5,10 @@ bandwidth-reducing (`Graph.reorder_rcm`) or clustering
 (`Graph.reorder_cluster`) order, each destination block of R rows draws
 its sources from a few source blocks of S rows. The kernel of
 ``csrc/block_pair.cu`` stages each such (dst block, src block) pair's
-source slab in shared memory and sums every edge's row from there, where
-the CSR kernel gathers one row of x per edge from memory.
+source slab in shared memory (the next pair's streaming in while one is
+summed) and adds every edge's row from there into per-row sums held in
+registers, where the CSR kernel gathers one row of x per edge from
+memory.
 
 `spmm_block_pair` computes ``out[d] = sum_{(s, d)} w_sd * x[s]``. On a CUDA
 tensor it launches the forward kernel (counted in
@@ -49,9 +51,6 @@ __all__ = ["BlockPairPlan", "build_block_pair_plan", "spmm_block_pair",
            "block_pair_dw_reference", "HybridPlan", "build_hybrid_plan",
            "spmm_hybrid"]
 
-_SEGS = 32  # row segments of a destination block: kSegs of csrc/block_pair.cu
-
-
 def _cdiv(a, b):
     return -(-a // b)
 
@@ -77,17 +76,18 @@ class BlockPairPlan:
                 [block_ptr[b], block_ptr[b + 1])
     pair_src  : (n_pairs,) int32 the source block of each pair, ascending
                 within a destination block
-    seg_ptr   : (n_pairs * 32 + 1,) int64, the edges of pair p whose rows
-                lie in segment k of the block (rows [k * ceil(R / 32),
-                (k + 1) * ceil(R / 32))) are [seg_ptr[p * 32 + k],
-                seg_ptr[p * 32 + k + 1]); the kernel hands each group of
-                lanes whole segments
+    row_ptr   : (n_pairs * R + 1,) int32, the edges of row r of pair p's
+                destination block are [row_ptr[p * R + r],
+                row_ptr[p * R + r + 1]); a lane group of the kernel finds
+                its rows' edges in each pair there. Its size, R entries a
+                pair, is that of the JAX plan's ET slots a pair at the
+                default R = ET
 
     One copy of the arrays is kept per device (`arrays`); the transpose
     plan of the backward is built on first use and kept too.
     """
 
-    def __init__(self, *, row, col, w_perm, block_ptr, pair_src, seg_ptr,
+    def __init__(self, *, row, col, w_perm, block_ptr, pair_src, row_ptr,
                  num_nodes, num_src, num_edges, R, S, ET, T,
                  perm_nodes=None):
         self.row = row
@@ -95,7 +95,7 @@ class BlockPairPlan:
         self.w_perm = w_perm
         self.block_ptr = block_ptr
         self.pair_src = pair_src
-        self.seg_ptr = seg_ptr
+        self.row_ptr = row_ptr
         self.num_nodes = int(num_nodes)
         self.num_src = int(num_src)
         self.num_edges = int(num_edges)
@@ -131,7 +131,7 @@ class BlockPairPlan:
         return self._transpose
 
     def arrays(self, device):
-        """(row, col, w_perm, block_ptr, pair_src, seg_ptr, fwd_pos) as
+        """(row, col, w_perm, block_ptr, pair_src, row_ptr, fwd_pos) as
         tensors on ``device``, copied once (fwd_pos None on a forward
         plan)."""
         device = torch.device(device)
@@ -144,7 +144,7 @@ class BlockPairPlan:
                 placed = self._placed[device] = tuple(
                     None if a is None else torch.from_numpy(a).to(device)
                     for a in (self.row, self.col, self.w_perm,
-                              self.block_ptr, self.pair_src, self.seg_ptr,
+                              self.block_ptr, self.pair_src, self.row_ptr,
                               self.fwd_pos))
         return placed
 
@@ -187,17 +187,17 @@ def _layout(src, dst, eid, num_nodes, num_src, R, S, ET):
     block_ptr = np.zeros(nblocks + 1, np.int64)
     np.cumsum(np.bincount(pair_db, minlength=nblocks), out=block_ptr[1:])
     n_pairs = int(uniq.shape[0])
-    seg = (np.repeat(np.arange(n_pairs, dtype=np.int64), counts) * _SEGS
-           + (dst[order] - db[order] * R) // _cdiv(R, _SEGS))
-    seg_ptr = np.zeros(n_pairs * _SEGS + 1, np.int64)
-    np.cumsum(np.bincount(seg, minlength=n_pairs * _SEGS), out=seg_ptr[1:])
+    slot = (np.repeat(np.arange(n_pairs, dtype=np.int64), counts) * R
+            + dst[order] - db[order] * R)
+    row_ptr = np.zeros(n_pairs * R + 1, np.int32)
+    np.cumsum(np.bincount(slot, minlength=n_pairs * R), out=row_ptr[1:])
     # the TPU tiling's size: ceil(edges / ET) tiles a pair, one tile for
     # each destination block without edges
     T = int(_cdiv(counts, ET).sum()) + nblocks - int(np.unique(pair_db).size)
     plan = BlockPairPlan(
         row=dst[order].astype(np.int32), col=src[order].astype(np.int32),
         w_perm=eid[order].astype(np.int32), block_ptr=block_ptr,
-        pair_src=(uniq % nsb).astype(np.int32), seg_ptr=seg_ptr,
+        pair_src=(uniq % nsb).astype(np.int32), row_ptr=row_ptr,
         num_nodes=num_nodes, num_src=num_src, num_edges=E, R=R, S=S, ET=ET,
         T=T)
     return plan, order
@@ -273,7 +273,7 @@ def spmm_block_pair_reference(x, edge_weight, plan, weights_padded=False):
 def _kernels():
     lib = load_library()
     fwd = lib.gammagl_block_pair_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3
+    fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     dw = lib.gammagl_block_pair_dw
@@ -310,7 +310,7 @@ def _launch(x, w, plan, padded):
     read through `_weight_index`, or None."""
     _check_cuda("spmm_block_pair", x)
     arrays = plan.arrays(x.device)
-    row, col, _, block_ptr, pair_src, seg_ptr, _ = arrays
+    _, col, _, block_ptr, pair_src, row_ptr, _ = arrays
     wperm = None
     if w is not None:
         if w.device != x.device:
@@ -323,8 +323,8 @@ def _launch(x, w, plan, padded):
         return out
     fwd, _, err = _kernels()
     with torch.cuda.device(x.device):
-        code = fwd(x.data_ptr(), _ptr(w), _ptr(wperm), row.data_ptr(),
-                   col.data_ptr(), seg_ptr.data_ptr(), block_ptr.data_ptr(),
+        code = fwd(x.data_ptr(), _ptr(w), _ptr(wperm), col.data_ptr(),
+                   row_ptr.data_ptr(), block_ptr.data_ptr(),
                    pair_src.data_ptr(), out.data_ptr(), plan.num_nodes,
                    plan.num_src, x.shape[1], plan.R, plan.S,
                    int(x.dtype == torch.bfloat16),

@@ -1,0 +1,223 @@
+#!/usr/bin/env python3
+"""Time the block-pair forward and the flash kernels of the tree this
+script lies in, on one card, and print one JSON line.
+
+    python3 scripts/bp_flash_probe.py [--variant NAME]
+
+The shapes are the main paths' (chip_smoke.py's generators, seed 0): the
+block-pair forward at F = 256 and 40 (bf16, GCN weights) on the banded
+graph after `reorder_rcm`, beside `torch.sparse.mm` and `spmm_csr` on the
+same graph, and its dx on the transpose plan at F = 256; the flash forward
+and backward at GAT's (H, F) = (8, 8) and (1, 40) on the arxiv-shape graph
+(gathered rows, keep in the caller's order, slope 0.2) and at HGT's (4, 64)
+on bench.py:185's relation (per-edge rows and keep in CSR order, slope 1,
+as `flash_softmax_spmm_mh`). Each time is the mean of 20 calls after 3
+(CUDA events), taken twice in this process; each kernel's output is held
+to its plain version (max abs error printed). Then the gcn twin's train
+step on the banded graph with `auto_plan()`'s plan (chip_smoke.py's phase
+20 without its plain path): the host-clock median of 20 steps, each
+ended by a synchronize.
+
+To compare commits on one card, copy this script into another tree (a
+parent unpacked with `git archive`) and run both trees in turns in one
+call (parent, change, change, parent): it uses only what chip_smoke.py and
+the package have had since the block-pair slice.
+
+``--variant`` rebuilds the kernels from a copy of csrc/ rewritten as
+VARIANTS says, so variants of this tree's kernels run in turns too. Needs
+nvcc and a CUDA card; imports no JAX.
+"""
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from gammagl_tpu_torch.data import Graph  # noqa: E402
+from gammagl_tpu_torch.ops import cuda as k  # noqa: E402
+from gammagl_tpu_torch.ops.cuda import _build  # noqa: E402
+
+# name -> [(source file, text, its replacement)]
+VARIANTS = {
+    # the flash backward's ring 8 edges deep (24 KB -> 48 KB a block)
+    "bwd_stages8": [("flash_attention.cu", "constexpr int kBwdStages = 4;",
+                     "constexpr int kBwdStages = 8;")],
+    # the flash backward's register cap where a warp takes several edges
+    # at once: none (1 block an SM), 64 (4 blocks)
+    "bwd_narrow1": [("flash_attention.cu", "constexpr int kNarrowBlocks = 3;",
+                     "constexpr int kNarrowBlocks = 1;")],
+    "bwd_narrow4": [("flash_attention.cu", "constexpr int kNarrowBlocks = 3;",
+                     "constexpr int kNarrowBlocks = 4;")],
+    # the block-pair forward at 64 bf16 columns a chunk (8 lanes a group)
+    "bp_ft64": [("block_pair.cu", "while (L < 16 && static_cast<int64_t>(L)",
+                 "while (L < 8 && static_cast<int64_t>(L)")],
+    # the block-pair forward's steps of half as many edges (2048 at L = 16)
+    "bp_ahead4": [("block_pair.cu", "constexpr int kWeightsAhead = 8;",
+                   "constexpr int kWeightsAhead = 4;")],
+}
+
+
+def use_variant(name, work):
+    """Point the package's build at a rewritten copy of csrc/."""
+    src = os.path.join(work, "csrc")
+    shutil.copytree(_build.CSRC_DIR, src)
+    for fname, old, new in VARIANTS[name]:
+        path = os.path.join(src, fname)
+        text = open(path).read()
+        if old not in text:
+            raise SystemExit(f"variant {name}: {fname} lacks {old!r}")
+        open(path, "w").write(text.replace(old, new))
+    _build.CSRC_DIR = type(_build.CSRC_DIR)(src)
+    _build.BUILD_DIR = type(_build.BUILD_DIR)(os.path.join(work, "build"))
+
+
+def err_of(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def cases():
+    """{label: (kernel call, plain call)}."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    banded, _ = cs.banded_graph(Graph).reorder_rcm()
+    bp = banded.auto_plan()
+    csr = banded.csr_plan()
+    ei = torch.from_numpy(banded.edge_index).to(dev)
+    w = cs.gcn_weights(ei, cs.N_NODES)
+    w_csr = k.pad_edge_weights(csr, w)
+    rowptr, col, _ = csr.arrays(dev)
+    A = torch.sparse_csr_tensor(rowptr, col.long(), w_csr.to(bf),
+                                size=(csr.num_nodes, csr.num_src))
+    for F in (256, 40):
+        x = torch.randn(bp.num_src, F, generator=gen).to(dev, bf)
+        if F == 256:
+            x256 = x
+        plain = (lambda x=x: k.spmm_block_pair_reference(x, w, bp))
+        out[f"block_pair F={F}"] = (lambda x=x: k.spmm_block_pair(x, w, bp),
+                                    plain)
+        out[f"torch.sparse.mm F={F}"] = (lambda x=x: torch.sparse.mm(A, x),
+                                         plain)
+        out[f"spmm_csr F={F}"] = (lambda x=x: k.spmm_csr(
+            x, w_csr, csr, weights_padded=True), plain)
+    # where the block pair's time goes at F = 256: weights in the plan's
+    # order (no gather through w_perm) and none
+    w_plan = w[torch.from_numpy(bp.w_perm).to(dev).long()]
+    out["block_pair F=256 plan-order weights"] = (
+        lambda x=x256: k.spmm_block_pair(x, w_plan, bp, weights_padded=True),
+        lambda x=x256: k.spmm_block_pair_reference(x, w, bp))
+    out["block_pair F=256 unit weights"] = (
+        lambda x=x256: k.spmm_block_pair(x, None, bp),
+        lambda x=x256: k.spmm_block_pair_reference(x, None, bp))
+    tp = bp.transpose()
+    g = torch.randn(bp.num_nodes, 256, generator=gen).to(dev, bf)
+    out["block_pair dx F=256"] = (lambda: k.spmm_block_pair(g, w, tp),
+                                  lambda: k.spmm_block_pair_reference(g, w,
+                                                                      tp))
+    arxiv = cs.arxiv_graph(Graph).csr_plan()
+    src, dst = cs.hgt_relation()
+    rel = k.build_csr_plan(src, dst, cs.HGT_PAPERS, num_src=cs.HGT_AUTHORS)
+    for plan, H, F, gather, slope in ((arxiv, 8, 8, True, 0.2),
+                                      (arxiv, 1, 40, True, 0.2),
+                                      (rel, 4, 64, False, 1.0)):
+        s, a, msg, kp = cs._flash_inputs(gen, plan, H, F, bf, gather, True,
+                                         dev)
+        if not gather:
+            a = None
+        args = (s, a, msg, kp, plan, slope, gather)
+        o, m, l = k.flash_forward(*args)
+        gr = torch.randn(o.shape, generator=gen).to(dev, bf)
+        bargs = (s, a, msg, kp, m, l, o, gr, plan, slope, gather)
+        out[f"flash_forward ({H},{F})"] = (
+            lambda args=args: k.flash_forward(*args)[0],
+            lambda args=args: k.flash_forward_reference(*args)[0])
+        out[f"flash_backward ({H},{F})"] = (
+            lambda b=bargs: k.flash_backward(*b)[1],
+            lambda b=bargs: k.flash_backward_reference(*b)[1])
+    return out
+
+
+def step_ms(n=20):
+    """Host-clock ms of the banded GCN train step, n steps after 2."""
+    import time
+    from gammagl_tpu_torch.examples import common
+    from gammagl_tpu_torch.models import GCNModel
+    from gammagl_tpu_torch.train import TrainState
+    from gammagl_tpu_torch.utils import load_jax_params
+    dev = torch.device("cuda")
+    banded, _ = cs.banded_graph(Graph).reorder_rcm()
+    plan = banded.auto_plan()
+    x = torch.from_numpy(banded.x).to(dev)
+    ei = torch.from_numpy(banded.edge_index).to(dev)
+    y = torch.from_numpy(banded.y).to(dev)
+    mask = torch.from_numpy(np.random.default_rng(0).random(x.shape[0])
+                            < 0.54).to(dev)
+    state = TrainState(cs.gcn_model(GCNModel, load_jax_params).to(dev),
+                       cs.GCN_LR, cs.GCN_L2)
+    times = []
+    for _ in range(n + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        common.train_step(state, x, ei, y, mask, plan=plan)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[2:]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", choices=sorted(VARIANTS))
+    variant = ap.parse_args().variant
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    with tempfile.TemporaryDirectory() as work:
+        if variant:
+            use_variant(variant, work)
+        k_lib = _build.load_library()
+        log = open(os.path.splitext(k_lib._name)[0] + ".log").read()
+        entry = None
+        for line in log.splitlines():  # the two kernels' registers, spills
+            if "Compiling entry" in line:
+                entry = next((n for n in ("block_pair_fwd_kernel",
+                                          "flash_bwd_") if n in line), None)
+                name = line.split("'")[1] if entry else None
+            elif entry and ("registers" in line or "spill" in line):
+                print(f"  {name[:90]}: {line.strip()}")
+        calls = cases()
+        errs = {}
+        for label, (fn, plain) in calls.items():
+            errs[label] = err_of(fn(), plain())
+        ms = {label: [] for label in calls}
+        for _ in range(2):
+            for label, (fn, _) in calls.items():
+                ms[label].append(cs.cuda_ms(fn))
+        steps = step_ms()
+        del k_lib
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    for label, t in ms.items():
+        print(f"{label}: {np.mean(t):.4f} ms ({t[0]:.4f}, {t[1]:.4f}), max "
+              f"abs err {errs[label]:.3e}")
+    print(f"banded GCN train step: median {np.median(steps):.3f} ms, "
+          f"quartiles {np.percentile(steps, 25):.3f} / "
+          f"{np.percentile(steps, 75):.3f} ms over {len(steps)} steps")
+    print(smi.splitlines()[0])
+    print(json.dumps({"tree": ROOT, "variant": variant, "card": smi,
+                      "ms": {lb: float(np.mean(t)) for lb, t in ms.items()},
+                      "runs": ms, "max_abs_err": errs,
+                      "banded_train_step_ms": steps}))
+
+
+if __name__ == "__main__":
+    main()

@@ -42,15 +42,17 @@ STAGES = "constexpr int kStages = 8;"
 def build(names, work):
     """{variant: its library}, compiled in parallel."""
     src = open(_build.CSRC_DIR / "spmm_csr.cu").read()
-    if COPY not in src or STAGES not in src:
-        raise RuntimeError("spmm_csr.cu no longer has the lines this probe "
-                           "rewrites")
+    common = open(_build.CSRC_DIR / "common.cuh").read()
+    if COPY not in common or STAGES not in src:
+        raise RuntimeError("spmm_csr.cu or common.cuh no longer has the "
+                           "lines this probe rewrites")
     nvcc, procs = _build._find_nvcc(), {}
     for name in names:
         op, stages = name[:2], int(name[2:])
         variant = src.replace(STAGES, f"constexpr int kStages = {stages};")
+        header = common
         if op == "cg":  # the 16-byte copy past L1; narrower ones stay .ca
-            variant = variant.replace(
+            header = header.replace(
                 "  if constexpr (kBytes >= 4) {",
                 "  if constexpr (kBytes == 16) {\n    asm volatile(\"cp.async.cg"
                 ".shared.global [%0], [%1], 16;\\n\" ::\"r\"(d), \"l\"(src) : "
@@ -58,8 +60,7 @@ def build(names, work):
         d = os.path.join(work, name)
         os.makedirs(d)
         open(os.path.join(d, "spmm_csr.cu"), "w").write(variant)
-        open(os.path.join(d, "common.cuh"), "w").write(
-            open(_build.CSRC_DIR / "common.cuh").read())
+        open(os.path.join(d, "common.cuh"), "w").write(header)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
              os.path.join(d, "lib.so"), os.path.join(d, "spmm_csr.cu")],

@@ -13,6 +13,9 @@ rtol 2e-2 against an f32 reference of the same bf16 inputs: the JAX bf16
 path rounds each message and weight to bf16, the port rounds once.
 """
 
+import functools
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -59,6 +62,10 @@ PLANS = {  # name -> (case kwargs, n_dst, tiling)
              dict(R=64, S=32, ET=128)),
     "empty blocks": (dict(seed=7, n=10, n_src=70, e=50), 70,
                      dict(R=8, S=16, ET=16)),
+    "R=S=256": (dict(seed=8, n=700, n_src=600, e=6000, band=40), 700,
+                dict(R=256, S=256, ET=256)),
+    "no edges": (dict(seed=9, n=20, n_src=12, e=0), 20,
+                 dict(R=8, S=8, ET=16)),
 }
 
 
@@ -87,45 +94,137 @@ def test_reordered_plan_matches_jax():
                                                   want.fill_ratio)
 
 
-@pytest.mark.parametrize("name", sorted(PLANS))
-def test_plan_layout_is_what_the_kernel_reads(name):
-    """The contract of csrc/block_pair.cu, checked by walking the plan as
-    a CTA does (block, pair, row segment) and summing in numpy: pairs
-    ascend by source block within a destination block, each of a pair's 32
-    row segments holds only its rows and the pair's sources, sorted by
-    (row, source), and every edge is visited once."""
+def _kernel_constants():
+    """kRowsPerGroup, kMaxGroups and kWeightsAhead of csrc/block_pair.cu:
+    the emulation below follows the kernel's own schedule (a step holds
+    kMaxGroups * L * kWeightsAhead edges)."""
+    src = (_build.CSRC_DIR / "block_pair.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {name} = (\d+);", src)
+                     .group(1))
+                 for name in ("kRowsPerGroup", "kMaxGroups", "kWeightsAhead"))
+
+
+def _lanes(F, itemsize=4):
+    """The kernel's lanes a group: the fewest of 4, 8 or 16 whose 16-byte
+    loads cover F (shared memory allows 16 at S = 256)."""
+    lanes = 4
+    while lanes < 16 and lanes * 16 // itemsize < F:
+        lanes *= 2
+    return lanes
+
+
+def _emulate_forward(plan, x, w, edge_chunk=None, itemsize=4):
+    """The forward as block_pair_fwd_kernel schedules it, in numpy float32:
+    a CTA per (destination block, column chunk of FT = 16 L bytes), steps
+    of at most ``edge_chunk`` edges of one pair with the pair's slab (rows
+    past N_src not staged; None: the kernel's step), each lane group's
+    kRowsPerGroup rows found through row_ptr and summed in the step's edge
+    order. Asserts what the kernel relies on and that every edge is summed
+    once per chunk."""
+    rows_per_group, max_groups, ahead = _kernel_constants()
+    R, S, F = plan.R, plan.S, x.shape[1]
+    assert R <= rows_per_group * max_groups
+    lanes = _lanes(F, itemsize)
+    ft = lanes * 16 // itemsize
+    if edge_chunk is None:
+        edge_chunk = max_groups * lanes * ahead
+    rp = plan.row_ptr.astype(np.int64)
+    assert plan.row_ptr.dtype == np.int32
+    assert rp.shape == (plan.pair_src.shape[0] * R + 1,) and rp[0] == 0
+    assert rp[-1] == plan.num_plan_edges and (np.diff(rp) >= 0).all()
+    xf = np.asarray(x, np.float32)
+    wts = (np.ones(plan.num_plan_edges, np.float32) if w is None
+           else np.asarray(w, np.float32)[plan.w_perm])
+    out = np.zeros((plan.num_nodes, F), np.float32)
+    visits = np.zeros(plan.num_plan_edges, np.int64)
+    for b in range(plan.nblocks):
+        nrows = min(R, plan.num_nodes - b * R)
+        for c0 in range(0, F, ft):
+            cols = slice(c0, min(c0 + ft, F))
+            acc = np.zeros((R, cols.stop - c0), np.float32)
+            p, p_end = int(plan.block_ptr[b]), int(plan.block_ptr[b + 1])
+            a = int(rp[p * R]) if p < p_end else 0
+            while p < p_end:
+                pe = int(rp[(p + 1) * R])
+                a_end = min(a + edge_chunk, pe)
+                src0 = int(plan.pair_src[p]) * S
+                slab = xf[src0:src0 + min(S, plan.num_src - src0), cols]
+                for g in range(-(-R // rows_per_group)):
+                    for r in range(g * rows_per_group,
+                                   min((g + 1) * rows_per_group, R)):
+                        lo = max(int(rp[p * R + r]), a)
+                        hi = min(int(rp[p * R + r + 1]), a_end)
+                        for j in range(lo, hi):
+                            s = int(plan.col[j]) - src0
+                            assert 0 <= s < slab.shape[0]
+                            acc[r] += wts[j] * slab[s]
+                            visits[j] += 1
+                p, a = (p, a_end) if a_end < pe else (p + 1, a_end)
+            out[b * R:b * R + nrows, cols] = acc[:nrows]
+    assert (visits == -(-F // ft)).all()
+    return out
+
+
+def _layout_case(name):
+    """(plan, x, w, the JAX plan, forward of the JAX plan) for a PLANS
+    entry or the hybrid's dense part."""
+    if name == "hybrid":
+        src, dst, w, x = _hybrid_case()
+        n = x.shape[0]
+        plan = kops.build_hybrid_plan(src, dst, n, R=64, S=64, ET=128)
+        jplan = jax_build_hybrid(src, dst, n, R=64, S=64, ET=128)
+        return plan, x, w, jplan, functools.partial(jax_spmm_hybrid,
+                                                    interpret=True)
     kw, n_dst, tiling = PLANS[name]
     src, dst, w, x = _case(**kw)
     plan = kops.build_block_pair_plan(src, dst, n_dst, num_src=x.shape[0],
                                       **tiling)
-    R, S, W = plan.R, plan.S, 32
-    rw = -(-R // W)
-    np.testing.assert_array_equal(np.sort(plan.w_perm), np.arange(len(src)))
-    np.testing.assert_array_equal(plan.row, dst[plan.w_perm])
-    np.testing.assert_array_equal(plan.col, src[plan.w_perm])
-    out = np.zeros((n_dst, x.shape[1]), np.float64)
-    seen = 0
-    for b in range(plan.nblocks):
-        pairs = range(plan.block_ptr[b], plan.block_ptr[b + 1])
-        assert list(plan.pair_src[list(pairs)]) == sorted(
-            set(plan.pair_src[list(pairs)]))
+    jplan = jax_build(src, dst, n_dst, num_src=x.shape[0], **tiling)
+    return plan, x, w, jplan, jax_spmm_block_pair
+
+
+@pytest.mark.parametrize("F", [7, 100])
+@pytest.mark.parametrize("name", sorted(PLANS) + ["hybrid"])
+def test_plan_layout_is_what_the_kernel_reads(name, F):
+    """The contract of csrc/block_pair.cu: pairs ascend by source block
+    within a destination block; row_ptr gives, for every pair and row of
+    its block, that row's edges, whose sources lie in the pair's source
+    block, ascending. The kernel's schedule (column chunks, steps of the
+    kernel's size and of 3 edges, so pairs are cut into several steps,
+    lane groups of rows) emulated in numpy sums to the plain version
+    (1e-5) and to the JAX Pallas kernel in interpret mode (1e-4)."""
+    plan, x, w, jplan, jax_fn = _layout_case(name)
+    rng = np.random.default_rng(F)
+    x = rng.normal(size=(x.shape[0], F)).astype(np.float32)
+    hybrid = name == "hybrid"
+    bp = plan.bp if hybrid else plan
+    R, S = bp.R, bp.S
+    rp = bp.row_ptr
+    want_ids = (np.sort(np.concatenate([bp.w_perm, plan.csr.perm]))
+                if hybrid else np.sort(bp.w_perm))
+    np.testing.assert_array_equal(want_ids, np.arange(len(w)))
+    for b in range(bp.nblocks):
+        pairs = list(range(bp.block_ptr[b], bp.block_ptr[b + 1]))
+        assert list(bp.pair_src[pairs]) == sorted(set(bp.pair_src[pairs]))
         for p in pairs:
-            s0 = int(plan.pair_src[p]) * S
-            for k in range(W):
-                lo, hi = plan.seg_ptr[p * W + k], plan.seg_ptr[p * W + k + 1]
-                assert lo == seen and lo <= hi
-                r, c = plan.row[lo:hi], plan.col[lo:hi]
-                assert ((r >= b * R + k * rw) & (r < b * R + (k + 1) * rw)
-                        ).all()
+            s0 = int(bp.pair_src[p]) * S
+            assert rp[(p + 1) * R] > rp[p * R]  # a pair holds edges
+            for r in range(R):
+                lo, hi = rp[p * R + r], rp[p * R + r + 1]
+                assert (bp.row[lo:hi] == b * R + r).all()
+                c = bp.col[lo:hi]
                 assert ((c >= s0) & (c < s0 + S)).all()
-                key = r.astype(np.int64) * x.shape[0] + c
-                assert (np.diff(key) >= 0).all()
-                np.add.at(out, r, x[c] * w[plan.w_perm[lo:hi], None])
-                seen = hi
-    assert seen == len(src) == plan.seg_ptr[-1]
-    want = np.zeros_like(out)
-    np.add.at(want, dst, x[src] * w[:, None])
-    np.testing.assert_allclose(out, want, rtol=1e-10, atol=1e-10)
+                assert (np.diff(c) >= 0).all()
+    tw = torch.from_numpy(w)
+    want = kops.spmm_block_pair_reference(torch.from_numpy(x), tw, bp)
+    for chunk in (None, 3):
+        got = _emulate_forward(bp, x, w, chunk)
+        _close(got, want, 1e-5)
+    if hybrid:  # the CSR tail's plain version adds the rest
+        got = got + kops.spmm_csr(torch.from_numpy(x),
+                                  tw[torch.from_numpy(plan.csr.perm)],
+                                  plan.csr, weights_padded=True).numpy()
+    _close(got, jax_fn(jnp.asarray(x), jnp.asarray(w), jplan), 1e-4)
 
 
 @pytest.mark.parametrize("F", [7, 40, 128])
@@ -303,10 +402,9 @@ def test_transpose_plan():
         kops.spmm_block_pair(g, padded, tp, weights_padded=True), want)
 
 
-def test_hybrid_plan_matches_jax():
+def _hybrid_case():
     """The JAX test's mixed graph: dense 64x64 diagonal windows and a
-    scattered tail. The split, the sub-plans' sizes, the forward and both
-    gradients match."""
+    scattered tail; (src, dst, w, x)."""
     rng = np.random.default_rng(7)
     n = 512
     sd, dd = [], []
@@ -318,6 +416,15 @@ def test_hybrid_plan_matches_jax():
     src, dst = np.concatenate(sd), np.concatenate(dd)
     w = rng.normal(size=len(src)).astype(np.float32)
     x = rng.normal(size=(n, 16)).astype(np.float32)
+    return src, dst, w, x
+
+
+def test_hybrid_plan_matches_jax():
+    """The JAX test's mixed graph: dense 64x64 diagonal windows and a
+    scattered tail. The split, the sub-plans' sizes, the forward and both
+    gradients match."""
+    src, dst, w, x = _hybrid_case()
+    n = x.shape[0]
     jplan = jax_build_hybrid(src, dst, n, R=64, S=64, ET=128)
     plan = kops.build_hybrid_plan(src, dst, n, R=64, S=64, ET=128)
     assert plan.dense_frac == jplan.dense_frac > 0.5

@@ -158,7 +158,8 @@ def _flash_both(plan, inputs, grad, gather, fn_fwd, fn_bwd, saved=None):
     return out, m, l, ds, dmsg, da
 
 
-@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (1, 64), (2, 640), (3, 5)])
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (1, 64), (4, 64), (2, 640),
+                                 (3, 5)])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("gather", [False, True])
@@ -189,12 +190,13 @@ def test_flash_kernels_match_plain(card, H, F, dtype, rtol, gather, keep):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (4, 64), (2, 640)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernels_read_keep_in_caller_order(card, dtype):
+def test_flash_kernels_read_keep_in_caller_order(card, dtype, H, F):
     """With node rows (gather) the kernels read keep in the caller's edge
     order through the plan's perm: the same function as per-edge inputs
     gathered at each edge's source with the mask in CSR order."""
-    plan, (s, a, msg, caller), grad = _flash_case(card, 8, 8, dtype, True,
+    plan, (s, a, msg, caller), grad = _flash_case(card, H, F, dtype, True,
                                                   True, seed=5)
     _, col, perm = plan.arrays(card)
     col = col.long()
@@ -212,6 +214,31 @@ def test_flash_kernels_read_keep_in_caller_order(card, dtype):
                         kops.flash_backward_reference, saved=got[:3])
     for g_, w_, r in zip(got, plain, (rt, 0, 1e-5, 1e-5, rt, 1e-5)):
         _close(g_, w_, r)
+
+
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 40), (4, 64)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_flash_backward_on_rows_of_every_length(card, H, F, dtype, rtol):
+    """Rows of 0 to 3,000 edges (the backward's groups take a row's edges
+    in turn and add their partial da in group order): the plain version's
+    values, and the same bits on a second run."""
+    rng = np.random.default_rng(H * F)
+    deg = np.concatenate([[3000, 257, 33], rng.integers(0, 12, 200)])
+    dst = np.repeat(np.arange(deg.size), deg)
+    plan = kops.build_csr_plan(rng.integers(0, 500, dst.size), dst,
+                               deg.size, num_src=500)
+    _, inputs, grad = _flash_case(card, H, F, dtype, False, True, plan=plan)
+    got = _flash_both(plan, inputs, grad, False, kops.flash_forward,
+                      kops.flash_backward)
+    want = _flash_both(plan, inputs, grad, False,
+                       kops.flash_forward_reference,
+                       kops.flash_backward_reference, saved=got[:3])
+    for g_, w_, r in zip(got[3:], want[3:], (1e-5, rtol, 1e-5)):
+        _close(g_, w_, r)
+    again = kops.flash_backward(*inputs, *got[1:3], got[0], grad, plan, 0.2,
+                                False)
+    assert all(torch.equal(x, y) for x, y in zip(got[3:], again))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -752,7 +779,7 @@ def _bp_case(seed, n_dst, n_src, e, R):
     return src, dst
 
 
-@pytest.mark.parametrize("F", [7, 40, 256])
+@pytest.mark.parametrize("F", [7, 40, 128, 256])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("weights", ["none", "given", "padded"])
@@ -840,6 +867,39 @@ def test_block_pair_backward_matches_plain(card, dtype, rtol, F):
     _close(w.grad, wc.grad, 1e-5)
     _close(kops.block_pair_dw(x.detach(), gy, plan),
            kops.block_pair_dw_reference(x.detach(), gy, plan), 1e-5)
+
+
+@pytest.mark.parametrize("F", [7, 40, 128, 256])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_block_pair_many_and_long_pairs(card, F, dtype, rtol):
+    """A destination block whose sources lie in 40 source blocks, not
+    contiguous (as a clustered order leaves them), and a pair of 20,000
+    edges, several of the kernel's edge steps on one slab: the plain
+    version's values, the same bits on a second run, and dx on the
+    transpose plan."""
+    rng = np.random.default_rng(F)
+    n = 256 * 60
+    spread = rng.choice(60, 40, replace=False)
+    src = np.concatenate([spread[rng.integers(0, 40, 6000)] * 256
+                          + rng.integers(0, 256, 6000),
+                          256 * 5 + rng.integers(0, 256, 20000),
+                          rng.integers(0, n, 3000)])
+    dst = np.concatenate([rng.integers(0, 256, 6000),
+                          256 * 7 + rng.integers(0, 256, 20000),
+                          rng.integers(0, n, 3000)])
+    plan = kops.build_block_pair_plan(src, dst, n)
+    assert plan.block_ptr[1] - plan.block_ptr[0] >= 40
+    g = torch.Generator().manual_seed(F)
+    x = torch.randn(n, F, generator=g).to(card, dtype)
+    w = torch.rand(src.size, generator=g).to(card)
+    got = kops.spmm_block_pair(x, w, plan)
+    _close(got, kops.spmm_block_pair_reference(x, w, plan), rtol)
+    assert torch.equal(got, kops.spmm_block_pair(x, w, plan))
+    tp = plan.transpose()
+    dx = kops.spmm_block_pair(got, w, tp)
+    _close(dx, kops.spmm_block_pair_reference(got, w, tp), rtol)
+    assert torch.equal(dx, kops.spmm_block_pair(got, w, tp))
 
 
 def test_hybrid_plan_on_card_runs_both_kernels(card):

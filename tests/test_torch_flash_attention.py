@@ -151,6 +151,64 @@ def test_forward_and_gradients_match_jax(H, F, keep):
         _close(a, b, 1e-4, 1e-4)
 
 
+def _bwd_groups(H, F, itemsize):
+    """Edges a warp of csrc/flash_attention.cu's backward takes at once
+    (its pick_bwd_layout): a lane loads V columns (the widest of 16 bytes
+    that divides F), a head takes Lh lanes (the power of two >= F / V, at
+    most 32), an edge the lanes of as many heads as fit 32 (a power of
+    two); 32 over that is the warp's groups."""
+    v = 16 // itemsize
+    while F % v:
+        v //= 2
+    lanes_head = 1
+    while lanes_head < 32 and lanes_head < F // v:
+        lanes_head *= 2
+    heads = 1
+    while heads * lanes_head < 32 and heads < H:
+        heads *= 2
+    return 32 // (heads * lanes_head)
+
+
+@pytest.mark.parametrize("H,F,itemsize,groups", [
+    (8, 8, 2, 4), (1, 40, 2, 4), (4, 64, 2, 1), (2, 640, 2, 1),
+    (8, 8, 4, 2), (1, 40, 4, 2)])
+@pytest.mark.parametrize("keep", [False, True])
+def test_backward_group_order_of_da_matches_jax(H, F, itemsize, groups,
+                                               keep):
+    """da_dst as the backward kernel adds it: group q of a row's warp takes
+    the row's edges q, q + groups, ... and sums their ds per head in turn;
+    the groups' partials are added in group order. Emulated in numpy
+    float32 on the plain version's ds, it matches the plain version's da
+    and jax.grad of the XLA composition at 1e-5, on rows of no edges and
+    of dozens."""
+    assert _bwd_groups(H, F, itemsize) == groups
+    c = _case(H * 1000 + F, n_dst=24, e=500, H=H, F=F, empty_rows=True)
+    plan = kops.build_csr_plan(c["src"], c["dst"], c["n_dst"],
+                               num_src=c["n_src"])
+    perm = torch.from_numpy(plan.perm)
+    s, msg = torch.tensor(c["s"])[perm], torch.tensor(c["msg"])[perm]
+    msg = msg.reshape(len(perm), H * F)
+    a = torch.tensor(c["a"])
+    kp = torch.tensor(c["keep"])[perm] if keep else None
+    g = torch.tensor(c["g"]).reshape(c["n_dst"], H * F)
+    out, m, l = kops.flash_forward_reference(s, a, msg, kp, plan, SLOPE,
+                                             False)
+    ds, _, da = kops.flash_backward_reference(s, a, msg, kp, m, l, out, g,
+                                              plan, SLOPE, False)
+    ds = ds.numpy()
+    got = np.zeros((c["n_dst"], H), np.float32)
+    for row in range(c["n_dst"]):
+        lo, hi = plan.rowptr[row], plan.rowptr[row + 1]
+        for q in range(groups):
+            part = np.zeros(H, np.float32)
+            for e in range(lo + q, hi, groups):
+                part = part + ds[e]
+            got[row] = got[row] + part
+    _close(got, da, 1e-5, 1e-5)
+    _, want_g = _jax_xla(c, keep)
+    _close(got, want_g[1], 1e-5, 1e-5)
+
+
 def test_isolated_rows_are_exact_zeros_and_src_count_differs():
     c = _case(5, n_dst=48, n_src=30, e=150, empty_rows=True)
     empty = np.bincount(c["dst"], minlength=c["n_dst"]) == 0
