@@ -66,16 +66,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
 11. Hold the segment max and min kernels (forward, gathered and per edge,
    and the backward) against their plain versions, bitwise: f32 and bf16,
    F in {7, 40, 128, 256}, with and without weights, ties, empty rows with
-   N_src != N_dst, no edges; on the slice graph at GraphSAGE's widths
-   (F = 256 and 128 bf16), the per-edge form beside
-   `torch.segment_reduce`, and the backward at F = 256; time each.
+   N_src != N_dst, no edges; the hub graph of phase 2 (its rows cut into
+   work items): the same forms, widths and weights, the backward with and
+   without dw, a star whose first item holds only -inf in a column and
+   whose two tied winners of another column lie in two items, each call
+   exactly one launch and one of each pass over cut rows (the forward's
+   fold; the backward's tie count and count fold), repeats bitwise equal.
+   On the slice graph at GraphSAGE's widths (F = 256 and 128 bf16) time
+   the gathered forward beside the port's `spmm_csr` on the same rows, the
+   per-edge form beside `torch.segment_reduce`, and the backward at both
+   widths; on the hub graph the forward beside `spmm_csr`, the backward,
+   and the fold alone.
 12. Hold the HGT attention kernels (forward and backward) against their
    plain versions: f32 and bf16, (H, D) in {(2, 64), (4, 64), (8, 32)},
    empty rows, no edges, and bench.py:185's relation (200,000 -> 100,000
    nodes, 2,000,000 edges, H = 4, D = 64, bf16), where both are timed;
-   there also hold the flash kernels at HGT's train shape (the decomposed
-   route's per-edge rows, keep in CSR order, (H, F) = (4, 64)) and time
-   them.
+   print the registers and spill bytes of every instantiation of the HGT
+   forward and the segment max kernels; there also hold the flash kernels
+   at HGT's train shape (the decomposed route's per-edge rows, keep in CSR
+   order, (H, F) = (4, 64)) and time them.
 13. Serve GraphSAGE (GraphSAGEModel, pool aggregator, 128 -> 256 -> 256 ->
    40, bf16) through `InferenceSession` with the slice graph's plan: 8
    requests against the plain COO path; exactly 3 segment-max launches a
@@ -159,8 +168,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of 3 more steps.
 26. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
-   the same function, the bound and launches by path; the fold of cut
-   rows under spmm_csr's entry) and the paths, and as the last line {"ok": true, "device": {...}}.
+   the same function, the bound and launches by path; the passes over cut
+   rows under their kernel's entry: the CSR fold under spmm_csr's, the
+   segment max's fold under spmm_max_csr's, its tie count and count fold
+   under segment_max_bwd's) and the paths, and as the last line {"ok":
+   true, "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
@@ -168,6 +180,7 @@ It needs a CUDA card and the repository beside it; it imports no JAX.
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -256,9 +269,17 @@ KERNELS = {
     "spmm_csr_acc": (SPMM_SOURCE, PALLAS + "segment_matmul.py:897", []),
 }
 # the kernels whose launches each path counts: every kernel of the kernels
-# line, and the fold of cut rows, which runs under spmm_csr's entry (it is
-# the second pass of the CSR kernel's three forms, no TPU kernel of its own)
-COUNTED = (*KERNELS, "csr_fold")
+# line, and the passes over cut rows, none a TPU kernel of its own: the
+# fold under spmm_csr's entry (the second pass of the CSR kernel's three
+# forms), the segment max's fold under spmm_max_csr's, and its backward's
+# tie count and count fold under segment_max_bwd's
+COUNTED = (*KERNELS, "csr_fold", "segment_max_fold", "segment_max_count",
+           "segment_max_count_fold")
+# the passes over cut rows: kernel entry -> {key in its entry: counter}
+CUT_PASSES = {"spmm_csr": {"fold": "csr_fold"},
+              "spmm_max_csr": {"fold": "segment_max_fold"},
+              "segment_max_bwd": {"count": "segment_max_count",
+                                  "fold": "segment_max_count_fold"}}
 NOTES = {"block_pair_dw": "the JAX VJP _bwd (block_pair.py:264) is XLA, not "
                           "a Pallas kernel: it gathers both endpoint rows"}
 
@@ -473,7 +494,10 @@ def counters(k):
             "hgt_forward": [k.hgt_forward], "hgt_backward": [k.hgt_backward],
             "spmm_block_pair": [k.spmm_block_pair],
             "block_pair_dw": [k.block_pair_dw],
-            "spmm_csr_acc": [k.spmm_csr_acc], "csr_fold": [k.csr_fold]}
+            "spmm_csr_acc": [k.spmm_csr_acc], "csr_fold": [k.csr_fold],
+            "segment_max_fold": [k.segment_max_fold],
+            "segment_max_count": [k.segment_max_count],
+            "segment_max_count_fold": [k.segment_max_count_fold]}
 
 
 def reset_counts(k):
@@ -1209,6 +1233,104 @@ def phase_sddmm_path(k, plan):
     return counts
 
 
+def max_hub_call(k, label, counters, run, want):
+    """One segment-max call on the hub graph: exactly one launch of each of
+    ``counters`` (the kernel and its passes over cut rows), the result
+    bitwise equal to the plain version's ``want`` (dw, the third item of a
+    backward's, within 1e-5), a repeat bitwise equal. Returns the result
+    and the max abs error of dw (0 without)."""
+    before = [fn.launches for fn in counters]
+    got = run()
+    sync()
+    launched = [fn.launches - b for fn, b in zip(counters, before)]
+    if launched != [1] * len(counters):
+        fail(f"hub {label}: launches {launched} of "
+             f"{[fn.__name__ for fn in counters]} (want one each)")
+    got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,),
+                                                                (want,))
+    if not torch.equal(got_t[0], want_t[0]):
+        fail(f"hub {label}: not bitwise equal to the plain version")
+    again = run()
+    if not torch.equal((again if isinstance(again, tuple) else (again,))[0],
+                       got_t[0]):
+        fail(f"hub {label}: repeated launches differ")
+    err = 0.0
+    if len(got_t) > 1 and got_t[1] is not None:
+        err = check_close(f"hub {label} dw", got_t[1], want_t[1], 1e-5)
+    return got, err
+
+
+def max_hub_checks(k, gen, dev):
+    """The segment max on the hub graph (a 1,200,000-edge star and a
+    5,000-edge hub cut into work items): forward gathered and per edge,
+    max and min, backward with and without dw; f32 and bf16, F in {7, 40,
+    128, 256}, with and without weights. Integer features and weights in
+    eighths tie across items; in the per-edge rows the star's first item
+    holds only -inf in column 0, and in column 2 the star's winners are
+    two edges in two items. Returns the max abs error of dw."""
+    plan = hub_plan(k, SEED + 11)
+    E, star = plan.num_edges, int(plan.rowptr[1])
+    col = plan.arrays(dev)[1].long()
+    fwd = (k.spmm_max_csr, k.segment_max_fold)
+    bwd = (k.segment_max_bwd, k.segment_max_count, k.segment_max_count_fold)
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for F in (7, 40, 128, 256):
+            x = exact(gen, plan.num_src, F).to(dev, dtype)
+            for weighted in (False, True):
+                tag = f"{dtype} F={F} weighted={weighted}"
+                w = ((torch.randint(1, 9, (E,), generator=gen) / 8).to(dev)
+                     if weighted else None)
+                for fn, ref in ((k.spmm_max_csr, k.spmm_max_csr_reference),
+                                (k.spmm_min_csr, k.spmm_min_csr_reference)):
+                    max_hub_call(k, f"{fn.__name__} {tag}",
+                                 (fn, k.segment_max_fold),
+                                 lambda: fn(x, w, plan), ref(x, w, plan))
+                wp = None if w is None else k.pad_edge_weights(plan, w)
+                out, _ = max_hub_call(
+                    k, f"spmm_max_csr padded {tag}", fwd,
+                    lambda: k.spmm_max_csr(x, wp, plan, weights_padded=True),
+                    k.spmm_max_csr_reference(x, wp, plan,
+                                             weights_padded=True))
+                g = torch.randn(out.shape, generator=gen).to(dev, dtype)
+                for want_dw in ((False, True) if weighted else (False,)):
+                    _, e = max_hub_call(
+                        k, f"segment_max_bwd {tag} dw={want_dw}", bwd,
+                        lambda: k.segment_max_bwd(x, wp, out, g, plan, False,
+                                                  want_dw),
+                        k.segment_max_bwd_reference(x, wp, out, g, plan,
+                                                    False, want_dw))
+                    err = max(err, e)
+            msg = x[col]
+            msg[:k.ROW_SPLIT, 0] = -np.inf
+            if F > 2:  # two winners, in the star's first two items
+                msg[:star, 2] = msg[:star, 2].clamp_max(3)
+                msg[[5, k.ROW_SPLIT + 5], 2] = 4
+            for fn, ref in ((k.segment_max_csr, k.segment_max_csr_reference),
+                            (k.segment_min_csr,
+                             k.segment_min_csr_reference)):
+                max_hub_call(k, f"{fn.__name__} {dtype} F={F}",
+                             (fn, k.segment_max_fold),
+                             lambda: fn(msg, plan), ref(msg, plan))
+            out = k.segment_max_csr(msg, plan)
+            g = torch.randn(out.shape, generator=gen).to(dev, dtype)
+            (dmsg, _), _ = max_hub_call(
+                k, f"segment_max_bwd per edge {dtype} F={F}", bwd,
+                lambda: k.segment_max_bwd(msg, None, out, g, plan, True,
+                                          False),
+                k.segment_max_bwd_reference(msg, None, out, g, plan, True,
+                                            False))
+            if F > 2 and int((dmsg[:star, 2] != 0).sum()) != 2:
+                fail(f"hub per edge {dtype} F={F}: the two tied winners in "
+                     "two items did not take the cotangent")
+    print("  hub graph: forward (max, min; gathered with and without "
+          "weights, padded weights, per edge) and backward (with and "
+          "without dw, per edge) bitwise equal to the plain versions, one "
+          "launch of the kernel and of each pass over cut rows a call, "
+          "repeats bitwise (f32, bf16; F 7, 40, 128, 256)")
+    return err, plan
+
+
 def phase_max_checks(k, slice_plan):
     """The segment-max kernels (forward, both forms, max and min; the
     backward) against their plain versions; returns (max abs error by
@@ -1296,6 +1418,9 @@ def phase_max_checks(k, slice_plan):
             fail(f"segment_max_bwd {dtype}: a -inf winner took a cotangent")
     print("  infinite winners: 0, bitwise equal to the plain version, no "
           "cotangent (f32, bf16)")
+    err["segment_max_bwd"] = max(err["segment_max_bwd"],
+                                 max_hub_checks(k, gen, dev)[0])
+    hub = hub_plan(k, SEED + 11)
 
     plan, bf16 = slice_plan, torch.bfloat16
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
@@ -1306,13 +1431,19 @@ def phase_max_checks(k, slice_plan):
         if not torch.equal(k.spmm_max_csr(x, None, plan),
                            k.spmm_max_csr_reference(x, None, plan)):
             fail(f"slice graph spmm_max_csr F={F}: not bitwise equal")
-        timings["spmm_max_csr"].append({"F": F, "form": "gathered", **timing(
+        row = {"F": F, "form": "gathered", **timing(
             f"spmm_max_csr F={F} bf16 gathered",
             lambda: k.spmm_max_csr(x, None, plan),
             lambda: k.spmm_max_csr_reference(x, None, plan),
             # x, col and rowptr in, out
             nbytes=Ns * F * 2 + E * 4 + (N + 1) * 8 + N * F * 2,
-            flops=E * F)})
+            flops=E * F)}
+        # the same gather with an fma in place of the compare
+        row["spmm_csr_ms"] = cuda_ms(lambda: k.spmm_csr(x, None, plan))
+        print(f"  spmm_csr F={F} bf16 on the same graph: "
+              f"{row['spmm_csr_ms']:.4f} ms; the max takes "
+              f"{row['ms'] / row['spmm_csr_ms']:.3f} of it")
+        timings["spmm_max_csr"].append(row)
     F = HIDDEN
     msg = rand(E, F, dtype=bf16)
     if not torch.equal(k.segment_max_csr(msg, plan),
@@ -1326,25 +1457,89 @@ def phase_max_checks(k, slice_plan):
         # one PyTorch call over rows already in CSR order (empty rows give
         # its identity, not 0: a yardstick of time only)
         library=lambda: torch.segment_reduce(msg, "max", offsets=rowptr))})
+    for F in (HIDDEN, N_FEAT):  # the widths GraphSAGE's step takes back
+        x = rand(Ns, F, dtype=bf16)
+        out = k.spmm_max_csr(x, None, plan)
+        g = rand(N, F, dtype=bf16)
+        if not torch.equal(
+                k.segment_max_bwd(x, None, out, g, plan, False, False)[0],
+                k.segment_max_bwd_reference(x, None, out, g, plan, False,
+                                            False)[0]):
+            fail(f"slice graph segment_max_bwd F={F}: not bitwise equal")
+        timings["segment_max_bwd"].append({"F": F, **timing(
+            f"segment_max_bwd F={F} bf16",
+            lambda: k.segment_max_bwd(x, None, out, g, plan, False, False),
+            lambda: k.segment_max_bwd_reference(x, None, out, g, plan,
+                                                False, False),
+            # x, col, rowptr, out and g in, dmsg out; two compares and a
+            # division an element
+            nbytes=(Ns * F * 2 + E * 4 + (N + 1) * 8 + 2 * N * F * 2
+                    + E * F * 2),
+            flops=3 * E * F, plain_iters=3)})
+    # the hub graph: one launch and a fold, beside the port's spmm_csr
+    # (one launch and csr_fold) on the same graph
+    F, N, Ns, E = HIDDEN, hub.num_nodes, hub.num_src, hub.num_edges
     x = rand(Ns, F, dtype=bf16)
-    out = k.spmm_max_csr(x, None, plan)
+    row = {"F": F, "form": "gathered", "graph": "hub", **timing(
+        f"spmm_max_csr F={F} bf16 gathered, hub graph",
+        lambda: k.spmm_max_csr(x, None, hub),
+        lambda: k.spmm_max_csr_reference(x, None, hub),
+        nbytes=Ns * F * 2 + E * 4 + (N + 1) * 8 + N * F * 2, flops=E * F)}
+    row["spmm_csr_ms"] = cuda_ms(lambda: k.spmm_csr(x, None, hub))
+    print(f"  spmm_csr F={F} bf16 on the hub graph: "
+          f"{row['spmm_csr_ms']:.4f} ms")
+    timings["spmm_max_csr"].append(row)
+    out = k.spmm_max_csr(x, None, hub)
     g = rand(N, F, dtype=bf16)
-    if not torch.equal(
-            k.segment_max_bwd(x, None, out, g, plan, False, False)[0],
-            k.segment_max_bwd_reference(x, None, out, g, plan, False,
-                                        False)[0]):
-        fail("slice graph segment_max_bwd: not bitwise equal")
-    timings["segment_max_bwd"].append({"F": F, **timing(
-        f"segment_max_bwd F={F} bf16",
-        lambda: k.segment_max_bwd(x, None, out, g, plan, False, False),
-        lambda: k.segment_max_bwd_reference(x, None, out, g, plan, False,
+    timings["segment_max_bwd"].append({"F": F, "graph": "hub", **timing(
+        f"segment_max_bwd F={F} bf16, hub graph (count, count fold, "
+        "backward)",
+        lambda: k.segment_max_bwd(x, None, out, g, hub, False, False),
+        lambda: k.segment_max_bwd_reference(x, None, out, g, hub, False,
                                             False),
-        # x, col, rowptr, out and g in, dmsg out; two compares and a
-        # division an element
         nbytes=(Ns * F * 2 + E * 4 + (N + 1) * 8 + 2 * N * F * 2
                 + E * F * 2),
         flops=3 * E * F, plain_iters=3)})
-    return err, timings
+    # the fold alone, on the hub graph's slots
+    _, _, cut_row, cut_ptr, n_slots = hub.split_arrays(dev)
+    part = torch.randn(n_slots, F, generator=gen).to(dev)
+    folded = torch.empty(N, F, dtype=bf16, device=dev)
+    fold = {"ms": cuda_ms(lambda: k.segment_max_fold(part, hub, folded,
+                                                     False)),
+            **bound(n_slots * F * 4 + cut_row.shape[0] * (F * 2 + 12),
+                    n_slots * F),
+            "cut_rows": int(cut_row.shape[0]), "slots": n_slots}
+    print(f"  segment_max_fold on the hub graph ({fold['cut_rows']} cut "
+          f"rows, {n_slots} slots, F={F} bf16): {fold['ms']:.4f} ms, bound "
+          f"{fold['bound_ms']:.4f} ms")
+    return err, timings, fold
+
+
+def kernel_resources(families):
+    """Print the registers and spills (the build's -Xptxas -v report) of
+    every compiled instantiation of each kernel family (a substring of
+    its entry's name); returns {family: the most spill bytes, stores plus
+    loads, of any of its instantiations}."""
+    from gammagl_tpu_torch.ops.cuda._build import load_library
+    log = os.path.splitext(load_library()._name)[0] + ".log"
+    worst = {f: 0 for f in families}
+    family = name = None
+    for line in open(log).read().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            family = next((f for f in families if f in name), None)
+            continue
+        if family is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            worst[family] = max(worst[family], int(m[1]) + int(m[2]))
+        if m or "registers" in line:
+            print(f"  {name[:96]}: {line.split(':', 1)[-1].strip()}")
+    print("  most spill bytes of an instantiation: " + ", ".join(
+        f"{f} {b}" for f, b in worst.items()))
+    return worst
 
 
 def hgt_relation():
@@ -1404,6 +1599,7 @@ def phase_hgt_checks(k):
             for pname, p in (("empty rows", sparse), ("E=0", empty)):
                 hgt_check(k, f"{dtype} H={H} D={D} {pname}", p, H, D, dtype,
                           gen, dev)
+    spills = kernel_resources(("hgt_fwd_kernel", "segment_max"))
     src, dst = hgt_relation()
     plan = k.build_csr_plan(src, dst, HGT_PAPERS, num_src=HGT_AUTHORS)
     H, D = HGT_HEADS, HIDDEN // HGT_HEADS
@@ -1429,7 +1625,9 @@ def phase_hgt_checks(k):
             nbytes=Ns * 2 * HD * 2 + 3 * N * HD * 2 + 2 * N * H * 4
             + graph_bytes + N * HD * 2 + E * 2 * HD * 2,
             flops=10 * E * HD, plain_iters=3)}]}
-    return err, timings, plan, flash_at_hgt_shape(k, plan, gen, dev)
+    timings["hgt_forward"][0]["spill_bytes"] = spills["hgt_fwd_kernel"]
+    return (err, timings, plan, flash_at_hgt_shape(k, plan, gen, dev),
+            spills["segment_max"])
 
 
 def flash_at_hgt_shape(k, plan, gen, dev):
@@ -2543,9 +2741,11 @@ def main():
                                             load_jax_params, compute_dtype,
                                             plan, x, ei)
     sddmm_counts = phase_sddmm_path(k, plan)
-    max_err, max_ms = phase_max_checks(k, plan)
-    hgt_err, hgt_ms, hgt_plan, (hgt_flash_err, hgt_flash_ms) = (
-        phase_hgt_checks(k))
+    max_err, max_ms, max_fold_ms = phase_max_checks(k, plan)
+    (hgt_err, hgt_ms, hgt_plan, (hgt_flash_err, hgt_flash_ms),
+     max_spills) = phase_hgt_checks(k)
+    for row in max_ms.values():
+        row[0]["spill_bytes"] = max_spills
     for name, row in hgt_flash_ms.items():
         flash_ms[name].append(row)
         flash_err[name] = max(flash_err[name], hgt_flash_err[name])
@@ -2658,13 +2858,14 @@ def main():
             entry["also_replaces"] = also
         if name in NOTES:
             entry["note"] = NOTES[name]
-        if name == "spmm_csr":  # its second pass, under all three forms
-            entry["fold"] = {
-                "name": "csr_fold", "source": SPMM_SOURCE,
-                "launches": sum(c["csr_fold"] for c in runs.values()),
-                "launches_by_path": {p: c["csr_fold"]
-                                     for p, c in runs.items()},
-                **fold_ms}
+        # its passes over cut rows (the CSR fold under all three forms)
+        for key, cut in CUT_PASSES.get(name, {}).items():
+            entry[key] = {
+                "name": cut, "source": source,
+                "launches": sum(c[cut] for c in runs.values()),
+                "launches_by_path": {p: c[cut] for p, c in runs.items()},
+                **{"csr_fold": fold_ms,
+                   "segment_max_fold": max_fold_ms}.get(cut, {})}
         if entry["launches"] == 0:
             fail(f"{name} was launched on no path")
         entries.append(entry)

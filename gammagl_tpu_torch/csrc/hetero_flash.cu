@@ -40,11 +40,23 @@
 //  * a head wider than L*V columns takes K chunks (K up to 4), kept in
 //    registers, so the score is whole before the softmax update;
 //  * the online softmax takes one exp an edge (flash_attention.cu);
-//  * the warp reads 32 col indices with one coalesced load and hands them
-//    out by shuffle; the forward loads several edges' k|v rows before it
-//    uses them.
+//  * the forward keeps gathered k|v rows in flight without a break: each
+//    lane copies its own columns of an edge's k and v rows (16 bytes each
+//    at HGT's (4, 64) in bf16) into a ring in shared memory by cp.async,
+//    kFwdStages<K> edges ahead (4 at K = 1), and loads the next source
+//    index a step ahead, so the loads of later edges are in flight while
+//    the score shuffles and the softmax of the current one run (the CSR
+//    kernels' walk_ring, csrc/csr_items.cuh; a bf16 head of odd D, V = 1,
+//    copies its 2-byte pieces by plain loads, which no async copy
+//    carries). The sums are
+//    those of a walk in CSR edge order, one exp an edge. A row is not
+//    split over warps: the relation's in-degree tops out at a few hundred
+//    edges;
+//  * the backward reads 32 col indices with one coalesced load, hands
+//    them out by shuffle and loads several edges' k|v rows into registers
+//    before it uses them.
 
-#include "common.cuh"
+#include "csr_items.cuh"
 
 namespace {
 
@@ -79,29 +91,75 @@ __device__ __forceinline__ float dot_part(const float (&a)[K][V],
   return s;
 }
 
-// One warp per destination row.
+// The forward's blocks: kFwdWarps rows, each lane with a ring of
+// kFwdStages<K> edges in shared memory, 2 * K 16-byte slots an edge (its
+// k and v column chunks): 16 KB a block at K = 1 and 2, 32 KB at K = 4.
+// On the H100 at HGT's (4, 64) bf16, 4 edges a lane took 0.645 ms, 8
+// edges 0.716 and 2 edges 0.661 (scripts/max_hgt_probe.py, in turns).
+// Registers are capped so that kFwdBlocks<K> blocks fit on an SM.
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = kWarp * kFwdWarps;
+template <int K>
+constexpr int kFwdStages = K == 1 ? 4 : 2;
+template <int K>
+constexpr int kFwdBlocks = K == 1 ? 6 : K == 2 ? 4 : 2;
+
+// One warp per destination row, its edges walked through walk_ring: each
+// lane copies its own columns of an edge's k and v rows into its stage.
 template <typename T, int V, int K>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocks<K>)
     hgt_fwd_kernel(const T* __restrict__ kv, const T* __restrict__ q,
                    const int64_t* __restrict__ rowptr,
                    const int32_t* __restrict__ col, T* __restrict__ out,
                    float* __restrict__ m_out, float* __restrict__ l_out,
                    int64_t n_dst, Layout g) {
-  // edges whose k|v loads are issued together: fewer when a head takes
-  // more column chunks (more registers an edge)
-  constexpr int U = K == 1 ? 4 : 2;
+  constexpr int kStages = kFwdStages<K>;
+  __shared__ uint4 ring[kStages][2 * K][kFwdThreads];
   const int lane = threadIdx.x % kWarp;
   const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+      static_cast<int64_t>(blockIdx.x) * kFwdWarps + threadIdx.x / kWarp;
   if (row >= n_dst) return;  // the whole warp leaves together
   const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
+  const int64_t n = rowptr[row + 1] - begin;
   const int64_t HD = g.H * g.F;
 
   for (int pass = 0; pass < g.passes; ++pass) {
     const Lane l0 = lane_at<V>(g, lane, pass, 0);
     const int64_t h = l0.head ? l0.h : 0;
     const int64_t off = h * g.F;  // the head's first column
+    bool cols[K];
+    int64_t cin[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const Lane ln = lane_at<V>(g, lane, pass, k);
+      cols[k] = ln.cols;
+      cin[k] = ln.cin;
+    }
+    // this lane's columns of edge j's k|v row (source src) into slot s
+    auto copy = [&](int s, int64_t src) {
+      const T* r = kv + src * 2 * HD + off;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (cols[k]) {
+          stage_copy<T, V>(&ring[s][k][threadIdx.x], r + cin[k]);
+          stage_copy<T, V>(&ring[s][K + k][threadIdx.x], r + HD + cin[k]);
+        }
+      }
+    };
+    // chunks of slot s (piece 0: k, K: v); past the head's end, zeros
+    auto staged = [&](int s, int piece, float (&f)[K][V]) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (cols[k]) {
+          load_vec<T, V, false>(
+              reinterpret_cast<const T*>(&ring[s][piece + k][threadIdx.x]),
+              f[k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) f[k][i] = 0.f;
+        }
+      }
+    };
     float qv[K][V], acc[K][V];
     load_head<T, V, K>(q + row * HD + off, g, lane, pass, qv);
 #pragma unroll
@@ -110,56 +168,43 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
       for (int i = 0; i < V; ++i) acc[k][i] = 0.f;
     float m = kNeg, l = 0.f;
 
-    for (int64_t base = begin; base < end; base += kWarp) {
-      const int64_t left = end - base;
-      const int n = left < kWarp ? static_cast<int>(left) : kWarp;
-      const int my_col = lane < n ? __ldg(col + base + lane) : 0;
-      for (int j = 0; j < n; j += U) {
-        float kk[U][K][V], vv[U][K][V];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int jj = j + u < n ? j + u : 0;
-          const int src = __shfl_sync(kFullMask, my_col, jj);
-          const T* r = kv + static_cast<int64_t>(src) * 2 * HD + off;
-          if (l0.head && j + u < n) {
-            load_head<T, V, K>(r, g, lane, pass, kk[u]);
-            load_head<T, V, K>(r + HD, g, lane, pass, vv[u]);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
+    walk_ring<kStages>(
+        begin, n,
+        [&](int64_t e) { return static_cast<int64_t>(__ldg(col + e)); },
+        [](int64_t) { return 1.f; }, copy,
+        [&](int64_t, float, int s) {
+          float kk[K][V];
+          staged(s, 0, kk);
           // every lane takes part in the shuffles; lanes past the heads
-          // and edges past the row's end change nothing
-          const float s = group_sum(
-              l0.head && j + u < n ? dot_part<V, K>(qv, kk[u]) : 0.f, g.L);
-          if (l0.head && j + u < n) {
-            // one exp an edge: exp(-|s - m|) is the rescale of the old sums
-            // when s is the new max, else the edge's weight
-            const float d = s - m;
-            const float t = expf(-fabsf(d));
-            const bool up = d > 0.f;
-            const float scale = up ? t : 1.f;
-            const float p = up ? 1.f : t;
-            l = fmaf(l, scale, p);
+          // change nothing
+          const float sc =
+              group_sum(l0.head ? dot_part<V, K>(qv, kk) : 0.f, g.L);
+          if (!l0.head) return;
+          float vv[K][V];
+          staged(s, K, vv);
+          // one exp an edge: exp(-|s - m|) is the rescale of the old sums
+          // when s is the new max, else the edge's weight
+          const float d = sc - m;
+          const float t = expf(-fabsf(d));
+          const bool up = d > 0.f;
+          const float scale = up ? t : 1.f;
+          const float p = up ? 1.f : t;
+          l = fmaf(l, scale, p);
 #pragma unroll
-            for (int k = 0; k < K; ++k)
+          for (int k = 0; k < K; ++k)
 #pragma unroll
-              for (int i = 0; i < V; ++i)
-                acc[k][i] = fmaf(p, vv[u][k][i], acc[k][i] * scale);
-            m = up ? s : m;
-          }
-        }
-      }
-    }
+            for (int i = 0; i < V; ++i)
+              acc[k][i] = fmaf(p, vv[k][i], acc[k][i] * scale);
+          m = up ? sc : m;
+        });
     const float inv = 1.f / fmaxf(l, 1e-16f);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const Lane ln = lane_at<V>(g, lane, pass, k);
-      if (ln.cols) {
+      if (cols[k]) {
         float o[V];
 #pragma unroll
         for (int i = 0; i < V; ++i) o[i] = acc[k][i] * inv;
-        store_vec<T, V>(out + row * HD + off + ln.cin, o);
+        store_vec<T, V>(out + row * HD + off + cin[k], o);
       }
     }
     if (l0.leader) {
@@ -306,12 +351,13 @@ int launch_fwd(const void* kv, const void* q, const int64_t* rowptr,
   Layout g;
   int K;
   const int V = layout_for<T>(H, D, ptrs, 3, &g, &K);
-  const dim3 block(kWarp * kWarpsPerBlock);
   const T* kt = static_cast<const T*>(kv);
   const T* qt = static_cast<const T*>(q);
   T* ot = static_cast<T*>(out);
+  const dim3 grid(
+      static_cast<unsigned>((n_dst + kFwdWarps - 1) / kFwdWarps));
 #define GAMMAGL_HGT_FWD(VV, KK)                                          \
-  hgt_fwd_kernel<T, VV, KK><<<grid_for(n_dst), block, 0, stream>>>(      \
+  hgt_fwd_kernel<T, VV, KK><<<grid, kFwdThreads, 0, stream>>>(           \
       kt, qt, rowptr, col, ot, m, l, n_dst, g)
   GAMMAGL_HGT_DISPATCH(GAMMAGL_HGT_FWD)
 #undef GAMMAGL_HGT_FWD
@@ -345,7 +391,8 @@ int launch_bwd(const void* kv, const void* q, const int64_t* rowptr,
 #undef GAMMAGL_HGT_DISPATCH
 
 bool bad_sizes(int64_t n_dst, int64_t H, int64_t D) {
-  return n_dst < 0 || H < 1 || D < 1 || grid_too_large(n_dst);
+  return n_dst < 0 || H < 1 || D < 1 || grid_too_large(n_dst) ||
+         (n_dst + kFwdWarps - 1) / kFwdWarps > 0x7fffffff;
 }
 
 }  // namespace

@@ -80,55 +80,15 @@
 // row slice of a larger table (a pointer offset into it). Its bound is
 // spmm_csr's plus prev read once: bytes.
 
-#include "common.cuh"
+#include "csr_items.cuh"
 
 namespace {
 
-constexpr int kThreads = kWarp * kWarpsPerBlock;
 // Rows in flight per lane: 16 bytes each in shared memory, so a block of
 // 256 lanes holds kStages * 4 KB (32 KB: seven blocks an SM). On the H100,
 // 4 stages took the per-edge segment sum 20-35% longer and the accumulating
 // form at F = 256 5% less (scripts/csr_variants_probe.py).
 constexpr int kStages = 8;
-
-// The items of one launch. Item i holds CSR edges [ptr[i], ptr[i + 1]);
-// meta[i] = {its row, its scratch slot or -1 for an item that owns its
-// row}, or meta is null and item i is row i (ptr is then rowptr).
-struct Items {
-  const int64_t* ptr;
-  const int2* meta;
-  int64_t n;
-  float* part;     // (slots, stride) f32 partial sums of cut rows
-  int64_t stride;  // a multiple of 4 that is >= F
-};
-
-// V f32 values at p (aligned to min(V, 4) floats).
-template <int V>
-__device__ __forceinline__ void load_f32(const float* __restrict__ p,
-                                         float (&f)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < V; i += 4) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(p + i));
-      f[i] = v.x; f[i + 1] = v.y; f[i + 2] = v.z; f[i + 3] = v.w;
-    }
-  } else {
-    load_vec<float, V>(p, f);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_f32(float* __restrict__ p,
-                                          const float (&f)[V]) {
-  if constexpr (V % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < V; i += 4)
-      *reinterpret_cast<float4*>(p + i) =
-          make_float4(f[i], f[i + 1], f[i + 2], f[i + 3]);
-  } else {
-    store_vec<float, V>(p, f);
-  }
-}
 
 // acc += weight * v, with the weight of column i w[e, head[i]] (kHeads) or
 // wv for the whole row.
@@ -158,15 +118,7 @@ __global__ void __launch_bounds__(kThreads)
   if (item >= items.n) return;  // no lane waits on another
   const int64_t L = int64_t{1} << lg;
   const int64_t lane = t & (L - 1);
-  int64_t row = item;
-  int slot = -1;
-  if (items.meta != nullptr) {
-    const int2 m = __ldg(items.meta + item);
-    row = m.x;
-    slot = m.y;
-  }
-  const int64_t lo = __ldg(items.ptr + item);
-  const int64_t n = __ldg(items.ptr + item + 1) - lo;
+  const Item it = item_at(items, item);
   const int64_t Fh = F / H;
   auto source = [&](int64_t e) -> int64_t {
     if constexpr (kPerEdge) return e;
@@ -183,105 +135,43 @@ __global__ void __launch_bounds__(kThreads)
     float acc[V];
 #pragma unroll
     for (int i = 0; i < V; ++i) acc[i] = 0.f;
-    if (kAcc && slot < 0) load_vec<T, V, false>(prev + row * F + c, acc);
-    const T* xc = x + c;
-
-    // the first kStages edges: all their indices, then all their copies
-    int64_t r0[kStages + 1];
-#pragma unroll
-    for (int s = 0; s <= kStages; ++s) r0[s] = s < n ? source(lo + s) : 0;
-#pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      if (s < n) stage_copy<T, V>(&ring[s][threadIdx.x], xc + r0[s] * F);
-      commit_stage();
-    }
-    int64_t r_next = r0[kStages];
-    float w_cur = n > 0 ? weight(lo) : 0.f;
-    for (int64_t j = 0; j < n; ++j) {
-      const float w_next = j + 1 < n ? weight(lo + j + 1) : 0.f;
-      wait_stages<kStages - 1>();  // edge j has landed
-      const int s = static_cast<int>(j % kStages);
-      float v[V];
-      load_vec<T, V, false>(reinterpret_cast<const T*>(&ring[s][threadIdx.x]),
-                            v);
-      add_row<V, kHeads>(acc, v, w_cur, w, lo + j, H, head);
-      // the slot's read above leaves the load/store unit before this
-      // lane's next copy into it (shared-memory accesses of a warp are
-      // issued in order; the copy lands a global round trip later)
-      if (j + kStages < n) {
-        stage_copy<T, V>(&ring[s][threadIdx.x], xc + r_next * F);
-        if (j + kStages + 1 < n) r_next = source(lo + j + kStages + 1);
-      }
-      commit_stage();
-      w_cur = w_next;
-    }
-    if (slot < 0)
-      store_vec<T, V>(out + row * F + c, acc);
+    if (kAcc && it.slot < 0)
+      load_vec<T, V, false>(prev + it.row * F + c, acc);
+    walk_edges<T, V, kStages>(
+        ring, x + c, F, it.lo, it.n, true, source, weight,
+        [&](int64_t j, float wv, const T* staged) {
+          float v[V];
+          load_vec<T, V, false>(staged, v);
+          add_row<V, kHeads>(acc, v, wv, w, it.lo + j, H, head);
+        });
+    if (it.slot < 0)
+      store_vec<T, V>(out + it.row * F + c, acc);
     else
-      store_f32<V>(items.part + slot * items.stride + c, acc);
+      store_f32<V>(items.part + it.slot * items.stride + c, acc);
   }
 }
 
-// The fold: cut row i (row cut_row[i]) owns scratch slots [cut_ptr[i],
-// cut_ptr[i + 1]), one per item in item order; out[row] = prev[row] (kAcc,
-// else 0) plus each slot in turn, in f32, rounded once. Groups of 2^lg
-// lanes as in spmm_csr_kernel.
+// The fold of spmm_csr_kernel's cut rows: out[row] = prev[row] (kAcc, else
+// 0) plus each slot in turn, in f32, rounded once.
 template <typename T, int V, bool kAcc>
-__global__ void __launch_bounds__(kThreads)
-    csr_fold_kernel(const float* __restrict__ part,
-                    const int32_t* __restrict__ cut_row,
-                    const int64_t* __restrict__ cut_ptr, const T* prev,
-                    T* out, int64_t n_cut, int lg, int64_t F,
-                    int64_t stride) {
-  constexpr int kUnroll = 8;  // slots in flight: a hub row has hundreds
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t i = t >> lg;
-  if (i >= n_cut) return;
-  const int64_t L = int64_t{1} << lg;
-  const int64_t row = __ldg(cut_row + i);
-  const int64_t s0 = __ldg(cut_ptr + i), s1 = __ldg(cut_ptr + i + 1);
-  for (int64_t c = (t & (L - 1)) * V; c < F; c += L * V) {
-    float acc[V];
+struct SumFold {
+  const T* prev;
+  T* out;
+  int64_t F;
+  __device__ void start(int64_t row, int64_t c, float (&acc)[V]) const {
 #pragma unroll
     for (int k = 0; k < V; ++k) acc[k] = 0.f;
     if (kAcc) load_vec<T, V, false>(prev + row * F + c, acc);
-    const float* p = part + c;
-    int64_t s = s0;
-    for (; s + kUnroll <= s1; s += kUnroll) {
-      float a[kUnroll][V];
+  }
+  __device__ void add(float (&acc)[V], const float (&a)[V]) const {
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) load_f32<V>(p + (s + u) * stride, a[u]);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-        for (int k = 0; k < V; ++k) acc[k] += a[u][k];
-    }
-    for (; s < s1; ++s) {
-      float a[V];
-      load_f32<V>(p + s * stride, a);
-#pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] += a[k];
-    }
+    for (int k = 0; k < V; ++k) acc[k] += a[k];
+  }
+  __device__ void finish(int64_t row, int64_t c, int64_t, int64_t,
+                         const float (&acc)[V]) const {
     store_vec<T, V>(out + row * F + c, acc);
   }
-}
-
-// log2 of the lanes an item takes: the power of two >= ceil(F / V), at
-// most 32.
-int lanes_log2(int64_t F, int V) {
-  const int64_t per = (F + V - 1) / V;
-  int lg = 0;
-  while (lg < 5 && (int64_t{1} << lg) < per) ++lg;
-  return lg;
-}
-
-bool grid_ok(int64_t n, int lg) {
-  return n >= 0 && ((n << lg) + kThreads - 1) / kThreads <= 0x7fffffff;
-}
-
-dim3 grid_of(int64_t n, int lg) {
-  return dim3(static_cast<unsigned>(((n << lg) + kThreads - 1) / kThreads));
-}
+};
 
 // 16-byte rows where F and every row pointer allow them, else one column
 // a lane.
@@ -296,14 +186,13 @@ void launch(const void* x, const float* w, const int32_t* col,
   const T* pt = static_cast<const T*>(prev);
   T* ot = static_cast<T*>(out);
   const int lg = lanes_log2(F, vec ? kVec : 1);
+  const dim3 grid = grid_of(items.n, lg);
   if (vec)
     spmm_csr_kernel<T, kVec, kPerEdge, kHeads, kAcc>
-        <<<grid_of(items.n, lg), kThreads, 0, stream>>>(xt, w, col, pt, ot,
-                                                         items, lg, F, H);
+        <<<grid, kThreads, 0, stream>>>(xt, w, col, pt, ot, items, lg, F, H);
   else
     spmm_csr_kernel<T, 1, kPerEdge, kHeads, kAcc>
-        <<<grid_of(items.n, lg), kThreads, 0, stream>>>(xt, w, col, pt, ot,
-                                                         items, lg, F, H);
+        <<<grid, kThreads, 0, stream>>>(xt, w, col, pt, ot, items, lg, F, H);
 }
 
 template <typename T>
@@ -325,6 +214,16 @@ void launch_mode(const void* x, const float* w, const int32_t* col,
                                    stream);
 }
 
+template <typename T, int V, bool kAcc>
+void fold_with(const float* part, const int32_t* cut_row,
+               const int64_t* cut_ptr, const T* prev, T* out, int64_t n_cut,
+               int lg, int64_t F, int64_t stride, cudaStream_t stream) {
+  csr_fold_kernel<V>
+      <<<grid_of(n_cut, lg), kThreads, 0, stream>>>(
+          part, cut_row, cut_ptr, n_cut, lg, F, stride,
+          SumFold<T, V, kAcc>{prev, out, F});
+}
+
 template <typename T>
 void launch_fold(const float* part, const int32_t* cut_row,
                  const int64_t* cut_ptr, const void* prev, void* out,
@@ -336,34 +235,18 @@ void launch_fold(const float* part, const int32_t* cut_row,
   const T* pt = static_cast<const T*>(prev);
   T* ot = static_cast<T*>(out);
   const int lg = lanes_log2(F, vec ? kVec : 1);
-  const dim3 grid = grid_of(n_cut, lg);
   if (vec && prev)
-    csr_fold_kernel<T, kVec, true><<<grid, kThreads, 0, stream>>>(
-        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+    fold_with<T, kVec, true>(part, cut_row, cut_ptr, pt, ot, n_cut, lg, F,
+                             stride, stream);
   else if (vec)
-    csr_fold_kernel<T, kVec, false><<<grid, kThreads, 0, stream>>>(
-        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+    fold_with<T, kVec, false>(part, cut_row, cut_ptr, pt, ot, n_cut, lg, F,
+                              stride, stream);
   else if (prev)
-    csr_fold_kernel<T, 1, true><<<grid, kThreads, 0, stream>>>(
-        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
+    fold_with<T, 1, true>(part, cut_row, cut_ptr, pt, ot, n_cut, lg, F,
+                          stride, stream);
   else
-    csr_fold_kernel<T, 1, false><<<grid, kThreads, 0, stream>>>(
-        part, cut_row, cut_ptr, pt, ot, n_cut, lg, F, stride);
-}
-
-// The items as the entry points receive them; false where they cannot be
-// launched.
-bool make_items(const void* item_ptr, const void* item_meta, int64_t n_items,
-                void* part, int64_t stride, int64_t F, Items* items) {
-  if (n_items < 0 || item_ptr == nullptr || stride < F || stride % 4 != 0 ||
-      !grid_ok(n_items, 5))
-    return false;
-  items->ptr = static_cast<const int64_t*>(item_ptr);
-  items->meta = static_cast<const int2*>(item_meta);
-  items->n = n_items;
-  items->part = static_cast<float*>(part);
-  items->stride = stride;
-  return item_meta == nullptr || part != nullptr;
+    fold_with<T, 1, false>(part, cut_row, cut_ptr, pt, ot, n_cut, lg, F,
+                           stride, stream);
 }
 
 }  // namespace
@@ -442,8 +325,7 @@ int gammagl_csr_fold(const void* part, int64_t part_stride,
                      const void* cut_row, const void* cut_ptr, int64_t n_cut,
                      const void* prev, void* out, int64_t F, int x_is_bf16,
                      void* stream) {
-  if (F < 0 || part_stride < F || part_stride % 4 != 0 ||
-      !grid_ok(n_cut, 5) || (n_cut > 0 && F > 0 && part == nullptr))
+  if (!fold_ok(part, part_stride, n_cut, F))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_cut > 0 && F > 0) {
     const float* pf = static_cast<const float*>(part);

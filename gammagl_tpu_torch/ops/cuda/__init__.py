@@ -37,8 +37,11 @@ from gammagl_tpu_torch.ops.cuda.attention import (  # noqa: F401
 from gammagl_tpu_torch.ops.cuda.segment_max import (  # noqa: F401
     segment_max_bwd,
     segment_max_bwd_reference,
+    segment_max_count,
+    segment_max_count_fold,
     segment_max_csr,
     segment_max_csr_reference,
+    segment_max_fold,
     segment_min_csr,
     segment_min_csr_reference,
     spmm_max_csr,
@@ -93,6 +96,8 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "spmm_max_csr_reference", "spmm_min_csr_reference",
            "segment_max_csr_reference", "segment_min_csr_reference",
            "segment_max_bwd", "segment_max_bwd_reference",
+           "segment_max_fold", "segment_max_count",
+           "segment_max_count_fold",
            "hgt_flash_packed", "hgt_forward", "hgt_backward",
            "hgt_forward_reference", "hgt_backward_reference",
            "BlockPairPlan", "build_block_pair_plan", "spmm_block_pair",

@@ -28,6 +28,14 @@ run their plain versions. Each public function counts its forward launches
 in its ``.launches``; the backward counts in ``segment_max_bwd.launches``.
 The op is differentiable once: a backward with ``create_graph=True``
 raises on every device.
+
+The kernels walk the CSR kernel's work items (`CSRPlan.split_arrays`): a
+row of more than `ROW_SPLIT` edges is cut into items. On a plan with cut
+rows the forward's partial maxima are folded by `segment_max_fold`, and
+the backward first counts the winners of the cut rows' items
+(`segment_max_count`) and sums each cut row's counts in item order
+(`segment_max_count_fold`); each counts its launches in ``.launches``. A
+plan without cut rows launches none of them.
 """
 
 import ctypes
@@ -41,6 +49,7 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_check_x, _csr_rows,
                                                        _csr_weights,
                                                        _first_order_only,
                                                        _forward, _pad_rows,
+                                                       _part_stride, _ptr,
                                                        _raise_on)
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
@@ -48,7 +57,8 @@ __all__ = ["spmm_max_csr", "spmm_min_csr", "segment_max_csr",
            "segment_min_csr", "spmm_max_csr_reference",
            "spmm_min_csr_reference", "segment_max_csr_reference",
            "segment_min_csr_reference", "segment_max_bwd",
-           "segment_max_bwd_reference"]
+           "segment_max_bwd_reference", "segment_max_fold",
+           "segment_max_count", "segment_max_count_fold"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -119,16 +129,30 @@ def segment_max_bwd_reference(x, w, out, grad, plan, per_edge, want_dw):
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
+    """(forward, fold, backward, count fold, error string) entry points."""
     lib = load_library()
     fwd = lib.gammagl_segment_max_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
+    fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                    + [ctypes.c_void_p, ctypes.c_int64]
                     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
+    fold = lib.gammagl_segment_max_fold
+    fold.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2
+                     + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
+                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     bwd = lib.gammagl_segment_max_bwd
-    bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    bwd.restype = ctypes.c_int
-    return fwd, bwd, _spmm_kernel()[1]
+    bwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                    + [ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    count_fold = lib.gammagl_segment_max_count_fold
+    count_fold.argtypes = ([ctypes.c_void_p, ctypes.c_int64]
+                           + [ctypes.c_void_p] * 2
+                           + [ctypes.c_int64, ctypes.c_void_p,
+                              ctypes.c_int64, ctypes.c_void_p])
+    for fn in (fwd, fold, bwd, count_fold):
+        fn.restype = ctypes.c_int
+    return fwd, fold, bwd, count_fold, _spmm_kernel()[1]
 
 
 def _check_cuda(op, x, w):
@@ -144,35 +168,94 @@ def _check_cuda(op, x, w):
                          f"{x.device}")
 
 
+def _items(plan, device):
+    """The kernels' item arguments on ``device``: (item_ptr, item_meta,
+    n_items, col) as pointers; item i is row i when the plan has no cut
+    rows."""
+    item_ptr, meta, _, _, _ = plan.split_arrays(device)
+    n_items = plan.num_nodes if meta is None else meta.shape[0]
+    return (item_ptr.data_ptr(), _ptr(meta), n_items,
+            plan.arrays(device)[1].data_ptr())
+
+
+def _slots(plan, F, device):
+    """A float32 scratch slot of F columns for each item of a cut row, or
+    None when the plan has no cut rows."""
+    n_slots = plan.split_arrays(device)[4]
+    if not n_slots:
+        return None
+    return torch.empty(n_slots, _part_stride(F), dtype=torch.float32,
+                       device=device)
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _extreme(x, w, plan, per_edge, negate, counter):
     """The forward: a CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (counted in ``counter.launches``) or raises."""
+    launches the kernel (counted in ``counter.launches``), and the fold
+    after it on a plan with cut rows, or raises."""
     if x.device.type == "cpu":
         return _extreme_reference(x, w, plan, per_edge, negate)
     _check_cuda(counter.__name__, x, w)
-    out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
-                      device=x.device)
+    F = x.shape[1]
+    out = torch.empty(plan.num_nodes, F, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    fwd, _, err = _kernels()
-    rowptr, col, _ = plan.arrays(x.device)
+    fwd, _, _, _, err = _kernels()
+    part = _slots(plan, F, x.device)
     w = None if w is None else w.contiguous()
     with torch.cuda.device(x.device):
-        code = fwd(x.data_ptr(), 0 if w is None else w.data_ptr(),
-                   rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
-                   plan.num_nodes, x.shape[1], int(per_edge), int(negate),
-                   int(x.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(x.device).cuda_stream)
+        code = fwd(x.data_ptr(), _ptr(w), *_items(plan, x.device),
+                   _ptr(part), _part_stride(F), out.data_ptr(), F,
+                   int(per_edge), int(negate),
+                   int(x.dtype == torch.bfloat16), _stream(x.device))
     _raise_on(code, counter.__name__, err)
     counter.launches += 1
+    if part is not None:
+        segment_max_fold(part, plan, out, negate)
     return out
+
+
+def segment_max_fold(part, plan, out, negate):
+    """The forward's second pass on a plan with cut rows: each cut row of
+    ``out`` is the maximum (``negate``: the minimum) over the partials in
+    its slots of ``part``, taken in item order, a winner of -inf (+inf)
+    giving 0. The forward calls it after its launch; it launches the fold
+    kernel (counted in ``segment_max_fold.launches``)."""
+    _, fold, _, _, err = _kernels()
+    _, _, cut_row, cut_ptr, _ = plan.split_arrays(out.device)
+    with torch.cuda.device(out.device):
+        code = fold(part.data_ptr(), part.shape[1], cut_row.data_ptr(),
+                    cut_ptr.data_ptr(), cut_row.shape[0], out.data_ptr(),
+                    out.shape[1], int(negate),
+                    int(out.dtype == torch.bfloat16), _stream(out.device))
+    _raise_on(code, "segment_max_fold", err)
+    segment_max_fold.launches += 1
+    return out
+
+
+def _backward_kernel(op, x, w, out, grad, dmsg, dw, plan, per_edge, part,
+                     count):
+    """One launch of the backward kernel: dmsg (and dw), or with ``count``
+    the tie counts of the items of cut rows into ``part``."""
+    _, _, bwd, _, err = _kernels()
+    F = x.shape[1]
+    with torch.cuda.device(x.device):
+        code = bwd(x.data_ptr(), _ptr(w), *_items(plan, x.device),
+                   _ptr(part), _part_stride(F), out.data_ptr(), _ptr(grad),
+                   _ptr(dmsg), _ptr(dw), F, int(per_edge), int(count),
+                   int(x.dtype == torch.bfloat16), _stream(x.device))
+    _raise_on(code, op, err)
 
 
 def segment_max_bwd(x, w, out, grad, plan, per_edge, want_dw):
     """One backward: (dmsg (E, F) of x's dtype in CSR order, dw (E,)
     float32 or None). A CPU tensor takes `segment_max_bwd_reference`; a
     CUDA tensor launches the kernel (counted in
-    ``segment_max_bwd.launches``) or raises."""
+    ``segment_max_bwd.launches``), after `segment_max_count` and
+    `segment_max_count_fold` on a plan with cut rows, or raises."""
     want_dw = want_dw and w is not None
     if x.device.type == "cpu":
         return segment_max_bwd_reference(x, w, out, grad, plan, per_edge,
@@ -184,22 +267,52 @@ def segment_max_bwd(x, w, out, grad, plan, per_edge, want_dw):
     dw = torch.zeros(E, device=x.device) if want_dw else None
     if dmsg.numel() == 0:
         return dmsg, dw
-    _, bwd, err = _kernels()
-    rowptr, col, _ = plan.arrays(x.device)
     w = None if w is None else w.contiguous()
-    with torch.cuda.device(x.device):
-        code = bwd(x.data_ptr(), 0 if w is None else w.data_ptr(),
-                   rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
-                   grad.data_ptr(), dmsg.data_ptr(),
-                   0 if dw is None else dw.data_ptr(), plan.num_nodes, F,
-                   int(per_edge), int(x.dtype == torch.bfloat16),
-                   torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(code, "segment_max_bwd", err)
+    total = None
+    if plan.split_arrays(x.device)[4]:
+        total = segment_max_count_fold(
+            segment_max_count(x, w, out, plan, per_edge), plan, F)
+    _backward_kernel("segment_max_bwd", x, w, out, grad, dmsg, dw, plan,
+                     per_edge, total, False)
     segment_max_bwd.launches += 1
     return dmsg, dw
 
 
-segment_max_bwd.launches = 0
+def segment_max_count(x, w, out, plan, per_edge):
+    """The backward's first pass on a plan with cut rows: for each item of
+    a cut row, how many of its edges win each column (their message equals
+    ``out``), float32 (slots, stride), one slot an item in item order
+    (launches counted in ``segment_max_count.launches``)."""
+    counts = _slots(plan, x.shape[1], x.device)
+    _backward_kernel("segment_max_count", x, w, out, None, None, None, plan,
+                     per_edge, counts, True)
+    segment_max_count.launches += 1
+    return counts
+
+
+def segment_max_count_fold(counts, plan, F):
+    """Each cut row's tie counts over F columns summed over its slots in
+    item order (exact integers in float32), written to every slot of the
+    row in a new tensor like ``counts``; the backward's items of cut rows
+    read their row's total there (launches counted in
+    ``segment_max_count_fold.launches``)."""
+    _, _, _, count_fold, err = _kernels()
+    _, _, cut_row, cut_ptr, _ = plan.split_arrays(counts.device)
+    total = torch.empty_like(counts)
+    with torch.cuda.device(counts.device):
+        code = count_fold(counts.data_ptr(), counts.shape[1],
+                          cut_row.data_ptr(), cut_ptr.data_ptr(),
+                          cut_row.shape[0], total.data_ptr(), F,
+                          _stream(counts.device))
+    _raise_on(code, "segment_max_count_fold", err)
+    segment_max_count_fold.launches += 1
+    return total
+
+
+for _fn in (segment_max_bwd, segment_max_fold, segment_max_count,
+            segment_max_count_fold):
+    _fn.launches = 0
+del _fn
 
 
 class _SegmentExtreme(torch.autograd.Function):

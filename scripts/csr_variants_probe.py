@@ -19,6 +19,7 @@ against the first's. Needs nvcc and a CUDA card; imports no JAX.
 import argparse
 import ctypes
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -61,6 +62,7 @@ def build(names, work):
         os.makedirs(d)
         open(os.path.join(d, "spmm_csr.cu"), "w").write(variant)
         open(os.path.join(d, "common.cuh"), "w").write(header)
+        shutil.copy(_build.CSRC_DIR / "csr_items.cuh", d)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", "-o",
              os.path.join(d, "lib.so"), os.path.join(d, "spmm_csr.cu")],

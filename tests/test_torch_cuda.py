@@ -705,6 +705,67 @@ def test_hgt_flash_packed_gradients_and_launches(card, dtype):
     assert out.shape == (6, 16) and bool((out == 0).all())
 
 
+# (H, D) of heads that reach every (V, K) layout the HGT kernels dispatch
+# (GAMMAGL_HGT_DISPATCH in csrc/hetero_flash.cu), in f32 and in bf16; an
+# f32 head of 520 columns takes 5 column chunks, which none serves
+_HGT_LAYOUT_SHAPES = [(1, 5), (4, 10), (4, 20), (4, 64), (1, 33), (1, 65),
+                      (1, 66), (1, 130), (1, 132), (1, 260), (1, 264),
+                      (1, 520)]
+_HGT_LAYOUT_CASES = (
+    [(torch.float32, 1e-5, H, D) for H, D in _HGT_LAYOUT_SHAPES[:-1]]
+    + [(torch.bfloat16, 1e-2, H, D) for H, D in _HGT_LAYOUT_SHAPES])
+
+
+def _hgt_layout(H, D, dtype):
+    """(V, K) that `layout_for` in csrc/hetero_flash.cu picks for aligned
+    rows: the fewest (head pass x column chunk) trips, then the narrowest
+    loads; K rounded up to 1, 2 or 4."""
+    size = torch.finfo(dtype).bits // 8
+    best = None
+    for V in (1, 2, 4, 8):
+        if V * size > 16 or D % V:
+            continue
+        per, L = -(-D // V), 1
+        while L < 32 and L < per:
+            L *= 2
+        K = -(-D // (L * V))
+        trips = K * -(-H // (32 // L))
+        if best is None or trips < best[0]:
+            best = (trips, V, K)
+    _, V, K = best
+    return V, next(k for k in (1, 2, 4) if K <= k)
+
+
+def test_hgt_shapes_reach_every_dispatched_layout(card):
+    for dtype in (torch.float32, torch.bfloat16):
+        vs = (1, 2, 4) if dtype == torch.float32 else (1, 2, 4, 8)
+        assert {_hgt_layout(H, D, dt) for dt, _, H, D in _HGT_LAYOUT_CASES
+                if dt == dtype} == {(V, K) for V in vs for K in (1, 2, 4)}
+    none = np.zeros(0, np.int64)
+    plan = kops.build_csr_plan(none, none, 4, num_src=4)
+    kv, q, _ = _hgt_case(card, 1, 520, torch.float32, plan)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kops.hgt_forward(kv, q, plan)
+
+
+@pytest.mark.parametrize("dtype,rtol,H,D", _HGT_LAYOUT_CASES)
+def test_hgt_forward_at_every_layout_matches_plain(card, dtype, rtol, H, D):
+    """The forward's ring at each (V, K): out, m and l against the plain
+    version, one launch, a repeat bitwise equal; rows of up to ~60 edges,
+    longer than the ring."""
+    plan, _ = _plan(H * D, e=6000)
+    kv, q, _ = _hgt_case(card, H, D, dtype, plan, seed=H * D)
+    before = kops.hgt_forward.launches
+    out, m, l = kops.hgt_forward(kv, q, plan)
+    torch.cuda.synchronize()
+    assert kops.hgt_forward.launches == before + 1
+    r_out, r_m, r_l = kops.hgt_forward_reference(kv, q, plan)
+    for got, want, r in ((out, r_out, rtol), (m, r_m, 1e-5), (l, r_l, 1e-5)):
+        _close(got, want, r)
+    again = kops.hgt_forward(kv, q, plan)
+    assert all(torch.equal(a, b) for a, b in zip((out, m, l), again))
+
+
 def test_graphsage_pool_session_on_card_matches_the_plain_path(card):
     rng = np.random.default_rng(21)
     n, e = 2000, 16000
@@ -1059,6 +1120,84 @@ def test_fold_runs_exactly_when_a_plan_has_cut_rows(card):
         kops.segment_sum_csr(v, plan)
         torch.cuda.synchronize()
         assert kops.csr_fold.launches - before == (3 if cut else 0)
+
+
+def _max_counts():
+    return (kops.segment_max_fold.launches, kops.segment_max_count.launches,
+            kops.segment_max_count_fold.launches,
+            kops.segment_max_bwd.launches)
+
+
+@pytest.mark.parametrize("F", [7, 40, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segment_max_hub_rows_are_cut_and_folded(card, F, dtype, weighted):
+    """The star of 20,000 edges is cut into items: the forward (max and
+    min, gathered and per edge) is one launch and one fold, the backward
+    one count, one count fold and one launch; every result bitwise equal
+    to the plain version (dw within 1e-5), repeats too. Integer features
+    tie across items; the star's first item holds only -inf in column 0
+    of the per-edge rows, and its every message is -inf in column 1."""
+    plan = _hub_plan(F + 1)
+    assert plan.row_split().cut_row.tolist() == [0]
+    g = torch.Generator().manual_seed(F)
+    x = torch.randint(-3, 4, (plan.num_src, F), generator=g).to(card, dtype)
+    w = (torch.randint(1, 5, (plan.num_edges,), generator=g) / 4).to(card)
+    w = w if weighted else None
+    for fn, ref in ((kops.spmm_max_csr, kops.spmm_max_csr_reference),
+                    (kops.spmm_min_csr, kops.spmm_min_csr_reference)):
+        before = (fn.launches, kops.segment_max_fold.launches)
+        got = fn(x, w, plan)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0],
+                kops.segment_max_fold.launches - before[1]) == (1, 1)
+        assert torch.equal(got, ref(x, w, plan))
+        assert torch.equal(got, fn(x, w, plan))
+    msg = x[plan.arrays(card)[1].long()]
+    star = int(plan.rowptr[1])
+    msg[:kops.ROW_SPLIT, 0] = -np.inf
+    if F > 1:
+        msg[:star, 1] = -np.inf
+    for fn, ref in ((kops.segment_max_csr, kops.segment_max_csr_reference),
+                    (kops.segment_min_csr, kops.segment_min_csr_reference)):
+        before = (fn.launches, kops.segment_max_fold.launches)
+        got = fn(msg, plan)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0],
+                kops.segment_max_fold.launches - before[1]) == (1, 1)
+        assert torch.equal(got, ref(msg, plan))
+    wp = None if w is None else kops.pad_edge_weights(plan, w)
+    for xin, wi, per_edge in ((x, wp, False), (msg, None, True)):
+        out = (kops.segment_max_csr(xin, plan) if per_edge
+               else kops.spmm_max_csr(xin, wi, plan, weights_padded=True))
+        gy = torch.randn(out.shape, generator=g).to(card, dtype)
+        before = _max_counts()
+        dmsg, dw = kops.segment_max_bwd(xin, wi, out, gy, plan, per_edge,
+                                        True)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_max_counts(), before)) == (
+            0, 1, 1, 1)
+        rdmsg, rdw = kops.segment_max_bwd_reference(
+            xin, wi, out, gy, plan, per_edge, wi is not None)
+        assert torch.equal(dmsg, rdmsg)
+        assert torch.equal(dmsg, kops.segment_max_bwd(
+            xin, wi, out, gy, plan, per_edge, True)[0])
+        if wi is not None:
+            _close(dw, rdw, 1e-5)
+
+
+def test_segment_max_folds_run_exactly_when_a_plan_has_cut_rows(card):
+    g = torch.Generator().manual_seed(1)
+    for plan, cut in ((_plan(5)[0], False), (_hub_plan(5), True)):
+        assert bool(plan.row_split().cut_row.size) == cut
+        x = torch.randn(plan.num_src, 32, generator=g).to(card)
+        before = _max_counts()
+        out = kops.spmm_max_csr(x, None, plan)
+        kops.segment_max_bwd(x, None, out, torch.ones_like(out), plan,
+                             False, False)
+        torch.cuda.synchronize()
+        want = (1, 1, 1, 1) if cut else (0, 0, 0, 1)
+        assert tuple(a - b for a, b in zip(_max_counts(), before)) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
