@@ -24,7 +24,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    order), per-edge and gathered inputs, empty rows with N_src != N_dst,
    no edges, and the slice graph at both GAT layers' shapes, each case run
    twice with every output bitwise equal; time both kernels against the
-   plain versions there.
+   plain versions there. Then the forward on the hub graph of phase 2
+   (its rows cut into work items) at (8, 8) and (1, 40) bf16, gathered,
+   keep in the caller's order: one launch and one `flash_fwd_fold` a
+   call, held against the plain version, a repeat bitwise equal, timed
+   beside `spmm_csr` at F = H*F on the same graph (and the fold alone);
+   and forward and backward on that graph without its star (the
+   5,000-edge row cut into 3 items) against the plain versions.
 4. Hold the edge-endpoint kernels against their plain versions: the
    destination expand (unscaled: bitwise equal; scaled per edge and head),
    the per-edge segment sum (unit, (E,) and (E, H) weights) and the SDDMM
@@ -82,7 +88,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    empty rows, no edges, and bench.py:185's relation (200,000 -> 100,000
    nodes, 2,000,000 edges, H = 4, D = 64, bf16), where both are timed;
    print the registers and spill bytes of every instantiation of the HGT
-   forward and the segment max kernels; there also hold the flash kernels
+   forward and backward, the flash forward and the segment max kernels;
+   there also hold the flash kernels
    at HGT's train shape (the decomposed route's per-edge rows, keep in CSR
    order, (H, F) = (4, 64)) and time them.
 13. Serve GraphSAGE (GraphSAGEModel, pool aggregator, 128 -> 256 -> 256 ->
@@ -171,8 +178,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
    segment max's fold under spmm_max_csr's, its tie count and count fold
-   under segment_max_bwd's) and the paths, and as the last line {"ok":
-   true, "device": {...}}.
+   under segment_max_bwd's, the flash forward's fold under
+   flash_forward's) and the paths, and as the last line {"ok": true,
+   "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
@@ -271,15 +279,17 @@ KERNELS = {
 # the kernels whose launches each path counts: every kernel of the kernels
 # line, and the passes over cut rows, none a TPU kernel of its own: the
 # fold under spmm_csr's entry (the second pass of the CSR kernel's three
-# forms), the segment max's fold under spmm_max_csr's, and its backward's
-# tie count and count fold under segment_max_bwd's
+# forms), the segment max's fold under spmm_max_csr's, its backward's tie
+# count and count fold under segment_max_bwd's, and the flash forward's
+# fold under flash_forward's
 COUNTED = (*KERNELS, "csr_fold", "segment_max_fold", "segment_max_count",
-           "segment_max_count_fold")
+           "segment_max_count_fold", "flash_fwd_fold")
 # the passes over cut rows: kernel entry -> {key in its entry: counter}
 CUT_PASSES = {"spmm_csr": {"fold": "csr_fold"},
               "spmm_max_csr": {"fold": "segment_max_fold"},
               "segment_max_bwd": {"count": "segment_max_count",
-                                  "fold": "segment_max_count_fold"}}
+                                  "fold": "segment_max_count_fold"},
+              "flash_forward": {"fold": "flash_fwd_fold"}}
 NOTES = {"block_pair_dw": "the JAX VJP _bwd (block_pair.py:264) is XLA, not "
                           "a Pallas kernel: it gathers both endpoint rows"}
 
@@ -497,7 +507,8 @@ def counters(k):
             "spmm_csr_acc": [k.spmm_csr_acc], "csr_fold": [k.csr_fold],
             "segment_max_fold": [k.segment_max_fold],
             "segment_max_count": [k.segment_max_count],
-            "segment_max_count_fold": [k.segment_max_count_fold]}
+            "segment_max_count_fold": [k.segment_max_count_fold],
+            "flash_fwd_fold": [k.flash_fwd_fold]}
 
 
 def reset_counts(k):
@@ -536,10 +547,11 @@ def exact(gen, *shape, weights=False):
     return torch.randint(-4, 5, shape, generator=gen).float()
 
 
-def hub_plan(k, seed):
-    """The hub graph's plan; prints its work items (`CSRPlan.row_split`)."""
+def hub_plan(k, seed, star=HUB_EDGES):
+    """The hub graph's plan (``star`` edges into row 0: 0 for the graph
+    without its star); prints its work items (`CSRPlan.row_split`)."""
     rng = np.random.default_rng(seed)
-    dst = np.concatenate([np.zeros(HUB_EDGES, np.int64),
+    dst = np.concatenate([np.zeros(star, np.int64),
                           np.full(HUB2_EDGES, 2, np.int64),
                           2 * rng.integers(0, 1000, HUB_RANDOM)])
     src = rng.integers(0, HUB_SRC, dst.shape[0])
@@ -551,8 +563,8 @@ def hub_plan(k, seed):
           f"{k.ROW_SPLIT}): {split.item_row.shape[0]} items, "
           f"{split.cut_row.shape[0]} cut rows, {int(split.cut_ptr[-1])} "
           "scratch slots")
-    if split.cut_row.shape[0] != 2:
-        fail("the hub graph's two hubs are not both cut")
+    if split.cut_row.shape[0] != (2 if star else 1):
+        fail("the hub graph's hubs are not all cut")
     return plan
 
 
@@ -724,6 +736,94 @@ def flash_check(k, label, plan, H, F, dtype, gather, keep, gen, dev):
     return err
 
 
+def flash_hub_checks(k, gen, dev):
+    """The flash forward on the hub graph, its rows cut into work items, as
+    GATConv calls it (node rows, keep in the caller's order, bf16) at
+    (8, 8) and (1, 40): one launch and one `flash_fwd_fold` a call, held
+    against the plain version, a repeat bitwise equal, timed beside
+    `spmm_csr` at F = H*F on the same graph. The star's destination score
+    a_dst[0] = 1e8 rounds every star edge's score to 1e8, so its weights
+    are 1 and, with integer messages, every partial sum of its 1,200,000
+    edges is exact in any order (the plain version's `index_add_` adds in
+    none); the other rows take random scores (clamped to [-3, 3]). Then forward and backward on
+    the graph without its star (the 5,000-edge row cut into 3 items)
+    against the plain versions. Returns ({kernel: max abs error}, the
+    forward's timing rows, the fold's timing alone)."""
+    from gammagl_tpu_torch.ops.cuda.segment_matmul import _slots
+    bf16 = torch.bfloat16
+    hub = hub_plan(k, SEED + 4)
+    err = {"flash_forward": 0.0, "flash_backward": 0.0}
+    rows = []
+    N, Ns, E = hub.num_nodes, hub.num_src, hub.num_edges
+    for H, F in ((GAT_HEADS, GAT_HIDDEN), (1, N_CLASS)):
+        s, a, _, kp = _flash_inputs(gen, hub, H, F, bf16, True, True, dev)
+        msg = exact(gen, Ns, H * F).to(dev, bf16)
+        s.clamp_(-3, 3)  # s + 1e8 rounds to 1e8 (its ulp is 8)
+        a[0] = 1e8
+        args = (s, a, msg, kp, hub, 0.2, True)
+        before = (k.flash_forward.launches, k.flash_fwd_fold.launches)
+        out, m, l = k.flash_forward(*args)
+        sync()
+        launched = (k.flash_forward.launches - before[0],
+                    k.flash_fwd_fold.launches - before[1])
+        if launched != (1, 1):
+            fail(f"hub flash_forward H={H} F={F}: launches {launched[0]}, "
+                 f"folds {launched[1]} (want 1 and 1)")
+        r_out, r_m, r_l = k.flash_forward_reference(*args)
+        if not torch.equal(m, r_m):
+            fail(f"hub flash_forward H={H} F={F} m: row maxima differ")
+        for name, got, want, rtol in (("out", out, r_out, 1e-2),
+                                      ("l", l, r_l, 1e-5)):
+            err["flash_forward"] = max(err["flash_forward"], check_close(
+                f"hub flash_forward H={H} F={F} {name}", got, want, rtol))
+        if not all(torch.equal(x, y) for x, y in zip(
+                (out, m, l), k.flash_forward(*args))):
+            fail(f"hub flash_forward H={H} F={F}: repeated launches differ")
+        x = torch.randn(Ns, H * F, generator=gen).to(dev, bf16)
+        spmm = cuda_ms(lambda: k.spmm_csr(x, None, hub), iters=5)
+        # in: node rows and scores, a_dst, keep and its perm row, col and
+        # the items' offsets and rows; out: out, m and l
+        split = hub.row_split()
+        nbytes = (Ns * H * F * 2 + Ns * H * 4 + N * H * 4 + E * H * 4
+                  + E * 8 + E * 4 + split.item_ptr.nbytes
+                  + 2 * split.item_row.nbytes + N * H * F * 2 + 2 * N * H * 4)
+        row = {"H": H, "F": F, "graph": "hub", "spmm_csr_ms": spmm,
+               **timing(f"flash_forward hub H={H} F={F}",
+                        lambda: k.flash_forward(*args),
+                        lambda: k.flash_forward_reference(*args), nbytes,
+                        2 * E * H * F + 6 * E * H, plain_iters=3)}
+        print(f"  spmm_csr on the hub graph F={H * F} bf16: {spmm:.4f} ms; "
+              f"the flash forward {row['ms'] / spmm:.3f}x it")
+        rows.append(row)
+    # the fold alone, on the hub graph's slots at (8, 8)
+    H, F = GAT_HEADS, GAT_HIDDEN
+    _, _, cut_row, cut_ptr, n_slots = hub.split_arrays(dev)
+    part = _slots(hub, H * F + 2 * H, dev)  # per slot: sums, m and l
+    part.copy_(torch.randn(part.shape, generator=gen))
+    out = torch.empty(N, H * F, dtype=bf16, device=dev)
+    m, l = torch.empty(N, H, device=dev), torch.empty(N, H, device=dev)
+    fold = {"ms": cuda_ms(lambda: k.flash_fwd_fold(part, hub, out, m, l)),
+            **bound(n_slots * (H * F + 2 * H) * 4
+                    + cut_row.shape[0] * (H * F * 2 + 2 * H * 4 + 12),
+                    n_slots * (2 * H * F + 4 * H)),
+            "cut_rows": int(cut_row.shape[0]), "slots": n_slots}
+    print(f"  flash_fwd_fold on the hub graph ({fold['cut_rows']} cut rows, "
+          f"{n_slots} slots, H={H} F={F} bf16): {fold['ms']:.4f} ms, bound "
+          f"{fold['bound_ms']:.4f} ms")
+    # forward and backward where the 5,000-edge row is the only cut row
+    no_star = hub_plan(k, SEED + 4, star=0)
+    for H, F in ((GAT_HEADS, GAT_HIDDEN), (1, N_CLASS)):
+        before = k.flash_fwd_fold.launches
+        e = flash_check(k, f"hub without the star bf16 H={H} F={F}",
+                        no_star, H, F, bf16, True, True, gen, dev)
+        if k.flash_fwd_fold.launches - before != 2:  # the check and a repeat
+            fail(f"hub without the star H={H} F={F}: folds "
+                 f"{k.flash_fwd_fold.launches - before} (want 2)")
+        for name in err:
+            err[name] = max(err[name], e[name])
+    return err, rows, fold
+
+
 def phase_flash_checks(k, slice_plan):
     phase_start("phase 3: flash attention kernels vs plain versions on the "
                 "card")
@@ -787,7 +887,11 @@ def phase_flash_checks(k, slice_plan):
             timings[name].append({"H": H, "F": F, **timing(
                 f"{name} H={H} F={F}", kern, plain, nbytes, flops,
                 plain_iters=3)})
-    return main_err, timings
+    hub_err, hub_rows, fold = flash_hub_checks(k, gen, dev)
+    for name in main_err:
+        main_err[name] = max(main_err[name], hub_err[name])
+    timings["flash_forward"].extend(hub_rows)
+    return main_err, timings, fold
 
 
 def phase_edge_checks(k, slice_plan):
@@ -1599,7 +1703,8 @@ def phase_hgt_checks(k):
             for pname, p in (("empty rows", sparse), ("E=0", empty)):
                 hgt_check(k, f"{dtype} H={H} D={D} {pname}", p, H, D, dtype,
                           gen, dev)
-    spills = kernel_resources(("hgt_fwd_kernel", "segment_max"))
+    spills = kernel_resources(("hgt_fwd_kernel", "hgt_bwd_kernel",
+                               "flash_fwd_kernel", "segment_max"))
     src, dst = hgt_relation()
     plan = k.build_csr_plan(src, dst, HGT_PAPERS, num_src=HGT_AUTHORS)
     H, D = HGT_HEADS, HIDDEN // HGT_HEADS
@@ -1626,8 +1731,9 @@ def phase_hgt_checks(k):
             + graph_bytes + N * HD * 2 + E * 2 * HD * 2,
             flops=10 * E * HD, plain_iters=3)}]}
     timings["hgt_forward"][0]["spill_bytes"] = spills["hgt_fwd_kernel"]
+    timings["hgt_backward"][0]["spill_bytes"] = spills["hgt_bwd_kernel"]
     return (err, timings, plan, flash_at_hgt_shape(k, plan, gen, dev),
-            spills["segment_max"])
+            spills)
 
 
 def flash_at_hgt_shape(k, plan, gen, dev):
@@ -2725,7 +2831,7 @@ def main():
     ei = torch.from_numpy(graph.edge_index).to(dev)
     spmm_err, spmm_ms = phase_spmm_checks(
         k, plan, k.pad_edge_weights(plan, gcn_weights(ei, N_NODES)))
-    flash_err, flash_ms = phase_flash_checks(k, plan)
+    flash_err, flash_ms, flash_fold_ms = phase_flash_checks(k, plan)
     edge_err, edge_ms = phase_edge_checks(k, plan)
     gcn_counts, gcn_lat = phase_gcn_serve(k, GCNModel, InferenceSession,
                                           load_jax_params, plan, x, ei)
@@ -2743,9 +2849,10 @@ def main():
     sddmm_counts = phase_sddmm_path(k, plan)
     max_err, max_ms, max_fold_ms = phase_max_checks(k, plan)
     (hgt_err, hgt_ms, hgt_plan, (hgt_flash_err, hgt_flash_ms),
-     max_spills) = phase_hgt_checks(k)
+     spills) = phase_hgt_checks(k)
     for row in max_ms.values():
-        row[0]["spill_bytes"] = max_spills
+        row[0]["spill_bytes"] = spills["segment_max"]
+    flash_ms["flash_forward"][0]["spill_bytes"] = spills["flash_fwd_kernel"]
     for name, row in hgt_flash_ms.items():
         flash_ms[name].append(row)
         flash_err[name] = max(flash_err[name], hgt_flash_err[name])
@@ -2864,8 +2971,8 @@ def main():
                 "name": cut, "source": source,
                 "launches": sum(c[cut] for c in runs.values()),
                 "launches_by_path": {p: c[cut] for p, c in runs.items()},
-                **{"csr_fold": fold_ms,
-                   "segment_max_fold": max_fold_ms}.get(cut, {})}
+                **{"csr_fold": fold_ms, "segment_max_fold": max_fold_ms,
+                   "flash_fwd_fold": flash_fold_ms}.get(cut, {})}
         if entry["launches"] == 0:
             fail(f"{name} was launched on no path")
         entries.append(entry)

@@ -1,8 +1,9 @@
-// The work-item schedule shared by the CSR kernels (csrc/spmm_csr.cu and
-// csrc/segment_max.cu): items of consecutive CSR edges taken by lane
-// groups, the walk of an item's edges through a cp.async ring in shared
-// memory (also the HGT forward's, csrc/hetero_flash.cu), and the fold of
-// cut rows' per-item partials in item order.
+// The work-item schedule shared by the CSR kernels (csrc/spmm_csr.cu,
+// csrc/segment_max.cu and the flash forward of csrc/flash_attention.cu):
+// items of consecutive CSR edges taken by lane groups, the walk of an
+// item's edges through a cp.async ring in shared memory (also the HGT
+// kernels', csrc/hetero_flash.cu), and the fold of cut rows' per-item
+// partials in item order.
 //
 // A row of up to K edges (the wrappers' ROW_SPLIT) is one item, a longer
 // row is cut into ceil(deg / K) items, an empty row is one empty item. An
@@ -95,23 +96,26 @@ __device__ __forceinline__ void store_f32(float* __restrict__ p,
 // stages in shared memory: copy(s, source(e)) issues this lane's copies of
 // edge e's data into stage s by cp.async, kStages edges ahead, and
 // visit(j, weight(e), s) runs for edge e = lo + j once its stage has
-// landed. The next edge's source and weight are loaded a step ahead. Each
-// lane reads back only what it copied, so the ring needs no barrier; every
-// lane runs every visit, so lanes of a group stay together for shuffles.
+// landed. The next edge's source (a row index, or a struct of the rows
+// its copies read) and weight are loaded a step ahead. Each lane reads
+// back only what it copied, so the ring needs no barrier; every lane runs
+// every visit, so lanes of a group stay together for shuffles.
 template <int kStages, class Source, class Weight, class Copy, class Visit>
 __device__ __forceinline__ void walk_ring(int64_t lo, int64_t n,
                                           Source source, Weight weight,
                                           Copy copy, Visit visit) {
+  using Index = decltype(source(lo));
   // the first kStages edges: all their indices, then all their copies
-  int64_t r0[kStages + 1];
+  Index r0[kStages + 1];
 #pragma unroll
-  for (int s = 0; s <= kStages; ++s) r0[s] = s < n ? source(lo + s) : 0;
+  for (int s = 0; s <= kStages; ++s)
+    r0[s] = s < n ? source(lo + s) : Index{};
 #pragma unroll
   for (int s = 0; s < kStages; ++s) {
     if (s < n) copy(s, r0[s]);
     commit_stage();
   }
-  int64_t r_next = r0[kStages];
+  Index r_next = r0[kStages];
   float w_cur = n > 0 ? weight(lo) : 0.f;
   for (int64_t j = 0; j < n; ++j) {
     const float w_next = j + 1 < n ? weight(lo + j + 1) : 0.f;

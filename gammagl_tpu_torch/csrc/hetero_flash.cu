@@ -52,9 +52,13 @@
 //    those of a walk in CSR edge order, one exp an edge. A row is not
 //    split over warps: the relation's in-degree tops out at a few hundred
 //    edges;
-//  * the backward reads 32 col indices with one coalesced load, hands
-//    them out by shuffle and loads several edges' k|v rows into registers
-//    before it uses them.
+//  * the backward walks a row's edges through the same ring, with the
+//    forward's 4-warp blocks and lanes: per row and head pass, q, g,
+//    c = <out, g>, m and 1/l are loaded once and kept in registers; each
+//    edge's two dots reduce by the head's shuffles, dq sums in registers
+//    in CSR order, and [dk | dv] is stored per CSR edge, V columns a lane
+//    (16 bytes at HGT's (4, 64) bf16), coalesced across the warp, so the
+//    results are those of a one-warp walk in CSR order, bit for bit.
 
 #include "csr_items.cuh"
 
@@ -104,6 +108,61 @@ constexpr int kFwdStages = K == 1 ? 4 : 2;
 template <int K>
 constexpr int kFwdBlocks = K == 1 ? 6 : K == 2 ? 4 : 2;
 
+// One lane's K column chunks of head pass `pass` in the k and v rows of kv,
+// staged through a ring of 2 * K 16-byte slots an edge: copy issues the
+// copies of a source's k|v row into stage s, load reads piece 0 (k) or K
+// (v) of stage s back, zeros past the head's end.
+template <typename T, int V, int K>
+struct HeadStage {
+  uint4 (*ring)[2 * K][kFwdThreads];
+  const T* kv;
+  int64_t HD, off;  // the row width; the head's first column
+  bool cols[K];
+  int64_t cin[K];
+
+  __device__ HeadStage(uint4 (*ring_)[2 * K][kFwdThreads], const T* kv_,
+                       const Layout& g, int lane, int pass, int64_t off_)
+      : ring(ring_), kv(kv_), HD(g.H * g.F), off(off_) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const Lane ln = lane_at<V>(g, lane, pass, k);
+      cols[k] = ln.cols;
+      cin[k] = ln.cin;
+    }
+  }
+  __device__ void copy(int s, int64_t src) const {
+    const T* r = kv + src * 2 * HD + off;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (cols[k]) {
+        stage_copy<T, V>(&ring[s][k][threadIdx.x], r + cin[k]);
+        stage_copy<T, V>(&ring[s][K + k][threadIdx.x], r + HD + cin[k]);
+      }
+    }
+  }
+  __device__ void load(int s, int piece, float (&f)[K][V]) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (cols[k]) {
+        load_vec<T, V, false>(
+            reinterpret_cast<const T*>(&ring[s][piece + k][threadIdx.x]),
+            f[k]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) f[k][i] = 0.f;
+      }
+    }
+  }
+};
+
+// A CSR edge's source row.
+struct SourceOf {
+  const int32_t* col;
+  __device__ int64_t operator()(int64_t e) const {
+    return static_cast<int64_t>(__ldg(col + e));
+  }
+};
+
 // One warp per destination row, its edges walked through walk_ring: each
 // lane copies its own columns of an edge's k and v rows into its stage.
 template <typename T, int V, int K>
@@ -127,39 +186,7 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocks<K>)
     const Lane l0 = lane_at<V>(g, lane, pass, 0);
     const int64_t h = l0.head ? l0.h : 0;
     const int64_t off = h * g.F;  // the head's first column
-    bool cols[K];
-    int64_t cin[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const Lane ln = lane_at<V>(g, lane, pass, k);
-      cols[k] = ln.cols;
-      cin[k] = ln.cin;
-    }
-    // this lane's columns of edge j's k|v row (source src) into slot s
-    auto copy = [&](int s, int64_t src) {
-      const T* r = kv + src * 2 * HD + off;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        if (cols[k]) {
-          stage_copy<T, V>(&ring[s][k][threadIdx.x], r + cin[k]);
-          stage_copy<T, V>(&ring[s][K + k][threadIdx.x], r + HD + cin[k]);
-        }
-      }
-    };
-    // chunks of slot s (piece 0: k, K: v); past the head's end, zeros
-    auto staged = [&](int s, int piece, float (&f)[K][V]) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        if (cols[k]) {
-          load_vec<T, V, false>(
-              reinterpret_cast<const T*>(&ring[s][piece + k][threadIdx.x]),
-              f[k]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < V; ++i) f[k][i] = 0.f;
-        }
-      }
-    };
+    const HeadStage<T, V, K> st(ring, kv, g, lane, pass, off);
     float qv[K][V], acc[K][V];
     load_head<T, V, K>(q + row * HD + off, g, lane, pass, qv);
 #pragma unroll
@@ -169,19 +196,18 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocks<K>)
     float m = kNeg, l = 0.f;
 
     walk_ring<kStages>(
-        begin, n,
-        [&](int64_t e) { return static_cast<int64_t>(__ldg(col + e)); },
-        [](int64_t) { return 1.f; }, copy,
+        begin, n, SourceOf{col}, [](int64_t) { return 1.f; },
+        [&](int s, int64_t src) { st.copy(s, src); },
         [&](int64_t, float, int s) {
           float kk[K][V];
-          staged(s, 0, kk);
+          st.load(s, 0, kk);
           // every lane takes part in the shuffles; lanes past the heads
           // change nothing
           const float sc =
               group_sum(l0.head ? dot_part<V, K>(qv, kk) : 0.f, g.L);
           if (!l0.head) return;
           float vv[K][V];
-          staged(s, K, vv);
+          st.load(s, K, vv);
           // one exp an edge: exp(-|s - m|) is the rescale of the old sums
           // when s is the new max, else the edge's weight
           const float d = sc - m;
@@ -200,11 +226,11 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocks<K>)
     const float inv = 1.f / fmaxf(l, 1e-16f);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (cols[k]) {
+      if (st.cols[k]) {
         float o[V];
 #pragma unroll
         for (int i = 0; i < V; ++i) o[i] = acc[k][i] * inv;
-        store_vec<T, V>(out + row * HD + off + cin[k], o);
+        store_vec<T, V>(out + row * HD + off + st.cin[k], o);
       }
     }
     if (l0.leader) {
@@ -214,29 +240,43 @@ __global__ void __launch_bounds__(kFwdThreads, kFwdBlocks<K>)
   }
 }
 
-// One warp per destination row; writes dq for the row and dk|dv for each
-// of its edges (in CSR order).
+// The backward's blocks: the forward's 4 warps, each lane with a ring of
+// kBwdStages<K> edges (2 * K 16-byte slots an edge, as the forward's), and
+// registers capped so that kBwdBlocks<K> blocks fit on an SM: a lane holds
+// q, g and dq (3 K V floats) besides the staged k and v. On the H100 at
+// HGT's (4, 64) bf16 every ring of 2 to 8 edges and every cap from 4
+// blocks to none took 1.43-1.45 ms, near the bytes the call moves
+// (scripts/max_hgt_probe.py, in turns).
+template <int K>
+constexpr int kBwdStages = K == 1 ? 4 : 2;
+template <int K>
+constexpr int kBwdBlocks = K == 1 ? 5 : K == 2 ? 3 : 2;
+
+// One warp per destination row, its edges walked through walk_ring; writes
+// dq for the row and dk|dv for each of its edges (in CSR order).
 template <typename T, int V, int K>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+__global__ void __launch_bounds__(kFwdThreads, kBwdBlocks<K>)
     hgt_bwd_kernel(const T* __restrict__ kv, const T* __restrict__ q,
                    const int64_t* __restrict__ rowptr,
                    const int32_t* __restrict__ col, const T* __restrict__ out,
                    const T* __restrict__ grad, const float* __restrict__ m_in,
                    const float* __restrict__ l_in, T* __restrict__ dq,
                    T* __restrict__ dkv, int64_t n_dst, Layout g) {
-  constexpr int U = K == 1 ? 2 : 1;  // as the forward's, halved
+  constexpr int kStages = kBwdStages<K>;
+  __shared__ uint4 ring[kStages][2 * K][kFwdThreads];
   const int lane = threadIdx.x % kWarp;
   const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_dst) return;
+      static_cast<int64_t>(blockIdx.x) * kFwdWarps + threadIdx.x / kWarp;
+  if (row >= n_dst) return;  // the whole warp leaves together
   const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
+  const int64_t n = rowptr[row + 1] - begin;
   const int64_t HD = g.H * g.F;
 
   for (int pass = 0; pass < g.passes; ++pass) {
     const Lane l0 = lane_at<V>(g, lane, pass, 0);
     const int64_t h = l0.head ? l0.h : 0;
     const int64_t off = h * g.F;
+    const HeadStage<T, V, K> st(ring, kv, g, lane, pass, off);
     float qv[K][V], gv[K][V], dqa[K][V];
     load_head<T, V, K>(q + row * HD + off, g, lane, pass, qv);
     load_head<T, V, K>(grad + row * HD + off, g, lane, pass, gv);
@@ -249,62 +289,42 @@ __global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
       for (int i = 0; i < V; ++i) dqa[k][i] = 0.f;
     const float m = m_in[row * g.H + h];
     const float inv_l = 1.f / fmaxf(l_in[row * g.H + h], 1e-16f);
+    T* de_row = dkv + begin * 2 * HD + off;  // the row's first dk|dv
 
-    for (int64_t base = begin; base < end; base += kWarp) {
-      const int64_t left = end - base;
-      const int n = left < kWarp ? static_cast<int>(left) : kWarp;
-      const int my_col = lane < n ? __ldg(col + base + lane) : 0;
-      for (int j = 0; j < n; j += U) {
-        float kk[U][K][V], vv[U][K][V];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int jj = j + u < n ? j + u : 0;
-          const int src = __shfl_sync(kFullMask, my_col, jj);
-          const T* r = kv + static_cast<int64_t>(src) * 2 * HD + off;
-          if (l0.head && j + u < n) {
-            load_head<T, V, K>(r, g, lane, pass, kk[u]);
-            load_head<T, V, K>(r + HD, g, lane, pass, vv[u]);
-          } else {
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-#pragma unroll
-              for (int i = 0; i < V; ++i) kk[u][k][i] = vv[u][k][i] = 0.f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
+    walk_ring<kStages>(
+        begin, n, SourceOf{col}, [](int64_t) { return 1.f; },
+        [&](int s, int64_t src) { st.copy(s, src); },
+        [&](int64_t j, float, int s) {
+          float kk[K][V], vv[K][V];
+          st.load(s, 0, kk);
+          st.load(s, K, vv);
           // every lane takes part in the shuffles; lanes past the heads
-          // and edges past the row's end store nothing
-          const float s = group_sum(dot_part<V, K>(qv, kk[u]), g.L);
-          const float dalpha = group_sum(dot_part<V, K>(gv, vv[u]), g.L);
-          if (l0.head && j + u < n) {
-            const float alpha = expf(fminf(s - m, 0.f)) * inv_l;
-            const float ds = alpha * (dalpha - c);
-            T* de = dkv + (base + j + u) * 2 * HD + off;
+          // store nothing
+          const float sc = group_sum(dot_part<V, K>(qv, kk), g.L);
+          const float dalpha = group_sum(dot_part<V, K>(gv, vv), g.L);
+          if (!l0.head) return;
+          const float alpha = expf(fminf(sc - m, 0.f)) * inv_l;
+          const float ds = alpha * (dalpha - c);
+          T* de = de_row + j * 2 * HD;
 #pragma unroll
-            for (int k = 0; k < K; ++k) {
-              const Lane ln = lane_at<V>(g, lane, pass, k);
-              float dk[V], dv[V];
+          for (int k = 0; k < K; ++k) {
+            float dk[V], dv[V];
 #pragma unroll
-              for (int i = 0; i < V; ++i) {
-                dqa[k][i] = fmaf(ds, kk[u][k][i], dqa[k][i]);
-                dk[i] = ds * qv[k][i];
-                dv[i] = alpha * gv[k][i];
-              }
-              if (ln.cols) {
-                store_vec<T, V>(de + ln.cin, dk);
-                store_vec<T, V>(de + HD + ln.cin, dv);
-              }
+            for (int i = 0; i < V; ++i) {
+              dqa[k][i] = fmaf(ds, kk[k][i], dqa[k][i]);
+              dk[i] = ds * qv[k][i];
+              dv[i] = alpha * gv[k][i];
+            }
+            if (st.cols[k]) {
+              store_vec<T, V>(de + st.cin[k], dk);
+              store_vec<T, V>(de + HD + st.cin[k], dv);
             }
           }
-        }
-      }
-    }
+        });
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const Lane ln = lane_at<V>(g, lane, pass, k);
-      if (ln.cols) store_vec<T, V>(dq + row * HD + off + ln.cin, dqa[k]);
-    }
+    for (int k = 0; k < K; ++k)
+      if (st.cols[k])
+        store_vec<T, V>(dq + row * HD + off + st.cin[k], dqa[k]);
   }
 }
 
@@ -373,7 +393,8 @@ int launch_bwd(const void* kv, const void* q, const int64_t* rowptr,
   Layout g;
   int K;
   const int V = layout_for<T>(H, D, ptrs, 6, &g, &K);
-  const dim3 block(kWarp * kWarpsPerBlock);
+  const dim3 grid(
+      static_cast<unsigned>((n_dst + kFwdWarps - 1) / kFwdWarps));
   const T* kt = static_cast<const T*>(kv);
   const T* qt = static_cast<const T*>(q);
   const T* ot = static_cast<const T*>(out);
@@ -381,7 +402,7 @@ int launch_bwd(const void* kv, const void* q, const int64_t* rowptr,
   T* dqt = static_cast<T*>(dq);
   T* dkt = static_cast<T*>(dkv);
 #define GAMMAGL_HGT_BWD(VV, KK)                                          \
-  hgt_bwd_kernel<T, VV, KK><<<grid_for(n_dst), block, 0, stream>>>(      \
+  hgt_bwd_kernel<T, VV, KK><<<grid, kFwdThreads, 0, stream>>>(          \
       kt, qt, rowptr, col, ot, gt, m, l, dqt, dkt, n_dst, g)
   GAMMAGL_HGT_DISPATCH(GAMMAGL_HGT_BWD)
 #undef GAMMAGL_HGT_BWD

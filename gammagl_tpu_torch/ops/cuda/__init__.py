@@ -75,6 +75,7 @@ from gammagl_tpu_torch.ops.cuda.flash_attention import (  # noqa: F401
     flash_edge_attention_mh,
     flash_forward,
     flash_forward_reference,
+    flash_fwd_fold,
     flash_gat_attention,
     flash_softmax_spmm,
     flash_softmax_spmm_mh,
@@ -86,7 +87,7 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "spmm_csr_acc", "spmm_csr_acc_reference", "attention_keep_mask", "flash_edge_attention",
            "flash_edge_attention_mh", "flash_softmax_spmm",
            "flash_softmax_spmm_mh", "flash_gat_attention", "flash_forward",
-           "flash_backward", "flash_forward_reference",
+           "flash_backward", "flash_fwd_fold", "flash_forward_reference",
            "flash_backward_reference", "segment_sum_csr",
            "segment_sum_csr_reference", "gather_rows", "expand_dst_csr",
            "expand_dst_csr_reference", "sddmm_csr", "sddmm_csr_mh",

@@ -19,6 +19,11 @@ Launches are counted in ``flash_forward.launches`` and
 ``flash_backward.launches``. On a CPU tensor both run their plain
 versions, `flash_forward_reference` and `flash_backward_reference`.
 
+The forward walks the CSR kernel's work items (`CSRPlan.split_arrays`): a
+row of more than `ROW_SPLIT` edges is cut into items, whose partial
+(m, l, sum) triples `flash_fwd_fold` merges in item order (counted in
+``flash_fwd_fold.launches``). A plan without cut rows launches no fold.
+
 Per-edge tensors are in the plan's CSR order (the JAX package's are in
 its padded lane order). `flash_gat_attention` takes node rows instead:
 the kernel gathers ``score`` and ``msg`` at each edge's source. The gradient
@@ -41,13 +46,16 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _csr_rows
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _first_order_only
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
-from gammagl_tpu_torch.ops.cuda.segment_matmul import _raise_on, spmm_csr
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (_items,
+                                                       _part_stride,
+                                                       _raise_on, _slots,
+                                                       spmm_csr)
 from gammagl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["attention_keep_mask", "flash_edge_attention",
            "flash_edge_attention_mh", "flash_softmax_spmm",
            "flash_softmax_spmm_mh", "flash_gat_attention", "flash_forward",
-           "flash_backward", "flash_forward_reference",
+           "flash_backward", "flash_fwd_fold", "flash_forward_reference",
            "flash_backward_reference"]
 
 _NEG = -1e30  # the row max before any edge, as in the JAX kernels
@@ -137,18 +145,25 @@ def flash_backward_reference(score, a_dst, msg, keep, m, l, out, grad, plan,
 def _kernels():
     lib = load_library()
     fwd = lib.gammagl_flash_attention_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 10
-                    + [ctypes.c_int64] * 3
+    fwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int64]
+                    + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
     fwd.restype = ctypes.c_int
+    fold = lib.gammagl_flash_attention_fwd_fold
+    fold.argtypes = ([ctypes.c_void_p, ctypes.c_int64]
+                     + [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+                     + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
+                     + [ctypes.c_int, ctypes.c_void_p])
+    fold.restype = ctypes.c_int
     bwd = lib.gammagl_flash_attention_bwd
     bwd.argtypes = ([ctypes.c_void_p] * 14
                     + [ctypes.c_int64] * 3
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
     bwd.restype = ctypes.c_int
-    return fwd, bwd, _spmm_kernel()[1]
+    return fwd, fold, bwd, _spmm_kernel()[1]
 
 
 def _ptr(t):
@@ -207,30 +222,56 @@ def _check(score, a_dst, msg, keep, plan, gather):
 
 def flash_forward(score, a_dst, msg, keep, plan, slope, gather):
     """One forward: (out (N_dst, H*F), m, l). A CPU tensor takes
-    `flash_forward_reference`; a CUDA tensor launches the kernel or
-    raises."""
+    `flash_forward_reference`; a CUDA tensor launches the kernel, and
+    `flash_fwd_fold` after it on a plan with cut rows, or raises."""
     H, F = _check(score, a_dst, msg, keep, plan, gather)
     if msg.device.type == "cpu":
         return flash_forward_reference(score, a_dst, msg, keep, plan, slope,
                                        gather)
     dev = msg.device
-    rowptr, col, _ = plan.arrays(dev)
     N = plan.num_nodes
     out = torch.empty(N, H * F, dtype=msg.dtype, device=dev)
     m = torch.empty(N, H, device=dev)
     l = torch.empty(N, H, device=dev)
     if N == 0:
         return out, m, l
-    fwd, _, err = _kernels()
+    # a cut row's slot: its partial sums, then m and l of each head
+    width = H * F + 2 * H
+    part = _slots(plan, width, dev)
+    fwd, _, _, err = _kernels()
     with torch.cuda.device(dev):
         code = fwd(msg.data_ptr(), score.data_ptr(), _ptr(a_dst), _ptr(keep),
-                   _keep_row(keep, plan, gather),
-                   rowptr.data_ptr(), col.data_ptr(), out.data_ptr(),
-                   m.data_ptr(), l.data_ptr(), N, H, F, float(slope),
+                   _keep_row(keep, plan, gather), *_items(plan, dev),
+                   _ptr(part), _part_stride(width), out.data_ptr(),
+                   m.data_ptr(), l.data_ptr(), H, F, float(slope),
                    int(gather), int(msg.dtype == torch.bfloat16),
                    torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(code, "flash attention forward", err)
     flash_forward.launches += 1
+    if part is not None:
+        flash_fwd_fold(part, plan, out, m, l)
+    return out, m, l
+
+
+def flash_fwd_fold(part, plan, out, m, l):
+    """The forward's second pass on a plan with cut rows: each cut row's
+    partials in ``part`` (per item: its f32 sums, then m and l of each
+    head) merged in item order by the walk's recurrence (m = max_i m_i,
+    l and the sums each rescaled by exp(m_i - m)) into the row's ``out``
+    (divided by max(l, 1e-16)), ``m`` and ``l``. The forward calls it
+    after its launch; it launches the fold kernel (counted in
+    ``flash_fwd_fold.launches``)."""
+    _, fold, _, err = _kernels()
+    _, _, cut_row, cut_ptr, _ = plan.split_arrays(out.device)
+    H = m.shape[1]
+    with torch.cuda.device(out.device):
+        code = fold(part.data_ptr(), part.shape[1], cut_row.data_ptr(),
+                    cut_ptr.data_ptr(), cut_row.shape[0], out.data_ptr(),
+                    m.data_ptr(), l.data_ptr(), H, out.shape[1] // H,
+                    int(out.dtype == torch.bfloat16),
+                    torch.cuda.current_stream(out.device).cuda_stream)
+    _raise_on(code, "flash_fwd_fold", err)
+    flash_fwd_fold.launches += 1
     return out, m, l
 
 
@@ -252,7 +293,7 @@ def flash_backward(score, a_dst, msg, keep, m, l, out, grad, plan, slope,
     da = torch.empty(N, H, device=dev)
     if N == 0:
         return ds, dmsg, da
-    _, bwd, err = _kernels()
+    _, _, bwd, err = _kernels()
     with torch.cuda.device(dev):
         code = bwd(msg.data_ptr(), score.data_ptr(), _ptr(a_dst), _ptr(keep),
                    _keep_row(keep, plan, gather),
@@ -268,6 +309,7 @@ def flash_backward(score, a_dst, msg, keep, m, l, out, grad, plan, slope,
 
 
 flash_forward.launches = 0
+flash_fwd_fold.launches = 0
 flash_backward.launches = 0
 
 

@@ -469,6 +469,26 @@ def _part_stride(F):
     return -(-F // 4) * 4
 
 
+def _items(plan, device):
+    """The kernels' item arguments on ``device``: (item_ptr, item_meta,
+    n_items, col) as pointers; item i is row i when the plan has no cut
+    rows."""
+    item_ptr, meta, _, _, _ = plan.split_arrays(device)
+    n_items = plan.num_nodes if meta is None else meta.shape[0]
+    return (item_ptr.data_ptr(), _ptr(meta), n_items,
+            plan.arrays(device)[1].data_ptr())
+
+
+def _slots(plan, F, device):
+    """A float32 scratch slot of F columns for each item of a cut row, or
+    None when the plan has no cut rows."""
+    n_slots = plan.split_arrays(device)[4]
+    if not n_slots:
+        return None
+    return torch.empty(n_slots, _part_stride(F), dtype=torch.float32,
+                       device=device)
+
+
 def csr_fold(part, cut_row, cut_ptr, prev, out):
     """The second pass of the CSR kernel on a plan with cut rows:
     ``out[cut_row[i]] = prev[cut_row[i]] (or 0 without prev) + part[s]``

@@ -48,9 +48,10 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import (_check_x, _csr_rows,
                                                        _csr_weights,
                                                        _first_order_only,
-                                                       _forward, _pad_rows,
+                                                       _forward, _items,
+                                                       _pad_rows,
                                                        _part_stride, _ptr,
-                                                       _raise_on)
+                                                       _raise_on, _slots)
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["spmm_max_csr", "spmm_min_csr", "segment_max_csr",
@@ -166,26 +167,6 @@ def _check_cuda(op, x, w):
     if w is not None and w.device != x.device:
         raise ValueError(f"{op}: edge weights on {w.device}, x on "
                          f"{x.device}")
-
-
-def _items(plan, device):
-    """The kernels' item arguments on ``device``: (item_ptr, item_meta,
-    n_items, col) as pointers; item i is row i when the plan has no cut
-    rows."""
-    item_ptr, meta, _, _, _ = plan.split_arrays(device)
-    n_items = plan.num_nodes if meta is None else meta.shape[0]
-    return (item_ptr.data_ptr(), _ptr(meta), n_items,
-            plan.arrays(device)[1].data_ptr())
-
-
-def _slots(plan, F, device):
-    """A float32 scratch slot of F columns for each item of a cut row, or
-    None when the plan has no cut rows."""
-    n_slots = plan.split_arrays(device)[4]
-    if not n_slots:
-        return None
-    return torch.empty(n_slots, _part_stride(F), dtype=torch.float32,
-                       device=device)
 
 
 def _stream(device):

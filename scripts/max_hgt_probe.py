@@ -11,10 +11,12 @@ beside the port's `spmm_csr` on the same rows, per edge at F = 256 beside
 `torch.segment_reduce`, its backward at F = 256 and 128; the gathered
 forward and the backward at F = 256 on the hub graph (chip_smoke.py's: a
 1,200,000-edge star and a 5,000-edge hub) beside `spmm_csr`; the HGT
-forward and backward at (H, D) = (4, 64) on bench.py:185's relation. Each
+forward and backward at (H, D) = (4, 64) on bench.py:185's relation (the
+backward's variants below: its ring's depth and register cap). Each
 time is the mean of 20 calls after 3 (CUDA events; 5 on the hub graph),
 taken twice in this process; each output is held to its plain version
-(max abs error printed). Then the paths, by the host clock around a
+(max abs error printed) and digested (sha256: equal digests in two trees'
+runs are equal bits). Then the paths, by the host clock around a
 synchronize, the median of 20 after 3: a GraphSAGE (pool) request and
 train step on the arxiv-shape graph (chip_smoke.py's phases 13-14 without
 their plain paths) and an HGT eval forward on the typed graph (phase 15).
@@ -24,12 +26,14 @@ parent unpacked with `git archive`) and run both trees in turns in one
 call (parent, change, change, parent): it uses only what chip_smoke.py and
 the package have had since the hub-row slice of the CSR kernel.
 
-``--variant`` rebuilds the kernels from a copy of csrc/ rewritten as
-VARIANTS says, so variants of this tree's kernels run in turns too. Needs
-nvcc and a CUDA card; imports no JAX.
+``--variant`` rebuilds the kernels from a copy of the whole csrc/ (the
+shared headers too) rewritten as VARIANTS says, so variants of this
+tree's kernels run in turns too. Needs nvcc and a CUDA card; imports no
+JAX.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -51,6 +55,8 @@ from gammagl_tpu_torch.ops.cuda import _build  # noqa: E402
 
 # name -> [(source file, text, its replacement)]
 _HGT = "constexpr int kFwdStages = K == 1 ? 4 : 2;"
+_HGT_BWD = "constexpr int kBwdStages = K == 1 ? 4 : 2;"
+_HGT_BWD_BLOCKS = "constexpr int kBwdBlocks = K == 1 ? 5 : K == 2 ? 3 : 2;"
 VARIANTS = {
     # the segment max's rings (forward and backward) 4 rows deep
     "max_stages4": [("segment_max.cu", "constexpr int kStages = 8;",
@@ -69,6 +75,21 @@ VARIANTS = {
     "hgt_nocap": [("hetero_flash.cu",
                    "__launch_bounds__(kFwdThreads, kFwdBlocks<K>)",
                    "__launch_bounds__(kFwdThreads)")],
+    # the HGT backward's ring 8 or 2 edges deep at K = 1, and its register
+    # cap: none, or 4 or 6 blocks an SM at K = 1 (128 or 85 registers)
+    "hgt_bwd_stages8": [("hetero_flash.cu", _HGT_BWD,
+                         "constexpr int kBwdStages = 8 / K;")],
+    "hgt_bwd_stages2": [("hetero_flash.cu", _HGT_BWD,
+                         "constexpr int kBwdStages = K == 1 ? 2 : 1;")],
+    "hgt_bwd_nocap": [("hetero_flash.cu",
+                       "__launch_bounds__(kFwdThreads, kBwdBlocks<K>)",
+                       "__launch_bounds__(kFwdThreads)")],
+    "hgt_bwd_blocks4": [("hetero_flash.cu", _HGT_BWD_BLOCKS,
+                         "constexpr int kBwdBlocks = K == 1 ? 4 : "
+                         "K == 2 ? 3 : 2;")],
+    "hgt_bwd_blocks6": [("hetero_flash.cu", _HGT_BWD_BLOCKS,
+                         "constexpr int kBwdBlocks = K == 1 ? 6 : "
+                         "K == 2 ? 3 : 2;")],
 }
 
 
@@ -87,7 +108,20 @@ def use_variant(name, work):
 
 
 def err_of(got, want):
+    """The max abs error over a result's tensors."""
+    if isinstance(got, tuple):
+        return max(err_of(a, b) for a, b in zip(got, want))
     return float((got.float() - want.float()).abs().max())
+
+
+def digest(got):
+    """sha256 of a result's bytes: equal digests in two trees' runs mean
+    bit-for-bit equal results."""
+    h = hashlib.sha256()
+    for t in got if isinstance(got, tuple) else (got,):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def cases():
@@ -135,11 +169,11 @@ def cases():
     kv, q, gy = cs._hgt_inputs(gen, rel, H, D, bf, dev)
     o, m, l = k.hgt_forward(kv, q, rel)
     out["hgt_forward (4,64)"] = (
-        lambda: k.hgt_forward(kv, q, rel)[0],
-        lambda: k.hgt_forward_reference(kv, q, rel)[0], 20)
+        lambda: k.hgt_forward(kv, q, rel),
+        lambda: k.hgt_forward_reference(kv, q, rel), 20)
     out["hgt_backward (4,64)"] = (
-        lambda: k.hgt_backward(kv, q, o, gy, m, l, rel)[1],
-        lambda: k.hgt_backward_reference(kv, q, o, gy, m, l, rel)[1], 20)
+        lambda: k.hgt_backward(kv, q, o, gy, m, l, rel),
+        lambda: k.hgt_backward_reference(kv, q, o, gy, m, l, rel), 20)
     return out
 
 
@@ -200,18 +234,21 @@ def main():
         k_lib = _build.load_library()
         log = open(os.path.splitext(k_lib._name)[0] + ".log").read()
         entry = None
-        for line in log.splitlines():  # the two kernels' registers, spills
+        for line in log.splitlines():  # the kernels' registers, spills
             if "Compiling entry" in line:
-                entry = next((n for n in ("segment_max", "hgt_fwd_kernel")
+                entry = next((n for n in ("segment_max", "hgt_fwd_kernel",
+                                          "hgt_bwd_kernel")
                               if n in line), None)
                 name = line.split("'")[1] if entry else None
             elif entry and ("registers" in line or "spill" in line):
                 print(f"  {name[:90]}: {line.strip()}")
         calls = cases()
         errs = {}
+        digests = {}
         for label, (fn, plain, _) in calls.items():
             if plain is not None:
                 errs[label] = err_of(fn(), plain())
+                digests[label] = digest(fn())
         ms = {label: [] for label in calls}
         for _ in range(2):
             for label, (fn, _, iters) in calls.items():
@@ -231,7 +268,7 @@ def main():
     print(smi.splitlines()[0])
     print(json.dumps({"tree": ROOT, "variant": args.variant, "card": smi,
                       "ms": {lb: float(np.mean(t)) for lb, t in ms.items()},
-                      "runs": ms, "max_abs_err": errs,
+                      "runs": ms, "max_abs_err": errs, "digests": digests,
                       "paths_ms": {lb: float(np.median(t))
                                    for lb, t in steps.items()},
                       "path_runs": steps}))

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CSR SpMM (and per-edge segment sum,
 the accumulating form, hub rows cut into work items and their fold),
-flash attention, destination expand, SDDMM, segment max and HGT attention
+flash attention (the forward's cut rows and their fold at every lane
+layout), destination expand, SDDMM, segment max and HGT attention
 kernels against their plain versions, forward and backward, the launch
 counts, the wrappers' checks, gradients of GCN, GAT, GATv2 and HGT
 through the kernels, and the serving paths (GraphSAGE and HGT too).
@@ -253,6 +254,90 @@ def test_flash_kernels_without_edges(card, dtype):
     assert out.shape == (33, 16) and bool((out == 0).all())
     assert ds.shape == (0, 2) and dmsg.shape == (0, 16)
     assert bool((da == 0).all()) and bool((l == 0).all())
+
+
+# (H, F) of rows that reach every (V, L) layout the flash forward
+# dispatches (launch_fwd in csrc/flash_attention.cu), in f32 and bf16:
+# every V, groups of 1 to 32 lanes, and rows wider than 32 V (column
+# chunks)
+_FLASH_LAYOUT_SHAPES = {
+    torch.bfloat16: [(1, 8), (2, 8), (4, 8), (8, 8), (1, 40), (1, 64),
+                     (2, 64), (4, 64), (2, 640), (1, 4), (3, 12), (1, 6),
+                     (3, 5), (1, 1)],
+    torch.float32: [(1, 4), (2, 8), (8, 8), (1, 40), (1, 64), (4, 64),
+                    (2, 640), (1, 6), (3, 5)]}
+_FLASH_LAYOUT_CASES = [(dt, 1e-2 if dt == torch.bfloat16 else 1e-5, H, F)
+                       for dt, shapes in _FLASH_LAYOUT_SHAPES.items()
+                       for H, F in shapes]
+
+
+def _flash_layout(H, F, dtype):
+    """(V, L, column chunks) of the flash forward for aligned rows: V the
+    widest of 16 bytes that divides F (a lane's columns lie in one head),
+    L the power of two >= H*F / V, at most 32 (`lanes_log2`)."""
+    v = 16 // (torch.finfo(dtype).bits // 8)
+    while F % v:
+        v //= 2
+    L = 1
+    while L < 32 and L * v < H * F:
+        L *= 2
+    return v, L, -(-H * F // (L * v))
+
+
+def test_flash_shapes_reach_every_dispatched_layout(card):
+    for dtype, shapes in _FLASH_LAYOUT_SHAPES.items():
+        got = {_flash_layout(H, F, dtype) for H, F in shapes}
+        vs = (1, 2, 4, 8) if dtype == torch.bfloat16 else (1, 2, 4)
+        assert {v for v, _, _ in got} == set(vs)
+        assert {L for _, L, _ in got} >= ({1, 4, 16, 32} if dtype ==
+                                          torch.float32 else
+                                          {1, 2, 4, 8, 16, 32})
+        assert max(c for _, _, c in got) > 1
+
+
+@pytest.mark.parametrize("dtype,rtol,H,F", _FLASH_LAYOUT_CASES)
+@pytest.mark.parametrize("gather", [False, True])
+def test_flash_forward_cut_rows_at_every_layout(card, dtype, rtol, H, F,
+                                                gather):
+    """A star of 5,000 edges cut into 3 work items at ROW_SPLIT, its
+    partials merged by the fold: one launch and one fold a forward; out,
+    m and l against the plain version (m bitwise), the backward from them
+    against its plain version, empty rows exact, a repeat bitwise equal;
+    keep in the caller's order with gathered rows, in CSR order else."""
+    plan = _hub_plan(H * F, star=5000)
+    assert plan.row_split().cut_row.tolist() == [0]
+    _, inputs, grad = _flash_case(card, H, F, dtype, gather, True,
+                                  seed=H * F, plan=plan)
+    before = (kops.flash_forward.launches, kops.flash_fwd_fold.launches)
+    got = _flash_both(plan, inputs, grad, gather, kops.flash_forward,
+                      kops.flash_backward)
+    torch.cuda.synchronize()
+    assert (kops.flash_forward.launches - before[0],
+            kops.flash_fwd_fold.launches - before[1]) == (1, 1)
+    want = _flash_both(plan, inputs, grad, gather,
+                       kops.flash_forward_reference,
+                       kops.flash_backward_reference, saved=got[:3])
+    out, m, l, _, _, da = got
+    assert torch.equal(m, want[1])
+    for g_, w_, r in zip(got, want, (rtol, 0, 1e-5, 1e-5, rtol, 1e-5)):
+        _close(g_, w_, r)
+    empty = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    assert bool((out[empty] == 0).all()) and bool((da[empty] == 0).all())
+    assert bool((m[empty] == -1e30).all()) and bool((l[empty] == 0).all())
+    again = _flash_both(plan, inputs, grad, gather, kops.flash_forward,
+                        kops.flash_backward)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_fold_runs_exactly_when_a_plan_has_cut_rows(card):
+    for plan, cut in ((_plan(7)[0], False), (_hub_plan(7, star=5000), True)):
+        assert bool(plan.row_split().cut_row.size) == cut
+        _, (s, a, msg, kp), _ = _flash_case(card, 8, 8, torch.bfloat16, True,
+                                            True, plan=plan)
+        before = kops.flash_fwd_fold.launches
+        kops.flash_forward(s, a, msg, kp, plan, 0.2, True)
+        torch.cuda.synchronize()
+        assert kops.flash_fwd_fold.launches - before == (1 if cut else 0)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
@@ -764,6 +849,29 @@ def test_hgt_forward_at_every_layout_matches_plain(card, dtype, rtol, H, D):
         _close(got, want, r)
     again = kops.hgt_forward(kv, q, plan)
     assert all(torch.equal(a, b) for a, b in zip((out, m, l), again))
+
+
+@pytest.mark.parametrize("dtype,rtol,H,D", _HGT_LAYOUT_CASES)
+def test_hgt_backward_at_every_layout_matches_plain(card, dtype, rtol, H,
+                                                    D):
+    """The backward's ring at each (V, K): dq and the per-edge dk|dv
+    against the plain version from the kernel's out, m and l, one launch,
+    a repeat bitwise equal; rows of up to ~60 edges, longer than the
+    ring."""
+    plan, _ = _plan(H * D, e=6000)
+    kv, q, gy = _hgt_case(card, H, D, dtype, plan, seed=H * D)
+    out, m, l = kops.hgt_forward(kv, q, plan)
+    before = kops.hgt_backward.launches
+    dq, dkv = kops.hgt_backward(kv, q, out, gy, m, l, plan)
+    torch.cuda.synchronize()
+    assert kops.hgt_backward.launches == before + 1
+    r_dq, r_dkv = kops.hgt_backward_reference(kv, q, out, gy, m, l, plan)
+    _close(dq, r_dq, rtol)
+    _close(dkv, r_dkv, rtol)
+    empty = torch.from_numpy(np.diff(plan.rowptr) == 0).to(card)
+    assert bool((dq[empty] == 0).all())
+    again = kops.hgt_backward(kv, q, out, gy, m, l, plan)
+    assert torch.equal(dq, again[0]) and torch.equal(dkv, again[1])
 
 
 def test_graphsage_pool_session_on_card_matches_the_plain_path(card):
