@@ -37,10 +37,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (gathered and per-edge rows), f32 and bf16, C in {7, 40, 64}, empty
    rows with N_src != N_dst, no edges, bitwise-equal repeats; the segment
    sum on the hub graph (C in {7, 40, 64}, unit, (E,) and (E, H)
-   weights, one launch and one fold a call); on the slice
-   graph the expand and segment sum at GATv2's widths, and the SDDMM at
-   bench.py's shape (F = 256 bf16, gathered) and per edge (H = 8, F = 8),
-   forward and backward; time each.
+   weights, one launch and one fold a call); the SDDMM on the hub graph,
+   its rows cut into work items at `SDDMM_SPLIT` (gathered and per edge,
+   f32 and bf16, (H, F) in {(1, 256), (8, 8), (2, 640)}, 1e-5, one launch
+   and no fold a call), each bf16 form timed beside `spmm_csr` /
+   `segment_sum_csr` at the same width there, and the expand (not cut into
+   items) timed there once; on the slice graph the expand and segment sum
+   at GATv2's widths, and the SDDMM at bench.py's shape (F = 256 bf16,
+   gathered; beside `spmm_csr` at that F and the gathered rows' floor) and
+   per edge (H = 8, F = 8), forward and backward; time each; registers
+   and spill bytes of every SDDMM instantiation (none may spill).
 5. Serve full-width GCN (ogbn-arxiv shape: 169,343 nodes, 2,315,598 edges
    plus self-loops, 128 -> 256 -> 256 -> 40, bf16) through
    `InferenceSession` with `Graph.csr_plan()`: 8 requests, each held
@@ -68,7 +74,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 10. Drive the `sddmm_csr` entry point at bench.py's shape (F = 256 bf16,
    x_src = x_dst) and `sddmm_csr_mh` on per-edge rows (H = 8, F = 8),
    forward and backward: per call pair 2 SDDMM, 2 SpMM, 1 scaled expand
-   and 1 per-edge segment sum launches.
+   and 1 per-edge segment sum launches; then trace 3 more pairs (host ms,
+   device busy time).
 11. Hold the segment max and min kernels (forward, gathered and per edge,
    and the backward) against their plain versions, bitwise: f32 and bf16,
    F in {7, 40, 128, 256}, with and without weights, ties, empty rows with
@@ -967,6 +974,7 @@ def phase_edge_checks(k, slice_plan):
                     k.segment_sum_csr, lambda: k.segment_sum_csr(v, hub, w),
                     k.segment_sum_csr_reference(v, hub, w), rtol))
     del v
+    hub_rows, hub_expand = sddmm_hub_checks(k, hub, err)
 
     plan, bf16 = slice_plan, torch.bfloat16
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
@@ -1009,6 +1017,16 @@ def phase_edge_checks(k, slice_plan):
         nbytes=Ns * SDDMM_F * 2 + E * 4 + (N + 1) * 8 + E * 4,
         flops=2 * E * SDDMM_F,
         library=lambda: torch.sparse.sampled_addmm(mask, x, x.t(), beta=0.0))})
+    # the gathered rows alone (E x row bytes from HBM), which the bound
+    # (the table read once) does not count, and the CSR kernel reading
+    # the same rows
+    row = timings["sddmm_csr"][-1]
+    row["floor_ms"] = E * SDDMM_F * 2 / HBM_BYTES_PER_S * 1e3
+    row["spmm_csr_ms"] = cuda_ms(lambda: k.spmm_csr(x, None, plan))
+    print(f"  sddmm F={SDDMM_F} gathered: gathered-row floor "
+          f"{row['floor_ms']:.4f} ms ({row['floor_ms'] / row['ms']:.3f} of "
+          f"the kernel's time); spmm_csr at F={SDDMM_F} {row['spmm_csr_ms']:.4f}"
+          f" ms, the SDDMM {row['ms'] / row['spmm_csr_ms']:.3f}x it")
     # its backward: two SpMMs weighted by the cotangent
     xs, xd = x.clone().requires_grad_(), x.clone().requires_grad_()
     g = rand(E)
@@ -1050,7 +1068,78 @@ def phase_edge_checks(k, slice_plan):
         lambda: k.expand_dst_csr_reference(xd, plan, g),
         nbytes=N * H * F * 2 + E * H * 4 + (N + 1) * 8 + E * H * F * 2,
         flops=E * H * F)})
+    spills = kernel_resources(("sddmm_kernel", "sddmm_wide_kernel"))
+    if any(spills.values()):
+        fail(f"an SDDMM instantiation spills: {spills}")
+    for row in timings["sddmm_csr"]:
+        row["spill_bytes"] = max(spills.values())
+    timings["sddmm_csr"] += hub_rows
+    timings["expand_dst_csr"].append(hub_expand)
     return err, timings
+
+
+def sddmm_hub_checks(k, hub, err):
+    """The SDDMM on the hub graph, its rows cut into work items at
+    `SDDMM_SPLIT` (the star into thousands of items): both forms, f32 and
+    bf16, at 1e-5 against the plain version (both sum in f32), each call
+    exactly one launch and no fold; each bf16 form timed beside
+    `spmm_csr` (gathered) or `segment_sum_csr` (per edge) at the same
+    width on that graph; then the expand, which still walks a row on one
+    warp, timed there once. Returns the SDDMM's timing rows and the
+    expand's."""
+    from gammagl_tpu_torch.ops.cuda.sddmm_csr import SDDMM_SPLIT, _sddmm
+    split = hub.row_split(SDDMM_SPLIT)
+    print(f"  hub graph, SDDMM work items (SDDMM_SPLIT {SDDMM_SPLIT}): "
+          f"{split.item_row.shape[0]} items, {split.cut_row.shape[0]} cut "
+          "rows, no scratch")
+    N, Ns, E = hub.num_nodes, hub.num_src, hub.num_edges
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def rand(*shape, dtype):  # drawn on the card: up to 1.6G values
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for H, F in ((1, SDDMM_F), (GAT_HEADS, GAT_HIDDEN), (2, 640)):
+            C = H * F
+            xd = rand(N, C, dtype=dtype)
+            for gather in (True, False):
+                a = rand(Ns if gather else E, C, dtype=dtype)
+                tag = (f"hub sddmm {dtype} H={H} F={F} "
+                       f"{'gathered' if gather else 'per edge'}")
+                c0, f0 = k.sddmm_csr.launches, k.csr_fold.launches
+                got = _sddmm(a, xd, hub, H, gather)
+                sync()
+                launched = (k.sddmm_csr.launches - c0,
+                            k.csr_fold.launches - f0)
+                if launched != (1, 0):
+                    fail(f"{tag}: launches {launched[0]}, folds "
+                         f"{launched[1]} (want 1 and 0)")
+                err["sddmm_csr"] = max(err["sddmm_csr"], check_close(
+                    tag, got, k.sddmm_csr_reference(a, xd, hub, H, gather),
+                    1e-5))
+                del got
+                if dtype != torch.bfloat16:
+                    continue
+                ms = cuda_ms(lambda: _sddmm(a, xd, hub, H, gather), iters=10)
+                if gather:
+                    name, ref = "spmm_csr", cuda_ms(
+                        lambda: k.spmm_csr(a, None, hub), iters=10)
+                else:
+                    name, ref = "segment_sum_csr", cuda_ms(
+                        lambda: k.segment_sum_csr(a, hub), iters=10)
+                print(f"  {tag}: {ms:.4f} ms, {name} at {C} columns there "
+                      f"{ref:.4f} ms, the SDDMM {ms / ref:.3f}x it")
+                rows.append({"H": H, "F": F, "gather": gather,
+                             "graph": "hub", "ms": ms, f"{name}_ms": ref})
+            del a, xd
+    C = GAT_HEADS * GAT_HIDDEN
+    x = rand(N, C, dtype=torch.bfloat16)
+    ms = cuda_ms(lambda: k.expand_dst_csr(x, hub), iters=1, warmup=0)
+    print(f"  hub expand C={C} bf16 (a row on one warp, one call): "
+          f"{ms:.4f} ms")
+    return rows, {"C": C, "scaled": False, "graph": "hub", "ms": ms}
 
 
 def phase_gcn_serve(k, GCNModel, InferenceSession, load_jax_params, plan, x,
@@ -1314,13 +1403,18 @@ def phase_sddmm_path(k, plan):
     msg = torch.randn(E, H, F, generator=gen).to(dev, torch.bfloat16)
     xd = torch.randn(N, H, F, generator=gen).to(dev, torch.bfloat16)
     x, msg, xd = (t.requires_grad_() for t in (x, msg, xd))
-    sync()
-    reset_counts(k)
-    for _ in range(N_SDDMM_CALLS):
+
+    def pair():
         s = k.sddmm_csr(x, x, plan)
         s.sum().backward()
         s_mh = k.sddmm_csr_mh(None, xd, plan, msg=msg)
         s_mh.sum().backward()
+        return s, s_mh
+
+    sync()
+    reset_counts(k)
+    for _ in range(N_SDDMM_CALLS):
+        s, s_mh = pair()
     sync()
     counts = read_counts(k)
     want = every_kernel({"sddmm_csr": 2, "spmm_csr": 2, "expand_dst_csr": 1,
@@ -1334,7 +1428,10 @@ def phase_sddmm_path(k, plan):
             fail(f"sddmm path: non-finite {name}")
     if s.shape != (E,) or s_mh.shape != (E, H):
         fail(f"sddmm path: shapes {tuple(s.shape)}, {tuple(s_mh.shape)}")
-    return counts
+    prof = profile("sddmm_pair", pair)
+    print(f"  sddmm pair call: host {prof['span_us'] / 1e3:.3f} ms, device "
+          f"busy {prof['busy_us'] / 1e3:.3f} ms")
+    return counts, prof
 
 
 def max_hub_call(k, label, counters, run, want):
@@ -2483,7 +2580,7 @@ def split_at(k, plan, K):
     other = k.CSRPlan(plan.rowptr, plan.col, plan.perm, plan.num_nodes,
                       plan.num_src, plan.num_edges)
     other._placed = plan._placed
-    other._split = k.build_row_split(plan.rowptr, K)
+    other._split = {k.ROW_SPLIT: k.build_row_split(plan.rowptr, K)}
     return other
 
 
@@ -2846,7 +2943,7 @@ def main():
          v2_train_prof) = phase_gatv2_train(k, common, GATV2Model,
                                             load_jax_params, compute_dtype,
                                             plan, x, ei)
-    sddmm_counts = phase_sddmm_path(k, plan)
+    sddmm_counts, sddmm_prof = phase_sddmm_path(k, plan)
     max_err, max_ms, max_fold_ms = phase_max_checks(k, plan)
     (hgt_err, hgt_ms, hgt_plan, (hgt_flash_err, hgt_flash_ms),
      spills) = phase_hgt_checks(k)
@@ -3000,6 +3097,7 @@ def main():
         "gatv2_step0_f32_grad_max_abs_err": v2_grad_err,
         "gatv2_step0_bf16_grad_rel_err_vs_f32": v2_bf16_err,
         "gatv2_profile": {"serve": v2_serve_prof, "train": v2_train_prof},
+        "sddmm_pair_profile": sddmm_prof,
         "sage_request_p50_ms": float(np.median(sage_lat)),
         "sage_request_max_ms": float(sage_lat.max()),
         "sage_train_step_ms": float(np.median(sage_step_ms["kernel"][1:])),

@@ -94,16 +94,22 @@ __device__ __forceinline__ void store_f32(float* __restrict__ p,
 
 // Walk n edges from CSR edge lo, in order, through a ring of kStages
 // stages in shared memory: copy(s, source(e)) issues this lane's copies of
-// edge e's data into stage s by cp.async, kStages edges ahead, and
-// visit(j, weight(e), s) runs for edge e = lo + j once its stage has
-// landed. The next edge's source (a row index, or a struct of the rows
-// its copies read) and weight are loaded a step ahead. Each lane reads
-// back only what it copied, so the ring needs no barrier; every lane runs
-// every visit, so lanes of a group stay together for shuffles.
-template <int kStages, class Source, class Weight, class Copy, class Visit>
-__device__ __forceinline__ void walk_ring(int64_t lo, int64_t n,
-                                          Source source, Weight weight,
-                                          Copy copy, Visit visit) {
+// edge e's data into stage s by cp.async, kStages edges ahead, and for
+// edge e = lo + j, once its stage has landed, take(j, weight(e), s) reads
+// the stage and returns what the rest of the edge's work needs; this
+// lane's copy of edge e + kStages into that stage is issued next, and then
+// use(j, what take returned) runs, so work that does not read the stage (a
+// sum across lanes, a store) overlaps the copies in flight. The next
+// edge's source (a row index, or a struct of the rows its copies read) and
+// weight are loaded a step ahead. Each lane reads back only what it
+// copied, so the ring needs no barrier; every lane runs every step, so
+// lanes of a group stay together for shuffles.
+template <int kStages, class Source, class Weight, class Copy, class Take,
+          class Use>
+__device__ __forceinline__ void walk_ring_split(int64_t lo, int64_t n,
+                                                Source source, Weight weight,
+                                                Copy copy, Take take,
+                                                Use use) {
   using Index = decltype(source(lo));
   // the first kStages edges: all their indices, then all their copies
   Index r0[kStages + 1];
@@ -121,8 +127,8 @@ __device__ __forceinline__ void walk_ring(int64_t lo, int64_t n,
     const float w_next = j + 1 < n ? weight(lo + j + 1) : 0.f;
     wait_stages<kStages - 1>();  // edge j has landed
     const int s = static_cast<int>(j % kStages);
-    visit(j, w_cur, s);
-    // the stage's reads in visit leave the load/store unit before this
+    const auto taken = take(j, w_cur, s);
+    // the stage's reads in take leave the load/store unit before this
     // lane's next copy into it (shared-memory accesses of a warp are
     // issued in order; the copy lands a global round trip later)
     if (j + kStages < n) {
@@ -130,8 +136,24 @@ __device__ __forceinline__ void walk_ring(int64_t lo, int64_t n,
       if (j + kStages + 1 < n) r_next = source(lo + j + kStages + 1);
     }
     commit_stage();
+    use(j, taken);
     w_cur = w_next;
   }
+}
+
+// walk_ring_split whose visit(j, weight(e), s) does all of an edge's work
+// before the next copy into its stage.
+template <int kStages, class Source, class Weight, class Copy, class Visit>
+__device__ __forceinline__ void walk_ring(int64_t lo, int64_t n,
+                                          Source source, Weight weight,
+                                          Copy copy, Visit visit) {
+  walk_ring_split<kStages>(
+      lo, n, source, weight, copy,
+      [&](int64_t j, float w, int s) {
+        visit(j, w, s);
+        return 0;
+      },
+      [](int64_t, int) {});
 }
 
 // walk_ring over rows of x: stage s is this lane's 16-byte slot

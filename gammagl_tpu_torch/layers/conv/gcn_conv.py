@@ -78,6 +78,13 @@ class GCNConv(MessagePassing):
             weights = _degree_norm(src, num_nodes, self.norm)[src] * weights
         if self.norm in ("right", "both"):
             weights = weights * _degree_norm(dst, num_nodes, self.norm)[dst]
+        # round the weights to the JAX layer's dtype (its norms are in x's,
+        # promoted with the caller's weights), so the COO spmm gives its
+        # output dtype; the degrees above stay float32
+        wdtype = x.dtype if edge_weight is None else edge_weight.dtype
+        if self.norm != "none":
+            wdtype = torch.promote_types(x.dtype, wdtype)
+        weights = weights.to(wdtype)
         out = self.propagate(x, edge_index, edge_weight=weights,
                              num_nodes=num_nodes, plan=plan)
         if self.bias is not None:

@@ -105,7 +105,8 @@ class SAGEConv(MessagePassing):
             deg_src = segment_count(src, src_feat.shape[0])
             deg_dst = segment_count(dst, num_nodes)
             w = (deg_src.rsqrt().masked_fill_(deg_src == 0, 0.0)[src]
-                 * deg_dst.rsqrt().masked_fill_(deg_dst == 0, 0.0)[dst])
+                 * deg_dst.rsqrt().masked_fill_(deg_dst == 0, 0.0)[dst]
+                 ).to(h.dtype)  # the JAX layer's weights are in h's dtype
             out = self.propagate(h, edge_index, edge_weight=w,
                                  num_nodes=num_nodes, plan=plan)
         else:

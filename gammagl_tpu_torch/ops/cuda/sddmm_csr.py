@@ -12,10 +12,13 @@ e of destination row d = row(e):
 
 The TPU kernels pick destination rows out of dense (R, F) blocks with
 one-hot matmuls, so that no second pass through the gather engine is
-needed; the card's kernels (``csrc/sddmm_csr.cu``) let one warp read its
-destination row once and walk the row's edges. Per-edge tensors are in the
-plan's CSR order; the JAX package's are in its padded or compact lane
-order.
+needed; on the card (``csrc/sddmm_csr.cu``) the expand lets one warp read
+its destination row once and walk the row's edges, and the SDDMM walks the
+CSR kernels' work items cut at `SDDMM_SPLIT` edges (`CSRPlan.split_arrays`
+at that K), a lane group an item: a hub row is spread over many groups,
+and since every edge's score is its own output no fold follows. Per-edge
+tensors are in the plan's CSR order; the JAX package's are in its padded
+or compact lane order.
 
 Every op is a `torch.autograd.Function`, differentiable once, whose
 backward runs kernels too:
@@ -42,13 +45,22 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
                                                        _first_order_only,
                                                        _forward, _pad_rows,
-                                                       _raise_on, _weigh)
+                                                       _ptr, _raise_on,
+                                                       _weigh)
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["expand_dst_csr", "sddmm_csr", "sddmm_csr_mh",
-           "expand_dst_csr_reference", "sddmm_csr_reference"]
+           "expand_dst_csr_reference", "sddmm_csr_reference", "SDDMM_SPLIT"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The most CSR edges one work item of the SDDMM walks (`build_row_split`
+# at this K). An item reads its destination row once and writes its own
+# edges' scores, so short items cost little and spread long rows (the
+# arxiv-shape graph's ~800-edge rows, a hub's million) over many lane
+# groups. Chosen on the card from {64, 128, 256, 512, 2048}
+# (scripts/sddmm_probe.py times the sweep).
+SDDMM_SPLIT = 128
 
 
 def expand_dst_csr_reference(x_dst, plan, scale=None):
@@ -79,7 +91,8 @@ def _kernels():
                        + [ctypes.c_int, ctypes.c_void_p])
     expand.restype = ctypes.c_int
     sddmm = lib.gammagl_sddmm_csr
-    sddmm.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 3
+    sddmm.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     sddmm.restype = ctypes.c_int
     return expand, sddmm, _spmm_kernel()[1]
@@ -147,11 +160,13 @@ def _sddmm(a, x_dst, plan, heads, gather):
     if out.numel() == 0:
         return out
     _, fn, err = _kernels()
-    rowptr, col, _ = plan.arrays(a.device)
+    item_ptr, meta, _, _, _ = plan.split_arrays(a.device, SDDMM_SPLIT)
+    n_items = plan.num_nodes if meta is None else meta.shape[0]
+    col = plan.arrays(a.device)[1]
     with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), x_dst.data_ptr(), rowptr.data_ptr(),
-                  col.data_ptr(), out.data_ptr(), plan.num_nodes, heads,
-                  a.shape[1] // heads, int(gather),
+        code = fn(a.data_ptr(), x_dst.data_ptr(), item_ptr.data_ptr(),
+                  _ptr(meta), n_items, col.data_ptr(), out.data_ptr(),
+                  heads, a.shape[1] // heads, int(gather),
                   int(a.dtype == torch.bfloat16),
                   torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(code, "sddmm_csr", err)

@@ -123,8 +123,8 @@ class CSRPlan:
              port's take the same route for the same call.
 
     One copy of the arrays is kept per device (`arrays`), and of the
-    kernel's work items (`split_arrays`); the transpose plans of the
-    backward are built on first use and kept too.
+    kernels' work items per device and item size (`split_arrays`); the
+    transpose plans of the backward are built on first use and kept too.
     """
 
     def __init__(self, rowptr, col, perm, num_nodes, num_src, num_edges,
@@ -137,7 +137,7 @@ class CSRPlan:
         self.num_src = int(num_src)
         self.num_edges = int(num_edges)
         self._placed = {}
-        self._split = None
+        self._split = {}
         self._split_placed = {}
         self._transpose = None
         self._edge_scatter = None
@@ -178,22 +178,23 @@ class CSRPlan:
                     for a in (self.rowptr, self.col, self.perm))
         return placed
 
-    def row_split(self):
-        """The kernel's work items (`build_row_split` at `ROW_SPLIT`),
-        built on first use."""
-        if self._split is None:
-            self._split = build_row_split(self.rowptr)
-        return self._split
+    def row_split(self, K=ROW_SPLIT):
+        """The kernels' work items (`build_row_split` at ``K``; the CSR
+        kernels take `ROW_SPLIT`), built on first use for each K."""
+        split = self._split.get(K)
+        if split is None:
+            split = self._split[K] = build_row_split(self.rowptr, K)
+        return split
 
-    def split_arrays(self, device):
-        """The work items as the kernel reads them on ``device``, copied
-        once: (item_ptr, item_meta, cut_row, cut_ptr, n_slots). A plan
-        without cut rows has one item per row: item_ptr is rowptr itself
-        and the others are None (and 0)."""
+    def split_arrays(self, device, K=ROW_SPLIT):
+        """The work items at ``K`` as the kernels read them on ``device``,
+        copied once for each device and K: (item_ptr, item_meta, cut_row,
+        cut_ptr, n_slots). A plan without cut rows has one item per row:
+        item_ptr is rowptr itself and the others are None (and 0)."""
         device = _placed_device(device)
-        placed = self._split_placed.get(device)
+        placed = self._split_placed.get((device, K))
         if placed is None:
-            split = self.row_split()
+            split = self.row_split(K)
             if split.cut_row.shape[0] == 0:
                 placed = (self.arrays(device)[0], None, None, None, 0)
             else:
@@ -204,7 +205,7 @@ class CSRPlan:
                                        split.item_ptr, meta, split.cut_row,
                                        split.cut_ptr)) + (
                                            int(split.cut_ptr[-1]),)
-            self._split_placed[device] = placed
+            self._split_placed[(device, K)] = placed
         return placed
 
     def __repr__(self):

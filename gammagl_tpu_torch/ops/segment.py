@@ -56,11 +56,14 @@ def segment_count(segment_ids, num_segments, dtype=torch.float32):
 
 
 def segment_mean(data, segment_ids, num_segments):
-    """Mean of ``data`` rows per segment; empty segments give 0."""
+    """Mean of ``data`` rows per segment; empty segments give 0. Floating
+    data keeps its dtype; integer data gives float32 (true division), as
+    in the JAX package."""
     total = segment_sum(data, segment_ids, num_segments)
     count = segment_count(segment_ids, num_segments).clamp_min(1)
     count = count.reshape((num_segments,) + (1,) * (data.dim() - 1))
-    return (total / count).to(data.dtype)
+    mean = total / count
+    return mean.to(data.dtype) if data.is_floating_point() else mean
 
 
 def _segment_extreme(data, segment_ids, num_segments, reduce):

@@ -31,24 +31,31 @@ def spmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
     num_nodes : number of destination rows; defaults to x.shape[0]
     reduce : 'sum' | 'mean' | 'max' | 'min'
 
-    Floating messages are formed and reduced in float32 (or wider) and
-    the result is cast once to ``x``'s dtype. Out-of-range destinations
-    are dropped.
+    The message has the dtype the JAX package forms it in: ``x``'s, or
+    with weights ``torch.promote_types(x.dtype, edge_weight.dtype)`` (bf16
+    x with f32 weights gives float32, integer x with float weights
+    float32). Floating messages are formed and reduced in float32 (or
+    wider) and the result is cast once to that dtype; integer sums, maxima
+    and minima stay integer, and an integer mean is float32. Out-of-range
+    destinations are dropped.
     """
     if reduce not in _REDUCE:
         raise ValueError(f"unknown reduce {reduce!r}")
     if num_nodes is None:
         num_nodes = x.shape[0]
+    dtype = (x.dtype if edge_weight is None
+             else torch.promote_types(x.dtype, edge_weight.dtype))
     src, dst = edge_index[0].long(), edge_index[1]
     # clamp the gather so an out-of-range pad src reads a real row; its
     # out-of-range dst then drops the message
     msg = x[src.clamp(0, x.shape[0] - 1)]
-    if x.is_floating_point():
-        msg = msg.to(torch.promote_types(x.dtype, torch.float32))
+    msg = msg.to(torch.promote_types(dtype, torch.float32)
+                 if dtype.is_floating_point else dtype)
     if edge_weight is not None:
         w = edge_weight.to(msg.dtype)
         msg = msg * w.reshape(w.shape + (1,) * (x.dim() - w.dim()))
-    return _REDUCE[reduce](msg, dst, num_nodes).to(x.dtype)
+    out = _REDUCE[reduce](msg, dst, num_nodes)
+    return out.to(dtype) if dtype.is_floating_point else out
 
 
 def gspmm(edge_index, edge_weight, x, reduce: str = "sum",
@@ -62,7 +69,7 @@ def bspmm(edge_index, edge_weight, x, num_nodes: Optional[int] = None,
           reduce: str = "sum"):
     """Multi-head SpMM for attention layers: x (N, H, F), edge_weight
     (E, H) per-head coefficients, out[d, h] = reduce_e w_eh * x[s_e, h].
-    Sums in float32, cast once to ``x``'s dtype, as `spmm`."""
+    Sums in float32, cast once to the message's dtype, as `spmm`."""
     if reduce not in ("sum", "mean", "max"):
         raise ValueError(f"unknown reduce {reduce!r}")
     if edge_weight is not None:

@@ -30,7 +30,7 @@ from gammagl_tpu_torch.examples.common import synthetic_hetero
 from gammagl_tpu_torch.models import (GATModel, GATV2Model, GCNModel,
                                       GraphSAGEModel, HGTModel)
 from gammagl_tpu_torch.ops import cuda as kops
-from gammagl_tpu_torch.ops.cuda.sddmm_csr import _expand, _sddmm
+from gammagl_tpu_torch.ops.cuda.sddmm_csr import SDDMM_SPLIT, _expand, _sddmm
 from gammagl_tpu_torch.serve import InferenceSession
 from gammagl_tpu_torch.utils import compute_dtype
 
@@ -508,6 +508,54 @@ def test_sddmm_kernel_matches_plain(card, H, F, dtype, gather):
     torch.cuda.synchronize()
     assert kops.sddmm_csr.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (e, H)
+    _close(got, kops.sddmm_csr_reference(a, xd, plan, H, gather), 1e-5)
+    assert torch.equal(got, _sddmm(a, xd, plan, H, gather))
+
+
+@pytest.mark.parametrize("H,F", [(1, 7), (8, 8), (1, 40), (1, 256),
+                                 (2, 640)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gather", [False, True])
+def test_sddmm_hub_rows_are_cut_into_items(card, H, F, dtype, gather):
+    """A row of 20,000 edges, cut into work items at SDDMM_SPLIT: one
+    launch a call and no fold, 1e-5 against the plain version (f32 dots),
+    repeats bitwise equal."""
+    plan = _hub_plan(H * F)
+    assert 0 in plan.row_split(SDDMM_SPLIT).cut_row.tolist()
+    g = torch.Generator().manual_seed(H * F)
+    rows = plan.num_src if gather else plan.num_edges
+    a = torch.randn(rows, H * F, generator=g).to(card, dtype)
+    xd = torch.randn(plan.num_nodes, H * F, generator=g).to(card, dtype)
+    before, folds = kops.sddmm_csr.launches, kops.csr_fold.launches
+    got = _sddmm(a, xd, plan, H, gather)
+    torch.cuda.synchronize()
+    assert kops.sddmm_csr.launches == before + 1
+    assert kops.csr_fold.launches == folds
+    assert got.dtype == torch.float32 and got.shape == (plan.num_edges, H)
+    _close(got, kops.sddmm_csr_reference(a, xd, plan, H, gather), 1e-5)
+    assert torch.equal(got, _sddmm(a, xd, plan, H, gather))
+
+
+@pytest.mark.parametrize("H,F", [(8, 8), (1, 256), (2, 640)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("gather", [False, True])
+def test_sddmm_misaligned_rows(card, H, F, dtype, offset, gather):
+    """Rows that start ``offset`` elements past an aligned address (a row
+    slice of a flat table): the kernel takes a narrower load and still
+    matches the plain version at 1e-5."""
+    plan, e = _plan(F + offset)
+    g = torch.Generator().manual_seed(F + offset)
+    rows = plan.num_src if gather else e
+
+    def table(n):
+        flat = torch.randn(n * H * F + offset, generator=g).to(card, dtype)
+        return flat[offset:].view(n, H * F)
+
+    a, xd = table(rows), table(plan.num_nodes)
+    assert a.data_ptr() % 16 and xd.data_ptr() % 16
+    got = _sddmm(a, xd, plan, H, gather)
+    torch.cuda.synchronize()
     _close(got, kops.sddmm_csr_reference(a, xd, plan, H, gather), 1e-5)
     assert torch.equal(got, _sddmm(a, xd, plan, H, gather))
 
