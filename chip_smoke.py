@@ -180,13 +180,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
    per step exactly 5 `spmm_csr` and 5 x (blocks - 1) `spmm_csr_acc`
    launches and a fold for each of those plans with cut rows; then a trace
    of 3 more steps.
-26. Print the card's name and power limit, one JSON line on the kernels
+26. Flatten the typed graph of phases 15-16 into one node set as the
+   simplehgn twin does (300,000 nodes, papers first; 5,000,000 edges in 3
+   edge types); hold `spmm_csr` at SimpleHGN's shape (F = 64 f32, one
+   head's weights) and `segment_sum_csr` at RGCN's (C = 64 f32 per-edge
+   rows) there against their plain versions and time them beside
+   cuSPARSE's SpMM and `torch.segment_reduce`. Serve RGCN (RGCNModel,
+   128 -> 64 -> 349, a full map a relation, float32) through the eval
+   forward with the graph's `CSRPlan`: 8 requests against the plain COO
+   path, exactly 2 `segment_sum_csr` launches each and nothing else; a
+   trace of 3 more; float32 step-0 gradients; 5 steps (Adam lr 0.01)
+   against the plain path, per step exactly 2 segment sums and 2 expands
+   (their VJP); a trace of 3 more steps.
+27. HAN (HANModel: 8 heads x 8, attention dropout 0.6, 40 classes, bf16):
+   first HANConv on the small movie/director graph with every relation's
+   plan on the card (two relations between node types, ROADMAP C14)
+   against its plain route, one flash forward a relation; then two
+   metapath relations over the arxiv-shape node set (2,315,598 edges
+   each): 8 requests against the plain COO path, exactly 2 flash forward
+   launches each; a trace; float32 step-0 gradients; 5 steps (Adam lr
+   0.005) against the plain path under one generator state, per step
+   exactly 2 flash forward, 2 flash backward and 2 SpMM launches; a trace.
+28. SimpleHGN (SimpleHGNModel: 8 heads x 64, edge embeddings of 32, 2
+   layers, beta 0.05, residual, attention dropout 0.5, float32) on the
+   flattened typed graph: 8 requests against the plain COO path, exactly
+   16 `spmm_csr`, 6 expand, 2 segment max and 2 segment sum launches each
+   (per layer: the destination scores' expand, the CSR-order softmax's
+   segment max, 2 expands and segment sum, one SpMM a head); a trace;
+   float32 step-0 gradients; 5 steps (Adam lr 0.005) against the plain
+   path under one generator state, per step exactly 34 SpMM, 16 SDDMM
+   (dalpha), 8 expand, 6 segment sum and 2 segment max launches; a trace.
+29. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
    segment max's fold under spmm_max_csr's, its tie count and count fold
    under segment_max_bwd's, the flash forward's fold under
-   flash_forward's) and the paths, and as the last line {"ok": true,
+   flash_forward's; the typed-graph shapes of phase 26 under
+   `by_shape`) and the paths, and as the last line {"ok": true,
    "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
@@ -230,6 +261,21 @@ N_BP_CALLS = 3
 # 256, 3 layers, 172 classes, AdamW lr 0.01, no decay) on the papers
 # twin's synthetic shard at 1% of papers100M, one part
 PAPERS_SCALE, PAPERS_LAYERS, PAPERS_LR = 0.01, 3, 1e-2
+# the typed-edge paths, on the typed graph of phases 15-16 flattened to
+# one node set (papers first, each relation an edge type) as the simplehgn
+# twin flattens: RGCN at OGB's ogbn-mag R-GCN baseline width (hidden 64)
+# with a full map a relation (no bases), the rgcn trainer's Adam lr; HGB's
+# Simple-HGN (Lv et al. 2021: 8 heads x 64, edge embeddings of 32, 2
+# layers, beta 0.05, residual) with SimpleHGNModel's attention dropout
+# 0.5, the simplehgn trainer's Adam lr
+RGCN_HIDDEN, RGCN_LR = 64, 0.01
+SHGN_HEADS, SHGN_HIDDEN, SHGN_DROP, SHGN_LR = 8, 64, 0.5, 0.005
+# HAN: Wang et al. 2019's 8 heads x 8 and attention dropout 0.6 (HANModel's
+# defaults) on two metapath relations over the arxiv-shape node set, each
+# bench.py's generator with its own seed; 40 classes, the han trainer's
+# Adam lr
+HAN_RELATIONS, HAN_HEADS, HAN_HIDDEN = ("pap", "psp"), 8, 8
+HAN_DROP, HAN_LR = 0.6, 0.005
 N_REQUESTS, N_STEPS = 8, 5
 SEED = 0
 # K of the work items, measured on the papers transpose beside ROW_SPLIT
@@ -441,13 +487,19 @@ def profile(label, fn, n=3):
     return {"busy_us": busy, "span_us": span_us}
 
 
+def arxiv_edges(rng, n_nodes=N_NODES, n_edges=N_EDGES):
+    """bench.py's generator: dst = N * u^1.5, src uniform."""
+    dst = (n_nodes * (rng.random(n_edges) ** 1.5)).astype(np.int64)
+    src = rng.integers(0, n_nodes, n_edges)
+    return np.stack([src, dst])
+
+
 def arxiv_graph(Graph, n_nodes=N_NODES, n_edges=N_EDGES):
     """bench.py's generator (seed 0) plus self-loops, and 128 features."""
     rng = np.random.default_rng(SEED)
-    dst = (n_nodes * (rng.random(n_edges) ** 1.5)).astype(np.int64)
-    src = rng.integers(0, n_nodes, n_edges)
+    ei = arxiv_edges(rng, n_nodes, n_edges)
     x = rng.normal(size=(n_nodes, N_FEAT)).astype(np.float32)
-    return Graph(x=x, edge_index=np.stack([src, dst])).add_self_loop()
+    return Graph(x=x, edge_index=ei).add_self_loop()
 
 
 def random_params():
@@ -1256,15 +1308,15 @@ def dropout_rng(model, seed):
 
 def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
                 keeps_for=None, check_step0=True, labels=None,
-                plan_key="plan"):
+                plan_key="plan", fkw=None):
     """N_STEPS steps of ``twin``'s step through the kernels and through
     the plain COO path, with the same keep masks (``keeps_for(step)``, or
     drawn by the layers), input-dropout generator state and parameters:
     step-0 gradients (unless ``check_step0`` is False), losses, launches a
     step. ``labels``: (y, mask), else `train_labels`; the plan goes to the
-    model as ``plan_key``. Returns (launches, losses, step times in ms,
-    max step-0 gradient error, (the kernel path's state, its labels and
-    mask, both paths' step-0 gradients))."""
+    model as ``plan_key``, ``fkw`` to every forward. Returns (launches,
+    losses, step times in ms, max step-0 gradient error, (the kernel
+    path's state, its labels and mask, both paths' step-0 gradients))."""
     from gammagl_tpu_torch.train import TrainState
     y, mask = labels if labels is not None else train_labels(x)
     dev = y.device
@@ -1280,7 +1332,8 @@ def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
         for path in ("kernel", "plain"):
             state = states[path]
             kw = {plan_key: plan if path == "kernel" else None,
-                  **dropout_rng(state.model, SEED + 100 + step)}
+                  **dropout_rng(state.model, SEED + 100 + step),
+                  **(fkw or {})}
             if keeps is not None:
                 kw["keeps"] = keeps
             sync()
@@ -1925,12 +1978,13 @@ def phase_sage_train(k, common, GraphSAGEModel, load_jax_params, plan, x,
 
 
 def f32_step0_grads(k, label, make_model, common, per_step, plan, x, ei,
-                    labels, plan_key="plan", floor_share=0.0):
+                    labels, plan_key="plan", floor_share=0.0, fkw=None):
     """Step-0 gradients of both paths in float32 compute (the model's or
     the process default), one generator state, launches checked: each
     parameter within F32_GRAD_TOL of its own max |grad|, or of
     ``floor_share`` of the model's largest where its own is below that.
-    Returns (the max error, the plain path's gradients)."""
+    ``fkw`` goes to both forwards. Returns (the max error, the plain
+    path's gradients)."""
     y, mask = labels
     grads = {}
     for path in ("kernel", "plain"):
@@ -1939,7 +1993,8 @@ def f32_step0_grads(k, label, make_model, common, per_step, plan, x, ei,
         sync()
         reset_counts(k)
         common.loss_and_grad(model.train(), x, ei, y, mask, **kw,
-                             **{plan_key: plan if path == "kernel" else None})
+                             **{plan_key: plan if path == "kernel" else None},
+                             **(fkw or {}))
         sync()
         counts = read_counts(k)
         want = every_kernel(per_step if path == "kernel" else {})
@@ -2882,6 +2937,262 @@ def phase_papers_train(k, shard):
     return launches, losses, step_ms, grad_err, prof, E
 
 
+def flat_typed_graph(k, simplehgn_trainer, hg, dev):
+    """The typed graph of phases 15-16 flattened to one node set by the
+    simplehgn twin's `typed_graph` (papers first, then authors; edge type
+    t the t-th relation), its CSR plan, and the papers' venues and train
+    mask extended over the authors with the mask off. Returns (tensors on
+    the card, the plan)."""
+    t0 = time.perf_counter()
+    d = simplehgn_trainer.typed_graph(hg)
+    n = d["x"].shape[0]
+    plan = k.build_csr_plan(d["edge_index"][0], d["edge_index"][1], n)
+    if plan.row_split().cut_row.shape[0]:
+        fail("the flattened typed graph has rows cut into work items")
+    y, mask = np.zeros(n, np.int64), np.zeros(n, bool)
+    y[:HGT_PAPERS], mask[:HGT_PAPERS] = d["y"], d["train_mask"]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    print(f"  flattened typed graph: {n} nodes, {plan.num_edges} edges in "
+          f"{d['num_relations']} types, longest row "
+          f"{int(np.diff(plan.rowptr).max())} edges, built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return {"x": put(d["x"]), "ei": put(d["edge_index"]),
+            "fkw": {"edge_type": put(d["edge_type"])},
+            "labels": (put(y), put(mask)), "R": d["num_relations"],
+            "n": n}, plan
+
+
+def typed_kernel_timings(k, plan):
+    """Row 1 at SimpleHGN's shape (one head's f32 columns, F = 64, weighted
+    by that head's attention) and row 4 at RGCN's (f32 per-edge rows, C =
+    64) on the flattened typed graph, each held against its plain version
+    and timed beside cuSPARSE's SpMM or `segment_reduce`."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
+    rowptr, col, _ = plan.arrays(dev)
+    F, C = SHGN_HIDDEN, RGCN_HIDDEN
+    x = torch.randn(Ns, F, generator=gen, device=dev)
+    w = torch.rand(E, generator=gen, device=dev)
+    v = torch.randn(E, C, generator=gen, device=dev)
+    err = {"spmm_csr": check_close(
+        f"typed graph spmm_csr F={F} f32", k.spmm_csr(
+            x, w, plan, weights_padded=True), k.spmm_csr_reference(
+            x, w, plan, weights_padded=True), 1e-5),
+        "segment_sum_csr": check_close(
+            f"typed graph segment sum C={C} f32", k.segment_sum_csr(v, plan),
+            k.segment_sum_csr_reference(v, plan), 1e-5)}
+    A = torch.sparse_csr_tensor(rowptr, col.long(), w, size=(N, Ns))
+    rows = {"spmm_csr": {"F": F, "graph": "typed", "dtype": "float32",
+                         "max_abs_err": err["spmm_csr"], **timing(
+        f"spmm_csr F={F} f32, typed graph",
+        lambda: k.spmm_csr(x, w, plan, weights_padded=True),
+        lambda: k.spmm_csr_reference(x, w, plan, weights_padded=True),
+        # x, col, rowptr and w in, out
+        nbytes=Ns * F * 4 + E * 4 + (N + 1) * 8 + E * 4 + N * F * 4,
+        flops=2 * E * F, library=lambda: A @ x)},
+        "segment_sum_csr": {"C": C, "graph": "typed", "dtype": "float32",
+                            "max_abs_err": err["segment_sum_csr"], **timing(
+            f"segment sum C={C} f32, typed graph",
+            lambda: k.segment_sum_csr(v, plan),
+            lambda: k.segment_sum_csr_reference(v, plan),
+            nbytes=E * C * 4 + (N + 1) * 8 + N * C * 4, flops=E * C,
+            library=lambda: torch.segment_reduce(v, "sum", offsets=rowptr))}}
+    return err, rows
+
+
+def typed_path(k, common, label, name, make_model, tg, plan, serve_calls,
+               per_step, lr):
+    """Serve ``N_REQUESTS`` requests (the eval forward, ``common.predict``)
+    against the plain COO path, then a trace of 3 more; float32 step-0
+    gradients of both paths; ``N_STEPS`` steps (``common.train_step``)
+    against the plain path under one generator state, then a trace of 3
+    more. Both the typed-edge models compute in float32, as in the JAX
+    package. Returns a dict of the path's readings."""
+    x, ei, fkw = tg["x"], tg["ei"], tg["fkw"]
+    model = make_model().to(x.device)
+    requests = [x + r * 1e-3 for r in range(N_REQUESTS)]
+    counts, lat = serve_requests(
+        k, requests,
+        lambda xr: common.predict(model, xr, ei, plan=plan, **fkw),
+        lambda xr: common.predict(model, xr, ei, **fkw),
+        serve_calls, label, (tg["n"], HGT_CLASSES))
+    serve_prof = profile(f"{name}_serve", lambda: common.predict(
+        model, x, ei, plan=plan, **fkw))
+    torch.cuda.reset_peak_memory_stats()
+    grad_err, _ = f32_step0_grads(k, label, make_model, common, per_step,
+                                  plan, x, ei, tg["labels"], fkw=fkw)
+    launches, losses, step_ms, _, (state, y, mask, _) = train_phase(
+        k, label, make_model, common, per_step, lr, 0.0, plan, x, ei,
+        check_step0=False, labels=tg["labels"], fkw=fkw)
+    print(f"  {label} peak device memory of the steps (both paths): "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    gen = dropout_rng(state.model, SEED + 200)
+    train_prof = profile(f"{name}_train", lambda: common.train_step(
+        state, x, ei, y, mask, plan=plan, **gen, **fkw))
+    return {"serve": counts, "train": launches, "lat": lat,
+            "step_ms": step_ms, "losses": losses, "grad_err": grad_err,
+            "profile": {"serve": serve_prof, "train": train_prof}}
+
+
+def phase_rgcn(k, common, RGCNModel, tg, plan):
+    """RGCN (128 -> 64 -> 349, a full map a relation) on the flattened
+    typed graph: a request is 2 `segment_sum_csr` launches (one a layer)
+    and nothing else; a step adds their VJP, 2 expands (the messages'
+    gathers from the relation table are PyTorch indexing, their backward
+    an index_add)."""
+    phase_start("phase 26: serve and train RGCN on the flattened typed "
+                "graph")
+
+    def make():
+        torch.manual_seed(SEED + 26)
+        return RGCNModel(HGT_FEAT, RGCN_HIDDEN, HGT_CLASSES, tg["R"])
+
+    return typed_path(k, common, "RGCN", "rgcn", make, tg, plan,
+                      {"segment_sum_csr": 2},
+                      {"segment_sum_csr": 2, "expand_dst_csr": 2}, RGCN_LR)
+
+
+def han_graph(HeteroGraph):
+    """HAN's graph: the arxiv-shape node set with 128 random features,
+    each node's class adding twice its own random direction (so the loss
+    can fall in 5 steps, as in `hgt_graph`), 40 classes, 54% for training,
+    and two metapath relations (HAN_RELATIONS), each bench.py's generator
+    with its own seed."""
+    rng = np.random.default_rng(SEED + 27)
+    hg = HeteroGraph()
+    y = rng.integers(0, N_CLASS, N_NODES)
+    direction = rng.normal(size=(N_CLASS, N_FEAT))
+    hg["paper"].x = (rng.normal(size=(N_NODES, N_FEAT))
+                     + 2 * direction[y]).astype(np.float32)
+    hg["paper"].y = y
+    hg["paper"].train_mask = rng.random(N_NODES) < 0.54
+    hg["paper"].test_mask = ~hg["paper"].train_mask
+    for i, rel in enumerate(HAN_RELATIONS):
+        hg[("paper", rel, "paper")].edge_index = arxiv_edges(
+            np.random.default_rng(SEED + 28 + i), N_NODES, N_EDGES)
+    return hg
+
+
+def han_model(HANModel, hg):
+    """HANModel at its defaults, its own init from the seed, with the GATs'
+    maps scaled from truncated_normal(0.02) to glorot's std (0.1) and their
+    attention vectors to std 0.3, as `gat_params`, so that the softmax is
+    not uniform and the loss falls by MIN_FALL in 5 steps (at flax's init
+    it fell 3.5% on an H100, 13% at these scales)."""
+    torch.manual_seed(SEED + 29)
+    model = HANModel(hg.metadata(), HAN_HIDDEN, N_CLASS, "paper",
+                     heads=HAN_HEADS, drop_rate=HAN_DROP, in_channels=N_FEAT)
+    with torch.no_grad():
+        for gat in model.conv.gat.values():
+            gat.w.mul_(5.0)
+            gat.att.mul_(15.0)
+    return model
+
+
+def han_cross_type_check(k, common, HANConv, dev):
+    """HANConv on the small synthetic movie/director graph, every
+    relation's plan on the card (movie -> director: 200 source rows into
+    60 destinations, the JAX plan path's fault C14) against its plain COO
+    route, float32: one flash forward a relation."""
+    hg, _ = common.synthetic_hetero()
+    torch.manual_seed(SEED + 30)
+    conv = HANConv(32, 4, hg.metadata(), heads=2).to(dev).eval()
+    x = {nt: torch.from_numpy(v).to(dev) for nt, v in hg.x_dict.items()}
+    ei = {et: torch.from_numpy(v).to(dev)
+          for et, v in hg.edge_index_dict.items()}
+    sync()
+    reset_counts(k)
+    with torch.no_grad():
+        got = conv(x, ei, plan_dict=hg.csr_plans())
+    sync()
+    counts = read_counts(k)
+    if counts != every_kernel({"flash_forward": len(hg.edge_types)}):
+        fail(f"HAN cross-type check: launches {counts}")
+    with torch.no_grad():
+        want = conv(x, ei)
+    return max(check_close(f"HAN cross-type relations, {nt}", got[nt],
+                           want[nt], 1e-5) for nt in want)
+
+
+def phase_han(k, common, HANModel, HANConv, HeteroGraph, compute_dtype,
+              dev):
+    """HAN (8 heads x 8, attention dropout 0.6) on two metapath relations
+    over the arxiv-shape node set, bf16 compute (the process default): a
+    request is 2 flash forward launches (one a relation); a step 2 flash
+    forward, 2 flash backward and 2 SpMM (each GAT's feature gradient), as
+    phase 7's GAT step. Step-0 gradients are held in float32 compute.
+    First the cross-type check at a small size."""
+    phase_start("phase 27: serve and train HAN on two metapath relations")
+    cross_err = han_cross_type_check(k, common, HANConv, dev)
+    t0 = time.perf_counter()
+    hg = han_graph(HeteroGraph)
+    plans = hg.csr_plans()
+    x_dict, ei_dict, y, mask, _ = common.hetero_tensors(hg, "paper", dev)
+    print(f"  HAN graph: {hg.num_nodes} nodes, {hg.num_edges} edges in "
+          f"{len(plans)} relations, built in {time.perf_counter() - t0:.2f} s")
+    with compute_dtype(torch.bfloat16):
+        model = han_model(HANModel, hg).to(dev)
+        requests = [{"paper": x_dict["paper"] + r * 1e-3}
+                    for r in range(N_REQUESTS)]
+        counts, lat = serve_requests(
+            k, requests,
+            lambda xr: common.predict(model, xr, ei_dict, plan_dict=plans),
+            lambda xr: common.predict(model, xr, ei_dict),
+            {"flash_forward": 2}, "HAN", (N_NODES, N_CLASS))
+        serve_prof = profile("han_serve", lambda: common.predict(
+            model, x_dict, ei_dict, plan_dict=plans))
+    per_step = {"flash_forward": 2, "flash_backward": 2, "spmm_csr": 2}
+    with compute_dtype(None):
+        grad_err, _ = f32_step0_grads(
+            k, "HAN", lambda: han_model(HANModel, hg), common, per_step,
+            plans, x_dict, ei_dict, (y, mask), plan_key="plan_dict")
+    with compute_dtype(torch.bfloat16):
+        launches, losses, step_ms, _, (state, y, mask, _) = train_phase(
+            k, "HAN", lambda: han_model(HANModel, hg), common, per_step,
+            HAN_LR, 0.0, plans, x_dict, ei_dict, check_step0=False,
+            labels=(y, mask), plan_key="plan_dict")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+        train_prof = profile("han_train", lambda: common.train_step(
+            state, x_dict, ei_dict, y, mask, plan_dict=plans,
+            generator=gen))
+    return {"serve": counts, "train": launches, "lat": lat,
+            "step_ms": step_ms, "losses": losses, "grad_err": grad_err,
+            "cross_type_err": cross_err,
+            "profile": {"serve": serve_prof, "train": train_prof}}
+
+
+def phase_simplehgn(k, common, SimpleHGNModel, tg, plan):
+    """SimpleHGN (8 heads x 64, 2 layers) on the flattened typed graph. A
+    request, per layer: 1 expand (the destination scores), the CSR-order
+    softmax (1 segment max, 2 expands, 1 segment sum), 8 `spmm_csr` (one
+    a head). A step adds, per layer, 8 `spmm_csr` (dx on the transpose
+    plan) and 8 SDDMM (dalpha), 1 `spmm_csr` (the source scores' gather,
+    on the edge-scatter plan), 1 segment sum (the destination scores'
+    expand) and the softmax's 1 segment sum and 1 expand (its max carries
+    no gradient)."""
+    phase_start("phase 28: serve and train SimpleHGN on the flattened "
+                "typed graph")
+
+    def make():
+        torch.manual_seed(SEED + 31)
+        return SimpleHGNModel(tg["R"], SHGN_HIDDEN, HGT_CLASSES,
+                              heads=SHGN_HEADS, drop_rate=SHGN_DROP,
+                              in_channels=HGT_FEAT)
+
+    H = SHGN_HEADS
+    serve_calls = {"expand_dst_csr": 2 * 3, "segment_sum_csr": 2,
+                   "spmm_max_csr": 2, "spmm_csr": 2 * H}
+    per_step = {"expand_dst_csr": 2 * 4, "segment_sum_csr": 2 * 3,
+                "spmm_max_csr": 2, "spmm_csr": 2 * (2 * H + 1),
+                "sddmm_csr": 2 * H}
+    return typed_path(k, common, "SimpleHGN", "simplehgn", make, tg, plan,
+                      serve_calls, per_step, SHGN_LR)
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -2894,8 +3205,11 @@ def main():
     from gammagl_tpu_torch.data import Graph, HeteroGraph
     from gammagl_tpu_torch.examples import common
     from gammagl_tpu_torch.examples import fusedgat_trainer as twin
+    from gammagl_tpu_torch.examples import simplehgn_trainer
+    from gammagl_tpu_torch.layers.conv import HANConv
     from gammagl_tpu_torch.models import (GATModel, GATV2Model, GCNModel,
-                                          GraphSAGEModel, HGTModel)
+                                          GraphSAGEModel, HANModel, HGTModel,
+                                          RGCNModel, SimpleHGNModel)
     from gammagl_tpu_torch.ops import cuda as k
     from gammagl_tpu_torch.ops.cuda._build import load_library
     from gammagl_tpu_torch.serve import InferenceSession
@@ -3022,6 +3336,14 @@ def main():
      fold_ms) = phase_papers_tier(k, shard)
     (papers_counts, papers_losses, papers_step_ms, papers_grad_err,
      papers_prof, papers_edges) = phase_papers_train(k, shard)
+    torch.cuda.empty_cache()
+
+    tg, typed_plan = flat_typed_graph(k, simplehgn_trainer, hg, dev)
+    typed_err, typed_ms = typed_kernel_timings(k, typed_plan)
+    rgcn = phase_rgcn(k, common, RGCNModel, tg, typed_plan)
+    han = phase_han(k, common, HANModel, HANConv, HeteroGraph, compute_dtype,
+                    dev)
+    shgn = phase_simplehgn(k, common, SimpleHGNModel, tg, typed_plan)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3039,14 +3361,21 @@ def main():
             "gcn_clustered_serve": cserve_counts,
             "block_pair_entry": bp_entry_counts,
             "papers_tier": tier_counts, "papers_train": papers_counts}
+    for name, path in (("rgcn", rgcn), ("han", han), ("simplehgn", shgn)):
+        runs[f"{name}_serve"], runs[f"{name}_train"] = (path["serve"],
+                                                        path["train"])
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
+    for name, err in typed_err.items():
+        errs[name] = max(errs[name], err)
     errs["hgt_backward"] = max(errs["hgt_backward"], hgt_entry_err)
     for name in bp_err:
         errs[name] = max(bp_err[name], bp_entry_err[name])
     # each kernel's headline shape: the widest its main path runs
     shapes = {"spmm_csr": [spmm_ms[HIDDEN], spmm_ms[N_CLASS]], **flash_ms,
               **edge_ms, **max_ms, **hgt_ms, **bp_ms, "spmm_csr_acc": acc_ms}
+    for name, row in typed_ms.items():
+        shapes[name] = shapes[name] + [row]
     entries = []
     for name, (source, replaces, also) in KERNELS.items():
         head = shapes[name][0]
@@ -3143,7 +3472,20 @@ def main():
         "papers_edges_per_s": papers_edges / float(np.median(
             papers_step_ms["kernel"][1:])) * 1e3,
         "papers_step0_f32_grad_max_abs_err": papers_grad_err,
-        "papers_profile": papers_prof}))
+        "papers_profile": papers_prof,
+        **{f"{name}_{key}": value for name, path in (
+            ("rgcn", rgcn), ("han", han), ("simplehgn", shgn))
+           for key, value in (
+               ("request_p50_ms", float(np.median(path["lat"]))),
+               ("request_max_ms", float(path["lat"].max())),
+               ("train_step_ms", float(np.median(
+                   path["step_ms"]["kernel"][1:]))),
+               ("train_step_plain_ms", float(np.median(
+                   path["step_ms"]["plain"][1:]))),
+               ("train_losses", path["losses"]["kernel"]),
+               ("step0_f32_grad_max_abs_err", path["grad_err"]),
+               ("profile", path["profile"]))},
+        "han_cross_type_max_abs_err": han["cross_type_err"]}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

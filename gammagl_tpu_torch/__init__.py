@@ -8,20 +8,29 @@ at first use, never at import. This package imports neither JAX nor
 `gammagl_tpu`.
 
 Layer map:
-  ops/        -- segment reductions, edge softmax, COO SpMM and SDDMM; the
-                 kernels: CSR SpMM and per-edge segment sum, block-pair
-                 SpMM, segment max and min, fused edge attention, HGT
-                 attention, destination expand and SDDMM, with backwards
+  ops/        -- segment reductions (and their unsorted aliases), edge
+                 softmax, COO SpMM and SDDMM, sparse-format conversions;
+                 the kernels: CSR SpMM and per-edge segment sum,
+                 block-pair SpMM, segment max and min, fused edge
+                 attention, HGT attention, destination expand and SDDMM,
+                 with backwards, and the CSR-order softmax and multi-head
+                 SpMM built on them
+  sparse/     -- SparseGraph, CSRAdj: host adjacency with cached formats
   data/       -- Graph (cached CSR and block-pair plans, node reorderings,
                  auto_plan), HeteroGraph
-  parallel/   -- the node orderings (RCM, label propagation)
+  parallel/   -- node orderings (RCM, label propagation, degree balance),
+                 halo partitions and their SpMM tiers over
+                 torch.distributed (flat and planned), full-graph GCN
+                 training on them
   layers/     -- MessagePassing, GCNConv, GATConv, GATV2Conv, SAGEConv,
-                 HeteroConv, HGTConv
+                 RGCNConv, HeteroConv, HANConv, HGTConv, SimpleHGNConv
   models/     -- GCNModel, GATModel, GATV2Model, GraphSAGEModel,
-                 GraphSAGESampleModel, HGTModel
-  train/      -- loss, accuracy, the Adam train state and checkpoints
-  utils/      -- self-loops, compute dtype, flax parameter loading, the
-                 default device (the CUDA card)
+                 GraphSAGESampleModel, RGCNModel, HANModel, HGTModel,
+                 SimpleHGNModel
+  train/      -- loss, accuracy, micro and macro F1, the Adam train state
+                 and checkpoints
+  utils/      -- self-loops, GCN norm, compute dtype, flax parameter
+                 loading, the default device (the CUDA card)
   serve       -- InferenceSession
   examples/   -- trainer twins (python -m gammagl_tpu_torch.examples.<name>)
 """
@@ -35,3 +44,4 @@ from gammagl_tpu_torch import layers  # noqa: F401
 from gammagl_tpu_torch import models  # noqa: F401
 from gammagl_tpu_torch import train  # noqa: F401
 from gammagl_tpu_torch import serve  # noqa: F401
+from gammagl_tpu_torch import sparse  # noqa: F401

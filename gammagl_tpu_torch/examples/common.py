@@ -7,13 +7,15 @@ The loops read no dataset files: the graph is `synthetic_community_graph`
 (the JAX package's stochastic-block-model graph, drawn from the same numpy
 stream) or numpy arrays handed in, and for typed graphs `synthetic_hetero`
 (the JAX package's movie/director graph, the same stream) or a
-`HeteroGraph` handed in. The homogeneous loop hands the model a `CSRPlan`
-when its forward takes one, on the card and on the CPU alike: on the card
-the plan path runs the hand-written kernels, on the CPU their plain
-versions. The typed loop hands the model `HeteroGraph.csr_plans()` on the
-card, where the JAX loop hands its plans to a TPU; on the CPU both take
-the COO route. (The JAX loops plan only on a TPU, where their kernels are
-not interpreted.)
+`HeteroGraph` handed in; `run_edge_type_trainer` trains a model of one
+node set whose edges carry a type (RGCN, SimpleHGN) on arrays handed in.
+The homogeneous loop hands the model a `CSRPlan` when its forward takes
+one, on the card and on the CPU alike: on the card the plan path runs the
+hand-written kernels, on the CPU their plain versions. The typed loops
+hand the model plans (`HeteroGraph.csr_plans()`, or the edges' `CSRPlan`)
+on the card, where the JAX loops hand theirs to a TPU; on the CPU they
+take the COO route. (The JAX loops plan only on a TPU, where their
+kernels are not interpreted.)
 """
 
 import argparse
@@ -32,7 +34,8 @@ from gammagl_tpu_torch.utils import (add_self_loops, load_jax_params,
 
 __all__ = ["synthetic_community_graph", "base_parser", "loss_and_grad",
            "train_step", "run_simple_node_trainer", "synthetic_hetero",
-           "hetero_tensors", "predict", "run_hetero_trainer"]
+           "hetero_tensors", "predict", "run_hetero_trainer",
+           "run_edge_type_trainer"]
 
 
 def synthetic_community_graph(num_nodes=1000, num_classes=7, feat_dim=128,
@@ -289,6 +292,56 @@ def run_hetero_trainer(make_model, args, data=None, params=None,
         if epoch % log_every == 0 or epoch == args.n_epoch - 1:
             print(f"epoch {epoch:3d} loss {losses[-1]:.4f} "
                   f"test {test_acc():.4f}")
+    acc = test_acc()
+    print(f"final test acc {acc:.4f} ({dev})")
+    return {"losses": losses, "test_acc": acc, "state": state}
+
+
+def run_edge_type_trainer(model, args, x, edge_index, edge_type, y,
+                          train_mask, test_mask, params=None,
+                          log_every=10):
+    """Node classification on one node set whose edges carry a type, the
+    loop of the JAX rgcn and simplehgn trainers: ``args.n_epoch`` steps of
+    Adam (``args.lr``, no decay) on the masked cross-entropy of the first
+    ``len(y)`` rows of the logits, their test accuracy every ``log_every``
+    epochs (before that epoch's step, as the JAX loops read the step's own
+    logits) and at the end, on ``args.device``.
+
+    The arrays are numpy; on the card the model gets a `CSRPlan` of the
+    edges (``plan=``), so its sums run the kernels; on the CPU it takes the
+    COO route. ``params``: a flax-shaped tree for `load_jax_params` (None:
+    the model's own init). Returns {"losses", "test_acc", "state"}.
+    """
+    dev = resolve_device(args.device)
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    x, ei, et, y = put(x, np.float32), put(edge_index), put(edge_type), put(y)
+    train_mask, test_mask = put(train_mask), put(test_mask)
+    fkw = {"edge_type": et}
+    if dev.type == "cuda":
+        fkw["plan"] = build_csr_plan(edge_index[0], edge_index[1],
+                                     x.shape[0])
+    if params is not None:
+        load_jax_params(model, params)
+    state = TrainState(model.to(dev), args.lr)
+    n = y.shape[0]
+
+    def test_acc():
+        return float(accuracy(predict(model, x, ei, **fkw)[:n], y,
+                              test_mask))
+
+    losses = []
+    for epoch in range(args.n_epoch):
+        acc = test_acc() if epoch % log_every == 0 else None
+        state.model.train()
+        loss = semi_supervised_loss(model(x, ei, **fkw)[:n], y, train_mask)
+        loss.backward()
+        state.apply_gradients()
+        losses.append(float(loss.detach()))
+        if acc is not None:
+            print(f"epoch {epoch:3d} loss {losses[-1]:.4f} test {acc:.4f}")
     acc = test_acc()
     print(f"final test acc {acc:.4f} ({dev})")
     return {"losses": losses, "test_acc": acc, "state": state}

@@ -4,11 +4,14 @@ from gammagl_tpu_torch.layers.conv import (  # noqa: F401
     GATConv,
     GATV2Conv,
     GCNConv,
+    HANConv,
     HeteroConv,
     HGTConv,
     MessagePassing,
+    RGCNConv,
     SAGEConv,
+    SimpleHGNConv,
 )
 
 __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
-           "HeteroConv", "HGTConv"]
+           "RGCNConv", "HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv"]

@@ -9,10 +9,13 @@ from gammagl_tpu_torch.layers.conv.gat_conv import (  # noqa: F401
     GATV2Conv,
 )
 from gammagl_tpu_torch.layers.conv.sage_conv import SAGEConv  # noqa: F401
+from gammagl_tpu_torch.layers.conv.rgcn_conv import RGCNConv  # noqa: F401
 from gammagl_tpu_torch.layers.conv.hetero_conv import (  # noqa: F401
+    HANConv,
     HeteroConv,
     HGTConv,
+    SimpleHGNConv,
 )
 
 __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
-           "HeteroConv", "HGTConv"]
+           "RGCNConv", "HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv"]

@@ -8,7 +8,11 @@ multi-head weighted sum. Two paths compute the same function:
   splits per endpoint, so the per-node scores and features go to
   `flash_gat_attention`, one fused kernel per call on the card (the
   kernel gathers the source rows and reads ``keep`` through the plan's
-  ``perm`` itself);
+  ``perm`` itself). Both endpoint scores come from x, the source rows: on
+  a relation between two node types (``num_nodes`` != N), destination d
+  takes the score of x's row min(d, N - 1) on both paths, as in the JAX
+  layer's COO path (the JAX plan path raises where N exceeds its padded
+  destination rows: ROADMAP C14);
 * without one: the COO path, `segment_softmax` and `bspmm` in plain
   PyTorch, which is also the plain version the card compares against.
 
@@ -122,6 +126,12 @@ class GATConv(MessagePassing):
         if plan is not None:
             s_src = torch.einsum("nhf,hf->nh", h, att[0, :, :Fo])
             a_dst = torch.einsum("nhf,hf->nh", h, att[0, :, Fo:])
+            if a_dst.shape[0] != plan.num_nodes:
+                # a relation between two node types (HANConv): the COO
+                # route scores destination d by x's row min(d, N - 1), the
+                # JAX layer's clipped gather, so this route does too
+                rows = torch.arange(plan.num_nodes, device=a_dst.device)
+                a_dst = a_dst[rows.clamp(max=a_dst.shape[0] - 1)]
             out = flash_gat_attention(s_src, a_dst, h, plan,
                                       self.negative_slope, keep)
         else:

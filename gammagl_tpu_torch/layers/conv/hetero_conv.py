@@ -1,5 +1,20 @@
-"""HeteroConv and HGTConv (Hu et al. 2020), counterparts of
+"""HeteroConv, HANConv (Wang et al. 2019), HGTConv (Hu et al. 2020) and
+SimpleHGNConv (Lv et al. 2021), counterparts of
 `gammagl_tpu/layers/conv/hetero_conv.py`.
+
+`HANConv` runs one `GATConv` a relation (each on its relation's plan from
+``plan_dict``, so on the card through the flash kernels) and blends the
+outputs that land on a node type by one shared semantic attention,
+`SemAttAggr`.
+
+`SimpleHGNConv` scores each edge by GAT's two endpoint terms plus a
+learned edge-type term, and returns its attention weights for the next
+layer's residual blend. With a `CSRPlan` the weights are held in the
+plan's CSR order: the endpoint scores gathered per edge (the source side
+by `gather_rows`, the destination side by the expand kernel), the softmax
+by `segment_softmax_padded` and the multi-head sum by `bspmm_csr` (one CSR
+SpMM a head, its dalpha the SDDMM); without one, in the caller's edge
+order by `segment_softmax` and `bspmm`.
 
 `HGTConv` computes, per relation (src_type, rel, dst_type) and head h,
 
@@ -37,14 +52,20 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
-from gammagl_tpu_torch.layers.dense import dense, glorot_uniform_
-from gammagl_tpu_torch.ops import (expand_dst_csr, flash_softmax_spmm_mh,
-                                   gather_rows, hgt_flash_packed,
-                                   segment_softmax, segment_sum)
-from gammagl_tpu_torch.ops.cuda import attention_keep_mask
+from gammagl_tpu_torch.layers.conv.gat_conv import GATConv
+from gammagl_tpu_torch.layers.conv.message_passing import MessagePassing
+from gammagl_tpu_torch.layers.dense import (dense, glorot_uniform_,
+                                            lecun_linear_, lecun_normal_)
+from gammagl_tpu_torch.ops import (bspmm, expand_dst_csr,
+                                   flash_softmax_spmm_mh, gather_rows,
+                                   hgt_flash_packed, segment_softmax,
+                                   segment_sum)
+from gammagl_tpu_torch.ops.cuda import (attention_keep_mask, bspmm_csr,
+                                        plan_gather_dst, plan_gather_src,
+                                        segment_softmax_padded)
 from gammagl_tpu_torch.utils.compute_dtype import resolve_dtype
 
-__all__ = ["HeteroConv", "HGTConv"]
+__all__ = ["HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv"]
 
 
 def _group(values, aggr):
@@ -65,6 +86,44 @@ def _group(values, aggr):
 
 def _name(et):
     return "__".join(et)
+
+
+def _fan_in(in_channels, node_type):
+    """A layer's in-features for one node type: ``in_channels`` is an int,
+    a dict by node type, or None (lazy)."""
+    if isinstance(in_channels, dict):
+        return in_channels.get(node_type)
+    return in_channels
+
+
+def _type_rows(table, edge_type):
+    """``table[edge_type]`` for a table of a few rows (one an edge type),
+    as one masked select a type: its gradient is then one reduction over
+    the edges a type. (PyTorch's indexing backward serializes on so few
+    distinct rows: on an H100 it took 1.10 s of a 1.20 s SimpleHGN step at
+    5M edges and 3 types; with the selects the step takes 0.10 s.)"""
+    out = table[0].expand(edge_type.shape[0], -1)
+    for t in range(1, table.shape[0]):
+        out = torch.where((edge_type == t)[:, None], table[t], out)
+    return out
+
+
+def _csr_order_keep(layer, generator, edge_index, plan, device):
+    """An attention keep mask (E, H) float32 for ``layer`` (its
+    ``dropout_rate`` and ``heads``), or None outside training. It is drawn
+    in the plan's CSR order (edges stably sorted by destination) and
+    returned in the order the route reads: CSR with a plan, the caller's
+    edge order without, so one generator state gives both routes the same
+    mask."""
+    if not layer.training or layer.dropout_rate == 0:
+        return None
+    csr = attention_keep_mask(generator, layer.dropout_rate,
+                              (edge_index.shape[1], layer.heads),
+                              device=device)
+    if plan is not None:
+        return csr
+    perm = torch.argsort(edge_index[1], stable=True)
+    return torch.empty_like(csr).index_copy_(0, perm, csr)
 
 
 class HeteroConv(nn.Module):
@@ -101,6 +160,81 @@ class HeteroConv(nn.Module):
         return {k: _group(v, self.aggr) for k, v in out_lists.items()}
 
 
+class SemAttAggr(nn.Module):
+    """Semantic attention over the outputs of several relations (HAN's
+    metapaths): z (M, N, F) -> (N, F), their sum weighted by a softmax over
+    M of each relation's mean score tanh(z W + b) q. Flax names
+    ``Dense_0`` (F -> ``hidden_size``, with bias) and ``Dense_1``
+    (``hidden_size`` -> 1, no bias), lecun-normal kernels and zero bias."""
+
+    def __init__(self, in_channels, hidden_size):
+        super().__init__()
+        self.lin = lecun_linear_(nn.Linear(in_channels, hidden_size))
+        self.att = lecun_linear_(nn.Linear(hidden_size, 1, bias=False))
+
+    def flax_tree(self):
+        return {"Dense_0": self.lin, "Dense_1": self.att}
+
+    def forward(self, z):
+        w = torch.tanh(dense(self.lin, z, None, lecun_normal_))
+        w = dense(self.att, w, None, lecun_normal_)  # (M, N, 1)
+        beta = torch.softmax(w.mean(1), dim=0)  # (M, 1)
+        return (beta[:, None, :] * z).sum(0)
+
+
+class HANConv(nn.Module):
+    """Heterogeneous graph attention over ``metadata`` = (node types, edge
+    types): one `GATConv` a relation (``heads`` heads of ``out_channels``,
+    concatenated; flax names ``gat__{src}__{rel}__{dst}``), a ReLU, and
+    for each node type the outputs of its relations blended by ONE
+    `SemAttAggr` shared by every type (``SemAttAggr_0``, hidden size
+    ``out_channels``), as in the JAX layer.
+
+    ``in_channels``: an int, a dict by node type (the source type's width
+    goes to its relations' GATs), or None for lazy maps. The GATs compute
+    in the process default dtype (`utils.compute_dtype`), as the JAX layer
+    leaves them. ``plan_dict`` {edge type: CSRPlan} sends each relation to
+    the flash kernels; ``generator`` draws each GAT's attention mask in
+    training mode, one relation after another in ``metadata`` order.
+    """
+
+    def __init__(self, in_channels, out_channels, metadata, heads=1,
+                 negative_slope=0.2, dropout_rate=0.0):
+        super().__init__()
+        self.edge_types = [tuple(et) for et in metadata[1]]
+        self.gat = nn.ModuleDict({
+            _name(et): GATConv(_fan_in(in_channels, et[0]), out_channels,
+                               heads=heads, concat=True,
+                               negative_slope=negative_slope,
+                               dropout_rate=dropout_rate)
+            for et in self.edge_types})
+        self.sem = SemAttAggr(heads * out_channels, out_channels)
+
+    def flax_tree(self):
+        tree = {f"gat__{_name(et)}": self.gat[_name(et)]
+                for et in self.edge_types}
+        tree["SemAttAggr_0"] = self.sem
+        return tree
+
+    def forward(self, x_dict, edge_index_dict, num_nodes_dict=None,
+                plan_dict=None, generator=None):
+        """x_dict {type: (N_t, in)} -> {receiving type: (N_t, H*out)}."""
+        out_lists = {nt: [] for nt in x_dict}
+        for et in self.edge_types:
+            if et not in edge_index_dict:
+                continue
+            src_t, _, dst_t = et
+            n_dst = (num_nodes_dict[dst_t] if num_nodes_dict
+                     else x_dict[dst_t].shape[0])
+            out = self.gat[_name(et)](
+                x_dict[src_t], edge_index_dict[et], num_nodes=n_dst,
+                plan=plan_dict.get(et) if plan_dict else None,
+                generator=generator)
+            out_lists[dst_t].append(F.relu(out))
+        return {nt: self.sem(torch.stack(outs, 0))
+                for nt, outs in out_lists.items() if outs}
+
+
 class HGTConv(nn.Module):
     """Heterogeneous Graph Transformer layer over ``metadata`` =
     (node types, edge types).
@@ -129,8 +263,7 @@ class HGTConv(nn.Module):
         HD = H * D
 
         def proj(nt):
-            fan_in = (in_channels.get(nt) if isinstance(in_channels, dict)
-                      else in_channels)
+            fan_in = _fan_in(in_channels, nt)
             return (nn.LazyLinear(HD) if fan_in is None
                     else nn.Linear(fan_in, HD))
 
@@ -179,20 +312,6 @@ class HGTConv(nn.Module):
             tree[f"out__{nt}"] = self.out_lin[nt]
             tree[f"skip__{nt}"] = self.skip[nt]
         return tree
-
-    def _keep(self, generator, edge_index, plan, device):
-        """The relation's keep mask (E, H) float32, drawn in CSR order and
-        returned in the order the route reads (CSR with a plan, the caller's
-        edge order without), or None outside training."""
-        if not self.training or self.dropout_rate == 0:
-            return None
-        csr = attention_keep_mask(generator, self.dropout_rate,
-                                  (edge_index.shape[1], self.heads),
-                                  device=device)
-        if plan is not None:
-            return csr
-        perm = torch.argsort(edge_index[1], stable=True)
-        return torch.empty_like(csr).index_copy_(0, perm, csr)
 
     def _fused(self, plan, k):
         H, D = self.heads, self.out_channels // self.heads
@@ -244,7 +363,8 @@ class HGTConv(nn.Module):
                 q_e = expand_dst_csr(q.reshape(-1, HD), plan).view(-1, H, D)
                 k_e = g[:, :HD].reshape(-1, H, D)
                 score = (q_e * k_e).sum(-1) * pri / math.sqrt(D)
-                keep = self._keep(generator, ei, plan, score.device)
+                keep = _csr_order_keep(self, generator, ei, plan,
+                                       score.device)
                 out = flash_softmax_spmm_mh(score, g[:, HD:].reshape(-1, H, D),
                                             plan, keep)
             else:
@@ -254,7 +374,8 @@ class HGTConv(nn.Module):
                 q_e = q[dst.clamp(0, q.shape[0] - 1)]
                 score = (q_e * k_e).sum(-1) * pri / math.sqrt(D)
                 alpha = segment_softmax(score, dst, n_dst)
-                keep = self._keep(generator, ei, None, score.device)
+                keep = _csr_order_keep(self, generator, ei, None,
+                                       score.device)
                 if keep is not None:
                     alpha = alpha * keep
                 out = segment_sum(v_e * alpha[..., None], dst, n_dst)
@@ -275,3 +396,97 @@ class HGTConv(nn.Module):
                 agg = beta * agg + (1 - beta) * x
             out_dict[nt] = agg
         return out_dict
+
+
+class SimpleHGNConv(MessagePassing):
+    """Simple-HGN attention layer over a graph whose edges carry a type.
+
+    h = x W (``Dense_0``, in -> H*F, no bias), then per edge and head the
+    score leaky_relu(<h_src, att_l> + <h_dst, att_r> + <edge_emb[type],
+    att_e>), its softmax over each destination's edges, blended with the
+    previous layer's weights (``alpha_prev``) as (1 - beta) alpha + beta
+    alpha_prev, attention dropout in training mode, the weighted sum of
+    h_src, and the residual x W_res (``Dense_1``, when ``residual``).
+    Parameters float32, glorot-uniform, named as in flax: ``Dense_0``,
+    ``edge_emb`` (num_etypes, H*edge_dim), ``att_l`` and ``att_r`` (1, H,
+    F), ``att_e`` (1, H, edge_dim), ``Dense_1``. ``in_channels=None``
+    makes both maps lazy. Like the JAX layer it has no compute dtype.
+
+    Returns (out (num_nodes, H*F), alpha (E, H)): alpha in the plan's CSR
+    order with a plan, the caller's edge order without, the order
+    ``alpha_prev`` must come in. A mask drawn from ``generator`` is drawn
+    in CSR order on both routes (see `_csr_order_keep`).
+    """
+
+    def __init__(self, in_channels, out_channels, num_etypes, heads=1,
+                 edge_dim=32, negative_slope=0.2, dropout_rate=0.0,
+                 residual=True, beta=0.05):
+        super().__init__()
+        self.out_channels, self.heads = out_channels, heads
+        self.edge_dim, self.negative_slope = edge_dim, negative_slope
+        self.dropout_rate, self.beta = dropout_rate, beta
+        width = heads * out_channels
+
+        def linear():
+            return (nn.LazyLinear(width, bias=False) if in_channels is None
+                    else nn.Linear(in_channels, width, bias=False))
+
+        self.lin = linear()
+        self.edge_emb = nn.Parameter(torch.empty(num_etypes,
+                                                 heads * edge_dim))
+        self.att_l = nn.Parameter(torch.empty(1, heads, out_channels))
+        self.att_r = nn.Parameter(torch.empty(1, heads, out_channels))
+        self.att_e = nn.Parameter(torch.empty(1, heads, edge_dim))
+        self.res = linear() if residual else None
+        for p in (self.edge_emb, self.att_l, self.att_r, self.att_e):
+            glorot_uniform_(p)
+        for lin in (self.lin, self.res):
+            if lin is not None and not isinstance(lin.weight,
+                                                  UninitializedParameter):
+                glorot_uniform_(lin.weight)
+
+    def flax_tree(self):
+        tree = {"Dense_0": self.lin, "edge_emb": self.edge_emb,
+                "att_l": self.att_l, "att_r": self.att_r,
+                "att_e": self.att_e}
+        if self.res is not None:
+            tree["Dense_1"] = self.res
+        return tree
+
+    def forward(self, x, edge_index, edge_type, num_nodes=None,
+                alpha_prev=None, plan=None, generator=None):
+        H, Fo = self.heads, self.out_channels
+        if num_nodes is None:
+            num_nodes = x.shape[0]
+        h = dense(self.lin, x, None, glorot_uniform_).view(-1, H, Fo)
+        # each score term per node (or per edge type), then gathered per
+        # edge: the JAX layer's per-edge dots of gathered rows, the same
+        # products and sums
+        s_l = (h * self.att_l).sum(-1)
+        s_r = (h * self.att_r).sum(-1)
+        s_e = (self.edge_emb.view(-1, H, self.edge_dim)
+               * self.att_e).sum(-1)
+        if plan is not None:
+            etype = edge_type[plan.arrays(x.device)[2]]
+            score = (plan_gather_src(s_l, plan) + plan_gather_dst(s_r, plan)
+                     + _type_rows(s_e, etype))
+            alpha = segment_softmax_padded(
+                F.leaky_relu(score, self.negative_slope), plan)
+        else:
+            n = h.shape[0]
+            src, dst = edge_index[0].long(), edge_index[1].long()
+            score = (s_l[src.clamp(max=n - 1)] + s_r[dst.clamp(max=n - 1)]
+                     + _type_rows(s_e, edge_type))
+            alpha = segment_softmax(F.leaky_relu(score, self.negative_slope),
+                                    dst, num_nodes)
+        if alpha_prev is not None:
+            alpha = (1 - self.beta) * alpha + self.beta * alpha_prev
+        keep = _csr_order_keep(self, generator, edge_index, plan, x.device)
+        if keep is not None:
+            alpha = alpha * keep
+        out = (bspmm_csr(h, alpha, plan) if plan is not None
+               else bspmm(edge_index, alpha, h, num_nodes=num_nodes))
+        out = out.reshape(-1, H * Fo)
+        if self.res is not None:
+            out = out + dense(self.res, x, None, glorot_uniform_)
+        return out, alpha

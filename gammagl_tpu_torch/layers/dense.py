@@ -13,7 +13,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
-__all__ = ["dense", "glorot_uniform_", "fan_in_normal_"]
+__all__ = ["dense", "glorot_uniform_", "fan_in_normal_", "lecun_normal_",
+           "lecun_linear_"]
 
 
 def glorot_uniform_(t):
@@ -36,6 +37,22 @@ def fan_in_normal_(weight, scale):
     std = math.sqrt(scale / weight.shape[1]) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0).mul_(std)
+
+
+def lecun_normal_(weight):
+    """flax's default ``Dense`` kernel init."""
+    return fan_in_normal_(weight, 1.0)
+
+
+def lecun_linear_(lin):
+    """flax's default ``Dense`` init on an ``nn.Linear``: a lecun-normal
+    kernel and a zero bias. A lazy layer is left to `dense`, which draws
+    at first use. Returns ``lin``."""
+    if not isinstance(lin.weight, UninitializedParameter):
+        lecun_normal_(lin.weight)
+        if lin.bias is not None:
+            nn.init.zeros_(lin.bias)
+    return lin
 
 
 def dense(lin, x, dtype, init):

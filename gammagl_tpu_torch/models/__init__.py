@@ -6,7 +6,13 @@ from gammagl_tpu_torch.models.graphsage import (  # noqa: F401
     GraphSAGEModel,
     GraphSAGESampleModel,
 )
-from gammagl_tpu_torch.models.hetero import HGTModel  # noqa: F401
+from gammagl_tpu_torch.models.hetero import (  # noqa: F401
+    HANModel,
+    HGTModel,
+    RGCNModel,
+    SimpleHGNModel,
+)
 
 __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
-           "GraphSAGESampleModel", "HGTModel"]
+           "GraphSAGESampleModel", "RGCNModel", "HANModel", "HGTModel",
+           "SimpleHGNModel"]

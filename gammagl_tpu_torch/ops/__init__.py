@@ -10,6 +10,17 @@ from gammagl_tpu_torch.ops.segment import (  # noqa: F401
     segment_mean,
     segment_min,
     segment_sum,
+    unsorted_segment_max,
+    unsorted_segment_mean,
+    unsorted_segment_min,
+    unsorted_segment_sum,
+)
+from gammagl_tpu_torch.ops.sparse import (  # noqa: F401
+    ind2ptr,
+    ind2ptr_np,
+    ptr2ind,
+    ptr2ind_np,
+    unique_np,
 )
 from gammagl_tpu_torch.ops.softmax import segment_softmax  # noqa: F401
 from gammagl_tpu_torch.ops.spmm import bspmm, gspmm, spmm  # noqa: F401
@@ -47,7 +58,10 @@ from gammagl_tpu_torch.ops.cuda import (  # noqa: F401
 )
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
-           "segment_min", "segment_softmax", "spmm", "bspmm", "gspmm",
+           "segment_min", "unsorted_segment_sum", "unsorted_segment_mean",
+           "unsorted_segment_max", "unsorted_segment_min", "ind2ptr",
+           "ptr2ind", "ind2ptr_np", "ptr2ind_np", "unique_np",
+           "segment_softmax", "spmm", "bspmm", "gspmm",
            "sddmm", "sddmm_dot",
            "CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "pad_edge_weights", "spmm_csr", "spmm_csr_reference",

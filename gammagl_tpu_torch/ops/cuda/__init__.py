@@ -30,9 +30,11 @@ from gammagl_tpu_torch.ops.cuda.sddmm_csr import (  # noqa: F401
     sddmm_csr_reference,
 )
 from gammagl_tpu_torch.ops.cuda.attention import (  # noqa: F401
+    bspmm_csr,
     plan_gather_dst,
     plan_gather_src,
     plan_gather_src_compact,
+    segment_softmax_padded,
 )
 from gammagl_tpu_torch.ops.cuda.segment_max import (  # noqa: F401
     segment_max_bwd,
@@ -92,7 +94,8 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
            "segment_sum_csr_reference", "gather_rows", "expand_dst_csr",
            "expand_dst_csr_reference", "sddmm_csr", "sddmm_csr_mh",
            "sddmm_csr_reference", "plan_gather_src",
-           "plan_gather_src_compact", "plan_gather_dst", "spmm_max_csr",
+           "plan_gather_src_compact", "plan_gather_dst",
+           "segment_softmax_padded", "bspmm_csr", "spmm_max_csr",
            "spmm_min_csr", "segment_max_csr", "segment_min_csr",
            "spmm_max_csr_reference", "spmm_min_csr_reference",
            "segment_max_csr_reference", "segment_min_csr_reference",

@@ -16,7 +16,8 @@ from math import inf
 import torch
 
 __all__ = ["segment_sum", "segment_count", "segment_mean", "segment_max",
-           "segment_min"]
+           "segment_min", "unsorted_segment_sum", "unsorted_segment_mean",
+           "unsorted_segment_max", "unsorted_segment_min"]
 
 
 def _ids(segment_ids, num_segments, data=None):
@@ -90,3 +91,12 @@ def segment_min(data, segment_ids, num_segments):
     """Min of ``data`` rows per segment; empty segments, and a winner of
     +inf, give 0."""
     return _segment_extreme(data, segment_ids, num_segments, "amin")
+
+
+# The reference tells sorted `segment_*` from `unsorted_segment_*`; a
+# scatter handles both orders, so the unsorted names are aliases, as in the
+# JAX package.
+unsorted_segment_sum = segment_sum
+unsorted_segment_mean = segment_mean
+unsorted_segment_max = segment_max
+unsorted_segment_min = segment_min

@@ -2,6 +2,8 @@
 
 from gammagl_tpu_torch.train.metrics import (  # noqa: F401
     accuracy,
+    macro_f1,
+    micro_f1,
     semi_supervised_loss,
 )
 from gammagl_tpu_torch.train.state import (  # noqa: F401
@@ -10,5 +12,5 @@ from gammagl_tpu_torch.train.state import (  # noqa: F401
     save_checkpoint,
 )
 
-__all__ = ["accuracy", "semi_supervised_loss", "TrainState",
-           "save_checkpoint", "load_checkpoint"]
+__all__ = ["accuracy", "micro_f1", "macro_f1", "semi_supervised_loss",
+           "TrainState", "save_checkpoint", "load_checkpoint"]

@@ -7,10 +7,18 @@ from gammagl_tpu_torch.utils.compute_dtype import (  # noqa: F401
     set_compute_dtype,
 )
 from gammagl_tpu_torch.utils.device import resolve_device  # noqa: F401
-from gammagl_tpu_torch.utils.loop import add_self_loops  # noqa: F401
-from gammagl_tpu_torch.utils.norm import calc_gcn_norm_np  # noqa: F401
+from gammagl_tpu_torch.utils.loop import (  # noqa: F401
+    add_self_loops,
+    contains_self_loops,
+    remove_self_loops,
+)
+from gammagl_tpu_torch.utils.norm import (  # noqa: F401
+    calc_gcn_norm,
+    calc_gcn_norm_np,
+)
 from gammagl_tpu_torch.utils.params import load_jax_params  # noqa: F401
 
-__all__ = ["add_self_loops", "calc_gcn_norm_np", "compute_dtype",
+__all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
+           "calc_gcn_norm", "calc_gcn_norm_np", "compute_dtype",
            "get_compute_dtype", "resolve_dtype", "set_compute_dtype",
            "load_jax_params", "resolve_device"]

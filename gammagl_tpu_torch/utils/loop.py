@@ -1,9 +1,11 @@
-"""Self-loop insertion (counterpart of `gammagl_tpu/utils/loop.py`)."""
+"""Self-loop insertion and removal (counterpart of
+`gammagl_tpu/utils/loop.py`). Eager helpers for graph preprocessing:
+removal gives a data-dependent number of edges."""
 
 import numpy as np
 import torch
 
-__all__ = ["add_self_loops"]
+__all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops"]
 
 
 def add_self_loops(edge_index, edge_attr=None, fill_value=1.0,
@@ -32,3 +34,18 @@ def add_self_loops(edge_index, edge_attr=None, fill_value=1.0,
                        dtype=edge_attr.dtype)
         edge_attr = np.concatenate([edge_attr, fill], 0)
     return out, edge_attr
+
+
+def remove_self_loops(edge_index, edge_attr=None):
+    """Drop the (i, i) edges: (edge_index, edge_attr) of the others, in
+    their order. Takes numpy arrays or torch tensors and returns the same
+    kind."""
+    mask = edge_index[0] != edge_index[1]
+    if edge_attr is not None:
+        edge_attr = edge_attr[mask]
+    return edge_index[:, mask], edge_attr
+
+
+def contains_self_loops(edge_index):
+    """Whether any edge is a self-loop."""
+    return bool((edge_index[0] == edge_index[1]).any())

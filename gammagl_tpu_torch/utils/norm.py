@@ -1,9 +1,27 @@
-"""GCN normalization weights on the host (counterpart of
-`gammagl_tpu/utils/norm.py`'s `calc_gcn_norm_np`)."""
+"""GCN normalization weights (counterpart of `gammagl_tpu/utils/norm.py`):
+`calc_gcn_norm` on tensors, and `calc_gcn_norm_np` on the host."""
 
 import numpy as np
+import torch
 
-__all__ = ["calc_gcn_norm_np"]
+from gammagl_tpu_torch.ops.segment import segment_count
+
+__all__ = ["calc_gcn_norm", "calc_gcn_norm_np"]
+
+
+def calc_gcn_norm(edge_index, num_nodes, edge_weight=None):
+    """Symmetric GCN edge weights D^-1/2 A D^-1/2 (self-loops assumed
+    added), the 'both' norm of the reference GCNConv, on edge_index's
+    device. The degree is the UNWEIGHTED in-degree, as in the JAX package,
+    counted in float32 (the JAX package counts in the weights' dtype,
+    which saturates at 256 in bf16: ROADMAP C1); the result has the
+    weights' dtype (float32 without weights)."""
+    src, dst = edge_index[0].long(), edge_index[1].long()
+    if edge_weight is None:
+        edge_weight = torch.ones(src.shape[0], device=src.device)
+    deg = segment_count(dst, num_nodes)
+    dis = torch.where(deg > 0, deg.pow(-0.5), 0.0)
+    return (dis[src] * edge_weight.float() * dis[dst]).to(edge_weight.dtype)
 
 
 def calc_gcn_norm_np(edge_index, num_nodes, edge_weight=None):

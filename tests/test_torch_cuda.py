@@ -4,7 +4,9 @@ flash attention (the forward's cut rows and their fold at every lane
 layout), destination expand, SDDMM, segment max and HGT attention
 kernels against their plain versions, forward and backward, the launch
 counts, the wrappers' checks, gradients of GCN, GAT, GATv2 and HGT
-through the kernels, and the serving paths (GraphSAGE and HGT too).
+through the kernels, and the serving paths (GraphSAGE and HGT too); the
+CSR-order softmax and multi-head SpMM, HAN's relations between node
+types (ROADMAP C14), and RGCN and SimpleHGN against their plain paths.
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -1454,3 +1456,128 @@ def test_hgt_flash_packed_create_graph_raises_on_card(card):
     loss = kops.hgt_flash_packed(kv, q, plan).sum()
     with pytest.raises(RuntimeError, match="differentiable once"):
         torch.autograd.grad(loss, kv, create_graph=True)
+
+
+def _launch_counts():
+    return {"spmm": kops.spmm_csr.launches,
+            "segsum": kops.segment_sum_csr.launches,
+            "expand": kops.expand_dst_csr.launches,
+            "sddmm": kops.sddmm_csr.launches,
+            "max": kops.segment_max_csr.launches,
+            "flash": kops.flash_forward.launches}
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in _launch_counts().items()
+            if v != before[k]}
+
+
+@pytest.mark.parametrize("H", [1, 8])
+def test_segment_softmax_padded_on_card_matches_plain(card, H):
+    """Forward and gradient against the plain versions (the same call on
+    CPU tensors): a row of -inf scores gives 0, rows without edges stay
+    out; the forward launches the segment max, two expands and the
+    segment sum, its backward one segment sum and one expand."""
+    plan, e = _plan(20)
+    g = torch.Generator().manual_seed(20)
+    s = torch.randn(e, H, generator=g) * 3
+    s[torch.from_numpy(plan.perm[:plan.rowptr[3]])] = -float("inf")
+    cot = torch.randn(e, H, generator=g)
+    results = []
+    for dev in (card, torch.device("cpu")):
+        sd = s.to(dev).requires_grad_()
+        before = _launch_counts()
+        out = kops.segment_softmax_padded(sd, plan)
+        (out * cot.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert _launched(before) == {"max": 1, "expand": 3, "segsum": 2}
+        results.append((out.detach().cpu(), sd.grad.cpu()))
+    (out, ds), (want, want_ds) = results
+    _close(out, want, 1e-5)
+    _close(ds, want_ds, 1e-5)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("H,F", [(1, 40), (8, 64), (3, 7)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_bspmm_csr_on_card_matches_plain(card, H, F, dtype, rtol):
+    """Forward and both gradients against the plain versions: H SpMM
+    launches forward, H more (dx on the transpose plan) and H SDDMM
+    (dalpha) backward."""
+    plan, e = _plan(21)
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(plan.num_src, H, F, generator=g).to(dtype)
+    a = torch.rand(e, H, generator=g)
+    cot = torch.randn(plan.num_nodes, H, F, generator=g)
+    results = []
+    for dev in (card, torch.device("cpu")):
+        xd, ad = x.to(dev).requires_grad_(), a.to(dev).requires_grad_()
+        before = _launch_counts()
+        out = kops.bspmm_csr(xd, ad, plan)
+        (out.float() * cot.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert _launched(before) == {"spmm": 2 * H, "sddmm": H}
+        results.append((out.detach().cpu(), xd.grad.cpu(), ad.grad.cpu()))
+    for got, want in zip(*results):
+        _close(got, want, rtol)
+
+
+def test_han_cross_type_plan_route_on_card_matches_plain(card):
+    """HANConv on the synthetic typed graph (two relations between node
+    types, one within a type), each relation's plan on the card, against
+    the plain COO route: one flash forward a relation, and on movie ->
+    director (200 source rows, 60 destinations) the destination scores of
+    source rows min(d, 199), read in bounds."""
+    from gammagl_tpu_torch.layers.conv import HANConv
+    hg, _ = synthetic_hetero()
+    torch.manual_seed(22)
+    conv = HANConv(32, 4, hg.metadata(), heads=2).to(card).eval()
+    x = {nt: torch.from_numpy(v).to(card) for nt, v in hg.x_dict.items()}
+    ei = {et: torch.from_numpy(v).to(card)
+          for et, v in hg.edge_index_dict.items()}
+    before = _launch_counts()
+    got = conv(x, ei, plan_dict=hg.csr_plans())
+    torch.cuda.synchronize()
+    assert _launched(before) == {"flash": 3}
+    want = conv(x, ei)
+    for nt in want:
+        _close(got[nt], want[nt], 1e-5)
+
+
+@pytest.mark.parametrize("name", ["rgcn", "simplehgn"])
+def test_typed_edge_models_on_card_match_the_plain_path(card, name):
+    """RGCNModel and SimpleHGNModel with the edges' plan on the card
+    against the plain COO path: eval logits and the gradients of a loss,
+    float32."""
+    from gammagl_tpu_torch.examples import rgcn_trainer, simplehgn_trainer
+    from gammagl_tpu_torch.models import RGCNModel, SimpleHGNModel
+    torch.manual_seed(23)
+    if name == "rgcn":
+        d = rgcn_trainer.synthetic_kg()
+        n = d["num_nodes"]
+        x = torch.randn(n, 16)
+        model = RGCNModel(16, 8, 4, d["num_relations"])
+    else:
+        d = simplehgn_trainer.typed_graph()
+        x, n = torch.from_numpy(d["x"]), d["x"].shape[0]
+        model = SimpleHGNModel(d["num_relations"], 8, 3, heads=2,
+                               in_channels=32)
+    ei = torch.from_numpy(d["edge_index"]).to(card)
+    et = torch.from_numpy(d["edge_type"]).to(card)
+    plan = kops.build_csr_plan(d["edge_index"][0], d["edge_index"][1], n)
+    model = model.to(card).eval()
+    outs = []
+    for p in (plan, None):
+        model.zero_grad()
+        out = model(x.to(card), ei, et, plan=p)
+        out.square().mean().backward()
+        outs.append((out.detach(), [q.grad.clone() for q in
+                                    model.parameters()]))
+    (got, gg), (want, wg) = outs
+    _close(got, want, 1e-5)
+    for a, b in zip(gg, wg):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

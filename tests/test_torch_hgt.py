@@ -329,8 +329,9 @@ def test_train_mode_decomposed_route_matches_the_coo_route(fused_calls):
         else:
             _check(a, b, 1e-5, floor)
     conv = model.convs[0]
-    keep = conv._keep(torch.Generator().manual_seed(1),
-                      tei[("movie", "mdm", "movie")], None, "cpu")
+    keep = hetero_conv._csr_order_keep(
+        conv, torch.Generator().manual_seed(1),
+        tei[("movie", "mdm", "movie")], None, "cpu")
     assert 0.1 < float((keep == 0).float().mean()) < 0.3  # rate 0.2
 
 

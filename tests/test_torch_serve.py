@@ -143,6 +143,12 @@ def test_port_imports_no_jax():
             "assert 'gammagl_tpu_torch.parallel.full_graph' in sys.modules; "
             "assert 'gammagl_tpu_torch.parallel.mesh' in sys.modules; "
             "assert 'gammagl_tpu_torch.utils.norm' in sys.modules; "
+            "assert 'gammagl_tpu_torch.ops.sparse' in sys.modules; "
+            "assert 'gammagl_tpu_torch.sparse.sparse_graph' in sys.modules; "
+            "assert 'gammagl_tpu_torch.layers.conv.rgcn_conv' in "
+            "sys.modules; "
+            "assert all('gammagl_tpu_torch.examples.' + t + '_trainer' in "
+            "sys.modules for t in ('rgcn', 'han', 'simplehgn', 'gat')); "
             "assert 'gammagl_tpu_torch.examples.papers100m_trainer' in "
             "sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' or "

@@ -1,17 +1,16 @@
 """The port's training pieces against the JAX package: the loss and metric,
 Adam with decayed weights, checkpoints, and the fusedgat trainer twin
 (`gammagl_tpu_torch.examples.fusedgat_trainer`) against the step of
-`examples/fusedgat/fusedgat_trainer.py`, and the gatv2 and gcn twins
-(`gammagl_tpu_torch.examples.{gatv2,gcn}_trainer`, one shared loop)
-against the steps of `examples/gatv2/gatv2_trainer.py` and
-`examples/gcn/gcn_trainer.py`.
+`examples/fusedgat/fusedgat_trainer.py`, and the gat, gatv2 and gcn twins
+(`gammagl_tpu_torch.examples.{gat,gatv2,gcn}_trainer`, one shared loop)
+against the steps of `examples/{gat,gatv2,gcn}/*_trainer.py`.
 
 Tolerances: metrics 1e-6 relative (float32, one formula); parameters
 after Adam steps 1e-6 (the two libraries order the update's float32
 operations differently, about 2e-7 after 4 steps of lr 0.01); the
 twins' loss curves rtol 1e-4 against the JAX trainers (the fusedgat
 plan path runs the Pallas kernels in interpret mode, bf16x3 products;
-the gatv2 and gcn twins run the port's plan path, plain on the CPU,
+the gat, gatv2 and gcn twins run the port's plan path, plain on the CPU,
 against the JAX trainers' XLA path, which they take off a TPU).
 A checkpoint resumes bit for bit.
 """
@@ -27,6 +26,7 @@ import optax
 
 from examples.fusedgat import fusedgat_trainer as jax_trainer
 from gammagl_tpu.datasets import synthetic_community_graph as jax_synthetic
+from gammagl_tpu.models import GATModel as JaxGATModel
 from gammagl_tpu.models import GATV2Model as JaxGATV2Model
 from gammagl_tpu.models import GCNModel as JaxGCNModel
 from gammagl_tpu.ops.pallas import build_csr_plan as jax_build_csr_plan
@@ -36,7 +36,8 @@ from gammagl_tpu.train import semi_supervised_loss as jax_loss
 from gammagl_tpu.utils import add_self_loops as jax_add_self_loops
 
 from gammagl_tpu_torch.examples import fusedgat_trainer as twin
-from gammagl_tpu_torch.examples import gatv2_trainer, gcn_trainer, hgt_trainer
+from gammagl_tpu_torch.examples import (gat_trainer, gatv2_trainer,
+                                        gcn_trainer, hgt_trainer)
 from gammagl_tpu_torch.train import (TrainState, accuracy, load_checkpoint,
                                      save_checkpoint, semi_supervised_loss)
 
@@ -180,7 +181,9 @@ def test_twin_command_line_runs_on_the_cpu(capsys):
     assert "final test acc" in capsys.readouterr().out
 
 
-TWINS = {"gatv2": (gatv2_trainer, lambda n_class: JaxGATV2Model(
+TWINS = {"gat": (gat_trainer, lambda n_class: JaxGATModel(
+             hidden_dim=4, num_class=n_class, heads=8, drop_rate=0.0)),
+         "gatv2": (gatv2_trainer, lambda n_class: JaxGATV2Model(
              hidden_dim=4, num_class=n_class, heads=8, drop_rate=0.0)),
          "gcn": (gcn_trainer, lambda n_class: JaxGCNModel(
              hidden_dim=4, num_class=n_class, drop_rate=0.0))}
@@ -237,7 +240,8 @@ def test_simple_twin_trains_with_dropout(name, tmp_path, capsys):
     if name == "gcn":
         argv += ["--best_model_path", str(tmp_path / "best.pt")]
     args = _twin_args(module, *argv)
-    assert args.drop_rate == 0.5 and args.device == "cpu"
+    assert args.drop_rate == (0.6 if name == "gat" else 0.5)
+    assert args.device == "cpu"
     out = module.main(args, data=_tiny_data(9))
     losses = out["losses"]
     assert len(losses) == 30 and np.isfinite(losses).all()
@@ -249,8 +253,8 @@ def test_simple_twin_trains_with_dropout(name, tmp_path, capsys):
         assert ckpt["step"] == 30 and "opt_state" in ckpt
 
 
-@pytest.mark.parametrize("module", [twin, gatv2_trainer, gcn_trainer,
-                                    hgt_trainer])
+@pytest.mark.parametrize("module", [twin, gat_trainer, gatv2_trainer,
+                                    gcn_trainer, hgt_trainer])
 def test_twins_default_to_the_card(module, monkeypatch):
     """``--device`` defaults to cuda; without a card the twin raises
     rather than falling back to the CPU (the hgt twin before it reads the
