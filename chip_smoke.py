@@ -38,15 +38,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rows with N_src != N_dst, no edges, bitwise-equal repeats; the segment
    sum on the hub graph (C in {7, 40, 64}, unit, (E,) and (E, H)
    weights, one launch and one fold a call); the SDDMM on the hub graph,
-   its rows cut into work items at `SDDMM_SPLIT` (gathered and per edge,
+   its rows cut into work items at `EDGE_SPLIT` (gathered and per edge,
    f32 and bf16, (H, F) in {(1, 256), (8, 8), (2, 640)}, 1e-5, one launch
    and no fold a call), each bf16 form timed beside `spmm_csr` /
-   `segment_sum_csr` at the same width there, and the expand (not cut into
-   items) timed there once; on the slice graph the expand and segment sum
-   at GATv2's widths, and the SDDMM at bench.py's shape (F = 256 bf16,
-   gathered; beside `spmm_csr` at that F and the gathered rows' floor) and
-   per edge (H = 8, F = 8), forward and backward; time each; registers
-   and spill bytes of every SDDMM instantiation (none may spill).
+   `segment_sum_csr` at the same width there, and the expand there (on
+   the same work items: one launch a call, bitwise equal to the plain
+   version, timed over 10 calls); on the slice graph
+   the expand and segment sum at GATv2's widths, and the SDDMM at
+   bench.py's shape (F = 256 bf16, gathered; beside `spmm_csr` at that F
+   and the gathered rows' floor) and per edge (H = 8, F = 8), forward and
+   backward; time each; registers and spill bytes of every SDDMM and
+   expand instantiation (none may spill).
 5. Serve full-width GCN (ogbn-arxiv shape: 169,343 nodes, 2,315,598 edges
    plus self-loops, 128 -> 256 -> 256 -> 40, bf16) through
    `InferenceSession` with `Graph.csr_plan()`: 8 requests, each held
@@ -184,8 +186,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    simplehgn twin does (300,000 nodes, papers first; 5,000,000 edges in 3
    edge types); hold `spmm_csr` at SimpleHGN's shape (F = 64 f32, one
    head's weights) and `segment_sum_csr` at RGCN's (C = 64 f32 per-edge
-   rows) there against their plain versions and time them beside
-   cuSPARSE's SpMM and `torch.segment_reduce`. Serve RGCN (RGCNModel,
+   rows, and at RGCN's class width C = 349 f32) there against their plain
+   versions and time them beside cuSPARSE's SpMM and
+   `torch.segment_reduce`; hold the expand at C = 349 f32 (the backward of
+   RGCN's layer-2 segment sum: rows of 1396 bytes, no multiple of 16)
+   bitwise against its plain version and time it beside
+   `torch.repeat_interleave` and `index_select`. Serve RGCN (RGCNModel,
    128 -> 64 -> 349, a full map a relation, float32) through the eval
    forward with the graph's `CSRPlan`: 8 requests against the plain COO
    path, exactly 2 `segment_sum_csr` launches each and nothing else; a
@@ -1120,11 +1126,15 @@ def phase_edge_checks(k, slice_plan):
         lambda: k.expand_dst_csr_reference(xd, plan, g),
         nbytes=N * H * F * 2 + E * H * 4 + (N + 1) * 8 + E * H * F * 2,
         flops=E * H * F)})
-    spills = kernel_resources(("sddmm_kernel", "sddmm_wide_kernel"))
+    spills = kernel_resources(("sddmm_kernel", "sddmm_wide_kernel",
+                               "expand_kernel"))
     if any(spills.values()):
-        fail(f"an SDDMM instantiation spills: {spills}")
+        fail(f"an SDDMM or expand instantiation spills: {spills}")
     for row in timings["sddmm_csr"]:
-        row["spill_bytes"] = max(spills.values())
+        row["spill_bytes"] = max(spills["sddmm_kernel"],
+                                 spills["sddmm_wide_kernel"])
+    for row in timings["expand_dst_csr"]:
+        row["spill_bytes"] = spills["expand_kernel"]
     timings["sddmm_csr"] += hub_rows
     timings["expand_dst_csr"].append(hub_expand)
     return err, timings
@@ -1132,16 +1142,16 @@ def phase_edge_checks(k, slice_plan):
 
 def sddmm_hub_checks(k, hub, err):
     """The SDDMM on the hub graph, its rows cut into work items at
-    `SDDMM_SPLIT` (the star into thousands of items): both forms, f32 and
+    `EDGE_SPLIT` (the star into thousands of items): both forms, f32 and
     bf16, at 1e-5 against the plain version (both sum in f32), each call
     exactly one launch and no fold; each bf16 form timed beside
     `spmm_csr` (gathered) or `segment_sum_csr` (per edge) at the same
-    width on that graph; then the expand, which still walks a row on one
-    warp, timed there once. Returns the SDDMM's timing rows and the
-    expand's."""
-    from gammagl_tpu_torch.ops.cuda.sddmm_csr import SDDMM_SPLIT, _sddmm
-    split = hub.row_split(SDDMM_SPLIT)
-    print(f"  hub graph, SDDMM work items (SDDMM_SPLIT {SDDMM_SPLIT}): "
+    width on that graph; then the expand there, on the same work items:
+    one launch a call, bitwise equal to the plain version, timed over 10
+    calls. Returns the SDDMM's timing rows and the expand's."""
+    from gammagl_tpu_torch.ops.cuda.sddmm_csr import EDGE_SPLIT, _sddmm
+    split = hub.row_split(EDGE_SPLIT)
+    print(f"  hub graph, work items (EDGE_SPLIT {EDGE_SPLIT}): "
           f"{split.item_row.shape[0]} items, {split.cut_row.shape[0]} cut "
           "rows, no scratch")
     N, Ns, E = hub.num_nodes, hub.num_src, hub.num_edges
@@ -1188,10 +1198,21 @@ def sddmm_hub_checks(k, hub, err):
             del a, xd
     C = GAT_HEADS * GAT_HIDDEN
     x = rand(N, C, dtype=torch.bfloat16)
-    ms = cuda_ms(lambda: k.expand_dst_csr(x, hub), iters=1, warmup=0)
-    print(f"  hub expand C={C} bf16 (a row on one warp, one call): "
-          f"{ms:.4f} ms")
-    return rows, {"C": C, "scaled": False, "graph": "hub", "ms": ms}
+    c0 = k.expand_dst_csr.launches
+    got = k.expand_dst_csr(x, hub)
+    sync()
+    if k.expand_dst_csr.launches - c0 != 1:
+        fail(f"hub expand: {k.expand_dst_csr.launches - c0} launches, want 1")
+    if not torch.equal(got, k.expand_dst_csr_reference(x, hub)):
+        fail("hub expand: not bitwise equal to x[row]")
+    del got
+    ms = cuda_ms(lambda: k.expand_dst_csr(x, hub), iters=10)
+    row = {"C": C, "scaled": False, "graph": "hub", "ms": ms,
+           **bound(N * C * 2 + (N + 1) * 8 + E * C * 2, 0)}
+    print(f"  hub expand C={C} bf16 ({split.item_row.shape[0]} items at "
+          f"EDGE_SPLIT {EDGE_SPLIT}): {ms:.4f} ms, bitwise x[row]; "
+          f"bound {row['bound_ms']:.4f} ms, {row['bound_ms'] / ms:.3f} of it")
+    return rows, row
 
 
 def phase_gcn_serve(k, GCNModel, InferenceSession, load_jax_params, plan, x,
@@ -2967,40 +2988,75 @@ def flat_typed_graph(k, simplehgn_trainer, hg, dev):
 
 def typed_kernel_timings(k, plan):
     """Row 1 at SimpleHGN's shape (one head's f32 columns, F = 64, weighted
-    by that head's attention) and row 4 at RGCN's (f32 per-edge rows, C =
-    64) on the flattened typed graph, each held against its plain version
-    and timed beside cuSPARSE's SpMM or `segment_reduce`."""
+    by that head's attention), row 4 at RGCN's (f32 per-edge rows, C = 64
+    and its class width C = 349) and row 9 at RGCN's class width (the
+    backward of its layer-2 segment sum: C = 349 f32, rows of 1396 bytes)
+    on the flattened typed graph, each held against its plain version
+    (the expand bitwise) and timed beside cuSPARSE's SpMM,
+    `segment_reduce`, or `repeat_interleave` and `index_select`. Returns
+    (max abs error by kernel, timing rows by kernel)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 26)
     N, Ns, E = plan.num_nodes, plan.num_src, plan.num_edges
     rowptr, col, _ = plan.arrays(dev)
-    F, C = SHGN_HIDDEN, RGCN_HIDDEN
+    F, C, CL = SHGN_HIDDEN, RGCN_HIDDEN, HGT_CLASSES
     x = torch.randn(Ns, F, generator=gen, device=dev)
     w = torch.rand(E, generator=gen, device=dev)
-    v = torch.randn(E, C, generator=gen, device=dev)
     err = {"spmm_csr": check_close(
         f"typed graph spmm_csr F={F} f32", k.spmm_csr(
             x, w, plan, weights_padded=True), k.spmm_csr_reference(
-            x, w, plan, weights_padded=True), 1e-5),
-        "segment_sum_csr": check_close(
-            f"typed graph segment sum C={C} f32", k.segment_sum_csr(v, plan),
-            k.segment_sum_csr_reference(v, plan), 1e-5)}
+            x, w, plan, weights_padded=True), 1e-5)}
     A = torch.sparse_csr_tensor(rowptr, col.long(), w, size=(N, Ns))
-    rows = {"spmm_csr": {"F": F, "graph": "typed", "dtype": "float32",
-                         "max_abs_err": err["spmm_csr"], **timing(
+    rows = {"spmm_csr": [{"F": F, "graph": "typed", "dtype": "float32",
+                          "max_abs_err": err["spmm_csr"], **timing(
         f"spmm_csr F={F} f32, typed graph",
         lambda: k.spmm_csr(x, w, plan, weights_padded=True),
         lambda: k.spmm_csr_reference(x, w, plan, weights_padded=True),
         # x, col, rowptr and w in, out
         nbytes=Ns * F * 4 + E * 4 + (N + 1) * 8 + E * 4 + N * F * 4,
-        flops=2 * E * F, library=lambda: A @ x)},
-        "segment_sum_csr": {"C": C, "graph": "typed", "dtype": "float32",
-                            "max_abs_err": err["segment_sum_csr"], **timing(
-            f"segment sum C={C} f32, typed graph",
-            lambda: k.segment_sum_csr(v, plan),
-            lambda: k.segment_sum_csr_reference(v, plan),
-            nbytes=E * C * 4 + (N + 1) * 8 + N * C * 4, flops=E * C,
-            library=lambda: torch.segment_reduce(v, "sum", offsets=rowptr))}}
+        flops=2 * E * F, library=lambda: A @ x)}],
+        "segment_sum_csr": [], "expand_dst_csr": []}
+    del A, x, w
+    err["segment_sum_csr"] = 0.0
+    for width in (C, CL):
+        v = torch.randn(E, width, generator=gen, device=dev)
+        e = check_close(f"typed graph segment sum C={width} f32",
+                        k.segment_sum_csr(v, plan),
+                        k.segment_sum_csr_reference(v, plan), 1e-5)
+        err["segment_sum_csr"] = max(err["segment_sum_csr"], e)
+        rows["segment_sum_csr"].append({
+            "C": width, "graph": "typed", "dtype": "float32",
+            "max_abs_err": e, **timing(
+                f"segment sum C={width} f32, typed graph",
+                lambda: k.segment_sum_csr(v, plan),
+                lambda: k.segment_sum_csr_reference(v, plan),
+                nbytes=E * width * 4 + (N + 1) * 8 + N * width * 4,
+                flops=E * width, library=lambda: torch.segment_reduce(
+                    v, "sum", offsets=rowptr))})
+        del v
+    # the expand at the class width: out (E, 349) f32, 6.98 GB
+    xd = torch.randn(N, CL, generator=gen, device=dev)
+    got = k.expand_dst_csr(xd, plan)
+    if not torch.equal(got, k.expand_dst_csr_reference(xd, plan)):
+        fail(f"typed graph expand C={CL} f32: not bitwise equal to x[row]")
+    del got
+    err["expand_dst_csr"] = 0.0
+    counts = rowptr.diff()
+    dst_rows = torch.repeat_interleave(torch.arange(N, device=dev), counts,
+                                       output_size=E)
+    row = {"C": CL, "scaled": False, "graph": "typed", "dtype": "float32",
+           "max_abs_err": 0.0,
+           **timing(f"expand C={CL} f32, typed graph",
+                    lambda: k.expand_dst_csr(xd, plan),
+                    lambda: k.expand_dst_csr_reference(xd, plan),
+                    nbytes=N * CL * 4 + (N + 1) * 8 + E * CL * 4, flops=0,
+                    library=lambda: torch.repeat_interleave(
+                        xd, counts, dim=0, output_size=E))}
+    row["index_select_ms"] = library_ms(
+        f"expand C={CL} index_select", lambda: xd.index_select(0, dst_rows))
+    print(f"  expand C={CL} f32, typed graph: index_select "
+          f"{row['index_select_ms']:.4f} ms")
+    rows["expand_dst_csr"].append(row)
     return err, rows
 
 
@@ -3374,8 +3430,8 @@ def main():
     # each kernel's headline shape: the widest its main path runs
     shapes = {"spmm_csr": [spmm_ms[HIDDEN], spmm_ms[N_CLASS]], **flash_ms,
               **edge_ms, **max_ms, **hgt_ms, **bp_ms, "spmm_csr_acc": acc_ms}
-    for name, row in typed_ms.items():
-        shapes[name] = shapes[name] + [row]
+    for name, typed_rows in typed_ms.items():
+        shapes[name] = shapes[name] + typed_rows
     entries = []
     for name, (source, replaces, also) in KERNELS.items():
         head = shapes[name][0]

@@ -23,15 +23,32 @@
 // order) and writes one f32 per edge and head, for 2 flops per element.
 //
 // What the design does about it:
-//  * expand: one warp per destination row, which holds its row of x in
-//    registers and walks the row's edges, so the row is read once; the
-//    lanes split into groups of `lpe` lanes, one group per edge, each lane
-//    moving V columns (up to 16 bytes) of that edge; a warp writes 32 / lpe
-//    edges at a time, in whole rows, so the stores coalesce. Without a
-//    scale the bits are copied, not converted: the result is bitwise equal
-//    to x[row(e)];
+//  * expand: the work items of the CSR kernels' schedule, cut at the
+//    wrapper's EDGE_SPLIT edges, one warp an item: a hub row (a
+//    1,200,000-edge star) is spread over thousands of warps, and since an
+//    item writes only its own edges, nothing is folded and the output is
+//    written once (repeats are bitwise equal);
+//  * expand: an item's output out[lo*C, hi*C) is one contiguous run of
+//    memory whatever C is, and element j of it is x[row, j mod C]. The
+//    lanes store it in 16-byte chunks, lane l the chunks l, l + 32, ...,
+//    from the run's first 16-byte boundary on (a scalar prologue before
+//    it, a scalar epilogue after the last whole chunk), so a row whose
+//    bytes are no multiple of 16 (C = 349 f32: 1396 bytes) still takes
+//    16-byte stores and every lane works; a lane's column and edge move
+//    by fixed increments from one chunk to the next, with no division in
+//    the loop. A chunk is assembled from the row, read through L1 (the
+//    two aligned 16-byte blocks that hold it, shifted into place; one
+//    element at a time only where it wraps to the row's start). Without a
+//    scale the bits are copied, not converted: the result is bitwise
+//    equal to x[row(e)]. Rows of a multiple of 16 bytes on aligned
+//    pointers take their own instance, whose chunks are single loads;
+//  * expand, scaled: where a head is a multiple of 16 bytes wide on
+//    aligned rows (GATv2's (8, 8) in bf16), a chunk lies in one head and
+//    reads its scale once, in its own instance (a scale an element is
+//    slower there, PERF.md section 6); other widths read a scale an
+//    element. Each product is rounded once;
 //  * sddmm: the work items of the CSR kernels' schedule (csrc/
-//    csr_items.cuh), cut at the wrappers' SDDMM_SPLIT edges, much shorter
+//    csr_items.cuh), cut at the same EDGE_SPLIT edges, much shorter
 //    than the CSR kernels' items: every edge's score is its own output, so
 //    an item of a cut row writes its own edges' scores and needs no slot,
 //    scratch or fold, and a hub row is spread over many lane groups. The
@@ -64,52 +81,252 @@
 //  * sums in f32, in a fixed order, no atomics: repeats are bitwise equal.
 // A fully transposed sum of 32 edges (31 shuffles) lost on the H100 at
 // F = 256: its 32 partials went to the stack, and the arxiv-shape graph's
-// items are short (PERF.md). TMA stores are left for later.
+// items are short (PERF.md). TMA stores are left for later: the expand's
+// 16-byte stores from registers are one instruction a lane for 16 bytes.
 
 #include "csr_items.cuh"
 
 namespace {
 
-// One warp per destination row. Lane groups of lpe lanes each take one edge;
-// a lane's first column in chunk k is (k * lpe + lane % lpe) * V.
-template <typename T, int V, bool kScale>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-    expand_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                  const int64_t* __restrict__ rowptr, T* __restrict__ out,
-                  int64_t n_dst, int64_t C, int64_t H, int lpe, int K) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  const int groups = kWarp / lpe;
-  const int group = lane / lpe;
-  // no shuffles below, so lanes may leave on their own
-  if (row >= n_dst || group >= groups) return;
-  const int64_t begin = rowptr[row];
-  const int64_t end = rowptr[row + 1];
-  if (begin == end) return;
-  const int64_t Fh = C / H;
-  using Raw = typename RawBits<V * static_cast<int>(sizeof(T))>::type;
+// Item i's row (row i where the plan has no cut rows) and edges: the
+// SDDMM's and the expand's work items.
+struct SddmmItem {
+  int64_t row, lo, n;
+};
 
-  for (int k = 0; k < K; ++k) {
-    const int64_t c = (static_cast<int64_t>(k) * lpe + lane % lpe) * V;
-    if (c >= C) break;
-    const T* src = x + row * C + c;
+__device__ __forceinline__ SddmmItem sddmm_item(const int64_t* item_ptr,
+                                                const int2* item_meta,
+                                                int64_t i) {
+  SddmmItem it;
+  it.row = item_meta != nullptr ? __ldg(&item_meta[i].x) : i;
+  it.lo = __ldg(item_ptr + i);
+  it.n = __ldg(item_ptr + i + 1) - it.lo;
+  return it;
+}
+
+// The expand's geometry: C columns in H heads of Fh; a lane's column and
+// edge move by inc_c and inc_e (and one more edge where the column wraps)
+// from one of its 16-byte chunks to the next, kWarp chunks on.
+struct ExpandGeom {
+  int C, H, Fh;
+  int inc_c;  // (kWarp P) mod C
+  int inc_e;  // (kWarp P) div C
+};
+
+// The P elements of T at columns c .. c + P - 1 of a row (wrapping to
+// its start), as the 16 bytes one store writes. A run that lies in the
+// row is read as the two aligned 16-byte blocks that hold it, each of
+// which holds a byte of the row, and shifted into place (bits moved,
+// never converted); a run that wraps (or a row narrower than P) is read
+// element by element.
+template <typename T>
+__device__ __forceinline__ uint4 row_chunk(const T* __restrict__ xrow, int c,
+                                           int C) {
+  constexpr int P = 16 / sizeof(T);
+  unsigned w[4];
+  if (c + P <= C) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(xrow + c);
+    const uint4* blk = reinterpret_cast<const uint4*>(a & ~uintptr_t{15});
+    const int s = static_cast<int>(a & 15);  // a multiple of sizeof(T)
+    const uint4 u0 = __ldg(blk);
+    const uint4 u1 = s != 0 ? __ldg(blk + 1) : u0;
+    const unsigned b[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+    const int ws = s >> 2, sh = (s & 3) * 8;
+    unsigned v[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      v[k] = ws & 2 ? (ws & 1 ? b[k + 3] : b[k + 2])
+                    : (ws & 1 ? b[k + 1] : b[k]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = __funnelshift_r(v[k], v[k + 1], sh);
+  } else {
+    using Raw = typename RawBits<sizeof(T)>::type;
+    const Raw* r = reinterpret_cast<const Raw*>(xrow);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = 0u;
+    int cc = c;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const unsigned bits = __ldg(r + cc);
+      if constexpr (sizeof(T) == 4)
+        w[i] = bits;
+      else
+        w[i / 2] |= bits << (16 * (i % 2));
+      if (++cc == C) cc = 0;
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The P values of a chunk as f32.
+template <typename T>
+__device__ __forceinline__ void chunk_values(const uint4& u,
+                                             float (&f)[16 / sizeof(T)]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (sizeof(T) == 4) {
+      f[k] = __uint_as_float(w[k]);
+    } else {  // little-endian: low half first
+      f[2 * k] = __uint_as_float(w[k] << 16);
+      f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+}
+
+// Round P f32 values once to T and store them as one 16-byte chunk at dst
+// (16-byte aligned), marked evict-first (st.global.cs): the expand's
+// output streams through L2 once, and leaves it to the rows of x.
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* dst,
+                                            const float (&o)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(dst),
+           make_float4(o[0], o[1], o[2], o[3]));
+  } else {
+    unsigned w[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      w[k] = bf16_bits(o[2 * k]) | (bf16_bits(o[2 * k + 1]) << 16);
+    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w[0], w[1], w[2], w[3]));
+  }
+}
+
+// out[e, c] alone (the scalar prologue and epilogue of an item's run).
+template <typename T, bool kScale>
+__device__ __forceinline__ void expand_one(const T* __restrict__ xrow,
+                                           const float* __restrict__ scale,
+                                           T* __restrict__ out, int64_t e,
+                                           int c, const ExpandGeom& g) {
+  T* dst = out + e * g.C + c;
+  if constexpr (kScale) {
+    float v[1];
+    load_vec<T, 1>(xrow + c, v);
+    v[0] *= __ldg(scale + e * g.H + c / g.Fh);
+    store_vec<T, 1>(dst, v);
+  } else {
+    using Raw = typename RawBits<sizeof(T)>::type;
+    *reinterpret_cast<Raw*>(dst) =
+        __ldg(reinterpret_cast<const Raw*>(xrow) + c);
+  }
+}
+
+// One warp per work item (at most the wrapper's EDGE_SPLIT consecutive
+// CSR edges of one row). Its output out[lo*C, hi*C) is one contiguous run
+// of n*C elements, whatever C is, and element j of it is x[row, j mod C].
+// From the run's first 16-byte boundary on, the warp stores 32 16-byte
+// chunks a round, a chunk a lane, evict-first (each round one aligned
+// 512-byte span where rows are no multiple of 16 bytes); a lane's column
+// and edge are stepped by the geometry's increments (no division in the
+// loop). Lanes 0..P-2 store the elements before that boundary and lanes
+// 8.. those after the last whole chunk, one by one. kAligned (C a
+// multiple of P, x and out on 16 bytes): every chunk starts a row's
+// 16-byte block, so nothing is stored one by one and a chunk is one load
+// of x. kScale: out = scale[e, c / Fh] * x, rounded once;
+// kHeadChunk (kAligned and Fh a multiple of P): a chunk lies in one head,
+// so it takes one scale (else one an element).
+template <typename T, bool kScale, bool kAligned, bool kHeadChunk>
+__global__ void __launch_bounds__(kThreads)
+    expand_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                  const int64_t* __restrict__ item_ptr,
+                  const int2* __restrict__ item_meta, int64_t n_items,
+                  T* __restrict__ out, ExpandGeom g) {
+  constexpr int P = 16 / sizeof(T);
+  const int64_t item =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kWarp;
+  // no shuffles below, so lanes may leave on their own
+  if (item >= n_items) return;
+  const int lane = threadIdx.x % kWarp;
+  const SddmmItem it = sddmm_item(item_ptr, item_meta, item);
+  const T* xrow = x + it.row * g.C;
+  T* run = out + it.lo * g.C;
+  const int64_t len = it.n * g.C;
+  int pro = 0;  // elements before the run's first 16-byte boundary
+  if constexpr (!kAligned) {
+    const int off = static_cast<int>(reinterpret_cast<uintptr_t>(run) & 15);
+    pro = ((16 - off) & 15) / static_cast<int>(sizeof(T));
+    if (pro > len) pro = static_cast<int>(len);
+  }
+  const int64_t chunks = (len - pro) / P;
+  if constexpr (!kAligned) {
+    // fewer than P elements each side: the prologue's element j at edge
+    // j / C, the epilogue's m-th from the run's end at edge n - 1 - (m -
+    // 1) / C (32-bit divisions of small numbers, once an item)
+    const int tail = static_cast<int>(len - pro - chunks * P);
+    if (lane < pro) {
+      expand_one<T, kScale>(xrow, scale, out, it.lo + lane / g.C,
+                            lane % g.C, g);
+    } else if (lane >= 8 && lane - 8 < tail) {
+      const int m = lane - 7;
+      expand_one<T, kScale>(xrow, scale, out,
+                            it.lo + it.n - 1 - (m - 1) / g.C,
+                            g.C - 1 - (m - 1) % g.C, g);
+    }
+  }
+  // chunk q lies 16 q bytes past the run's first 16-byte boundary, in
+  // the 16-byte slot (q + r) mod 32 of an aligned 512-byte span. Where
+  // rows are no multiple of 16 bytes, runs start at any slot: lane l takes
+  // the chunks l - r + 32 t (a lane l < r idles the first round), so each
+  // round of the warp's stores fills one aligned span, whole 32-byte
+  // sectors, but at an item's two ends. Aligned rows keep r = 0 (lane l
+  // on chunk l): their short items would pay the extra round (PERF.md).
+  int r = 0;
+  if constexpr (!kAligned)
+    r = static_cast<int>((reinterpret_cast<uintptr_t>(run + pro) >> 4) &
+                         (kWarp - 1));
+  const int q0 = lane - r;
+  const int qf = q0 < 0 ? q0 + kWarp : q0;  // the lane's first chunk
+  if (qf >= chunks) return;
+  // its first element: pro + qf P < 8 + 32 P of the run
+  const int j = pro + qf * P;
+  int64_t e = j / g.C;
+  int c = j - static_cast<int>(e) * g.C;
+  const bool moves = g.inc_c != 0;  // else the lane keeps its column
+  uint4 bits;
+  float xv[P];
+  for (int64_t q = q0; q < chunks; q += kWarp) {
+    if (q < 0) continue;
+    if (moves || q == qf) {
+      if constexpr (kAligned)
+        bits = __ldg(reinterpret_cast<const uint4*>(xrow + c));
+      else
+        bits = row_chunk<T>(xrow, c, g.C);
+      if constexpr (kScale) chunk_values<T>(bits, xv);
+    }
+    T* dst = run + pro + q * P;
     if constexpr (kScale) {
-      float xv[V];
-      load_vec<T, V>(src, xv);
-      int64_t head[V];
+      const float* srow = scale + (it.lo + e) * g.H;
+      int h = c / g.Fh;
+      float o[P];
+      if constexpr (kHeadChunk) {
+        const float sc = __ldg(srow + h);
 #pragma unroll
-      for (int i = 0; i < V; ++i) head[i] = (c + i) / Fh;
-      for (int64_t e = begin + group; e < end; e += groups) {
-        float o[V];
+        for (int i = 0; i < P; ++i) o[i] = sc * xv[i];
+      } else {
+        // heads narrower than a chunk, or chunks across rows: a scale an
+        // element (L1 hits; a load under the head's branch spilled)
+        int ch = c - h * g.Fh;
 #pragma unroll
-        for (int i = 0; i < V; ++i) o[i] = __ldg(scale + e * H + head[i]) * xv[i];
-        store_vec<T, V>(out + e * C + c, o);
+        for (int i = 0; i < P; ++i) {
+          o[i] = __ldg(srow + h) * xv[i];
+          if (++ch == g.Fh) {
+            ch = 0;
+            if (++h == g.H) {
+              h = 0;
+              srow += g.H;
+            }
+          }
+        }
       }
+      store_chunk<T>(dst, o);
     } else {
-      const Raw bits = *reinterpret_cast<const Raw*>(src);
-      for (int64_t e = begin + group; e < end; e += groups)
-        *reinterpret_cast<Raw*>(out + e * C + c) = bits;
+      __stcs(reinterpret_cast<uint4*>(dst), bits);
+    }
+    c += g.inc_c;
+    e += g.inc_e;
+    if (c >= g.C) {
+      c -= g.C;
+      ++e;
     }
   }
 }
@@ -136,21 +353,6 @@ struct SddmmGeom {
   int heads;   // heads a pass: L / Lh
   int passes;  // ceil(H / heads)
 };
-
-// Item i's row (row i where the plan has no cut rows) and edges.
-struct SddmmItem {
-  int64_t row, lo, n;
-};
-
-__device__ __forceinline__ SddmmItem sddmm_item(const int64_t* item_ptr,
-                                                const int2* item_meta,
-                                                int64_t i) {
-  SddmmItem it;
-  it.row = item_meta != nullptr ? __ldg(&item_meta[i].x) : i;
-  it.lo = __ldg(item_ptr + i);
-  it.n = __ldg(item_ptr + i + 1) - it.lo;
-  return it;
-}
 
 // The dot's sum over the Lh lanes of a head, an xor tree: every lane of
 // the head gets the same bits.
@@ -291,7 +493,7 @@ __global__ void __launch_bounds__(kThreads, kSddmmBlocks)
   const SddmmItem it = sddmm_item(item_ptr, item_meta, item);
   const int64_t HF = g.H * g.F;
   const int K = g.K;
-  // steps index in 32 bits: an item has at most SDDMM_SPLIT edges
+  // steps index in 32 bits: an item has at most EDGE_SPLIT edges
   const int steps = static_cast<int>(it.n) * K;
 
   for (int pass = 0; pass < g.passes; ++pass) {
@@ -342,30 +544,34 @@ __global__ void __launch_bounds__(kThreads, kSddmmBlocks)
 }
 
 template <typename T>
-void launch_expand(const void* x, const float* scale, const int64_t* rowptr,
-                   void* out, int64_t n_dst, int64_t C, int64_t H,
-                   cudaStream_t stream) {
-  const void* ptrs[] = {x, out};
-  const int V = pick_vec<T>(C, ptrs, 2);
-  const int64_t chunks = (C + V - 1) / V;
-  const int lpe = chunks < kWarp ? static_cast<int>(chunks) : kWarp;
-  const int K = static_cast<int>((chunks + lpe - 1) / lpe);
-  const dim3 block(kWarp * kWarpsPerBlock);
+void launch_expand(const void* x, const float* scale, const int64_t* item_ptr,
+                   const int2* item_meta, int64_t n_items, void* out,
+                   int64_t C, int64_t H, cudaStream_t stream) {
+  constexpr int P = 16 / sizeof(T);
+  ExpandGeom g;
+  g.C = static_cast<int>(C);
+  g.H = static_cast<int>(H);
+  g.Fh = static_cast<int>(C / H);
+  g.inc_c = static_cast<int>((kWarp * P) % C);
+  g.inc_e = static_cast<int>((kWarp * P) / C);
+  const bool aligned_rows =
+      C % P == 0 && aligned(x, 16) && aligned(out, 16);
+  const dim3 grid = grid_of(n_items, 5);
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-#define GAMMAGL_EXPAND(VV)                                                  \
-  if (scale != nullptr)                                                     \
-    expand_kernel<T, VV, true><<<grid_for(n_dst), block, 0, stream>>>(      \
-        xt, scale, rowptr, ot, n_dst, C, H, lpe, K);                        \
-  else                                                                      \
-    expand_kernel<T, VV, false><<<grid_for(n_dst), block, 0, stream>>>(     \
-        xt, scale, rowptr, ot, n_dst, C, H, lpe, K)
-  switch (V) {
-    case 8: if constexpr (16 / sizeof(T) >= 8) { GAMMAGL_EXPAND(8); } break;
-    case 4: GAMMAGL_EXPAND(4); break;
-    case 2: GAMMAGL_EXPAND(2); break;
-    default: GAMMAGL_EXPAND(1); break;
-  }
+#define GAMMAGL_EXPAND(...)                                               \
+  __VA_ARGS__<<<grid, kThreads, 0, stream>>>(xt, scale, item_ptr,         \
+                                             item_meta, n_items, ot, g)
+  if (scale == nullptr && aligned_rows)
+    GAMMAGL_EXPAND(expand_kernel<T, false, true, false>);
+  else if (scale == nullptr)
+    GAMMAGL_EXPAND(expand_kernel<T, false, false, false>);
+  else if (aligned_rows && g.Fh % P == 0)
+    GAMMAGL_EXPAND(expand_kernel<T, true, true, true>);
+  else if (aligned_rows)
+    GAMMAGL_EXPAND(expand_kernel<T, true, true, false>);
+  else
+    GAMMAGL_EXPAND(expand_kernel<T, true, false, false>);
 #undef GAMMAGL_EXPAND
 }
 
@@ -434,24 +640,31 @@ void launch_sddmm(const void* a, const void* xd, const int64_t* item_ptr,
 
 extern "C" {
 
-// x: (n_dst, C) bf16 (is_bf16 != 0) or f32, contiguous; scale: (E, H) f32
-// in CSR order with C % H == 0, or null for a plain copy; rowptr: (n_dst +
-// 1,) int64; out: (E, C) of x's type, in CSR order. Launches on `stream`
-// and returns cudaGetLastError() (0 on success); does not synchronise.
-int gammagl_expand_csr(const void* x, const void* scale, const void* rowptr,
-                       void* out, int64_t n_dst, int64_t C, int64_t H,
-                       int is_bf16, void* stream) {
-  if (n_dst < 0 || C < 0 || H < 1 || (C > 0 && C % H != 0) ||
-      grid_too_large(n_dst))
+// x: (n_dst, C) bf16 (is_bf16 != 0) or f32, contiguous, aligned to its
+// element; scale: (E, H) f32 in CSR order with C % H == 0, or null for a
+// plain copy; out: (E, C) of x's type, in CSR order, aligned to its
+// element. The items, as gammagl_sddmm_csr's at the wrappers' item size:
+// item_ptr (n_items + 1,) int64 edge offsets; item_meta (n_items, 2)
+// int32 {row, slot}, of which only the row is read, or null (item i is
+// row i, item_ptr the plan's rowptr). C and H fit int32. Launches on
+// `stream` and returns cudaGetLastError() (0 on success); does not
+// synchronise.
+int gammagl_expand_csr(const void* x, const void* scale, const void* item_ptr,
+                       const void* item_meta, int64_t n_items, void* out,
+                       int64_t C, int64_t H, int is_bf16, void* stream) {
+  if (n_items < 0 || C < 0 || C > 0x7fffffff || H < 1 ||
+      (C > 0 && C % H != 0) || !grid_ok(n_items, 5) ||
+      (n_items > 0 && item_ptr == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_dst > 0 && C > 0) {
+  if (n_items > 0 && C > 0) {
     const float* sc = static_cast<const float*>(scale);
-    const int64_t* rp = static_cast<const int64_t*>(rowptr);
+    const int64_t* ip = static_cast<const int64_t*>(item_ptr);
+    const int2* im = static_cast<const int2*>(item_meta);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16)
-      launch_expand<__nv_bfloat16>(x, sc, rp, out, n_dst, C, H, s);
+      launch_expand<__nv_bfloat16>(x, sc, ip, im, n_items, out, C, H, s);
     else
-      launch_expand<float>(x, sc, rp, out, n_dst, C, H, s);
+      launch_expand<float>(x, sc, ip, im, n_items, out, C, H, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,13 +12,15 @@ e of destination row d = row(e):
 
 The TPU kernels pick destination rows out of dense (R, F) blocks with
 one-hot matmuls, so that no second pass through the gather engine is
-needed; on the card (``csrc/sddmm_csr.cu``) the expand lets one warp read
-its destination row once and walk the row's edges, and the SDDMM walks the
-CSR kernels' work items cut at `SDDMM_SPLIT` edges (`CSRPlan.split_arrays`
-at that K), a lane group an item: a hub row is spread over many groups,
-and since every edge's score is its own output no fold follows. Per-edge
-tensors are in the plan's CSR order; the JAX package's are in its padded
-or compact lane order.
+needed. On the card (``csrc/sddmm_csr.cu``) both kernels walk the CSR
+kernels' work items cut at `EDGE_SPLIT` edges (`CSRPlan.split_arrays` at
+that K), and since every output element belongs to one edge, an item of
+a cut row writes its own edges and no fold follows: a hub row is spread
+over many items. The expand gives an item one warp, which writes the
+item's output, one contiguous run of its edges' rows, in 16-byte stores
+at any width C; the SDDMM gives an item a lane group. Per-edge tensors
+are in the plan's CSR order; the JAX package's are in its padded or
+compact lane order.
 
 Every op is a `torch.autograd.Function`, differentiable once, whose
 backward runs kernels too:
@@ -50,17 +52,18 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["expand_dst_csr", "sddmm_csr", "sddmm_csr_mh",
-           "expand_dst_csr_reference", "sddmm_csr_reference", "SDDMM_SPLIT"]
+           "expand_dst_csr_reference", "sddmm_csr_reference", "EDGE_SPLIT"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
-# The most CSR edges one work item of the SDDMM walks (`build_row_split`
-# at this K). An item reads its destination row once and writes its own
-# edges' scores, so short items cost little and spread long rows (the
-# arxiv-shape graph's ~800-edge rows, a hub's million) over many lane
-# groups. Chosen on the card from {64, 128, 256, 512, 2048}
+# The most CSR edges one work item of the SDDMM or the expand takes
+# (`build_row_split` at this K). An item reads its destination row once
+# and writes only its own edges' outputs, so short items cost little and
+# spread long rows (the arxiv-shape graph's ~800-edge rows, a hub's
+# million) over many lane groups or warps, with nothing to fold. Chosen on
+# the card from {64, 128, 256, 512, 1024, 2048} for both kernels
 # (scripts/sddmm_probe.py times the sweep).
-SDDMM_SPLIT = 128
+EDGE_SPLIT = 128
 
 
 def expand_dst_csr_reference(x_dst, plan, scale=None):
@@ -87,7 +90,8 @@ def sddmm_csr_reference(a, x_dst, plan, heads, gather):
 def _kernels():
     lib = load_library()
     expand = lib.gammagl_expand_csr
-    expand.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+    expand.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
+                       + [ctypes.c_void_p] + [ctypes.c_int64] * 2
                        + [ctypes.c_int, ctypes.c_void_p])
     expand.restype = ctypes.c_int
     sddmm = lib.gammagl_sddmm_csr
@@ -114,7 +118,8 @@ def _check_cuda(op, *tensors):
 def _expand(x, plan, scale=None):
     """x (N_dst, C) -> (E, C) of x's dtype in CSR order, optionally scaled
     per edge and head by ``scale`` (E, H) f32. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    version; a CUDA tensor launches the kernel, one warp for each work
+    item of the plan at `EDGE_SPLIT` edges, or raises."""
     if x.device.type == "cpu":
         return expand_dst_csr_reference(x, plan, scale)
     if x.device.type != "cuda":
@@ -132,11 +137,12 @@ def _expand(x, plan, scale=None):
     if out.numel() == 0:
         return out
     fn, _, err = _kernels()
-    rowptr = plan.arrays(x.device)[0]
+    item_ptr, meta, _, _, _ = plan.split_arrays(x.device, EDGE_SPLIT)
+    n_items = plan.num_nodes if meta is None else meta.shape[0]
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), 0 if scale is None else scale.data_ptr(),
-                  rowptr.data_ptr(), out.data_ptr(), plan.num_nodes,
-                  x.shape[1], heads, int(x.dtype == torch.bfloat16),
+        code = fn(x.data_ptr(), _ptr(scale), item_ptr.data_ptr(), _ptr(meta),
+                  n_items, out.data_ptr(), x.shape[1], heads,
+                  int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(code, "expand_dst_csr", err)
     expand_dst_csr.launches += 1
@@ -160,7 +166,7 @@ def _sddmm(a, x_dst, plan, heads, gather):
     if out.numel() == 0:
         return out
     _, fn, err = _kernels()
-    item_ptr, meta, _, _, _ = plan.split_arrays(a.device, SDDMM_SPLIT)
+    item_ptr, meta, _, _, _ = plan.split_arrays(a.device, EDGE_SPLIT)
     n_items = plan.num_nodes if meta is None else meta.shape[0]
     col = plan.arrays(a.device)[1]
     with torch.cuda.device(a.device):

@@ -32,7 +32,7 @@ from gammagl_tpu_torch.examples.common import synthetic_hetero
 from gammagl_tpu_torch.models import (GATModel, GATV2Model, GCNModel,
                                       GraphSAGEModel, HGTModel)
 from gammagl_tpu_torch.ops import cuda as kops
-from gammagl_tpu_torch.ops.cuda.sddmm_csr import SDDMM_SPLIT, _expand, _sddmm
+from gammagl_tpu_torch.ops.cuda.sddmm_csr import EDGE_SPLIT, _expand, _sddmm
 from gammagl_tpu_torch.serve import InferenceSession
 from gammagl_tpu_torch.utils import compute_dtype
 
@@ -451,25 +451,73 @@ def test_gat_session_on_card_matches_the_plain_path(card):
 _HEADS = {7: 7, 40: 1, 64: 8}
 
 
-@pytest.mark.parametrize("C", sorted(_HEADS))
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 1e-2)])
-def test_expand_kernel_matches_plain(card, C, dtype, rtol):
-    """Unscaled, the expand is a copy: bitwise equal to x[row(e)]. Scaled
-    per edge and head, one f32 product rounded once."""
-    plan, e = _plan(C)
-    g = torch.Generator().manual_seed(C)
-    x = torch.randn(plan.num_nodes, C, generator=g).to(card, dtype)
-    scale = torch.randn(e, _HEADS[C], generator=g).to(card)
+# (C, H) of the expand's tests: the widths above, rows narrower than a
+# 16-byte chunk (C = 1; 7 and 13, whose rows are no multiple of 16 bytes),
+# heads narrower than a chunk (16, 8), and RGCN's class width (349: rows
+# of 1396 bytes in f32) with a head a column and with one head
+_EXPAND_WIDTHS = [(1, 1), (7, 7), (13, 1), (16, 8), (40, 1), (64, 8),
+                  (349, 349), (349, 1)]
+
+
+def _expand_checks(x, plan, scale, rtol):
+    """The copy and the scaled expand on the card: each call one launch,
+    the copy bitwise x[row(e)], the scaled form within ``rtol`` of the
+    plain version, and a repeat of each bitwise equal."""
     before = kops.expand_dst_csr.launches
     got = kops.expand_dst_csr(x, plan)
+    torch.cuda.synchronize()
+    assert kops.expand_dst_csr.launches == before + 1
     scaled = _expand(x, plan, scale)
     torch.cuda.synchronize()
     assert kops.expand_dst_csr.launches == before + 2
-    assert got.dtype == dtype and got.shape == (e, C)
+    assert got.dtype == x.dtype and got.shape == (plan.num_edges, x.shape[1])
     assert torch.equal(got, kops.expand_dst_csr_reference(x, plan))
     _close(scaled, kops.expand_dst_csr_reference(x, plan, scale), rtol)
+    assert torch.equal(got, kops.expand_dst_csr(x, plan))
     assert torch.equal(scaled, _expand(x, plan, scale))
+
+
+@pytest.mark.parametrize("C,H", _EXPAND_WIDTHS)
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_expand_kernel_matches_plain(card, C, H, dtype, rtol):
+    """Unscaled, the expand is a copy: bitwise equal to x[row(e)]. Scaled
+    per edge and head, one f32 product rounded once. Where C elements are
+    no multiple of 16 bytes, most items' output runs start off a 16-byte
+    boundary, so the scalar prologue and epilogue run."""
+    plan, e = _plan(C)
+    g = torch.Generator().manual_seed(C)
+    x = torch.randn(plan.num_nodes, C, generator=g).to(card, dtype)
+    scale = torch.randn(e, H, generator=g).to(card)
+    _expand_checks(x, plan, scale, rtol)
+
+
+@pytest.mark.parametrize("C,H", [(7, 7), (64, 8), (349, 1)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("case", ["misaligned x", "hub"])
+def test_expand_misaligned_x_and_hub_rows(card, C, H, dtype, rtol, case):
+    """``misaligned x``: rows read from a flat buffer sliced from element
+    1 (x off 16 bytes, so no width takes the aligned instance). ``hub``:
+    a star of 20,000 edges into row 0, more than 10 x EDGE_SPLIT, cut
+    into work items, beside rows with no edges. Same checks as above."""
+    if case == "hub":
+        plan = _hub_plan(C)
+        assert 0 in plan.row_split(EDGE_SPLIT).cut_row.tolist()
+        assert 20_000 > 10 * EDGE_SPLIT
+    else:
+        plan, _ = _plan(C + 1)
+    assert (np.diff(plan.rowptr) == 0).any()
+    g = torch.Generator().manual_seed(C + 2)
+    if case == "hub":
+        x = torch.randn(plan.num_nodes, C, generator=g).to(card, dtype)
+    else:
+        flat = torch.randn(plan.num_nodes * C + 1, generator=g).to(card,
+                                                                   dtype)
+        x = flat[1:].view(plan.num_nodes, C)
+        assert x.data_ptr() % 16
+    scale = torch.randn(plan.num_edges, H, generator=g).to(card)
+    _expand_checks(x, plan, scale, rtol)
 
 
 @pytest.mark.parametrize("C", sorted(_HEADS))
@@ -519,11 +567,11 @@ def test_sddmm_kernel_matches_plain(card, H, F, dtype, gather):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gather", [False, True])
 def test_sddmm_hub_rows_are_cut_into_items(card, H, F, dtype, gather):
-    """A row of 20,000 edges, cut into work items at SDDMM_SPLIT: one
+    """A row of 20,000 edges, cut into work items at EDGE_SPLIT: one
     launch a call and no fold, 1e-5 against the plain version (f32 dots),
     repeats bitwise equal."""
     plan = _hub_plan(H * F)
-    assert 0 in plan.row_split(SDDMM_SPLIT).cut_row.tolist()
+    assert 0 in plan.row_split(EDGE_SPLIT).cut_row.tolist()
     g = torch.Generator().manual_seed(H * F)
     rows = plan.num_src if gather else plan.num_edges
     a = torch.randn(rows, H * F, generator=g).to(card, dtype)

@@ -104,15 +104,26 @@ def _close(got, want, rtol):
     np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("window", WINDOW)
-@pytest.mark.parametrize("C,dtype", [(7, "f32"), (40, "f32"), (40, "bf16")])
-def test_expand_dst_matches_jax(window, C, dtype):
+def _star_graph(seed, n_dst=40, n_src=55, e=120, star=300):
+    """A star of ``star`` edges into row 0 (a row the card's kernels cut
+    into many work items at their item sizes) and ``e`` random edges into
+    even rows below 20: odd rows and rows 20.. get none. Shuffled, so the
+    CSR order is not the caller's."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.zeros(star, np.int64),
+                          2 * rng.integers(0, n_dst // 4, e)])
+    src = rng.integers(0, n_src, dst.shape[0])
+    order = rng.permutation(dst.shape[0])
+    return src[order], dst[order], n_dst, n_src
+
+
+def _expand_vs_jax(lay, C, dtype, seed):
     """Forward: x_dst[dst_e], exact against the XLA gather and against
     the JAX kernel in bf16 (a one-hot product is a copy there), 1e-4 in
     f32. Backward: the per-edge segment sum, against the JAX VJP
     (`segment_sum_win` on window plans) and XLA's segment sum."""
-    lay = _Layouts(*_graph(C), window)
-    rng = np.random.default_rng(C + 1)
+    window = lay.window
+    rng = np.random.default_rng(seed)
     x = rng.normal(size=(lay.n_dst, C)).astype(np.float32)
     gc = rng.normal(size=(lay.E, C)).astype(np.float32)
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
@@ -143,6 +154,123 @@ def test_expand_dst_matches_jax(window, C, dtype):
         _close(lay.from_csr(out), jout, 1e-4)
         _close(tx.grad, dx_xla, 1e-5)
         _close(tx.grad, dx_j, 1e-4)
+
+
+@pytest.mark.parametrize("window", WINDOW)
+@pytest.mark.parametrize("C,dtype", [(7, "f32"), (40, "f32"), (40, "bf16"),
+                                     (349, "f32"), (1, "f32"), (1, "bf16")])
+def test_expand_dst_matches_jax(window, C, dtype):
+    """`_expand_vs_jax` at GATv2's widths, RGCN's class width (C = 349:
+    rows of 1396 bytes in f32, no multiple of 16) and one column."""
+    _expand_vs_jax(_Layouts(*_graph(C), window), C, dtype, C + 1)
+
+
+@pytest.mark.parametrize("window", WINDOW)
+@pytest.mark.parametrize("C,dtype", [(13, "f32"), (349, "f32"), (1, "bf16"),
+                                     (40, "bf16")])
+def test_expand_dst_star_matches_jax(window, C, dtype):
+    """`_expand_vs_jax` on a graph with a 300-edge star row and rows
+    without edges."""
+    _expand_vs_jax(_Layouts(*_star_graph(C + 2), window), C, dtype, C + 3)
+
+
+_GRAPHS = {"random": _graph, "star": _star_graph}
+
+
+@pytest.mark.parametrize("window", WINDOW)
+@pytest.mark.parametrize("graph", sorted(_GRAPHS))
+@pytest.mark.parametrize("weights", ["none", "edge", "head"])
+@pytest.mark.parametrize("C,H,dtype", [(349, 1, "f32"), (1, 1, "f32"),
+                                       (12, 4, "f32"), (40, 8, "bf16")])
+def test_segment_sum_backward_matches_jax(window, graph, weights, C, H,
+                                          dtype):
+    """The backward of the per-edge segment sum, whose dv is the expand of
+    the cotangent (scaled per edge, or per edge and head, by the weights):
+    dv and dw against the VJP of the JAX package's `segment_sum_csr` (the
+    weights multiplied in before it) and of an XLA composition. f32: 1e-5
+    against XLA, 1e-4 against the JAX package; bf16 rtol 2e-2 against the
+    f32 references of the same bf16 inputs (the port rounds the cotangent
+    to v's dtype before its kernels read it, so the references read that
+    rounded cotangent too)."""
+    lay = _Layouts(*_GRAPHS[graph](C + 5), window)
+    rng = np.random.default_rng(C + 6)
+    E, Ep = lay.E, len(lay.jplan.valid)
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    v = np.asarray(torch.tensor(rng.normal(size=(E, C)).astype(np.float32))
+                   .to(tdt).float())
+    w = {"none": None, "edge": rng.random(E).astype(np.float32),
+         "head": rng.random((E, H)).astype(np.float32)}[weights]
+    g = np.asarray(torch.tensor(rng.normal(size=(lay.n_dst, C)).astype(
+        np.float32)).to(tdt).float())
+
+    def weigh(v, w, n):
+        if w is None:
+            return v
+        if w.ndim == 1:
+            return v * w[:, None]
+        return (v.reshape(n, w.shape[1], -1) * w[:, :, None]).reshape(n, C)
+
+    def xla(v, w):
+        return jax.ops.segment_sum(weigh(v, w, E), jnp.asarray(lay.dst),
+                                   num_segments=lay.n_dst)
+
+    def pallas(v, w):
+        return jax_segment_sum_csr(weigh(v, w, Ep), lay.jplan)
+
+    jw = None if w is None else jnp.asarray(w)
+    jwl = None if w is None else jnp.asarray(lay.to_lanes(w))
+    _, vjp_x = jax.vjp(lambda v: xla(v, jw), jnp.asarray(v))
+    dv_x = vjp_x(jnp.asarray(g))[0]
+    _, vjp_p = jax.vjp(lambda v: pallas(v, jwl),
+                       jnp.asarray(lay.to_lanes(v)))
+    dv_p = lay.from_lanes(vjp_p(jnp.asarray(g))[0])
+    tv = lay.to_csr(v).to(tdt).requires_grad_()
+    tw = None if w is None else lay.to_csr(w).requires_grad_()
+    out = kops.segment_sum_csr(tv, lay.plan, tw)
+    assert out.dtype == tdt
+    (out.float() * torch.tensor(g)).sum().backward()
+    assert tv.grad.dtype == tdt
+    fine = dtype == "f32"
+    _close(lay.from_csr(tv.grad), dv_x, 1e-5 if fine else 2e-2)
+    _close(lay.from_csr(tv.grad), dv_p, 1e-4 if fine else 2e-2)
+    if w is not None:
+        dw_x = jax.grad(lambda w: jnp.sum(xla(jnp.asarray(v), w) * g))(jw)
+        dw_p = lay.from_lanes(jax.grad(lambda w: jnp.sum(
+            pallas(jnp.asarray(lay.to_lanes(v)), w) * g))(jwl))
+        _close(lay.from_csr(tw.grad), dw_x, 1e-5 if fine else 2e-2)
+        _close(lay.from_csr(tw.grad), dw_p, 1e-4 if fine else 2e-2)
+
+
+@pytest.mark.parametrize("window", WINDOW)
+@pytest.mark.parametrize("graph", sorted(_GRAPHS))
+@pytest.mark.parametrize("H,F", [(1, 349), (1, 1), (2, 6)])
+def test_scaled_expand_matches_jax_backward_mh(window, graph, H, F):
+    """The scaled expand (TPU row 7, `_sddmm_backward_mh`): the gradient of
+    `sddmm_csr_mh` in its per-edge rows, g[e, h] * x_dst[row(e)], against
+    the JAX package's (its Pallas kernel, interpreted) at 1e-4 and an XLA
+    composition at 1e-5, f32."""
+    lay = _Layouts(*_GRAPHS[graph](H * F + 7), window)
+    rng = np.random.default_rng(H * F + 8)
+    msg = rng.normal(size=(lay.E, H, F)).astype(np.float32)
+    xd = rng.normal(size=(lay.n_dst, H, F)).astype(np.float32)
+    gc = rng.normal(size=(lay.E, H)).astype(np.float32)
+    jplan = lay.jplan
+
+    @jax.jit
+    def ref(m, xd, g):
+        _, vjp = jax.vjp(
+            lambda m: jax_sddmm_csr_mh(None, xd, jplan, msg=m), m)
+        return vjp(g)[0]
+
+    dm_j = lay.from_lanes(ref(jnp.asarray(lay.to_lanes(msg)),
+                              jnp.asarray(xd),
+                              jnp.asarray(lay.to_lanes(gc))))
+    dm_x = gc[:, :, None] * xd[lay.dst]
+    tm = lay.to_csr(msg).requires_grad_()
+    out = kops.sddmm_csr_mh(None, torch.tensor(xd), lay.plan, msg=tm)
+    (out * lay.to_csr(gc)).sum().backward()
+    _close(lay.from_csr(tm.grad), dm_x, 1e-5)
+    _close(lay.from_csr(tm.grad), dm_j, 1e-4)
 
 
 @pytest.mark.parametrize("window", WINDOW)

@@ -2,7 +2,7 @@
 against the JAX package.
 
 On the card the SDDMM cuts the plan's rows into work items of at most
-`SDDMM_SPLIT` consecutive CSR edges (`build_row_split` at that K; a hub
+`EDGE_SPLIT` consecutive CSR edges (`build_row_split` at that K; a hub
 row becomes many items) and gives each item a group of lanes: a lane
 takes V columns of one head (V the widest load the alignment allows),
 Lh lanes a head (the power of two >= F / V, at most 32) and the heads of
@@ -43,7 +43,7 @@ from gammagl_tpu.ops.pallas import sddmm_csr as jax_sddmm_csr
 from gammagl_tpu.ops.pallas import sddmm_csr_mh as jax_sddmm_csr_mh
 
 from gammagl_tpu_torch.ops import cuda as kops
-from gammagl_tpu_torch.ops.cuda.sddmm_csr import SDDMM_SPLIT
+from gammagl_tpu_torch.ops.cuda.sddmm_csr import EDGE_SPLIT
 
 # the (H, F) of the card's tests (tests/test_torch_cuda.py)
 SHAPES = [(1, 7), (8, 8), (1, 40), (1, 256), (2, 640)]
@@ -188,7 +188,7 @@ def test_plan_caches_each_item_size_apart():
     np.testing.assert_array_equal(small[0].numpy(), want16.item_ptr)
     np.testing.assert_array_equal(small[1][:, 0].numpy(), want16.item_row)
     assert plan.row_split(16) is plan.row_split(16)
-    assert 2 <= SDDMM_SPLIT <= kops.ROW_SPLIT
+    assert 2 <= EDGE_SPLIT <= kops.ROW_SPLIT
 
 
 def _xor_tree(v):
@@ -280,7 +280,7 @@ def test_kernel_walk_matches_jax(H, F, form):
             else _jax_scores(None, xd, msg, src, dst, n_dst, n_src, H))
     a = xs.reshape(n_src, H * F) if gather else msg[plan.perm].reshape(E, -1)
     for vmax in VMAX.values():
-        for K in (4, 16, SDDMM_SPLIT):
+        for K in (4, 16, EDGE_SPLIT):
             got = _emulate(a, xd.reshape(n_dst, -1), plan, H, F, gather, K,
                            vmax)
             _close(_to_caller(got, plan), want)
@@ -298,7 +298,7 @@ def test_plain_version_on_a_star_matches_jax(H, F, form):
     version against XLA's COO dot and the JAX kernel, both forms."""
     src, dst, n_dst, n_src = _hub_graph(7, n_src=3000, e=2000, star=20_000)
     plan = kops.build_csr_plan(src, dst, n_dst, num_src=n_src)
-    assert plan.row_split(SDDMM_SPLIT).cut_row.shape[0] >= 1
+    assert plan.row_split(EDGE_SPLIT).cut_row.shape[0] >= 1
     rng = np.random.default_rng(8)
     E = len(src)
     xs = rng.normal(size=(n_src, H, F)).astype(np.float32)
