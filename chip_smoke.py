@@ -216,7 +216,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    float32 step-0 gradients; 5 steps (Adam lr 0.005) against the plain
    path under one generator state, per step exactly 34 SpMM, 16 SDDMM
    (dalpha), 8 expand, 6 segment sum and 2 segment max launches; a trace.
-29. Print the card's name and power limit, one JSON line on the kernels
+29. The data core's paths, on files written from the seed in a temporary
+   directory (GGL_TPU_OFFLINE=1, nothing fetched): (a) Planetoid's eight
+   raw files at pubmed's shape (19,717 nodes, 500 features, 3 classes,
+   the 60 / 500 / 1,000 split, 44,324 undirected edges) through
+   `load_node_dataset`, `Planetoid` and the gcn twin's `main` (hidden 16,
+   dropout 0.5, lr 0.01, decay 5e-4) for 5 epochs on the card, the loaded
+   arrays equal to the written ones, exactly 6 `spmm_csr` launches an
+   epoch, the losses against the plain COO path of the same loop, and a
+   second construction that reads only the processed cache; (b) phase
+   24's shard staged in OGB's npy layout, `load_ogb_root` giving it back
+   bitwise, the papers twin with `--data-root` (no warning about
+   read-only memory; step-0 loss and gradients bitwise those of the twin
+   on the arrays handed in; 2 staged steps with phase 25's launches a
+   step and a validation forward after the first and last); (c) a TU set
+   at ENZYMES' statistics (600 graphs) through `TUDataset`, a
+   `BatchGraph` of 128 graphs through 3 GCNConvs of width 64 (float32)
+   on its `csr_plan()`, exactly 3 `spmm_csr` launches, each graph's rows
+   against that graph alone and `to_data_list` round-tripping, then
+   `pad_graph(..., bucket=True)` through the COO route on the card, its
+   real rows against the unpadded result. The host seconds of each load
+   are printed with the card's name and power limit.
+30. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -2615,9 +2636,9 @@ def papers_shard(k):
                                             build_halo_partition_planned)
     from gammagl_tpu_torch.utils import calc_gcn_norm_np
     t0 = time.perf_counter()
-    ei, x, y, train, _, c = papers.synthetic_papers(PAPERS_SCALE)
+    ei0, x, y, train, val, c = papers.synthetic_papers(PAPERS_SCALE)
     n = x.shape[0]
-    ei = np.concatenate([ei, np.tile(np.arange(n, dtype=np.int64), (2, 1))],
+    ei = np.concatenate([ei0, np.tile(np.arange(n, dtype=np.int64), (2, 1))],
                         1)
     w = calc_gcn_norm_np(ei, n)
     t_gen = time.perf_counter() - t0
@@ -2636,7 +2657,8 @@ def papers_shard(k):
              f"{len(part.interior)} / {len(part.transpose.interior)} "
              "interior plans: the accumulating chain would not run")
     return {"ei": ei, "w": w, "x": x, "y": y, "train": train, "c": c,
-            "part": part, "nsb": nsb, "t_part": t_part}
+            "part": part, "nsb": nsb, "t_part": t_part, "t_gen": t_gen,
+            "ei0": ei0, "val": val}
 
 
 def tier_launches(part):
@@ -3249,6 +3271,411 @@ def phase_simplehgn(k, common, SimpleHGNModel, tg, plan):
                       serve_calls, per_step, SHGN_LR)
 
 
+# the data core's paths (phase 29), each on files written from SEED in a
+# temporary directory, nothing fetched (GGL_TPU_OFFLINE=1): Planetoid's
+# pubmed at its published shape (19,717 nodes, 500 features, 3 classes,
+# 60 / 500 / 1,000 split, ~44,300 undirected edges) through the gcn twin
+# at Kipf & Welling's width (its defaults: hidden 16, dropout 0.5, Adam lr
+# 0.01, decay 5e-4); the papers shard of phase 24 staged in OGB's npy
+# layout through the papers twin (--data-root); a TU set at ENZYMES'
+# published statistics (600 graphs, 6 classes, ~33 nodes and ~62
+# undirected edges a graph, 18 node attributes, 3 node labels) batched
+# into GCNConvs of width 64 in float32
+PUBMED_NODES, PUBMED_FEAT, PUBMED_CLASSES = 19_717, 500, 3
+PUBMED_EDGES, PUBMED_TRAIN, PUBMED_TEST = 44_324, 60, 1_000
+PAPERS_STAGED_STEPS = 2
+TU_GRAPHS, TU_CLASSES, TU_ATTRS, TU_LABELS = 600, 6, 18, 3
+TU_BATCH, TU_WIDTH, TU_LAYERS = 128, 64, 3
+# float32 outputs of two sum orders: within this share of max |out| (the
+# f32 rule of the parity tests, ROADMAP section C)
+F32_OUT_TOL = 1e-5
+
+
+def write_pubmed(raw_dir, rng):
+    """The eight ``ind.pubmed.*`` files (scipy CSR features, one-hot
+    labels, the adjacency dict, the test ids), as Planetoid ships them:
+    x holds the 60 training rows, allx every row before the test block,
+    tx / ty the test block in the order of ``test.index``. Features are
+    sparse (10% of the columns) with a class-owned block of columns;
+    80% of the edges stay within a class. Returns the arrays a reader
+    must give back: x, y, edge_index (coalesced, no self-loops) and the
+    test ids."""
+    import pickle
+    import scipy.sparse as sp
+    n, f, c = PUBMED_NODES, PUBMED_FEAT, PUBMED_CLASSES
+    y = rng.integers(0, c, n)
+    y[:PUBMED_TRAIN] = np.arange(PUBMED_TRAIN) % c  # 20 a class
+    x = (rng.random((n, f)) < 0.1) * rng.random((n, f))
+    own = (np.arange(f)[None, :] // (f // c)) == y[:, None]
+    x = (x + own * (rng.random((n, f)) < 0.2) * 0.5).astype(np.float32)
+    e = int(PUBMED_EDGES * 1.08)
+    src = rng.integers(0, n, e)
+    same = rng.random(e) < 0.8
+    pool = [np.nonzero(y == k)[0] for k in range(c)]
+    dst = np.where(same, np.array([pool[k][i % len(pool[k])] for k, i in
+                                   zip(y[src], rng.integers(0, n, e))]),
+                   rng.integers(0, n, e))
+    pairs = np.unique(np.sort(np.stack([src, dst]), 0), axis=1)
+    pairs = pairs[:, pairs[0] != pairs[1]][:, :PUBMED_EDGES]
+    both = np.concatenate([pairs, pairs[::-1]], 1)
+    order = np.lexsort((both[1], both[0]))
+    edge_index = both[:, order]
+    n_all = n - PUBMED_TEST
+    test = rng.permutation(np.arange(n_all, n))
+    onehot = np.eye(c)[y]
+    adj = {i: [] for i in range(n)}
+    for a, b in edge_index.T.tolist():
+        adj[a].append(b)
+    files = {"x": sp.csr_matrix(x[:PUBMED_TRAIN]),
+             "y": onehot[:PUBMED_TRAIN],
+             "allx": sp.csr_matrix(x[:n_all]), "ally": onehot[:n_all],
+             "tx": sp.csr_matrix(x[test]), "ty": onehot[test],
+             "graph": adj}
+    os.makedirs(raw_dir, exist_ok=True)
+    for name, value in files.items():
+        with open(os.path.join(raw_dir, f"ind.pubmed.{name}"), "wb") as fh:
+            pickle.dump(value, fh)
+    with open(os.path.join(raw_dir, "ind.pubmed.test.index"), "w") as fh:
+        fh.write("\n".join(str(i) for i in test))
+    return {"x": x, "y": y.astype(np.int64), "edge_index": edge_index,
+            "test": test}
+
+
+def write_tu(raw_dir, name, rng):
+    """A TU collection of TU_GRAPHS graphs at ENZYMES' statistics:
+    ``<name>_A.txt`` (both directions of each undirected edge, 1-based),
+    the graph indicator, graph labels 1..6, 18 node attributes and node
+    labels 1..3. Returns the node count of each graph."""
+    sizes = rng.integers(10, 57, TU_GRAPHS)  # mean 33
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    edges = []
+    for g, m in enumerate(sizes):
+        k = int(round(1.9 * m))  # ~62 undirected edges at 33 nodes
+        ab = rng.integers(0, m, (2, 3 * k))
+        ab = np.unique(np.sort(ab, 0), axis=1)
+        ab = ab[:, ab[0] != ab[1]][:, :k] + starts[g] + 1
+        edges.append(np.concatenate([ab, ab[::-1]], 1))
+    edges = np.concatenate(edges, 1).T
+    os.makedirs(raw_dir, exist_ok=True)
+    n = int(sizes.sum())
+
+    def put(suffix, arr, fmt):
+        np.savetxt(os.path.join(raw_dir, f"{name}_{suffix}.txt"), arr,
+                   fmt=fmt, delimiter=", ")
+
+    put("A", edges, "%d")
+    put("graph_indicator", np.repeat(np.arange(1, TU_GRAPHS + 1), sizes),
+        "%d")
+    put("graph_labels", rng.integers(1, TU_CLASSES + 1, TU_GRAPHS), "%d")
+    put("node_attributes", rng.normal(size=(n, TU_ATTRS)), "%.6f")
+    put("node_labels", rng.integers(1, TU_LABELS + 1, n), "%d")
+    return sizes
+
+
+def stage_ogb(root, shard):
+    """Phase 24's shard (before self-loops) in OGB's npy layout under
+    ``root``: raw/{node_feat,edge_index,node_label}.npy (labels float64,
+    as OGB stores them) and split/time/{train,valid}.npy."""
+    base = os.path.join(root, "ogbn_papers100M")
+    raw, split = os.path.join(base, "raw"), os.path.join(base, "split",
+                                                          "time")
+    os.makedirs(raw)
+    os.makedirs(split)
+    np.save(os.path.join(raw, "node_feat.npy"), shard["x"])
+    np.save(os.path.join(raw, "edge_index.npy"), shard["ei0"])
+    np.save(os.path.join(raw, "node_label.npy"),
+            shard["y"].astype(np.float64))
+    np.save(os.path.join(split, "train.npy"), np.nonzero(shard["train"])[0])
+    np.save(os.path.join(split, "valid.npy"), np.nonzero(shard["val"])[0])
+
+
+def data_planetoid_path(k, common, gcn_trainer, GCNModel, tmp, rng):
+    """(a) pubmed's raw files -> load_node_dataset -> Planetoid -> Graph
+    -> the gcn twin's `main` on the card (CSRPlan, `spmm_csr` forward and
+    backward), held against the plain COO path of the same loop; a second
+    construction reads the processed cache only."""
+    from gammagl_tpu_torch.datasets import Planetoid
+    from gammagl_tpu_torch.datasets import planetoid as planetoid_module
+    t0 = time.perf_counter()
+    want = write_pubmed(os.path.join(tmp, "pubmed", "raw"), rng)
+    t_write = time.perf_counter() - t0
+    common._DS_CACHE.clear()
+    t0 = time.perf_counter()
+    g, c = common.load_node_dataset("pubmed", tmp)
+    t_raw = time.perf_counter() - t0
+    n_all = PUBMED_NODES - PUBMED_TEST
+    masks = {"train_mask": np.arange(PUBMED_NODES) < PUBMED_TRAIN,
+             "val_mask": (np.arange(PUBMED_NODES) >= PUBMED_TRAIN)
+             & (np.arange(PUBMED_NODES) < PUBMED_TRAIN + 500),
+             "test_mask": np.arange(PUBMED_NODES) >= n_all}
+    for name, arr in (("x", want["x"]), ("y", want["y"]),
+                      ("edge_index", want["edge_index"]), *masks.items()):
+        got = np.asarray(g[name])
+        if got.shape != arr.shape or not np.array_equal(got, arr):
+            fail(f"pubmed: loaded {name} differs from the written files")
+    if c != PUBMED_CLASSES or g.num_nodes != PUBMED_NODES:
+        fail(f"pubmed: {g.num_nodes} nodes, {c} classes")
+
+    def no_parse(*a, **kw):
+        fail("the second Planetoid construction parsed the raw files")
+
+    real = planetoid_module.read_planetoid_data
+    planetoid_module.read_planetoid_data = no_parse
+    try:
+        t0 = time.perf_counter()
+        again = Planetoid(tmp, "pubmed")[0]
+        t_cache = time.perf_counter() - t0
+    finally:
+        planetoid_module.read_planetoid_data = real
+    if not np.array_equal(again.edge_index, g.edge_index):
+        fail("pubmed: the processed cache gave another graph")
+    print(f"  pubmed files: {PUBMED_NODES} nodes, "
+          f"{g.num_edges // 2} undirected edges, {PUBMED_FEAT} features, "
+          f"{c} classes; written in {t_write:.2f} s, raw parse "
+          f"{t_raw:.3f} s, processed cache {t_cache:.3f} s")
+
+    args = gcn_trainer.parser().parse_args(
+        ["--dataset", "pubmed", "--dataset_path", tmp, "--n_epoch",
+         str(N_STEPS)])
+    if args.device != "cuda":
+        fail("the gcn twin does not default to the card")
+    # 2 layers, each a forward and a dx in the step, a forward in the eval
+    per_epoch = {"spmm_csr": 2 * 3}
+    sync()
+    reset_counts(k)
+    t0 = time.perf_counter()
+    out = gcn_trainer.main(args)
+    sync()
+    t_kernel = time.perf_counter() - t0
+    counts = read_counts(k)
+    if counts != every_kernel(per_epoch, N_STEPS):
+        fail(f"pubmed gcn twin: expected {per_epoch} an epoch, counted "
+             f"{counts}")
+    torch.manual_seed(args.seed)
+    model = GCNModel(hidden_dim=args.hidden_dim, num_class=c,
+                     drop_rate=args.drop_rate)
+    reset_counts(k)
+    plain = common.run_simple_node_trainer(model, args,
+                                           forward_kwargs={"plan": None})
+    if any(read_counts(k).values()):
+        fail(f"the plain path launched kernels: {read_counts(k)}")
+    for i, (lk, lp) in enumerate(zip(out["losses"], plain["losses"])):
+        print(f"  pubmed step {i}: loss kernel {lk:.6f}, plain {lp:.6f}")
+        if not np.isfinite(lk) or abs(lk - lp) > LOSS_TOL * abs(lp):
+            fail(f"pubmed step {i}: loss {lk} vs plain {lp}")
+    if not out["losses"][-1] < (1 - MIN_FALL) * out["losses"][0]:
+        fail(f"pubmed: loss did not fall by {MIN_FALL:.0%}: "
+             f"{out['losses']}")
+    med = float(np.median(out["epoch_ms"][1:]))
+    plain_med = float(np.median(plain["epoch_ms"][1:]))
+    print(f"  pubmed gcn twin epoch (step and eval, epochs 1-{N_STEPS - 1}): "
+          f"median {med:.3f} ms kernel path, {plain_med:.3f} ms plain path; "
+          f"the twin's whole run {t_kernel:.2f} s")
+    return {"counts": counts, "losses": out["losses"],
+            "plain_losses": plain["losses"], "epoch_ms": out["epoch_ms"],
+            "plain_epoch_ms": plain["epoch_ms"], "write_s": t_write,
+            "raw_parse_s": t_raw, "processed_cache_s": t_cache,
+            "twin_s": t_kernel}
+
+
+def data_papers_path(k, shard, tmp):
+    """(b) phase 24's shard staged in OGB's npy layout, read back by
+    `load_ogb_root` (memory maps), and the papers twin on it with
+    --data-root: step-0 loss and gradients bitwise those of the twin on
+    the same arrays handed in, PAPERS_STAGED_STEPS staged steps with
+    their launches, no warning about read-only memory."""
+    import warnings
+    from gammagl_tpu_torch.examples import papers100m_trainer as papers
+    from gammagl_tpu_torch.parallel import make_partitioned_gcn_train_staged
+    root = os.path.join(tmp, "ogb")
+    t0 = time.perf_counter()
+    stage_ogb(root, shard)
+    t_stage = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = papers.load_ogb_root(root)
+    t_load = time.perf_counter() - t0
+    names = ("edge_index", "x", "y", "train", "val")
+    for name, got, arr in zip(names, loaded, (shard["ei0"], shard["x"],
+                                              shard["y"], shard["train"],
+                                              shard["val"])):
+        if got.shape != arr.shape or not np.array_equal(got, arr):
+            fail(f"staged papers shard: {name} differs from the shard's")
+    if loaded[5] != shard["c"]:
+        fail(f"staged papers shard: {loaded[5]} classes")
+    print(f"  papers shard staged in OGB's npy layout in {t_stage:.2f} s "
+          f"(its in-memory build: {shard['t_gen']:.2f} s); load_ogb_root "
+          f"(memory maps) {t_load:.3f} s")
+    argv = ["--epochs", str(PAPERS_STAGED_STEPS)]
+    args = papers.parser().parse_args(argv + ["--data-root", root])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        prep = papers.prepare(args)
+        t_prep = time.perf_counter() - t0
+    bad = [str(w.message) for w in caught if "writ" in str(w.message)]
+    if bad:
+        fail(f"staged papers shard: warnings about read-only memory: {bad}")
+    if prep["device"].type != "cuda":
+        fail("the papers twin does not run on the card")
+    mem = papers.prepare(papers.parser().parse_args(argv), data=(
+        shard["ei0"], shard["x"], shard["y"], shard["train"], shard["val"],
+        shard["c"]))
+    step0 = []
+    for p in (prep, mem):
+        params, _, step, _ = make_partitioned_gcn_train_staged(
+            p["part"], p["f"], args.hidden, p["c"], num_layers=args.layers,
+            compute_dtype=p["cdtype"], learning_rate=args.lr,
+            device=p["device"])
+        step0.append(step.loss_and_grads(params, p["xs"], p["ys"], p["ms"]))
+    (la, ga), (lb, gb) = step0
+    if not torch.equal(la, lb) or any(not torch.equal(ga[n], gb[n])
+                                      for n in ga):
+        fail("staged papers shard: step-0 loss or gradients differ from "
+             "the twin's on the arrays handed in")
+    del mem, step0, ga, gb
+    part = prep["part"]
+    fwd = {name: args.layers * n for name, n in tier_launches(part).items()}
+    per_step = {name: fwd[name] + (args.layers - 1) * n
+                for name, n in tier_launches(part.transpose).items()}
+    # the twin scores validation after its first and last steps: one
+    # forward each
+    want = {name: PAPERS_STAGED_STEPS * per_step.get(name, 0)
+            + 2 * fwd.get(name, 0) for name in set(per_step) | set(fwd)}
+    sync()
+    reset_counts(k)
+    out = papers.train(args, prep)
+    sync()
+    counts = read_counts(k)
+    if counts != every_kernel(want):
+        fail(f"staged papers twin: expected {want}, counted {counts}")
+    print(f"  staged papers twin: step-0 loss {float(la):.6f} and "
+          f"gradients bitwise those on the arrays handed in; losses "
+          f"{out['losses']}; prepare {t_prep:.2f} s")
+    return {"counts": counts, "losses": out["losses"],
+            "step0_loss": float(la), "stage_s": t_stage,
+            "load_ogb_root_s": t_load, "in_memory_build_s": shard["t_gen"],
+            "prepare_s": t_prep, "epoch_ms": out["epoch_ms"]}
+
+
+def data_tu_path(k, tmp, rng, dev):
+    """(c) TU files -> TUDataset -> BatchGraph of TU_BATCH graphs ->
+    TU_LAYERS GCNConvs through the batch's `csr_plan()` and `spmm_csr`:
+    each graph's rows against that graph alone, `to_data_list` round
+    trip; then `pad_graph(batch, bucket=True)` through the COO route on
+    the card, its real rows against the unpadded result."""
+    from gammagl_tpu_torch.data import BatchGraph, pad_graph
+    from gammagl_tpu_torch.datasets import TUDataset
+    from gammagl_tpu_torch.layers.conv import GCNConv
+    name = "ENZYMES"
+    sizes = write_tu(os.path.join(tmp, name, "raw"), name, rng)
+    t0 = time.perf_counter()
+    ds = TUDataset(tmp, name)
+    t_raw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = TUDataset(tmp, name)
+    t_cache = time.perf_counter() - t0
+    graphs = [ds[i] for i in range(TU_BATCH)]
+    if len(ds) != TU_GRAPHS or ds.num_classes != TU_CLASSES or [
+            gr.num_nodes for gr in graphs] != sizes[:TU_BATCH].tolist():
+        fail(f"TU set: {len(ds)} graphs, {ds.num_classes} classes")
+    f = ds.num_node_features
+    if f != TU_ATTRS + TU_LABELS:
+        fail(f"TU set: {f} node features")
+    batch = BatchGraph.from_data_list(graphs)
+    for a, b in zip(batch.to_data_list(), graphs):
+        for key in b.keys():
+            if not np.array_equal(a[key], np.asarray(b[key]).reshape(
+                    a[key].shape)):
+                fail(f"TU batch: to_data_list changed {key}")
+    print(f"  TU set ({name} statistics): {TU_GRAPHS} graphs, "
+          f"{int(sizes.sum())} nodes, mean {sizes.mean():.2f} a graph, "
+          f"{ds.data.num_edges // 2 / TU_GRAPHS:.2f} undirected edges a "
+          f"graph; raw parse {t_raw:.3f} s, processed cache {t_cache:.3f} "
+          f"s; batch of {TU_BATCH}: {batch.num_nodes} nodes, "
+          f"{batch.num_edges} edges")
+    torch.manual_seed(SEED)
+    widths = [f] + [TU_WIDTH] * TU_LAYERS
+    convs = [GCNConv(a, b).to(dev).eval() for a, b in zip(widths,
+                                                          widths[1:])]
+
+    def run(g, plan):
+        h = torch.from_numpy(np.asarray(g.x, np.float32)).to(dev)
+        ei = torch.from_numpy(np.asarray(g.edge_index)).to(dev)
+        with torch.no_grad():
+            for i, conv in enumerate(convs):
+                h = conv(h, ei, num_nodes=g.num_nodes, plan=plan)
+                if i < len(convs) - 1:
+                    h = torch.relu(h)
+        return h
+
+    looped = batch.add_self_loop()
+    plan = looped.csr_plan()
+    sync()
+    reset_counts(k)
+    out = run(looped, plan)
+    sync()
+    counts = read_counts(k)
+    if counts != every_kernel({"spmm_csr": TU_LAYERS}):
+        fail(f"TU batch: expected {TU_LAYERS} SpMM, counted {counts}")
+    if out.shape != (batch.num_nodes, TU_WIDTH):
+        fail(f"TU batch: output shape {tuple(out.shape)}")
+    ptr = batch.ptr
+    err = 0.0
+    for i, gr in enumerate(graphs):
+        alone = gr.add_self_loop()
+        err = max(err, float((out[ptr[i]:ptr[i + 1]] - run(
+            alone, alone.csr_plan())).abs().max()))
+    scale = float(out.abs().max())
+    print(f"  TU batch vs each graph alone: max_abs_err {err:.3e} "
+          f"(limit {F32_OUT_TOL:g} x max|out| {scale:.3e})")
+    if not err <= F32_OUT_TOL * scale:
+        fail("TU batch: a graph's rows differ from the graph alone")
+    padded = pad_graph(looped, bucket=True)
+    reset_counts(k)
+    coo = run(padded, None)
+    sync()  # a device assert from an index out of range fails here
+    if any(read_counts(k).values()):
+        fail(f"the COO route launched kernels: {read_counts(k)}")
+    real = torch.from_numpy(padded.node_mask).to(dev)
+    pad_err = check_close("TU padded batch, COO route, real rows vs the "
+                          "unpadded kernel path", coo[real], out, 0.0)
+    print(f"  padded to {padded.num_nodes} nodes, {padded.num_edges} edges "
+          f"(pads at id {padded.num_nodes})")
+    return {"counts": counts, "raw_parse_s": t_raw,
+            "processed_cache_s": t_cache, "vs_alone_max_abs_err": err,
+            "padded_max_abs_err": pad_err,
+            "padded": [padded.num_nodes, padded.num_edges]}
+
+
+def phase_data_paths(k, common, gcn_trainer, GCNModel, shard, smi):
+    """Phase 29: the three paths of the data core, each through its entry
+    points, on files written here."""
+    import shutil
+    import tempfile
+    phase_start("phase 29: the data core's paths: Planetoid files -> GCN "
+                "twin, staged OGB layout -> papers twin, TU files -> "
+                "BatchGraph -> GCNConv, padding on the card")
+    os.environ["GGL_TPU_OFFLINE"] = "1"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    rng = np.random.default_rng(SEED)
+    try:
+        planetoid = data_planetoid_path(k, common, gcn_trainer, GCNModel,
+                                        tmp, rng)
+        staged = data_papers_path(k, shard, tmp)
+        tu = data_tu_path(k, tmp, rng, torch.device("cuda"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  host load seconds ({smi}): pubmed raw parse "
+          f"{planetoid['raw_parse_s']:.3f}, processed cache "
+          f"{planetoid['processed_cache_s']:.3f}; papers shard npy staging "
+          f"{staged['stage_s']:.2f} (in-memory build "
+          f"{staged['in_memory_build_s']:.2f}), load_ogb_root "
+          f"{staged['load_ogb_root_s']:.3f}, twin prepare "
+          f"{staged['prepare_s']:.2f}; TU raw parse {tu['raw_parse_s']:.3f}, "
+          f"processed cache {tu['processed_cache_s']:.3f}")
+    return {"planetoid": planetoid, "staged": staged, "tu": tu}
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -3261,6 +3688,7 @@ def main():
     from gammagl_tpu_torch.data import Graph, HeteroGraph
     from gammagl_tpu_torch.examples import common
     from gammagl_tpu_torch.examples import fusedgat_trainer as twin
+    from gammagl_tpu_torch.examples import gcn_trainer
     from gammagl_tpu_torch.examples import simplehgn_trainer
     from gammagl_tpu_torch.layers.conv import HANConv
     from gammagl_tpu_torch.models import (GATModel, GATV2Model, GCNModel,
@@ -3400,11 +3828,15 @@ def main():
     han = phase_han(k, common, HANModel, HANConv, HeteroGraph, compute_dtype,
                     dev)
     shgn = phase_simplehgn(k, common, SimpleHGNModel, tg, typed_plan)
+    del tg, typed_plan
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    data = phase_data_paths(k, common, gcn_trainer, GCNModel, shard,
+                            smi.splitlines()[0])
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -3416,7 +3848,10 @@ def main():
             "gcn_banded_train": btrain_counts,
             "gcn_clustered_serve": cserve_counts,
             "block_pair_entry": bp_entry_counts,
-            "papers_tier": tier_counts, "papers_train": papers_counts}
+            "papers_tier": tier_counts, "papers_train": papers_counts,
+            "gcn_planetoid_train": data["planetoid"]["counts"],
+            "papers_staged_train": data["staged"]["counts"],
+            "tu_batch": data["tu"]["counts"]}
     for name, path in (("rgcn", rgcn), ("han", han), ("simplehgn", shgn)):
         runs[f"{name}_serve"], runs[f"{name}_train"] = (path["serve"],
                                                         path["train"])
@@ -3541,7 +3976,10 @@ def main():
                ("train_losses", path["losses"]["kernel"]),
                ("step0_f32_grad_max_abs_err", path["grad_err"]),
                ("profile", path["profile"]))},
-        "han_cross_type_max_abs_err": han["cross_type_err"]}))
+        "han_cross_type_max_abs_err": han["cross_type_err"],
+        "data_paths": {name: {key: value for key, value in path.items()
+                              if key != "counts"}
+                       for name, path in data.items()}}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,13 @@ Layer map:
                  SpMM built on them
   sparse/     -- SparseGraph, CSRAdj: host adjacency with cached formats
   data/       -- Graph (cached CSR and block-pair plans, node reorderings,
-                 auto_plan), HeteroGraph
+                 auto_plan, the mapping and batching protocols), HeteroGraph,
+                 BatchGraph, padding, the dataset lifecycle (Dataset,
+                 InMemoryDataset, downloads, config), EdgeIndex and the
+                 feature and graph stores
+  io/         -- raw-file readers: Planetoid, TU, npz, text arrays
+  datasets/   -- Planetoid, OgbNodeDataset, TUDataset, the npz datasets,
+                 the synthetic graphs, real-structure adjacencies
   parallel/   -- node orderings (RCM, label propagation, degree balance),
                  halo partitions and their SpMM tiers over
                  torch.distributed (flat and planned), full-graph GCN
@@ -29,10 +35,12 @@ Layer map:
                  SimpleHGNModel
   train/      -- loss, accuracy, micro and macro F1, the Adam train state
                  and checkpoints
-  utils/      -- self-loops, GCN norm, compute dtype, flax parameter
-                 loading, the default device (the CUDA card)
+  utils/      -- self-loops, GCN norm, degree, masks, coalesce,
+                 undirected edges, compute dtype, flax parameter loading,
+                 the default device (the CUDA card) and host arrays to it
   serve       -- InferenceSession
   examples/   -- trainer twins (python -m gammagl_tpu_torch.examples.<name>)
+                 and their dataset loader
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,9 @@
 
 Node stores are keyed by type name, edge stores by (src_type, relation,
 dst_type). As `Graph`, it keeps the structure on the host in numpy and
-builds each relation's `CSRPlan` once (`csr_plans`); tensors for the device
-are made by the caller.
+builds each relation's `CSRPlan` once (`csr_plans`); `tensor()` moves the
+stores' arrays to the card, `to_homogeneous()` flattens the stores into
+one `Graph`.
 
     g = HeteroGraph()
     g["paper"].x = x_paper
@@ -14,42 +15,20 @@ are made by the caller.
 
 import numpy as np
 
+from gammagl_tpu_torch.data.graph import BaseGraph, Graph, _host, _is_array
 from gammagl_tpu_torch.ops.cuda import build_csr_plan
+from gammagl_tpu_torch.utils.device import to_device
 
 __all__ = ["HeteroGraph"]
 
 
-class _Store:
+class _Store(BaseGraph):
     """The attributes of one node or edge type (``x``, ``edge_index``,
     ``y``, masks, ...)."""
 
-    def __init__(self):
-        object.__setattr__(self, "_store", {})
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
         object.__setattr__(self, "_num_nodes", None)
-
-    def __getattr__(self, key):
-        store = self.__dict__.get("_store")
-        if store is not None and key in store:
-            return store[key]
-        raise AttributeError(key)
-
-    def __setattr__(self, key, value):
-        if key == "num_nodes":
-            object.__setattr__(self, "_num_nodes", value)
-        else:
-            self._store[key] = value
-
-    def __getitem__(self, key):
-        return self._store[key]
-
-    def __setitem__(self, key, value):
-        self._store[key] = value
-
-    def __contains__(self, key):
-        return key in self._store
-
-    def items(self):
-        return self._store.items()
 
     @property
     def num_nodes(self):
@@ -57,6 +36,10 @@ class _Store:
             return self._num_nodes
         x = self._store.get("x")
         return int(x.shape[0]) if x is not None else None
+
+    @num_nodes.setter
+    def num_nodes(self, v):
+        object.__setattr__(self, "_num_nodes", v)
 
     @property
     def num_edges(self):
@@ -77,11 +60,15 @@ class HeteroGraph:
     ``g[key] = value``); a 3-tuple (or a (src, dst) pair, relation "to")
     names an edge type."""
 
-    def __init__(self):
+    def __init__(self, mapping=None, **kwargs):
         self._node_stores = {}
         self._edge_stores = {}
         self._globals = {}
         self._csr_plans = {}
+        for key, attrs in list((mapping or {}).items()) + list(
+                kwargs.items()):
+            for name, value in attrs.items():
+                self[key][name] = value
 
     def __setitem__(self, key, value):
         self._globals[key] = value
@@ -122,6 +109,12 @@ class HeteroGraph:
     def metadata(self):
         return self.node_types, self.edge_types
 
+    def get_node_store(self, key):
+        return self[key]
+
+    def get_edge_store(self, src, rel, dst):
+        return self[(src, rel, dst)]
+
     def node_items(self):
         return list(self._node_stores.items())
 
@@ -155,10 +148,66 @@ class HeteroGraph:
                 n_dst = self[et[2]].num_nodes
                 if n_src is None or n_dst is None:
                     continue
-                ei = np.asarray(store.edge_index)
+                ei = np.asarray(_host(store.edge_index))
                 cache[et] = build_csr_plan(ei[0], ei[1], n_dst, num_src=n_src,
                                            window=window)
         return cache
+
+    def to_homogeneous(self, node_attrs=("x",), add_node_type=True,
+                       add_edge_type=True):
+        """One `Graph` of every typed store (reference heterograph.py:494):
+        node types laid out one after the other in `node_types` order,
+        ``node_type`` / ``edge_type`` vectors, and ``x`` when every node
+        type has features of one width. Host numpy, as in the JAX
+        package."""
+        offsets, cursor = {}, 0
+        ntypes = self.node_types
+        for nt in ntypes:
+            offsets[nt] = cursor
+            cursor += self[nt].num_nodes or 0
+        node_type = np.zeros(cursor, np.int64)
+        for i, nt in enumerate(ntypes):
+            node_type[offsets[nt]:offsets[nt] + (self[nt].num_nodes or 0)] = i
+        eis, etypes = [], []
+        for j, (et, store) in enumerate(self.edge_items()):
+            ei = np.asarray(_host(store.edge_index))
+            eis.append(np.stack([ei[0] + offsets[et[0]],
+                                 ei[1] + offsets[et[2]]]))
+            etypes.append(np.full(ei.shape[1], j, np.int64))
+        g = Graph(num_nodes=cursor)
+        if eis:
+            g.edge_index = np.concatenate(eis, axis=1)
+            if add_edge_type:
+                g.edge_type = np.concatenate(etypes)
+        if add_node_type:
+            g.node_type = node_type
+        xs = [np.asarray(_host(self[nt].x)) for nt in ntypes
+              if "x" in self[nt]]
+        if len(xs) == len(ntypes) and xs and all(
+                x.shape[1:] == xs[0].shape[1:] for x in xs):
+            g.x = np.concatenate(xs, axis=0)
+        return g
+
+    def _stores(self):
+        return list(self._node_stores.values()) + list(
+            self._edge_stores.values())
+
+    def tensor(self, device=None):
+        """Every array of every store a tensor on ``device`` (None: the
+        card), in place, as the JAX package's; returns the graph."""
+        for s in self._stores():
+            for k, v in s.items():
+                if _is_array(v):
+                    s[k] = to_device(v, device)
+        return self
+
+    def numpy(self):
+        """Every tensor back on the host as numpy, in place."""
+        for s in self._stores():
+            for k, v in s.items():
+                if _is_array(v):
+                    s[k] = np.asarray(_host(v))
+        return self
 
     def __repr__(self):
         parts = [f"{nt}: " + str({k: tuple(getattr(v, "shape", ()))

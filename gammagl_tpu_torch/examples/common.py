@@ -1,83 +1,240 @@
-"""What the trainer twins share: the synthetic graphs, the flags and the
+"""What the trainer twins share: the dataset loader, the flags and the
 full-batch node-classification loops (counterpart of `examples/common.py`'s
-`base_parser`, `run_simple_node_trainer`, `synthetic_hetero` and
-`run_hetero_trainer`).
+`load_node_dataset`, `base_parser`, `run_simple_node_trainer`,
+`synthetic_hetero` and `run_hetero_trainer`).
 
-The loops read no dataset files: the graph is `synthetic_community_graph`
-(the JAX package's stochastic-block-model graph, drawn from the same numpy
-stream) or numpy arrays handed in, and for typed graphs `synthetic_hetero`
-(the JAX package's movie/director graph, the same stream) or a
-`HeteroGraph` handed in; `run_edge_type_trainer` trains a model of one
-node set whose edges carry a type (RGCN, SimpleHGN) on arrays handed in.
-The homogeneous loop hands the model a `CSRPlan` when its forward takes
-one, on the card and on the CPU alike: on the card the plan path runs the
-hand-written kernels, on the CPU their plain versions. The typed loops
-hand the model plans (`HeteroGraph.csr_plans()`, or the edges' `CSRPlan`)
-on the card, where the JAX loops hand theirs to a TPU; on the CPU they
-take the COO route. (The JAX loops plan only on a TPU, where their
-kernels are not interpreted.)
+The homogeneous twins load their graph through `load_node_dataset`, the
+JAX trainers' chain: Planetoid's raw files under
+``<dataset_path>/<name>/raw`` (fetched only when missing and the network
+answers; ``GGL_TPU_OFFLINE=1`` skips that), then the real-structure
+fallback, then `synthetic_community_graph` (1000 nodes, 7 classes, 128
+features, seed 0 whatever ``--seed`` is), or take numpy arrays handed in.
+For typed graphs the loops take `synthetic_hetero` (the JAX package's
+movie/director graph, the same stream) or a `HeteroGraph` handed in;
+`run_edge_type_trainer` trains a model of one node set whose edges carry
+a type (RGCN, SimpleHGN) on arrays handed in. The homogeneous loop hands
+the model a `CSRPlan` when its forward takes one, on the card and on the
+CPU alike: on the card the plan path runs the hand-written kernels, on the
+CPU their plain versions. The typed loops hand the model plans
+(`HeteroGraph.csr_plans()`, or the edges' `CSRPlan`) on the card, where
+the JAX loops hand theirs to a TPU; on the CPU they take the COO route.
+(The JAX loops plan only on a TPU, where their kernels are not
+interpreted.)
 """
 
 import argparse
 import copy
 import inspect
+import os
+import os.path as osp
+import time
 
 import numpy as np
 import torch
 from torch.nn.parameter import UninitializedParameter
 
-from gammagl_tpu_torch.data import HeteroGraph
+from gammagl_tpu_torch.data import Graph, HeteroGraph
+from gammagl_tpu_torch.data.download import network_available
+from gammagl_tpu_torch.datasets import Planetoid
+from gammagl_tpu_torch.datasets import (
+    synthetic_community_graph as _synthetic_graph)
 from gammagl_tpu_torch.ops.cuda import build_csr_plan
 from gammagl_tpu_torch.train import TrainState, accuracy, semi_supervised_loss
 from gammagl_tpu_torch.utils import (add_self_loops, load_jax_params,
                                      resolve_device)
 
-__all__ = ["synthetic_community_graph", "base_parser", "loss_and_grad",
+__all__ = ["synthetic_community_graph", "load_node_dataset",
+           "probe_num_classes", "load_sparse_npz", "structure_node_data",
+           "node_arrays", "node_data", "base_parser", "loss_and_grad",
            "train_step", "run_simple_node_trainer", "synthetic_hetero",
            "hetero_tensors", "predict", "run_hetero_trainer",
            "run_edge_type_trainer"]
 
 
+def node_arrays(graph):
+    """The loop's fields of a node-classification `Graph` as a dict of
+    numpy arrays: x, edge_index, y and the train / val / test masks."""
+    out = {k: np.asarray(graph[k]) for k in ("x", "edge_index", "y")}
+    n = out["x"].shape[0]
+    for k in ("train_mask", "val_mask", "test_mask"):
+        out[k] = np.asarray(graph[k]).reshape(n, -1)[:, 0]
+    return out
+
+
 def synthetic_community_graph(num_nodes=1000, num_classes=7, feat_dim=128,
                               avg_degree=8, p_intra=0.9, seed=0,
                               feature_signal=0.3):
-    """The stochastic-block-model graph of
-    `gammagl_tpu.datasets.synthetic_community_graph`, drawn from the same
-    numpy stream: returns a dict of numpy arrays (x, edge_index, y and
-    the train/val/test masks)."""
+    """`datasets.synthetic_community_graph` (the JAX package's
+    stochastic-block-model graph, the same numpy stream) at the trainers'
+    fallback size, as a dict of numpy arrays (`node_arrays`)."""
+    return node_arrays(_synthetic_graph(num_nodes, num_classes, feat_dim,
+                                        avg_degree, p_intra, seed,
+                                        feature_signal))
+
+
+_DS_CACHE = {}
+
+
+def load_node_dataset(name, path="data"):
+    """(Graph, num_classes) of ``name``, by the JAX trainers' chain:
+    Planetoid (cora, citeseer, pubmed) from ``<path>/<name>/raw``, or the
+    real-structure graph, or the synthetic community graph (1000 nodes,
+    7 classes, 128 features, seed 0). Cached per (name, path), so a
+    trainer can size its head before the loop reads the graph."""
+    key = (name, path)
+    if key not in _DS_CACHE:
+        _DS_CACHE[key] = _load_node_dataset_uncached(name, path)
+    return _DS_CACHE[key]
+
+
+def probe_num_classes(args):
+    """Number of classes of the dataset the loop will load (cora 7,
+    citeseer 6, pubmed 3, the synthetic fallback 7)."""
+    return load_node_dataset(args.dataset, args.dataset_path)[1]
+
+
+def node_data(args, data=None):
+    """``data`` (a dict of numpy arrays, or a `Graph`) as `node_arrays`;
+    None loads ``args.dataset`` from ``args.dataset_path``."""
+    if data is None:
+        data = load_node_dataset(args.dataset, args.dataset_path)[0]
+    return node_arrays(data) if isinstance(data, Graph) else data
+
+
+def _load_node_dataset_uncached(name, path="data"):
+    if name in ("cora", "citeseer", "pubmed"):
+        try:
+            have_raw = osp.exists(osp.join(path, name, "raw"))
+            if not (have_raw or network_available()):
+                raise OSError("no network (fast probe) and no raw files")
+            ds = Planetoid(root=path, name=name)
+            return ds[0], ds.num_classes
+        except Exception as e:
+            print(f"[warn] {name} unavailable ({e}); trying "
+                  "real-structure fallback")
+        g = _load_real_structure(name)
+        if g is not None:
+            return g, int(np.asarray(g.y).max()) + 1
+    n, c, f = 1000, 7, 128
+    if os.environ.get("GGL_REAL_SHAPES"):
+        # the fallback at the dataset's true sizes (feature width, class
+        # count), so shape-dependent faults show on every trainer
+        n, f, c = _REAL_DIMS.get(name, (n, f, c))
+    return _synthetic_graph(n, c, f, avg_degree=8, seed=0), c
+
+
+# the reference repository's real Planetoid adjacencies (cora nnz 13264 =
+# 2 * 5278 + 2708 self-loops; pubmed 108365 = 2 * 44324 + 19717, the
+# published graphs; citeseer only as citgnn's +50%-edges variant), under
+# the checkout that GGL_REFERENCE_ROOT names. Features and labels are
+# derived from the structure (`structure_node_data`), so accuracy is not
+# comparable to published tables.
+_STRUCT_ADJ = {
+    "cora": "examples/gcil/dataset/cora/0.01_1_1.npz",
+    "citeseer": "examples/citgnn/datasets/citeseer_add_0.5.npz",
+    "pubmed": "examples/gcil/dataset/pubmed/0.01_1_1.npz",
+}
+_STRUCT_CLASSES = {"cora": 7, "citeseer": 6, "pubmed": 3}
+
+# true (num_nodes, feat_dim, num_classes) per dataset, for GGL_REAL_SHAPES
+_REAL_DIMS = {
+    "cora": (2708, 1433, 7),
+    "citeseer": (3327, 3703, 6),
+    "pubmed": (19717, 500, 3),
+    "reddit": (60_000, 602, 41),     # node count capped for CPU smoke
+    "arxiv": (169_343, 128, 40),
+    "ogbn-arxiv": (169_343, 128, 40),
+}
+
+
+def _load_real_structure(name):
+    """A `Graph` on a real Planetoid adjacency with node data derived
+    from it (`structure_node_data`), or None: with ``GGL_SYNTHETIC`` set,
+    or without the adjacency file. The derived arrays are cached in
+    ``data/<name>/struct_cache_f<F>.npz`` under the working directory
+    (numpy arrays only, the JAX package's file)."""
+    ref = os.environ.get("GGL_REFERENCE_ROOT")
+    if os.environ.get("GGL_SYNTHETIC") or not ref or name not in _STRUCT_ADJ:
+        return None
+    adj = osp.join(ref, _STRUCT_ADJ[name])
+    if not osp.exists(adj):
+        return None
+    c = _STRUCT_CLASSES[name]
+    f = _REAL_DIMS[name][1] if os.environ.get("GGL_REAL_SHAPES") else 128
+    ei, n = load_sparse_npz(adj)
+    cache = osp.join("data", name, f"struct_cache_f{f}.npz")
+    try:
+        d = np.load(cache)
+        x, y = d["x"], d["y"]
+        tm, vm, sm = d["train_mask"], d["val_mask"], d["test_mask"]
+    except Exception:
+        x, y, tm, vm, sm = structure_node_data(ei, n, num_classes=c,
+                                               feat_dim=f)
+        try:
+            os.makedirs(osp.dirname(cache), exist_ok=True)
+            np.savez(cache, x=x, y=y, train_mask=tm, val_mask=vm,
+                     test_mask=sm)
+        except OSError:
+            pass
+    g = Graph(x=x, edge_index=ei, y=y.astype(np.int64), train_mask=tm,
+              val_mask=vm, test_mask=sm)
+    g.data_kind = "real-structure"
+    return g
+
+
+def load_sparse_npz(path):
+    """A scipy-format .npz, COO ('row' / 'col') or CSR ('indptr' /
+    'indices'), as (edge_index, num_nodes)."""
+    d = np.load(path, allow_pickle=True)
+    n = int(d["shape"][0])
+    if "row" in d:
+        ei = np.stack([d["row"], d["col"]]).astype(np.int64)
+    else:
+        indptr, indices = d["indptr"], d["indices"]
+        row = np.repeat(np.arange(n), np.diff(indptr))
+        ei = np.stack([row, indices.astype(np.int64)])
+    return ei, n
+
+
+def structure_node_data(ei, n, num_classes=7, seed=0, feat_dim=128):
+    """Node data derived from an adjacency alone: labels by spectral
+    clustering of the symmetrized graph (scikit-learn's KMeans, imported
+    here only), features one smoothing step of a random signal over it,
+    Planetoid's split (20 a class to train, 500 val, 1000 test). Returns
+    (x, y, train_mask, val_mask, test_mask)."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import eigsh
+    from sklearn.cluster import KMeans
+    a = sp.coo_matrix((np.ones(ei.shape[1]), (ei[0], ei[1])),
+                      shape=(n, n)).tocsr()
+    a = ((a + a.T) > 0).astype(np.float64)
+    d = np.asarray(a.sum(1)).ravel()
+    dinv = 1.0 / np.sqrt(np.maximum(d, 1))
+    # the top eigenvectors of the normalized adjacency: the bottom of the
+    # Laplacian without a shift-invert solve
+    _, vec = eigsh(sp.diags(dinv) @ a @ sp.diags(dinv), k=num_classes,
+                   which="LA")
+    y = KMeans(num_classes, n_init=4, random_state=seed).fit_predict(vec)
     rng = np.random.default_rng(seed)
-    per = num_nodes // num_classes
-    y = np.minimum(np.arange(num_nodes) // per, num_classes - 1)
-    E = num_nodes * avg_degree // 2
-    src = rng.integers(0, num_nodes, E)
-    same = rng.random(E) < p_intra
-    tgt_class = np.where(same, y[src],
-                         (y[src] + rng.integers(1, num_classes, E))
-                         % num_classes)
-    dst = np.minimum(tgt_class * per + rng.integers(0, per, E),
-                     num_nodes - 1)
-    both = np.concatenate([np.stack([src, dst]), np.stack([dst, src])], 1)
-    key = np.unique(both[0].astype(np.int64) * num_nodes + both[1])
-    edge_index = np.stack([key // num_nodes, key % num_nodes])
-    x = (rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
-         + feature_signal * np.eye(num_classes, feat_dim,
-                                   dtype=np.float32)[y])
-    data = {"x": x, "edge_index": edge_index, "y": y.astype(np.int64)}
-    perm = rng.permutation(num_nodes)
-    n_tr, n_va = int(0.4 * num_nodes), int(0.2 * num_nodes)
-    for name, idx in (("train_mask", perm[:n_tr]),
-                      ("val_mask", perm[n_tr:n_tr + n_va]),
-                      ("test_mask", perm[n_tr + n_va:])):
-        mask = np.zeros(num_nodes, bool)
-        mask[idx] = True
-        data[name] = mask
-    return data
+    x = np.asarray((a @ rng.normal(size=(n, feat_dim)))
+                   / np.maximum(d, 1)[:, None]).astype(np.float32)
+    perm = rng.permutation(n)
+    train_mask = np.zeros(n, bool)
+    for c in range(num_classes):
+        train_mask[perm[y[perm] == c][:20]] = True
+    rest = perm[~train_mask[perm]]
+    val_mask = np.zeros(n, bool)
+    val_mask[rest[:500]] = True
+    test_mask = np.zeros(n, bool)
+    test_mask[rest[500:1500]] = True
+    return x, y, train_mask, val_mask, test_mask
 
 
 def base_parser(description=None, **overrides):
     """The JAX trainers' flags and defaults (`examples/common.py`
     `base_parser`), the given overrides, and ``--device`` (default: the
-    CUDA card). ``--dataset`` and ``--dataset_path`` only name the run."""
+    CUDA card). ``--dataset`` and ``--dataset_path`` name the graph
+    `load_node_dataset` reads."""
     p = argparse.ArgumentParser(description=description)
     defaults = {"dataset": "cora", "dataset_path": "data", "lr": 0.01,
                 "n_epoch": 200, "hidden_dim": 16, "drop_rate": 0.5,
@@ -127,8 +284,9 @@ def run_simple_node_trainer(model, args, data=None, params=None,
     ``args.n_epoch`` steps, validation and test accuracy after each, on
     ``args.device``.
 
-    ``data``: a dict of numpy arrays as `synthetic_community_graph` returns
-    (None: that graph from ``args.seed``); self-loops are added here.
+    ``data``: a dict of numpy arrays as `synthetic_community_graph`
+    returns, or a `Graph` (None: `load_node_dataset` of ``args.dataset``
+    and ``args.dataset_path``); self-loops are added here.
     ``params``: a flax-shaped tree for `load_jax_params` (None: the model's
     own init from ``args.seed``). A model whose forward takes a
     ``generator`` gets one, seeded from ``args.seed + 1``, for its dropout.
@@ -142,13 +300,13 @@ def run_simple_node_trainer(model, args, data=None, params=None,
         run_simple_node_trainer(model, args, data,
                                 forward_kwargs={"plan": plan})
 
-    Returns {"losses", "best_val", "best_test", "best_params", "state"}:
-    the test accuracy at the best validation accuracy, and a copy of the
-    parameters at that epoch.
+    Returns {"losses", "epoch_ms", "best_val", "best_test", "best_params",
+    "state"}: each epoch's host milliseconds (step and evaluation, which
+    ends in a sync), the test accuracy at the best validation accuracy,
+    and a copy of the parameters at that epoch.
     """
     dev = resolve_device(args.device)
-    if data is None:
-        data = synthetic_community_graph(seed=args.seed)
+    data = node_data(args, data)
     n = data["x"].shape[0]
     ei, _ = add_self_loops(np.asarray(data["edge_index"]), num_nodes=n)
     x = torch.from_numpy(np.asarray(data["x"], np.float32)).to(dev)
@@ -171,13 +329,16 @@ def run_simple_node_trainer(model, args, data=None, params=None,
         train_kw["generator"] = torch.Generator(device=dev).manual_seed(
             args.seed + 1)
 
-    losses, best_val, best_test, best_params = [], -1.0, 0.0, None
+    losses, epoch_ms = [], []
+    best_val, best_test, best_params = -1.0, 0.0, None
     for epoch in range(args.n_epoch):
+        t0 = time.perf_counter()
         loss = float(train_step(state, x, edge_index, y, masks["train_mask"],
                                 **train_kw))
         logits = predict(model, x, edge_index, **fkw)
         val = float(accuracy(logits, y, masks["val_mask"]))
         test = float(accuracy(logits, y, masks["test_mask"]))
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)  # .item() synced
         losses.append(loss)
         if val > best_val:
             best_val, best_test = val, test
@@ -186,8 +347,9 @@ def run_simple_node_trainer(model, args, data=None, params=None,
             print(f"epoch {epoch:4d} loss {loss:.4f} val {val:.4f} "
                   f"test {test:.4f}")
     print(f"best val {best_val:.4f} -> test {best_test:.4f} ({dev})")
-    return {"losses": losses, "best_val": best_val, "best_test": best_test,
-            "best_params": best_params, "state": state}
+    return {"losses": losses, "epoch_ms": epoch_ms, "best_val": best_val,
+            "best_test": best_test, "best_params": best_params,
+            "state": state}
 
 
 def synthetic_hetero(seed=0, n_m=200, n_d=60, c=3, f=32):

@@ -10,12 +10,11 @@ the CPU the same calls run their plain versions.
     python -m gammagl_tpu_torch.examples.fusedgat_trainer              # the card
     python -m gammagl_tpu_torch.examples.fusedgat_trainer --device cpu
 
-It reads no dataset files: the graph is the JAX package's synthetic
-community graph (1000 nodes, 7 classes, 128 features, average degree 8)
-made from ``--seed``, or the numpy arrays given to `main`. ``--dataset``
-and ``--dataset_path`` are accepted, so command lines carry over, and
-only name the run. Like the JAX trainer it reads neither ``--drop_rate``
-nor ``--l2_coef``.
+The graph is the JAX trainer's: `load_node_dataset` of ``--dataset``
+under ``--dataset_path`` (Planetoid's raw files, else the synthetic
+community graph: 1000 nodes, 7 classes, 128 features, average degree 8,
+seed 0), or the numpy arrays given to `main`. Like the JAX trainer it
+reads neither ``--drop_rate`` nor ``--l2_coef``.
 """
 
 import numpy as np
@@ -24,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gammagl_tpu_torch.examples.common import (base_parser, loss_and_grad,
+                                               node_data,
                                                synthetic_community_graph,
                                                train_step)
 from gammagl_tpu_torch.layers.conv import GATConv
@@ -62,12 +62,12 @@ def parser():
 
 def main(args, data=None, params=None):
     """Train; returns {"losses": [...], "test_acc": float}. ``data`` is a
-    dict of numpy arrays as `synthetic_community_graph` returns (None:
-    that graph from ``args.seed``); ``params`` an optional flax-shaped
-    tree for `load_jax_params` (None: a fresh init from ``args.seed``)."""
-    if data is None:
-        data = synthetic_community_graph(seed=args.seed)
+    dict of numpy arrays as `synthetic_community_graph` returns, or a
+    `Graph` (None: `load_node_dataset`'s graph); ``params`` an optional
+    flax-shaped tree for `load_jax_params` (None: a fresh init from
+    ``args.seed``)."""
     dev = resolve_device(args.device)
+    data = node_data(args, data)
     n = data["x"].shape[0]
     ei, _ = add_self_loops(np.asarray(data["edge_index"]), num_nodes=n)
     plan = build_csr_plan(ei[0], ei[1], n)

@@ -12,14 +12,16 @@ their plain versions.
 
     python -m gammagl_tpu_torch.examples.gatv2_trainer              # the card
     python -m gammagl_tpu_torch.examples.gatv2_trainer --device cpu
+
+The graph is the JAX trainer's: `load_node_dataset` of ``--dataset``
+under ``--dataset_path``, or the arrays given to `main`.
 """
 
 import numpy as np
 import torch
 
-from gammagl_tpu_torch.examples.common import (base_parser,
-                                               run_simple_node_trainer,
-                                               synthetic_community_graph)
+from gammagl_tpu_torch.examples.common import (base_parser, node_data,
+                                               run_simple_node_trainer)
 from gammagl_tpu_torch.models import GATV2Model
 
 __all__ = ["parser", "main"]
@@ -31,10 +33,9 @@ def parser():
 
 def main(args, data=None, params=None):
     """Train; returns what `run_simple_node_trainer` returns. ``data`` and
-    ``params`` as there (None: the synthetic graph from ``args.seed`` and
-    a fresh init)."""
-    if data is None:
-        data = synthetic_community_graph(seed=args.seed)
+    ``params`` as there (None: `load_node_dataset`'s graph and a fresh
+    init)."""
+    data = node_data(args, data)
     torch.manual_seed(args.seed)
     model = GATV2Model(hidden_dim=args.hidden_dim,
                        num_class=int(np.asarray(data["y"]).max()) + 1,

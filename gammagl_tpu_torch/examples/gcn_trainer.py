@@ -21,9 +21,8 @@ import time
 import numpy as np
 import torch
 
-from gammagl_tpu_torch.examples.common import (base_parser,
-                                               run_simple_node_trainer,
-                                               synthetic_community_graph)
+from gammagl_tpu_torch.examples.common import (base_parser, node_data,
+                                               run_simple_node_trainer)
 from gammagl_tpu_torch.models import GCNModel
 from gammagl_tpu_torch.train import save_checkpoint
 
@@ -39,8 +38,7 @@ def parser():
 def main(args, data=None, params=None):
     """Train; returns what `run_simple_node_trainer` returns. ``data`` and
     ``params`` as there."""
-    if data is None:
-        data = synthetic_community_graph(seed=args.seed)
+    data = node_data(args, data)
     torch.manual_seed(args.seed)
     model = GCNModel(hidden_dim=args.hidden_dim,
                      num_class=int(np.asarray(data["y"]).max()) + 1,

@@ -2,9 +2,14 @@
 partition, in one process.
 
 Twin of `examples/papers100m/papers100m_trainer.py` and of the one-chip
-recipe `scripts/papers100m_single_chip.py`: a synthetic power-law,
-homophilous citation graph at ``--scale`` of papers100M (the same
-generator, seed and arrays), self-loops, GCN norms on the host, a planned
+recipe `scripts/papers100m_single_chip.py`: the graph staged in OGB's
+layout under ``--data-root`` (``<root>/ogbn_papers100M/raw/{node_feat,
+edge_index,node_label}.npy`` and ``split/time/{train,valid}.npy``, read
+by `datasets.OgbNodeDataset` as memory maps), else the npy files named
+by ``--features`` / ``--edges-file`` / ``--labels`` / ``--train-idx`` /
+``--val-idx``, else a synthetic power-law, homophilous citation graph at
+``--scale`` of papers100M (the same generator, seed and arrays);
+self-loops, GCN norms on the host, a planned
 halo partition of one part with `auto_src_blocks` source blocks, node
 features resident in the compute dtype, and the layer-staged trainer
 (`make_partitioned_gcn_train_staged`; ``--monolithic`` for the autograd
@@ -28,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from gammagl_tpu_torch.datasets import OgbNodeDataset
 from gammagl_tpu_torch.parallel import (auto_src_blocks,
                                         build_halo_partition,
                                         build_halo_partition_planned,
@@ -35,9 +41,12 @@ from gammagl_tpu_torch.parallel import (auto_src_blocks,
                                         make_partitioned_gcn_train,
                                         make_partitioned_gcn_train_staged,
                                         shard_nodes, sign_precompute)
-from gammagl_tpu_torch.utils import calc_gcn_norm_np, resolve_device
+from gammagl_tpu_torch.parallel.full_graph import jax_labels
+from gammagl_tpu_torch.utils import (calc_gcn_norm_np, index_to_mask,
+                                     resolve_device)
 
-__all__ = ["synthetic_papers", "solve_scale", "parser", "main"]
+__all__ = ["synthetic_papers", "solve_scale", "load_ogb_root", "load_real",
+           "load_data", "parser", "prepare", "train", "main"]
 
 PAPERS_N = 111_059_956
 PAPERS_E = 1_615_685_872
@@ -72,6 +81,45 @@ def synthetic_papers(scale, seed=0, homophily=0.7):
     return ei, x, y, train, val, c
 
 
+def load_ogb_root(root, name="ogbn-papers100M"):
+    """The graph staged in OGB's layout under ``root``
+    (`datasets.OgbNodeDataset`), as `synthetic_papers` returns it; the
+    features and edges stay memory-mapped until the partition and
+    `shard_nodes` read them."""
+    g = OgbNodeDataset(root, name)[0]
+    y = (np.asarray(g.y).astype(np.int32) if "y" in g
+         else np.zeros(g.num_nodes, np.int32))
+    masks = [np.asarray(g[k]) if k in g else np.zeros(g.num_nodes, bool)
+             for k in ("train_mask", "val_mask")]
+    return g.edge_index, g.x, y, *masks, max(int(y.max()) + 1, 2)
+
+
+def load_real(args):
+    """The npy files of ``args.features``, ``edges_file``, ``labels``,
+    ``train_idx`` and ``val_idx`` (optional), as `synthetic_papers`
+    returns them. OGB stores labels as (N, 1) float with NaN on rows
+    without one; those become -1."""
+    x = np.load(args.features, mmap_mode="r")
+    ei = np.load(args.edges_file, mmap_mode="r")
+    y = np.asarray(np.load(args.labels, mmap_mode="r")).reshape(-1)
+    y = np.nan_to_num(y, nan=-1.0).astype(np.int32)
+    mask = index_to_mask(np.load(args.train_idx), x.shape[0])
+    val = np.zeros(x.shape[0], bool)
+    if args.val_idx:
+        val = index_to_mask(np.load(args.val_idx), x.shape[0])
+    return ei, x, y, mask, val, int(y.max()) + 1
+
+
+def load_data(args, scale):
+    """What the run trains on: ``--data-root`` first, then
+    ``--features``, then the synthetic graph at ``scale``."""
+    if args.data_root:
+        return load_ogb_root(args.data_root, args.ogb_name)
+    if args.features:
+        return load_real(args)
+    return synthetic_papers(scale)
+
+
 def solve_scale(hbm_gb, feat_dim, hidden, layers):
     """The largest scale whose one-part `estimate_hbm_gb` (bf16, remat)
     fits ``hbm_gb``: the estimate is linear in the node count at a fixed
@@ -91,6 +139,21 @@ def parser():
     p.add_argument("--hbm-gb", type=float, default=8.0,
                    help="device budget for the shard when --scale is not "
                         "given")
+    p.add_argument("--data-root", default=None,
+                   help="root of OGB's staged layout (<root>/"
+                        "ogbn_papers100M/raw and split/; see "
+                        "datasets/ogb.py); takes precedence over "
+                        "--features / --edges-file")
+    p.add_argument("--ogb-name", default="ogbn-papers100M")
+    p.add_argument("--features", default=None,
+                   help="node features, an (N, F) npy file")
+    p.add_argument("--edges-file", default=None,
+                   help="edges, a (2, E) npy file")
+    p.add_argument("--labels", default=None, help="labels, an npy file")
+    p.add_argument("--train-idx", default=None,
+                   help="training node ids, an npy file")
+    p.add_argument("--val-idx", default=None,
+                   help="validation node ids, an npy file")
     p.add_argument("--hidden", type=int, default=256)
     p.add_argument("--layers", type=int, default=3)
     p.add_argument("--hops", type=int, default=3, help="SIGN sweeps")
@@ -156,8 +219,8 @@ def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
     m = ms.float()
     for epoch in range(args.epochs):
         t = time.perf_counter()
-        ls = torch.nn.functional.cross_entropy(fwd(feats), ys.long(),
-                                               reduction="none")
+        ls = torch.nn.functional.cross_entropy(
+            fwd(feats), jax_labels(ys, c), reduction="none")
         loss = (ls * m).sum() / m.sum().clamp_min(1.0)
         opt.zero_grad(set_to_none=True)
         loss.backward()
@@ -173,26 +236,29 @@ def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
     return losses, times
 
 
-def main(args, data=None):
-    """Train; returns a dict with ``losses``, ``epoch_ms`` and the JSON
-    line's fields. ``data`` replaces the generator's output
-    (edge_index, x, y, train, val, num_classes)."""
+def prepare(args, data=None):
+    """Everything before the first step: the graph (``data``, as
+    `synthetic_papers` returns it, else `load_data`), self-loops, GCN
+    norms, the partition and the per-node tensors on the device. Returns
+    a dict of them and the set-up numbers the JSON line reports."""
     device = resolve_device(args.device)
     cdtype = torch.float32 if args.f32 else torch.bfloat16
-    scale = args.scale or solve_scale(args.hbm_gb, 128, args.hidden,
-                                      args.layers)
+    staged = data is None and bool(args.data_root or args.features)
+    scale = None if staged else (args.scale or solve_scale(
+        args.hbm_gb, 128, args.hidden, args.layers))
     t0 = time.perf_counter()
-    ei, x, y, train, val, c = (data if data is not None
-                               else synthetic_papers(scale))
+    ei, x, y, train_mask, val_mask, c = (data if data is not None
+                                         else load_data(args, scale))
     n, f = x.shape
     est = estimate_hbm_gb(n, f, args.hidden, args.layers, 1,
                           ei.shape[1] / max(n, 1), cdtype,
                           not args.no_remat)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"graph: scale {scale:.6f} -> {n:,} nodes, {ei.shape[1]:,} edges, "
+    what = "staged files" if staged else f"scale {scale:.6f}"
+    print(f"graph: {what} -> {n:,} nodes, {ei.shape[1]:,} edges, "
           f"{f} feats, {c} classes; est {est:.2f} GB on {name} "
-          f"(gen {time.perf_counter() - t0:.1f}s)", flush=True)
+          f"(ready in {time.perf_counter() - t0:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
     ei = np.concatenate(  # self-loops, as the reference gcn_trainer
@@ -218,11 +284,25 @@ def main(args, data=None):
     t0 = time.perf_counter()
     xs = shard_nodes(x, part, device=device, dtype=cdtype)
     ys = shard_nodes(y, part, device=device)
-    ms = shard_nodes(train.astype(np.float32), part, device=device)
-    vs = shard_nodes(val.astype(np.float32), part, device=device)
+    ms = shard_nodes(train_mask.astype(np.float32), part, device=device)
+    vs = shard_nodes(val_mask.astype(np.float32), part, device=device)
     _sync(device)
     print(f"transfer: {xs.numel() * xs.element_size() / 1e9:.2f} GB in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    return {"device": device, "cdtype": cdtype, "scale": scale, "n": n,
+            "f": f, "c": c, "edges": int(ei.shape[1]), "est": est,
+            "name": name, "part": part, "nsb": nsb, "tier": tier,
+            "t_part": t_part, "xs": xs, "ys": ys, "ms": ms, "vs": vs}
+
+
+def train(args, prep):
+    """``args.epochs`` steps of the recipe on what `prepare` gave; prints
+    each epoch and the JSON line, and returns a dict with ``losses``,
+    ``epoch_ms`` and the JSON line's fields."""
+    device, cdtype, part = prep["device"], prep["cdtype"], prep["part"]
+    xs, ys, ms, vs = prep["xs"], prep["ys"], prep["ms"], prep["vs"]
+    f, c, n, E = prep["f"], prep["c"], prep["n"], prep["edges"]
 
     if args.recipe == "sign":
         losses, times = _train_sign(args, part, xs, ys, ms, vs, c, cdtype,
@@ -248,7 +328,7 @@ def main(args, data=None):
             losses.append(loss)
             line = (f"epoch {epoch:3d}  loss {loss:.4f}  "
                     f"{times[-1] * 1e3:.1f} ms  "
-                    f"({ei.shape[1] / times[-1]:.3e} edges/s)")
+                    f"({E / times[-1]:.3e} edges/s)")
             if epoch % 5 == 0 or epoch == args.epochs - 1:
                 va = _val_acc(eval_logits(params, xs), ys, vs)
                 line += f"  val acc {va:.4f}"
@@ -258,16 +338,25 @@ def main(args, data=None):
     sustained = sorted(steady)[len(steady) // 2]
     payload = {
         "metric": f"papers100m_{args.recipe}_epoch",
-        "shard_nodes": int(n), "shard_edges": int(ei.shape[1]),
-        "scale": scale, "layers": args.layers, "hidden": args.hidden,
+        "shard_nodes": int(n), "shard_edges": E,
+        "scale": prep["scale"], "layers": args.layers, "hidden": args.hidden,
         "feat_dim": int(f), "dtype": str(cdtype).replace("torch.", ""),
-        "tier": tier, "src_blocks": nsb,
-        "staged": not args.monolithic, "partition_s": t_part,
+        "tier": prep["tier"], "src_blocks": prep["nsb"],
+        "staged": not args.monolithic, "partition_s": prep["t_part"],
         "sustained_epoch_ms": sustained * 1e3,
-        "edges_per_s": ei.shape[1] / sustained,
-        "est_hbm_gb": float(est), "device": name, "losses": losses}
+        "edges_per_s": E / sustained,
+        "est_hbm_gb": float(prep["est"]), "device": prep["name"],
+        "losses": losses}
     print(json.dumps(payload), flush=True)
     return {**payload, "epoch_ms": [t * 1e3 for t in times]}
+
+
+
+
+def main(args, data=None):
+    """Train; returns what `train` returns. ``data`` replaces the loaded
+    or generated graph (edge_index, x, y, train, val, num_classes)."""
+    return train(args, prepare(args, data))
 
 
 if __name__ == "__main__":

@@ -74,10 +74,15 @@ class GCNConv(MessagePassing):
         src, dst = edge_index[0].long(), edge_index[1].long()
         weights = (torch.ones(edge_index.shape[1], device=x.device)
                    if edge_weight is None else edge_weight.float())
+        # the norms are gathered as JAX gathers, clamped: a padded edge
+        # (ids == num_nodes, `data.pad_graph`) reads the last node's norm,
+        # and its destination is dropped by the sum
         if self.norm in ("left", "both"):
-            weights = _degree_norm(src, num_nodes, self.norm)[src] * weights
+            weights = _degree_norm(src, num_nodes, self.norm)[
+                src.clamp(0, num_nodes - 1)] * weights
         if self.norm in ("right", "both"):
-            weights = weights * _degree_norm(dst, num_nodes, self.norm)[dst]
+            weights = weights * _degree_norm(dst, num_nodes, self.norm)[
+                dst.clamp(0, num_nodes - 1)]
         # round the weights to the JAX layer's dtype (its norms are in x's,
         # promoted with the caller's weights), so the COO spmm gives its
         # output dtype; the degrees above stay float32

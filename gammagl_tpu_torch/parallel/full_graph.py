@@ -48,7 +48,7 @@ from gammagl_tpu_torch.parallel.halo_plan import (PlannedHaloPartition,
                                                   make_halo_spmm_planned,
                                                   make_halo_spmm_planned_pair)
 from gammagl_tpu_torch.parallel.mesh import part_world
-from gammagl_tpu_torch.utils.device import resolve_device
+from gammagl_tpu_torch.utils.device import resolve_device, to_device
 
 __all__ = ["pad_nodes", "unpad_nodes", "shard_nodes", "sign_precompute",
            "make_partitioned_gcn_train", "make_partitioned_gcn_train_staged",
@@ -96,15 +96,23 @@ def unpad_nodes(out, part):
 
 def shard_nodes(arr, part, rank=None, device=None, dtype=None, fill=0):
     """This process's (rows_per, ...) block of a global per-node array,
-    padded and reordered by `pad_nodes`, as a tensor on ``device`` (None:
-    the card) in ``dtype`` (None: the array's own). ``rank`` defaults to
-    this process's part (0 without a process group)."""
+    padded and reordered as `pad_nodes` pads and reorders the whole, as a
+    tensor on ``device`` (None: the card) in ``dtype`` (None: the array's
+    own). ``rank`` defaults to this process's part (0 without a process
+    group). Only the block's rows are read, so a memory-mapped array
+    (the OGB loader's) is never copied whole on the host."""
     if rank is None:
         rank = part_world(part.num_parts)[0]
     rows = part.rows_per
-    blk = np.ascontiguousarray(pad_nodes(arr, part, fill)[
-        rank * rows:(rank + 1) * rows])
-    return torch.from_numpy(blk).to(resolve_device(device), dtype=dtype)
+    arr = np.asarray(arr)
+    perm = getattr(part, "node_perm", None)
+    n = arr.shape[0] if perm is None else perm.shape[0]
+    take = slice(min(rank * rows, n), min((rank + 1) * rows, n))
+    blk = arr[take] if perm is None else arr[perm[take]]
+    if blk.shape[0] < rows:
+        pad = [(0, rows - blk.shape[0])] + [(0, 0)] * (blk.ndim - 1)
+        blk = np.pad(blk, pad, constant_values=fill)
+    return to_device(blk, device, dtype)
 
 
 @torch.no_grad()
@@ -195,10 +203,21 @@ class _MaskedCEChunked(torch.autograd.Function):
         return dl, None, dm, None
 
 
+def jax_labels(y, num_classes):
+    """Integer labels as JAX's cross-entropy reads them
+    (`optax.softmax_cross_entropy_with_integer_labels`): a negative label
+    counts from the last class. OGB marks a row without a label -1 (the
+    papers twin's ``--data-root``); such rows are masked out, and this
+    keeps `F.cross_entropy` from refusing them."""
+    y = y.long()
+    return torch.where(y < 0, y + num_classes, y)
+
+
 def _masked_ce_chunked(logits, y, m, ch=CH):
     """`_MaskedCEChunked` as a function: (logits (n, C), y (n,) integer, m
     (n,) float) -> the mean masked cross-entropy."""
-    return _MaskedCEChunked.apply(logits, y.long(), m, ch)
+    return _MaskedCEChunked.apply(logits, jax_labels(y, logits.shape[1]), m,
+                                  ch)
 
 
 def _loss(logits, y, mask, nparts, group):
@@ -206,7 +225,7 @@ def _loss(logits, y, mask, nparts, group):
     part's masked sum over the mask sum of every part, so the parts'
     shares (and their gradients) add up to the JAX recipe's loss."""
     m = mask.float()
-    y = y.long()
+    y = jax_labels(y, logits.shape[1])
     if nparts == 1 and logits.shape[0] > CHUNK_ROWS:
         return _masked_ce_chunked(logits, y, m)
     msum = m.sum()

@@ -6,7 +6,19 @@ from gammagl_tpu_torch.utils.compute_dtype import (  # noqa: F401
     resolve_dtype,
     set_compute_dtype,
 )
-from gammagl_tpu_torch.utils.device import resolve_device  # noqa: F401
+from gammagl_tpu_torch.utils.coalesce import (  # noqa: F401
+    coalesce,
+    sort_edge_index,
+)
+from gammagl_tpu_torch.utils.degree import degree  # noqa: F401
+from gammagl_tpu_torch.utils.device import (  # noqa: F401
+    resolve_device,
+    to_device,
+)
+from gammagl_tpu_torch.utils.mask import (  # noqa: F401
+    index_to_mask,
+    mask_to_index,
+)
 from gammagl_tpu_torch.utils.loop import (  # noqa: F401
     add_self_loops,
     contains_self_loops,
@@ -17,8 +29,14 @@ from gammagl_tpu_torch.utils.norm import (  # noqa: F401
     calc_gcn_norm_np,
 )
 from gammagl_tpu_torch.utils.params import load_jax_params  # noqa: F401
+from gammagl_tpu_torch.utils.undirected import (  # noqa: F401
+    is_undirected,
+    to_undirected,
+)
 
 __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "calc_gcn_norm", "calc_gcn_norm_np", "compute_dtype",
            "get_compute_dtype", "resolve_dtype", "set_compute_dtype",
-           "load_jax_params", "resolve_device"]
+           "load_jax_params", "resolve_device", "to_device", "degree",
+           "mask_to_index", "index_to_mask", "coalesce", "sort_edge_index",
+           "to_undirected", "is_undirected"]

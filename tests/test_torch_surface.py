@@ -63,16 +63,13 @@ COVERED = {
 }
 
 MISSING_NAMES = {
-    "data/__init__.py": [
-        "BaseGraph", "BatchGraph", "Dataset", "InMemoryDataset",
-        "pad_graph", "size_bucket", "pad_to", "download_url",
-        "extract_zip", "extract_tar", "extract_gz", "TensorAttr",
-        "FeatureStore", "InMemoryFeatureStore", "EdgeLayout",
-        "EdgeAttr", "GraphStore", "InMemoryGraphStore", "get_config",
-        "get_dataset_root", "EdgeIndex",
-    ],
-    "data/graph.py": [
-        "BaseGraph",
+    "datasets/__init__.py": [
+        "Reddit", "PPI", "WikiCS", "WebKB", "WikipediaNetwork", "Actor",
+        "IMDB", "DBLP", "HGBDataset", "Flickr", "Yelp", "PolBlogs",
+        "BlogCatalog", "CAGrQc", "CA_GrQc", "Airports", "Entities", "ZINC",
+        "ACM4HeCo", "Bail", "Credit", "AMiner", "MoleculeNet", "MovieLens",
+        "CustomDataset", "ModelNet40", "ShapeNet", "NGSIM_US_101",
+        "ACM4DHN", "ACM4Rohe", "ADDataset", "AliRCD",
     ],
     "layers/conv/__init__.py": [
         "FusedGATConv", "MAGCLConv", "MGNNI_m_iter", "HEATlayer",
@@ -168,9 +165,7 @@ MISSING_NAMES = {
         "chain_time", "trace", "device_timer", "calc_A_norm_hat",
         "edge_index_to_adj_matrix", "get_few_shot_split",
         "node_subgraph", "set_device", "shortest_path_distance",
-        "batched_shortest_path_distance", "degree", "mask_to_index",
-        "index_to_mask", "coalesce", "sort_edge_index",
-        "to_undirected", "is_undirected", "subgraph", "k_hop_subgraph",
+        "batched_shortest_path_distance", "subgraph", "k_hop_subgraph",
         "to_dense_adj", "to_dense_batch", "negative_sampling",
         "batched_negative_sampling", "structured_negative_sampling",
         "homophily", "get_laplacian", "to_scipy_sparse_matrix",
@@ -186,33 +181,26 @@ MISSING_NAMES = {
 }
 
 MISSING_MODULES = [
-    "csrc/__init__.py", "data/batch.py", "data/config.py",
-    "data/dataset.py", "data/download.py", "data/edge_index.py",
-    "data/feature_store.py", "data/graph_store.py", "data/padding.py",
-    "datasets/__init__.py", "datasets/geom_gcn.py",
+    "csrc/__init__.py", "datasets/geom_gcn.py",
     "datasets/hetero_datasets.py", "datasets/misc_datasets.py",
-    "datasets/npz_datasets.py", "datasets/ogb.py", "datasets/planetoid.py",
-    "datasets/ppi.py", "datasets/real_structure.py", "datasets/reddit.py",
-    "datasets/saint_datasets.py", "datasets/synthetic.py",
-    "datasets/tu_dataset.py", "datasets/wave3_datasets.py",
-    "datasets/wave4_datasets.py", "datasets/wikics.py", "io/__init__.py",
-    "io/npz.py", "io/planetoid.py", "io/tu.py", "io/txt_array.py",
-    "layers/attention/__init__.py", "layers/attention/graphormer.py",
-    "layers/attention/rgt.py", "layers/conv/compat_convs.py",
-    "layers/conv/hetero_wave2.py", "layers/conv/rgt_layers.py",
-    "layers/conv/rgt_vq.py", "layers/conv/simple_convs.py",
-    "layers/conv/wave2_convs.py", "layers/conv/wave7_convs.py",
-    "layers/pool/__init__.py", "layers/pool/glob.py",
-    "layers/pool/mincut.py", "loader/__init__.py", "loader/dataloader.py",
-    "loader/epoch_cache.py", "loader/feature_cache.py",
-    "loader/graph_saint.py", "loader/hetero_sampler.py",
-    "loader/link_loader.py", "loader/multihost.py",
-    "loader/neighbor_sampler.py", "loader/node_loader.py",
-    "loader/prefetch.py", "loader/random_walk.py", "loader/rgt_loader.py",
-    "models/autoencoder.py", "models/compat.py", "models/defog.py",
-    "models/embedding.py", "models/gan_distill.py", "models/graph_llm.py",
-    "models/graphormer.py", "models/heco.py", "models/rgt.py",
-    "models/seal_cogsl.py", "models/simple_models.py",
+    "datasets/ppi.py", "datasets/reddit.py", "datasets/saint_datasets.py",
+    "datasets/wave3_datasets.py", "datasets/wave4_datasets.py",
+    "datasets/wikics.py", "layers/attention/__init__.py",
+    "layers/attention/graphormer.py", "layers/attention/rgt.py",
+    "layers/conv/compat_convs.py", "layers/conv/hetero_wave2.py",
+    "layers/conv/rgt_layers.py", "layers/conv/rgt_vq.py",
+    "layers/conv/simple_convs.py", "layers/conv/wave2_convs.py",
+    "layers/conv/wave7_convs.py", "layers/pool/__init__.py",
+    "layers/pool/glob.py", "layers/pool/mincut.py", "loader/__init__.py",
+    "loader/dataloader.py", "loader/epoch_cache.py",
+    "loader/feature_cache.py", "loader/graph_saint.py",
+    "loader/hetero_sampler.py", "loader/link_loader.py",
+    "loader/multihost.py", "loader/neighbor_sampler.py",
+    "loader/node_loader.py", "loader/prefetch.py", "loader/random_walk.py",
+    "loader/rgt_loader.py", "models/autoencoder.py", "models/compat.py",
+    "models/defog.py", "models/embedding.py", "models/gan_distill.py",
+    "models/graph_llm.py", "models/graphormer.py", "models/heco.py",
+    "models/rgt.py", "models/seal_cogsl.py", "models/simple_models.py",
     "models/spectral.py", "models/ssl.py", "models/wave2_models.py",
     "models/wave3_models.py", "models/wave5_models.py",
     "models/wave6_models.py", "models/wave7_models.py",
@@ -221,12 +209,12 @@ MISSING_MODULES = [
     "parallel/strategies.py", "sampler/__init__.py",
     "sampler/neighbor_sampler.py", "transforms/__init__.py",
     "transforms/transforms.py", "transforms/vgae_pre.py", "typing.py",
-    "utils/coalesce.py", "utils/compat_utils.py", "utils/conversation.py",
-    "utils/degree.py", "utils/gfm_utils.py", "utils/manifold_math.py",
-    "utils/mask.py", "utils/misc.py", "utils/negative_sampling.py",
-    "utils/paths_io.py", "utils/profiling.py", "utils/pruning.py",
-    "utils/shortest_path.py", "utils/smiles.py", "utils/subgraph.py",
-    "utils/to_dense.py", "utils/undirected.py", "utils/unifews_log.py",
+    "utils/compat_utils.py", "utils/conversation.py", "utils/gfm_utils.py",
+    "utils/manifold_math.py", "utils/misc.py",
+    "utils/negative_sampling.py", "utils/paths_io.py",
+    "utils/profiling.py", "utils/pruning.py", "utils/shortest_path.py",
+    "utils/smiles.py", "utils/subgraph.py", "utils/to_dense.py",
+    "utils/unifews_log.py",
 ]
 
 
