@@ -48,7 +48,7 @@ __all__ = ["synthetic_community_graph", "load_node_dataset",
            "node_arrays", "node_data", "base_parser", "loss_and_grad",
            "train_step", "run_simple_node_trainer", "synthetic_hetero",
            "hetero_tensors", "predict", "run_hetero_trainer",
-           "run_edge_type_trainer"]
+           "run_edge_type_trainer", "linear_probe"]
 
 
 def node_arrays(graph):
@@ -507,3 +507,24 @@ def run_edge_type_trainer(model, args, x, edge_index, edge_type, y,
     acc = test_acc()
     print(f"final test acc {acc:.4f} ({dev})")
     return {"losses": losses, "test_acc": acc, "state": state}
+
+
+def linear_probe(emb, d, num_classes, steps=300, lr=1e-2):
+    """Test accuracy of a logistic regression on frozen embeddings, the
+    JAX examples' shared evaluation of self-supervised models
+    (`examples/common.py` `linear_probe`): the rows of ``emb`` normalised
+    to unit length (+1e-12), a zero-initialised map to ``num_classes``
+    trained by ``steps`` Adam steps at ``lr`` on the masked cross-entropy
+    of ``d["y"]`` over ``d["train_mask"]``, scored on ``d["test_mask"]``
+    (tensors on emb's device)."""
+    emb = emb.detach().float()
+    emb = emb / (torch.linalg.vector_norm(emb, dim=1, keepdim=True) + 1e-12)
+    w = torch.zeros(emb.shape[1], num_classes, device=emb.device,
+                    requires_grad=True)
+    opt = torch.optim.Adam([w], lr=lr)
+    for _ in range(steps):
+        opt.zero_grad()
+        semi_supervised_loss(emb @ w, d["y"], d["train_mask"]).backward()
+        opt.step()
+    with torch.no_grad():
+        return float(accuracy(emb @ w, d["y"], d["test_mask"]))

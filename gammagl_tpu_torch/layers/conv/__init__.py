@@ -16,6 +16,31 @@ from gammagl_tpu_torch.layers.conv.hetero_conv import (  # noqa: F401
     HGTConv,
     SimpleHGNConv,
 )
+from gammagl_tpu_torch.layers.conv.simple_convs import (  # noqa: F401
+    AGNNConv,
+    APPNPConv,
+    ChebConv,
+    FAGCNConv,
+    GCNIIConv,
+    GINConv,
+    GPRConv,
+    JumpingKnowledge,
+    MixHopConv,
+    SGConv,
+)
+from gammagl_tpu_torch.layers.conv.hetero_wave2 import (  # noqa: F401
+    HidConv,
+    HPNConv,
+    RoheHANConv,
+    ieHGCNConv,
+)
+
+# the reference's spelling (gammagl/layers/conv/__init__.py)
+Hid_conv = HidConv
 
 __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
-           "RGCNConv", "HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv"]
+           "RGCNConv", "HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv",
+           "SGConv", "GINConv", "APPNPConv", "GCNIIConv", "ChebConv",
+           "AGNNConv", "FAGCNConv", "GPRConv", "MixHopConv",
+           "JumpingKnowledge", "HPNConv", "ieHGCNConv", "HidConv",
+           "RoheHANConv", "Hid_conv"]

@@ -13,8 +13,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.parameter import UninitializedParameter
 
-__all__ = ["dense", "glorot_uniform_", "fan_in_normal_", "lecun_normal_",
-           "lecun_linear_"]
+__all__ = ["dense", "dropout", "glorot_uniform_", "fan_in_normal_",
+           "lecun_normal_", "lecun_linear_", "lecun_dense", "lecun_apply",
+           "glorot_dense"]
 
 
 def glorot_uniform_(t):
@@ -55,6 +56,34 @@ def lecun_linear_(lin):
     return lin
 
 
+def lecun_dense(in_channels, out_channels, bias=True):
+    """A flax default ``Dense`` as an ``nn.Linear``: lecun-normal kernel,
+    zero bias; lazy when ``in_channels`` is None (`dense` draws it at
+    first use)."""
+    return lecun_linear_(
+        nn.LazyLinear(out_channels, bias=bias) if in_channels is None
+        else nn.Linear(in_channels, out_channels, bias=bias))
+
+
+def lecun_apply(lin, x):
+    """A flax default ``Dense`` of ``x`` (a lazy ``lin`` draws lecun-normal
+    at first use)."""
+    return dense(lin, x, None, lecun_normal_)
+
+
+def glorot_dense(in_channels, out_channels, bias=True):
+    """A ``Dense`` with flax's glorot-uniform kernel and zero bias, lazy
+    when ``in_channels`` is None (apply it with `dense(..., glorot_uniform_)`
+    so a lazy one draws the same law)."""
+    if in_channels is None:
+        return nn.LazyLinear(out_channels, bias=bias)
+    lin = nn.Linear(in_channels, out_channels, bias=bias)
+    glorot_uniform_(lin.weight)
+    if bias:
+        nn.init.zeros_(lin.bias)
+    return lin
+
+
 def dense(lin, x, dtype, init):
     """flax ``Dense(dtype=dtype)`` of ``x`` with ``lin``'s parameters.
 
@@ -76,3 +105,18 @@ def dense(lin, x, dtype, init):
         dtype = torch.promote_types(x.dtype, lin.weight.dtype)
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def dropout(x, rate, generator=None):
+    """flax's ``nn.Dropout`` in training mode: each entry of ``x`` kept
+    with probability 1 - rate and scaled by 1/(1 - rate). The draw comes
+    from ``generator`` on the generator's own device (None: x's device's
+    default generator), so one generator state gives every path the same
+    mask."""
+    if rate == 0:
+        return x
+    device = generator.device if generator is not None else x.device
+    kept = (torch.rand(x.shape, generator=generator, device=device)
+            >= rate).to(x.device)
+    return torch.where(kept, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))

@@ -13,6 +13,39 @@ from gammagl_tpu_torch.models.hetero import (  # noqa: F401
     SimpleHGNModel,
 )
 
+from gammagl_tpu_torch.models.simple_models import (  # noqa: F401
+    MLP,
+    APPNPModel,
+    ChebNetModel,
+    FAGCNModel,
+    GCNIIModel,
+    GINModel,
+    GPRGNNModel,
+    JKNet,
+    MixHopModel,
+    SGCModel,
+)
+from gammagl_tpu_torch.models.wave3_models import (  # noqa: F401
+    HiDNetModel,
+    HPNModel,
+    RoheHANModel,
+    ieHGCNModel,
+)
+from gammagl_tpu_torch.models.heco import (  # noqa: F401
+    HeCoModel,
+    heco_contrast_loss,
+)
+
+# the reference's spellings (gammagl/models/__init__.py)
+HPN = HPNModel
+HeCo = HeCoModel
+Hid_net = HiDNetModel
+RoheHAN = RoheHANModel
+
 __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GraphSAGESampleModel", "RGCNModel", "HANModel", "HGTModel",
-           "SimpleHGNModel"]
+           "SimpleHGNModel", "SGCModel", "GINModel", "APPNPModel",
+           "GCNIIModel", "JKNet", "MLP", "ChebNetModel", "MixHopModel",
+           "GPRGNNModel", "FAGCNModel", "HiDNetModel", "HPNModel",
+           "ieHGCNModel", "RoheHANModel", "HeCoModel", "heco_contrast_loss",
+           "HPN", "HeCo", "Hid_net", "RoheHAN"]

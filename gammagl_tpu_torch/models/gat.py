@@ -1,24 +1,12 @@
 """GAT and GATv2 models, counterparts of `gammagl_tpu/models/gat.py`."""
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
 from gammagl_tpu_torch.layers.conv import GATConv, GATV2Conv
+from gammagl_tpu_torch.layers.dense import dropout
 
 __all__ = ["GATModel", "GATV2Model", "dropout"]
-
-
-def dropout(x, rate, generator=None):
-    """Inverted dropout drawn from ``generator`` (a `torch.Generator` on
-    x's device; None: the default one): each entry is kept with
-    probability 1 - rate and scaled by 1/(1 - rate), as flax's
-    ``nn.Dropout``."""
-    if rate == 0:
-        return x
-    kept = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(kept, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
-                                                           device=x.device))
 
 
 class GATModel(nn.Module):

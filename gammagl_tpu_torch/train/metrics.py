@@ -8,14 +8,21 @@ __all__ = ["semi_supervised_loss", "accuracy", "micro_f1", "macro_f1"]
 
 def semi_supervised_loss(logits, labels, mask):
     """Masked mean cross-entropy over the nodes where ``mask`` is set,
-    computed in float32."""
-    ll = F.cross_entropy(logits.float(), labels.long(), reduction="none")
+    computed in float32. ``logits`` (..., C) broadcast against ``labels``
+    as in the JAX package: one row of logits (1, C) serves every label
+    (a model that pools the whole graph, ROADMAP C17)."""
+    shape = torch.broadcast_shapes(logits.shape[:-1], labels.shape)
+    logits = logits.float().expand(*shape, logits.shape[-1])
+    ll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         labels.long().expand(shape).reshape(-1),
+                         reduction="none").reshape(shape)
     mask = mask.float()
     return (ll * mask).sum() / mask.sum().clamp_min(1)
 
 
 def accuracy(logits, labels, mask=None):
-    """Share of (masked) nodes whose argmax is the label."""
+    """Share of (masked) nodes whose argmax is the label; the argmax
+    broadcasts against ``labels`` as in `semi_supervised_loss`."""
     correct = (logits.argmax(-1) == labels).float()
     if mask is None:
         return correct.mean()

@@ -33,10 +33,15 @@ from gammagl_tpu_torch.utils.undirected import (  # noqa: F401
     is_undirected,
     to_undirected,
 )
+from gammagl_tpu_torch.utils.to_dense import (  # noqa: F401
+    to_dense_adj,
+    to_dense_batch,
+)
 
 __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "calc_gcn_norm", "calc_gcn_norm_np", "compute_dtype",
            "get_compute_dtype", "resolve_dtype", "set_compute_dtype",
            "load_jax_params", "resolve_device", "to_device", "degree",
            "mask_to_index", "index_to_mask", "coalesce", "sort_edge_index",
-           "to_undirected", "is_undirected"]
+           "to_undirected", "is_undirected", "to_dense_adj",
+           "to_dense_batch"]

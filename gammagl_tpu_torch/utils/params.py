@@ -4,7 +4,8 @@ A port module that has parameters names its flax counterparts in a
 ``flax_tree()`` method: a mapping from the flax name (``"GCNConv_0"``,
 ``"Dense_0"``, ``"bias"``) to a submodule or a parameter. An
 ``nn.Linear`` stands for a flax ``Dense``: its (out, in) weight is the
-transpose of the (in, out) ``kernel``. Raw parameters keep their flax
+transpose of the (in, out) ``kernel``; an ``nn.LayerNorm`` for a flax
+``LayerNorm``, its weight the ``scale``. Raw parameters keep their flax
 shape, whatever their rank: HGT's (H, D, D) relation matrices, its (H,)
 priors and its scalar skip gates.
 """
@@ -26,6 +27,9 @@ def _layout(module, prefix=()):
         if module.bias is not None:
             out[prefix + ("bias",)] = (module.bias, False)
         return out
+    if isinstance(module, nn.LayerNorm):
+        return {prefix + ("scale",): (module.weight, False),
+                prefix + ("bias",): (module.bias, False)}
     if not hasattr(module, "flax_tree"):
         raise TypeError(f"{type(module).__name__} names no flax "
                         "counterpart (no flax_tree method)")

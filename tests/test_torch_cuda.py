@@ -6,7 +6,9 @@ kernels against their plain versions, forward and backward, the launch
 counts, the wrappers' checks, gradients of GCN, GAT, GATv2 and HGT
 through the kernels, and the serving paths (GraphSAGE and HGT too); the
 CSR-order softmax and multi-head SpMM, HAN's relations between node
-types (ROADMAP C14), and RGCN and SimpleHGN against their plain paths.
+types (ROADMAP C14), RGCN and SimpleHGN, and the propagation zoo
+(SGC, APPNP, GCNII, JKNet, ChebNet, MixHop, GPR-GNN, FAGCN, AGNN) on its
+plan route against their plain paths.
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -22,6 +24,7 @@ parameter's max |grad| (the paths form scores and sums in other orders).
 """
 
 import copy
+import inspect
 
 import numpy as np
 import pytest
@@ -1624,6 +1627,76 @@ def test_typed_edge_models_on_card_match_the_plain_path(card, name):
         out.square().mean().backward()
         outs.append((out.detach(), [q.grad.clone() for q in
                                     model.parameters()]))
+    (got, gg), (want, wg) = outs
+    _close(got, want, 1e-5)
+    for a, b in zip(gg, wg):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+ZOO = {"sgc": ("SGCModel", {"num_class": 4}),
+       "appnp": ("APPNPModel", {"hidden_dim": 16, "num_class": 4}),
+       "gcnii": ("GCNIIModel", {"hidden_dim": 16, "num_class": 4,
+                                "num_layers": 4}),
+       "gcnii_variant": ("GCNIIModel", {"hidden_dim": 16, "num_class": 4,
+                                        "num_layers": 4, "variant": True}),
+       "jknet": ("JKNet", {"num_class": 4}),
+       "chebnet": ("ChebNetModel", {"num_class": 4}),
+       "mixhop": ("MixHopModel", {"num_class": 4}),
+       "gprgnn": ("GPRGNNModel", {"hidden_dim": 16, "num_class": 4}),
+       "fagcn": ("FAGCNModel", {"num_class": 4})}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO) + ["agnn"])
+def test_zoo_plan_route_on_card_matches_plain(card, name):
+    """Each model of the propagation zoo (and the agnn twin's network)
+    with the graph's plan on the card against its plain COO path: eval
+    logits, the gradients of a loss in training mode under one generator
+    state, and the launches (one `spmm_csr` a hop forward and one a hop
+    whose input carries a gradient backward; the SDDMM for AGNN's and
+    FAGCN's attention), float32."""
+    from gammagl_tpu_torch import models
+    from gammagl_tpu_torch.examples import agnn_trainer
+    torch.manual_seed(31)
+    rng = np.random.default_rng(31)
+    n = 3000
+    ei = np.stack([rng.integers(0, n, 24000), rng.integers(0, n - 50,
+                                                           24000)])
+    ei = np.concatenate([ei, np.stack([np.arange(n)] * 2)], 1)
+    x = torch.randn(n, 24).to(card)
+    tei = torch.from_numpy(ei).to(card)
+    plan = kops.build_csr_plan(ei[0], ei[1], n)
+    if name == "agnn":
+        model = agnn_trainer.Net(16, 4, in_channels=24).to(card)
+
+        def forward(p, **kw):
+            return model.run(x, tei, plan=p, **kw)
+    else:
+        cls, kw = ZOO[name]
+        model = getattr(models, cls)(in_channels=24, **kw).to(card)
+
+        def forward(p, **kw):
+            return model(x, tei, plan=p, **kw)
+    outs = []
+    for p in (plan, None):
+        model.eval()
+        with torch.no_grad():
+            before = kops.spmm_csr.launches
+            logits = forward(p)
+            torch.cuda.synchronize()
+            assert (kops.spmm_csr.launches > before) == (p is not None)
+        model.train().zero_grad()
+        gen = ({"generator": torch.Generator(card).manual_seed(32)}
+               if name == "agnn" or "generator" in inspect.signature(
+                   model.forward).parameters else {})
+        out = forward(p, **gen)
+        before = kops.sddmm_csr.launches
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        dw = kops.sddmm_csr.launches - before
+        assert dw == (2 if p is not None and name in ("agnn", "fagcn")
+                      else 0)
+        outs.append((logits, [q.grad.clone() for q in model.parameters()]))
     (got, gg), (want, wg) = outs
     _close(got, want, 1e-5)
     for a, b in zip(gg, wg):

@@ -73,19 +73,18 @@ MISSING_NAMES = {
     ],
     "layers/conv/__init__.py": [
         "FusedGATConv", "MAGCLConv", "MGNNI_m_iter", "HEATlayer",
-        "Hid_conv", "HardGATConv", "SGConv", "GINConv", "APPNPConv",
-        "GCNIIConv", "ChebConv", "AGNNConv", "FAGCNConv", "GPRConv",
-        "MixHopConv", "JumpingKnowledge", "PNAConv", "FILMConv",
+        "HardGATConv",
+        "PNAConv", "FILMConv",
         "EdgeConv", "GMMConv", "CompConv", "GaANConv", "DNAConv",
-        "HypergraphConv", "HPNConv", "ieHGCNConv", "HidConv",
-        "RoheHANConv", "DHNConv", "HEATConv", "CoEDConv",
+        "HypergraphConv",
+        "DHNConv", "HEATConv", "CoEDConv",
         "ConstCurveLinear", "ConstCurveAgg", "EuclideanEncoder",
         "ManifoldEncoder", "VectorQuantizeE", "VectorQuantizeR",
     ],
     "models/__init__.py": [
         "HEAT", "GraphSAGE_Full_Model", "GraphSAGE_Sample_Model",
-        "RGCN", "CompGCN", "HAN", "GRADE", "HPN", "HeCo", "Hid_net",
-        "RoheHAN", "Graphormer", "Specformer", "NewGrace", "NodeIDGNN",
+        "RGCN", "CompGCN", "HAN", "GRADE",
+        "Graphormer", "Specformer", "NewGrace", "NodeIDGNN",
         "GNRF", "DeepWalkModel", "Node2vecModel", "Graph_Editer",
         "DGCNN", "PreModel", "EdgePromptGCNModel", "MGNNI_m_MLP",
         "AGNNModel", "FILMModel", "GMMModel", "DNAModel", "HCHA",
@@ -93,19 +92,18 @@ MISSING_NAMES = {
         "DFADModel", "DFADGenerator", "Generator", "Discriminator",
         "EigenMLP", "Encoder", "SpaSpeNode", "ReModel",
         "EdgePromptNodeClassifier", "FusedGATModel", "GNN",
-        "amp_elbo_regression_loss", "SGCModel", "GINModel",
-        "APPNPModel", "GCNIIModel", "JKNet", "MLP", "ChebNetModel",
-        "MixHopModel", "GPRGNNModel", "FAGCNModel", "DeepWalk",
+        "amp_elbo_regression_loss",
+        "DeepWalk",
         "Node2Vec", "MetaPath2Vec", "DGIModel", "GraceModel",
         "MVGRLModel", "InfoGraph", "GGDModel", "grace_loss",
         "corrupt_features", "drop_edge_and_feature", "GAEModel",
         "VGAEModel", "inner_product_decoder", "recon_loss",
         "GraphormerModel", "PNAModel", "CompGCNModel", "DGCNNModel",
-        "GaANModel", "SGFormerModel", "GNNLFHFModel", "HiDNetModel",
-        "CAGCNModel", "HPNModel", "ieHGCNModel", "RoheHANModel",
+        "GaANModel", "SGFormerModel", "GNNLFHFModel",
+        "CAGCNModel",
         "MERITModel", "GRADEModel", "tadw", "SpecformerModel",
-        "laplacian_eigh", "MGNNIModel", "HeCoModel",
-        "heco_contrast_loss", "GraphGAN", "herec", "distill_loss",
+        "laplacian_eigh", "MGNNIModel",
+        "GraphGAN", "herec", "distill_loss",
         "GLNNStudent", "SIGNModel", "GCNUniFews", "HardGATConv",
         "HardGATModel", "AdaGADModel", "Sp2GCLModel", "DeFoGModel",
         "XEyTransformerLayer", "timestep_embedding",
@@ -123,6 +121,10 @@ MISSING_NAMES = {
         "GraceSpcoModel", "RGTModel", "rgt_loss", "rgt_cl_loss",
         "GEstimationN", "FatraGNNModel", "GraphEditer",
         "modify_structure",
+    ],
+    "models/wave3_models.py": [
+        "SGFormerModel", "GNNLFHFModel", "CAGCNModel", "MERITModel",
+        "GRADEModel", "tadw",
     ],
     "parallel/__init__.py": [
         "EdgePartition", "partition_edges_by_dst",
@@ -166,7 +168,7 @@ MISSING_NAMES = {
         "edge_index_to_adj_matrix", "get_few_shot_split",
         "node_subgraph", "set_device", "shortest_path_distance",
         "batched_shortest_path_distance", "subgraph", "k_hop_subgraph",
-        "to_dense_adj", "to_dense_batch", "negative_sampling",
+        "negative_sampling",
         "batched_negative_sampling", "structured_negative_sampling",
         "homophily", "get_laplacian", "to_scipy_sparse_matrix",
         "from_scipy_sparse_matrix", "get_train_val_test_split",
@@ -187,11 +189,11 @@ MISSING_MODULES = [
     "datasets/wave3_datasets.py", "datasets/wave4_datasets.py",
     "datasets/wikics.py", "layers/attention/__init__.py",
     "layers/attention/graphormer.py", "layers/attention/rgt.py",
-    "layers/conv/compat_convs.py", "layers/conv/hetero_wave2.py",
+    "layers/conv/compat_convs.py",
     "layers/conv/rgt_layers.py", "layers/conv/rgt_vq.py",
-    "layers/conv/simple_convs.py", "layers/conv/wave2_convs.py",
-    "layers/conv/wave7_convs.py", "layers/pool/__init__.py",
-    "layers/pool/glob.py", "layers/pool/mincut.py", "loader/__init__.py",
+    "layers/conv/wave2_convs.py",
+    "layers/conv/wave7_convs.py",
+    "loader/__init__.py",
     "loader/dataloader.py", "loader/epoch_cache.py",
     "loader/feature_cache.py", "loader/graph_saint.py",
     "loader/hetero_sampler.py", "loader/link_loader.py",
@@ -199,10 +201,10 @@ MISSING_MODULES = [
     "loader/node_loader.py", "loader/prefetch.py", "loader/random_walk.py",
     "loader/rgt_loader.py", "models/autoencoder.py", "models/compat.py",
     "models/defog.py", "models/embedding.py", "models/gan_distill.py",
-    "models/graph_llm.py", "models/graphormer.py", "models/heco.py",
-    "models/rgt.py", "models/seal_cogsl.py", "models/simple_models.py",
+    "models/graph_llm.py", "models/graphormer.py",
+    "models/rgt.py", "models/seal_cogsl.py",
     "models/spectral.py", "models/ssl.py", "models/wave2_models.py",
-    "models/wave3_models.py", "models/wave5_models.py",
+    "models/wave5_models.py",
     "models/wave6_models.py", "models/wave7_models.py",
     "models/wave8_models.py", "parallel/halo_attention.py",
     "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
@@ -213,7 +215,7 @@ MISSING_MODULES = [
     "utils/manifold_math.py", "utils/misc.py",
     "utils/negative_sampling.py", "utils/paths_io.py",
     "utils/profiling.py", "utils/pruning.py", "utils/shortest_path.py",
-    "utils/smiles.py", "utils/subgraph.py", "utils/to_dense.py",
+    "utils/smiles.py", "utils/subgraph.py",
     "utils/unifews_log.py",
 ]
 

@@ -63,6 +63,27 @@ def test_loss_and_accuracy_match_jax():
                                       torch.tensor(labels), empty)) == 0.0
 
 
+def test_loss_broadcasts_one_row_as_jax_c17():
+    """ROADMAP C17: one row of logits (1, C), as a model that pools the
+    whole graph gives, against labels (N,): every label takes that row,
+    as optax's loss and JAX's accuracy broadcast it."""
+    rng = np.random.default_rng(2)
+    logits = rng.normal(size=(1, 5)).astype(np.float32) * 3
+    labels = rng.integers(0, 5, 40)
+    mask = rng.random(40) < 0.5
+    got = semi_supervised_loss(torch.tensor(logits), torch.tensor(labels),
+                               torch.tensor(mask))
+    want = jax_loss(jnp.asarray(logits), jnp.asarray(labels),
+                    jnp.asarray(mask))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    for m in (None, mask):
+        got = accuracy(torch.tensor(logits), torch.tensor(labels),
+                       None if m is None else torch.tensor(m))
+        want = jax_accuracy(jnp.asarray(logits), jnp.asarray(labels),
+                            None if m is None else jnp.asarray(m))
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+
+
 @pytest.mark.parametrize("l2", [0.0, 5e-4])
 def test_adam_with_decayed_weights_matches_optax(l2):
     """torch Adam(weight_decay=l2) adds l2 * param to the gradient before
