@@ -235,8 +235,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    on its `csr_plan()`, exactly 3 `spmm_csr` launches, each graph's rows
    against that graph alone and `to_data_list` round-tripping, then
    `pad_graph(..., bucket=True)` through the COO route on the card, its
-   real rows against the unpadded result. The host seconds of each load
-   are printed with the card's name and power limit.
+   real rows against the unpadded result; (d) IMDB's processed files at
+   its published statistics (4,278 movies, 2,081 directors, 5,257
+   actors, 3,066 features, 4,278 movie-director and 12,828 movie-actor
+   edges each way, 3 genres) through `IMDB`, every array as written,
+   and the han twin on them for 2 steps on the card (its plans: actor ->
+   movie has more source rows than destinations, ROADMAP C14): step-0
+   loss and gradients bitwise those of the same `HeteroGraph` handed in
+   (in PyTorch's deterministic mode: HAN's backward sums score gradients
+   with atomic adds), exactly 20 flash forward, 4 flash backward and 4
+   `spmm_csr` launches, the plan route within 3e-2 of max |logit| of the
+   COO route in bf16. The host seconds of each load are printed with the
+   card's name and power limit.
 30. The propagation zoo on the arxiv-shape graph of phases 5-9 (labels
    planted in its smoothed features, class directions added to the
    features, float32), each model at its JAX defaults: SGC (K 2), APPNP
@@ -266,14 +276,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of 64) on the arxiv-shape graph, HeCo at ACM's shape in the HeCo
    paper (4,019 papers, 7,167 authors, 60 subjects, 1,902 features; PAP
    and PSP).
-33. Print the card's name and power limit, one JSON line on the kernels
+33. The wave-2 zoo, COO as in JAX, each against the same module in
+   float64 on the card (1e-5 of max |out|), 8 requests and 5 Adam steps
+   whose loss must fall, no kernel launched: PNA (64, the 13 x 128
+   concatenation; lr 1e-3), GaAN (4 heads x 16) and the film, gmm, dna
+   and hcha twins' nets (16) on the arxiv-shape graph (phase 30's planted
+   labels, features at a tenth), CompGCN (64) on phase 26's flattened
+   typed graph with its 3 relations as edge types, DGCNN (32, k 30) on a
+   TU batch of 128 graphs.
+34. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
    segment max's fold under spmm_max_csr's, its tie count and count fold
    under segment_max_bwd's, the flash forward's fold under
    flash_forward's; the typed-graph shapes of phase 26 under
-   `by_shape`) and the paths, and as the last line {"ok": true,
+   `by_shape`) and the paths (the wave-2 zoo under "wave2"), and as the
+   last line {"ok": true,
    "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
@@ -3678,6 +3697,216 @@ def data_tu_path(k, tmp, rng, dev):
             "padded": [padded.num_nodes, padded.num_edges]}
 
 
+# IMDB (phase 29 (d)): the published statistics of MAGNN's processed
+# release, which the IMDB dataset reads (PyG's IMDB gives the same: 4,278
+# movies, 2,081 directors, 5,257 actors, 3,066 bag-of-words features a
+# type, 3 genres, 400 / 400 / 3,478 movies for training, validation and
+# test); each movie one director (4,278 edges) and three actors but six
+# with two (12,828 edges), both directions; feature rows of IMDB_WORDS
+# words, a movie's genre among them. The han twin at its defaults (4
+# heads x 16, dropout 0.4, lr 0.005) for IMDB_STEPS steps; its plan route
+# against its COO route in bf16 within HAN_ROUTE_TOL of max |logit|
+IMDB_MOVIES, IMDB_DIRECTORS, IMDB_ACTORS = 4278, 2081, 5257
+IMDB_FEAT, IMDB_MA_EDGES, IMDB_CLASSES = 3066, 12828, 3
+IMDB_SPLIT, IMDB_WORDS, IMDB_STEPS, HAN_ROUTE_TOL = (400, 400), 20, 2, 3e-2
+
+
+def write_imdb(raw_dir, rng):
+    """IMDB's processed layout (``features_{0,1,2}.npz`` CSR, labels.npy,
+    train_val_test_idx.npz, the block adjacency adjM.npz in movie |
+    director | actor order) at IMDB's statistics. Returns what was written
+    as arrays: the dense features by type, labels, split and each
+    relation's (src, dst) pairs sorted as a CSR walk of adjM gives
+    them."""
+    import scipy.sparse as sp
+    os.makedirs(raw_dir, exist_ok=True)
+    sizes = (IMDB_MOVIES, IMDB_DIRECTORS, IMDB_ACTORS)
+    y = rng.integers(0, IMDB_CLASSES, IMDB_MOVIES)
+    feats = []
+    for i, n in enumerate(sizes):
+        cols = rng.integers(0, IMDB_FEAT, (n, IMDB_WORDS))
+        if i == 0:
+            cols[:, 0] = y  # the genre's word
+        m = sp.csr_matrix((np.ones(cols.size, np.float32),
+                           (np.repeat(np.arange(n), IMDB_WORDS),
+                            cols.ravel())), shape=(n, IMDB_FEAT))
+        m.data[:] = 1.0  # repeated words count once
+        sp.save_npz(os.path.join(raw_dir, f"features_{i}.npz"), m)
+        feats.append(np.asarray(m.todense(), np.float32))
+    np.save(os.path.join(raw_dir, "labels.npy"), y)
+    perm = rng.permutation(IMDB_MOVIES)
+    n_tr, n_va = IMDB_SPLIT
+    split = {"train_idx": np.sort(perm[:n_tr]),
+             "val_idx": np.sort(perm[n_tr:n_tr + n_va]),
+             "test_idx": np.sort(perm[n_tr + n_va:])}
+    np.savez(os.path.join(raw_dir, "train_val_test_idx.npz"), **split)
+    director = rng.integers(0, IMDB_DIRECTORS, IMDB_MOVIES)
+    n_two = 3 * IMDB_MOVIES - IMDB_MA_EDGES
+    actors = [rng.choice(IMDB_ACTORS, 2 if m < n_two else 3, replace=False)
+              for m in range(IMDB_MOVIES)]
+    ma = np.stack([np.repeat(np.arange(IMDB_MOVIES), [len(a) for a in
+                                                      actors]),
+                   np.concatenate(actors)])
+    md = np.stack([np.arange(IMDB_MOVIES), director])
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    blocks = {(0, 1): md, (1, 0): md[::-1], (0, 2): ma, (2, 0): ma[::-1]}
+    rows = np.concatenate([b[0] + offs[i] for (i, _), b in blocks.items()])
+    cols = np.concatenate([b[1] + offs[j] for (_, j), b in blocks.items()])
+    adj = sp.csr_matrix((np.ones(rows.size, np.float32), (rows, cols)),
+                        shape=(offs[-1], offs[-1]))
+    sp.save_npz(os.path.join(raw_dir, "adjM.npz"), adj)
+    types = ("movie", "director", "actor")
+    edges = {}
+    for (i, j), b in blocks.items():
+        order = np.lexsort((b[1], b[0]))
+        edges[(types[i], "to", types[j])] = b[:, order].astype(np.int64)
+    return {"x": dict(zip(types, feats)), "y": y, "split": split,
+            "edges": edges}
+
+
+def imdb_graph(HeteroGraph, want):
+    """The written arrays as the `HeteroGraph` IMDB builds: node types,
+    then relations, in IMDB's order."""
+    hg = HeteroGraph()
+    for nt, x in want["x"].items():
+        hg[nt].x = x
+    hg["movie"].y = want["y"].astype(np.int64)
+    for name in ("train", "val", "test"):
+        mask = np.zeros(IMDB_MOVIES, bool)
+        mask[want["split"][f"{name}_idx"]] = True
+        hg["movie"][f"{name}_mask"] = mask
+    for et in (("movie", "to", "director"), ("movie", "to", "actor"),
+               ("director", "to", "movie"), ("actor", "to", "movie")):
+        hg[et].edge_index = want["edges"][et]
+    return hg
+
+
+def data_imdb_path(k, common, tmp, dev):
+    """(d) IMDB's raw files at its published statistics -> `IMDB` (every
+    loaded array equal to the written one) -> the han twin on the card
+    with ``--dataset_path`` for IMDB_STEPS steps, each relation's GAT on
+    its `CSRPlan` (actor -> movie has more source rows than destination
+    rows, ROADMAP C14): step-0 loss and gradients bitwise those of the
+    same `HeteroGraph` handed in as ``data=``, the flash launches counted
+    exactly, and the plan route against the COO route in bf16."""
+    from gammagl_tpu_torch.data import HeteroGraph
+    from gammagl_tpu_torch.examples import han_trainer
+    from gammagl_tpu_torch.models import HANModel
+    from gammagl_tpu_torch.utils import compute_dtype
+    root = os.path.join(tmp, "imdb")
+    t0 = time.perf_counter()
+    want = write_imdb(os.path.join(root, "raw"), np.random.default_rng(
+        SEED + 290))
+    t_write = time.perf_counter() - t0
+    args = han_trainer.parser().parse_args(
+        ["--dataset_path", root, "--n_epoch", str(IMDB_STEPS)])
+    t0 = time.perf_counter()
+    hg, target = han_trainer.load(args)
+    t_load = time.perf_counter() - t0
+    mem = imdb_graph(HeteroGraph, want)
+    if (hg.node_types, hg.edge_types) != (mem.node_types, mem.edge_types):
+        fail(f"IMDB: types {hg.metadata()} != {mem.metadata()}")
+    for t in mem.node_types + mem.edge_types:
+        if list(hg[t].keys()) != list(mem[t].keys()):
+            fail(f"IMDB {t}: fields {list(hg[t].keys())}")
+        for key, arr in mem[t].items():
+            got = np.asarray(hg[t][key])
+            if (got.dtype != arr.dtype or got.shape != arr.shape
+                    or not np.array_equal(got, arr)):
+                fail(f"IMDB {t}.{key} differs from the written array")
+    n_ma = mem[("movie", "to", "actor")].edge_index.shape[1]
+    print(f"  IMDB files written in {t_write:.2f} s, read by IMDB in "
+          f"{t_load:.2f} s: {IMDB_MOVIES} movies, {IMDB_DIRECTORS} "
+          f"directors, {IMDB_ACTORS} actors, {IMDB_FEAT} features, "
+          f"{IMDB_MOVIES} + {n_ma} edges each way; every array as written")
+
+    def twin_model(graph, x_dict):
+        torch.manual_seed(args.seed)
+        return HANModel(graph.metadata(), args.hidden_dim, IMDB_CLASSES,
+                        target, heads=args.heads, drop_rate=args.drop_rate,
+                        in_channels={nt: v.shape[1]
+                                     for nt, v in x_dict.items()}).to(dev)
+
+    def step0(graph):
+        """The twin's first step, as it runs it: (loss, gradients)."""
+        x_dict, ei_dict, y, mask, _ = common.hetero_tensors(graph, target,
+                                                            dev)
+        model = twin_model(graph, x_dict).train()
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        loss = common.loss_and_grad(model, x_dict, ei_dict, y, mask,
+                                    plan_dict=graph.csr_plans(),
+                                    generator=gen)
+        # the GATs of relations into other types than the target's have
+        # no gradient
+        return loss, {n: p.grad for n, p in model.named_parameters()
+                      if p.grad is not None}
+
+    def apart(a, b):
+        """The largest difference of two step-0 results (inf if their
+        gradients' names differ)."""
+        if sorted(a[1]) != sorted(b[1]):
+            return float("inf")
+        return max([float((a[0] - b[0]).abs())]
+                   + [float((a[1][n] - b[1][n]).abs().max()) for n in a[1]])
+
+    # HAN's backward sums per-edge score gradients into node rows with
+    # index_add_ (and the cross-type relations' clipped destination rows
+    # with an indexed gather's backward), whose atomic adds land in any
+    # order: two runs on one graph can differ in the last bits. The
+    # comparison of the two graphs runs in PyTorch's deterministic mode
+    # (the hand-written kernels are deterministic in any mode)
+    nondet = apart(step0(mem), step0(mem))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (la, ga), (lb, gb) = step0(hg), step0(mem)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(la, lb) or apart((la, ga), (lb, gb)) != 0.0:
+        fail(f"IMDB: the han twin's step-0 loss or gradients differ from "
+             f"those on the HeteroGraph handed in by "
+             f"{apart((la, ga), (lb, gb)):.3e} (two runs on one graph in "
+             f"the default mode: {nondet:.3e})")
+    rels = len(mem.edge_types)
+    into = sum(et[2] == target for et in mem.edge_types)
+    # the twin scores the test set (one eval forward) at every 10th epoch
+    # and the last, then once more at the end
+    evals = sum(e % 10 == 0 or e == IMDB_STEPS - 1
+                for e in range(IMDB_STEPS)) + 1
+    per_step = {"flash_forward": rels, "flash_backward": into,
+                "spmm_csr": into}
+    expect = {name: IMDB_STEPS * n + (evals * rels
+                                      if name == "flash_forward" else 0)
+              for name, n in per_step.items()}
+    sync()
+    reset_counts(k)
+    t0 = time.perf_counter()
+    out = han_trainer.main(args)
+    sync()
+    seconds = time.perf_counter() - t0
+    counts = read_counts(k)
+    if counts != every_kernel(expect):
+        fail(f"IMDB han twin: expected {expect}, counted {counts}")
+    x_dict, ei_dict, _, _, _ = common.hetero_tensors(hg, target, dev)
+    model = out["state"].model
+    with compute_dtype(torch.bfloat16):
+        plan_logits = common.predict(model, x_dict, ei_dict,
+                                     plan_dict=hg.csr_plans())
+        coo_logits = common.predict(model, x_dict, ei_dict)
+    route_err = check_close("IMDB HAN plan route vs COO route, bf16",
+                            plan_logits, coo_logits, 0.0,
+                            atol=HAN_ROUTE_TOL)
+    print(f"  IMDB han twin on the card: step-0 loss {float(la):.6f} and "
+          f"gradients bitwise those on the HeteroGraph handed in "
+          f"(deterministic mode; two runs on one graph in the default mode "
+          f"{nondet:.3e} apart); "
+          f"{IMDB_STEPS} steps, losses {out['losses']}, {seconds:.2f} s "
+          f"with its evaluations; launches {counts}")
+    return {"counts": counts, "losses": out["losses"],
+            "step0_loss": float(la), "step0_default_mode_apart": nondet,
+            "write_s": t_write, "load_s": t_load,
+            "twin_s": seconds, "route_max_abs_err": route_err}
+
+
 def phase_data_paths(k, common, gcn_trainer, GCNModel, shard, smi):
     """Phase 29: the three paths of the data core, each through its entry
     points, on files written here."""
@@ -3685,7 +3914,8 @@ def phase_data_paths(k, common, gcn_trainer, GCNModel, shard, smi):
     import tempfile
     phase_start("phase 29: the data core's paths: Planetoid files -> GCN "
                 "twin, staged OGB layout -> papers twin, TU files -> "
-                "BatchGraph -> GCNConv, padding on the card")
+                "BatchGraph -> GCNConv, padding on the card, IMDB files -> "
+                "han twin")
     os.environ["GGL_TPU_OFFLINE"] = "1"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
     rng = np.random.default_rng(SEED)
@@ -3694,6 +3924,7 @@ def phase_data_paths(k, common, gcn_trainer, GCNModel, shard, smi):
                                         tmp, rng)
         staged = data_papers_path(k, shard, tmp)
         tu = data_tu_path(k, tmp, rng, torch.device("cuda"))
+        imdb = data_imdb_path(k, common, tmp, torch.device("cuda"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"  host load seconds ({smi}): pubmed raw parse "
@@ -3703,8 +3934,10 @@ def phase_data_paths(k, common, gcn_trainer, GCNModel, shard, smi):
           f"{staged['in_memory_build_s']:.2f}), load_ogb_root "
           f"{staged['load_ogb_root_s']:.3f}, twin prepare "
           f"{staged['prepare_s']:.2f}; TU raw parse {tu['raw_parse_s']:.3f}, "
-          f"processed cache {tu['processed_cache_s']:.3f}")
-    return {"planetoid": planetoid, "staged": staged, "tu": tu}
+          f"processed cache {tu['processed_cache_s']:.3f}; IMDB write "
+          f"{imdb['write_s']:.2f}, raw parse {imdb['load_s']:.2f}")
+    return {"planetoid": planetoid, "staged": staged, "tu": tu,
+            "imdb": imdb}
 
 
 # the propagation zoo (phase 30) on the arxiv-shape graph of phases 5-9,
@@ -3950,19 +4183,20 @@ def to_double(v):
 
 
 def coo_path(k, label, make, request, loss, inputs, vary,
-             tol=F32_OUT_TOL):
-    """N_COO_REQUESTS eval forwards ``request(model, inputs)`` of a COO
+             tol=F32_OUT_TOL, n_requests=N_COO_REQUESTS,
+             n_steps=N_COO_STEPS, lr=COO_LR):
+    """``n_requests`` eval forwards ``request(model, inputs)`` of a COO
     model (``vary(inputs, r)`` gives request r), each held within ``tol``
-    of max |out| of the same module in float64, then
-    N_COO_STEPS Adam steps (COO_LR) of ``loss(model, inputs)`` in
-    training mode: no kernel may launch, the loss must fall."""
+    of max |out| of the same module in float64, then ``n_steps`` Adam
+    steps (``lr``) of ``loss(model, inputs)`` in training mode: no kernel
+    may launch, the loss must fall."""
     from gammagl_tpu_torch.train import TrainState
     model = make()
     model64 = copy.deepcopy(model).double().eval()
     lat, err = [], 0.0
     sync()
     reset_counts(k)
-    for r in range(N_COO_REQUESTS):
+    for r in range(n_requests):
         inp = vary(inputs, r)
         model.eval()
         t0 = time.perf_counter()
@@ -3975,9 +4209,9 @@ def coo_path(k, label, make, request, loss, inputs, vary,
         err = max(err, check_close(f"{label} request {r} vs float64", out,
                                    want, 0.0, atol=tol))
     del model64
-    state = TrainState(model, COO_LR)
+    state = TrainState(model, lr)
     losses, step_ms = [], []
-    for _ in range(N_COO_STEPS):
+    for _ in range(n_steps):
         model.train()
         t0 = time.perf_counter()
         value = loss(model, inputs)
@@ -4105,6 +4339,125 @@ def phase_hetero_rest(k, models, han_hg, hgt_hg, x, ei, dev):
                          generator=gen.manual_seed(SEED + 36)),
         x_dict, lambda inp, r: {**inp, "paper": inp["paper"] + r * 1e-3})
     torch.cuda.empty_cache()
+    return out
+
+
+# the wave-2 zoo (phase 33), COO as in JAX, each model at its JAX
+# defaults and its twin's Adam lr, WAVE2_REQUESTS requests within
+# F32_OUT_TOL of max |out| of the same module in float64, then
+# WAVE2_STEPS steps whose loss must fall: PNAModel (hidden 64, 2 layers,
+# the 13 x 128-wide concatenation, dropout 0.3; lr PNA_LR), GaANModel (4
+# heads x 16) and the film, gmm, dna and hcha twins' Nets (hidden 16,
+# dropout 0.5), lr 0.01, on the arxiv-shape graph (with its self-loops, as
+# the twins train; phase 30's planted labels and class directions, scaled
+# by WAVE2_X_SCALE); CompGCNModel (hidden 64, 'sub'; lr 0.005) on phase 26's
+# flattened typed graph, its three relations as edge types; DGCNNModel
+# (hidden 32, k 30; lr 0.005) on a TU batch of phase 31
+WAVE2_REQUESTS, WAVE2_STEPS = 8, 5
+PNA_HIDDEN, GAAN_HIDDEN, GAAN_HEADS, WAVE2_NET_HIDDEN = 64, 16, 4, 16
+COMPGCN_HIDDEN, DGCNN_HIDDEN, DGCNN_K = 64, 32, 30
+WAVE2_LR, COMPGCN_LR, DGCNN_LR, WAVE2_X_SCALE = 0.01, 0.005, 0.005, 0.1
+# PNA at the PNA paper's Adam lr (Corso et al. 2020), not the pna twin's
+# 0.01: Adam's first step moves every weight by the lr, and a PNA map
+# reads 13 aggregates a feature (1,664 inputs in the first layer, 832 in
+# the second); at 0.01 its loss rose from 3.90 to 24.59 on the first
+# step and was 4.55 after the fifth (NVIDIA H100 80GB HBM3, 700.00 W),
+# on N(0, 1) features (the arxiv shape's) 10x and more (on the CPU at an
+# eighth of the graph, where a tenth of them came back by the fifth step)
+PNA_LR = 1e-3
+
+
+def phase_wave2(k, models, hg, x, ei, dev):
+    """Phase 33: the wave-2 models, each through `coo_path` (the JAX
+    convs take no plan, so no kernel launches)."""
+    import torch.nn.functional as F
+    from gammagl_tpu_torch.data import BatchGraph
+    from gammagl_tpu_torch.examples import (dna_trainer, film_trainer,
+                                            gmm_trainer, hcha_trainer,
+                                            simplehgn_trainer)
+    from gammagl_tpu_torch.train import semi_supervised_loss
+    phase_start("phase 33: the wave-2 zoo (PNA, GaAN, FiLM, GMM, DNA, "
+                "HCHA, CompGCN, DGCNN) against float64")
+    _, x, y, mask = zoo_inputs(x, ei)  # labels 5 steps can learn
+    x = WAVE2_X_SCALE * x
+    gen = torch.Generator(device=dev)
+    out = {}
+
+    def path(label, seed, ctor, request, loss, inputs, lr):
+        def make():
+            torch.manual_seed(SEED + seed)
+            return ctor().to(dev)
+
+        result = coo_path(k, label, make, request, loss, inputs,
+                          lambda inp, r: inp + r * 1e-3,
+                          n_requests=WAVE2_REQUESTS, n_steps=WAVE2_STEPS,
+                          lr=lr)
+        torch.cuda.empty_cache()
+        return result
+
+    node = {  # name -> (label, model, whether it drops out, Adam lr)
+        "pna": ("PNA", lambda: models.PNAModel(
+            PNA_HIDDEN, N_CLASS, in_channels=N_FEAT), True, PNA_LR),
+        "gaan": ("GaAN", lambda: models.GaANModel(
+            GAAN_HIDDEN, N_CLASS, heads=GAAN_HEADS, in_channels=N_FEAT),
+            False, WAVE2_LR),
+        "film": ("FiLM", lambda: film_trainer.Net(
+            WAVE2_NET_HIDDEN, N_CLASS, 0.5, in_channels=N_FEAT), True,
+            WAVE2_LR),
+        "gmm": ("GMM", lambda: gmm_trainer.Net(
+            WAVE2_NET_HIDDEN, N_CLASS, 0.5, in_channels=N_FEAT), True,
+            WAVE2_LR),
+        "dna": ("DNA", lambda: dna_trainer.Net(
+            WAVE2_NET_HIDDEN, N_CLASS, 0.5, in_channels=N_FEAT), True,
+            WAVE2_LR),
+        "hcha": ("HCHA", lambda: hcha_trainer.Net(
+            WAVE2_NET_HIDDEN, N_CLASS, 0.5, in_channels=N_FEAT), True,
+            WAVE2_LR),
+    }
+    for i, (name, (label, ctor, drops, lr)) in enumerate(node.items()):
+        def loss(m, inp, drops=drops, i=i):
+            kw = ({"generator": gen.manual_seed(SEED + 340 + i)} if drops
+                  else {})
+            return semi_supervised_loss(m(inp, ei, **kw), y, mask)
+
+        out[name] = path(label, 330 + i, ctor, lambda m, inp: m(inp, ei),
+                         loss, x, lr)
+
+    d = simplehgn_trainer.typed_graph(hg)
+    n = d["x"].shape[0]
+    ty, tmask = np.zeros(n, np.int64), np.zeros(n, bool)
+    ty[:HGT_PAPERS], tmask[:HGT_PAPERS] = d["y"], d["train_mask"]
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    tx, tei, tet = put(d["x"]), put(d["edge_index"]), put(d["edge_type"])
+    ty, tmask = put(ty), put(tmask)
+    del d
+    print(f"  CompGCN on the flattened typed graph: {n} nodes, "
+          f"{tei.shape[1]} edges in {int(tet.max()) + 1} types")
+    out["compgcn"] = path(
+        "CompGCN", 350, lambda: models.CompGCNModel(
+            3, COMPGCN_HIDDEN, HGT_CLASSES, in_channels=HGT_FEAT),
+        lambda m, inp: m(inp, tei, tet),
+        lambda m, inp: semi_supervised_loss(m(inp, tei, tet), ty, tmask),
+        tx, COMPGCN_LR)
+    del tx, tei, tet, ty, tmask
+
+    part = tu_graphs()[:TU_BATCH]
+    batch = BatchGraph.from_data_list(part)
+    bx, bei = put(batch.x, torch.float32), put(batch.edge_index)
+    bb = put(batch.batch)
+    by = put(np.concatenate([np.asarray(g.y).reshape(-1) for g in part]))
+    ng = len(part)
+    print(f"  DGCNN on a TU batch: {ng} graphs, {batch.num_nodes} nodes, "
+          f"{batch.num_edges} edges")
+    out["dgcnn"] = path(
+        "DGCNN", 360, lambda: models.DGCNNModel(
+            DGCNN_HIDDEN, TU_CLASSES, k=DGCNN_K, in_channels=bx.shape[1]),
+        lambda m, inp: m(inp, bei, bb, ng),
+        lambda m, inp: F.cross_entropy(m(inp, bei, bb, ng), by), bx,
+        DGCNN_LR)
     return out
 
 
@@ -4274,6 +4627,7 @@ def main():
     gin = phase_gin_pools(k, dev)
     rest = phase_hetero_rest(k, models, han_graph(HeteroGraph), hg, x, ei,
                              dev)
+    wave2 = phase_wave2(k, models, hg, x, ei, dev)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -4288,7 +4642,8 @@ def main():
             "papers_tier": tier_counts, "papers_train": papers_counts,
             "gcn_planetoid_train": data["planetoid"]["counts"],
             "papers_staged_train": data["staged"]["counts"],
-            "tu_batch": data["tu"]["counts"]}
+            "tu_batch": data["tu"]["counts"],
+            "imdb_han_twin": data["imdb"]["counts"]}
     for name, path in (("rgcn", rgcn), ("han", han), ("simplehgn", shgn),
                        *((f"zoo_{m}", p) for m, p in zoo.items())):
         runs[f"{name}_serve"], runs[f"{name}_train"] = (path["serve"],
@@ -4296,6 +4651,8 @@ def main():
     runs["gin_tu"] = gin["counts"]
     runs.update({f"{name}_coo": path["counts"]
                  for name, path in rest.items()})
+    runs.update({f"wave2_{name}": path["counts"]
+                 for name, path in wave2.items()})
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -4434,6 +4791,12 @@ def main():
             "step_ms": path["step_ms"], "losses": path["losses"],
             "vs_float64_max_abs_err": path["max_abs_err"]}
             for name, path in rest.items()},
+        "wave2": {name: {
+            "request_p50_ms": float(np.median(path["lat"])),
+            "request_max_ms": float(path["lat"].max()),
+            "step_ms": path["step_ms"], "losses": path["losses"],
+            "vs_float64_max_abs_err": path["max_abs_err"]}
+            for name, path in wave2.items()},
         "data_paths": {name: {key: value for key, value in path.items()
                               if key != "counts"}
                        for name, path in data.items()}}))

@@ -2,7 +2,10 @@
 gammagl/datasets/__init__.py).
 
 Ported so far: the synthetic graphs, Planetoid, the OGB node datasets,
-TUDataset, the npz datasets and the real-structure loader. Each
+TUDataset, the npz datasets, the real-structure loader, the typed-graph
+datasets (IMDB, DBLP, HGB), the assorted ones (PolBlogs, BlogCatalog,
+CA-GrQc, Airports, Entities, ZINC) and wave 3 (ACM4HeCo, Bail, Credit,
+AMiner, MoleculeNet, MovieLens, CustomDataset). Each
 `InMemoryDataset` writes its processed cache under its own name
 (``data_torch.pkl``), so it never reads the JAX package's.
 """
@@ -17,6 +20,15 @@ from gammagl_tpu_torch.datasets.tu_dataset import TUDataset
 from gammagl_tpu_torch.datasets.synthetic import (
     StochasticBlockModelDataset, synthetic_community_graph)
 from gammagl_tpu_torch.datasets.ogb import OgbNodeDataset
+from gammagl_tpu_torch.datasets.hetero_datasets import IMDB, DBLP, HGBDataset
+from gammagl_tpu_torch.datasets.misc_datasets import (PolBlogs, BlogCatalog,
+                                                      CAGrQc, Airports,
+                                                      Entities, ZINC)
+from gammagl_tpu_torch.datasets.wave3_datasets import (ACM4HeCo, Bail,
+                                                       Credit, AMiner,
+                                                       MoleculeNet,
+                                                       MovieLens,
+                                                       CustomDataset)
 
 __all__ = [
     "Planetoid",
@@ -31,4 +43,24 @@ __all__ = [
     "StochasticBlockModelDataset",
     "synthetic_community_graph",
     "OgbNodeDataset",
+    "IMDB",
+    "DBLP",
+    "HGBDataset",
+    "PolBlogs",
+    "BlogCatalog",
+    "CAGrQc",
+    "CA_GrQc",
+    "Airports",
+    "Entities",
+    "ZINC",
+    "ACM4HeCo",
+    "Bail",
+    "Credit",
+    "AMiner",
+    "MoleculeNet",
+    "MovieLens",
+    "CustomDataset",
 ]
+
+# the reference's spelling (gammagl/datasets/__init__.py exports CA_GrQc)
+CA_GrQc = CAGrQc

@@ -9,8 +9,12 @@ JAX trainers' chain: Planetoid's raw files under
 answers; ``GGL_TPU_OFFLINE=1`` skips that), then the real-structure
 fallback, then `synthetic_community_graph` (1000 nodes, 7 classes, 128
 features, seed 0 whatever ``--seed`` is), or take numpy arrays handed in.
-For typed graphs the loops take `synthetic_hetero` (the JAX package's
-movie/director graph, the same stream) or a `HeteroGraph` handed in;
+For typed graphs the loops take a `HeteroGraph` handed in, or the
+twin's dataset (`load_imdb`: IMDB's files under ``--dataset_path``),
+or, when that fails, `synthetic_hetero` (the JAX package's
+movie/director graph, the same stream), as the JAX loops fall back.
+Datasets are read from staged files only (`staged_dataset`): a twin
+never fetches, so a machine without the files takes the fallback;
 `run_edge_type_trainer` trains a model of one node set whose edges carry
 a type (RGCN, SimpleHGN) on arrays handed in. The homogeneous loop hands
 the model a `CSRPlan` when its forward takes one, on the card and on the
@@ -35,7 +39,7 @@ from torch.nn.parameter import UninitializedParameter
 
 from gammagl_tpu_torch.data import Graph, HeteroGraph
 from gammagl_tpu_torch.data.download import network_available
-from gammagl_tpu_torch.datasets import Planetoid
+from gammagl_tpu_torch.datasets import IMDB, Planetoid
 from gammagl_tpu_torch.datasets import (
     synthetic_community_graph as _synthetic_graph)
 from gammagl_tpu_torch.ops.cuda import build_csr_plan
@@ -47,8 +51,8 @@ __all__ = ["synthetic_community_graph", "load_node_dataset",
            "probe_num_classes", "load_sparse_npz", "structure_node_data",
            "node_arrays", "node_data", "base_parser", "loss_and_grad",
            "train_step", "run_simple_node_trainer", "synthetic_hetero",
-           "hetero_tensors", "predict", "run_hetero_trainer",
-           "run_edge_type_trainer", "linear_probe"]
+           "hetero_tensors", "predict", "staged_dataset", "load_imdb",
+           "run_hetero_trainer", "run_edge_type_trainer", "linear_probe"]
 
 
 def node_arrays(graph):
@@ -405,8 +409,29 @@ def predict(model, x, edge_index, **forward_kwargs):
         return model(x, edge_index, **forward_kwargs)
 
 
+def staged_dataset(cls, root, **kwargs):
+    """``cls(root=root, **kwargs)`` read from the raw files already under
+    ``root``; OSError, naming a missing file, before any folder is made
+    or anything fetched. (The dataset classes fetch missing raw files,
+    as the JAX package's do; the twins read staged files only.)"""
+    probe = object.__new__(cls)
+    probe.root = osp.expanduser(root)
+    for key, value in kwargs.items():
+        setattr(probe, key, value.lower() if key == "name" else value)
+    missing = [p for p in probe.raw_paths if not osp.exists(p)]
+    if missing:
+        raise OSError(f"{cls.__name__}: no staged file {missing[0]}")
+    return cls(root=root, **kwargs)
+
+
+def load_imdb(args):
+    """IMDB from ``args.dataset_path`` (`staged_dataset`), the JAX
+    trainers' ``load_imdb``: (HeteroGraph, "movie")."""
+    return staged_dataset(IMDB, args.dataset_path)[0], "movie"
+
+
 def run_hetero_trainer(make_model, args, data=None, params=None,
-                       log_every=10):
+                       log_every=10, dataset_loader=None):
     """Typed-graph node classification, the JAX `run_hetero_trainer`'s
     loop: ``args.n_epoch`` steps of Adam (``args.lr``, no decay) on the
     masked cross-entropy of the target type in training mode, and test
@@ -415,13 +440,20 @@ def run_hetero_trainer(make_model, args, data=None, params=None,
     in_channels)`` builds the model; a forward that takes ``plan_dict``
     gets `HeteroGraph.csr_plans()` on the card, and one that takes a
     ``generator`` gets one seeded from ``args.seed + 1`` for its attention
-    dropout. ``data``: (HeteroGraph, target type), None for
-    `synthetic_hetero`; ``params``: a flax-shaped tree for
-    `load_jax_params` (None: the model's own init from ``args.seed``).
+    dropout. ``data``: (HeteroGraph, target type); None takes
+    ``dataset_loader(args)`` and, when that raises (or there is no
+    loader), `synthetic_hetero` with the JAX loop's warning line.
+    ``params``: a flax-shaped tree for `load_jax_params` (None: the
+    model's own init from ``args.seed``).
 
     Returns {"losses", "test_acc", "state"}.
     """
     dev = resolve_device(args.device)
+    if data is None and dataset_loader is not None:
+        try:
+            data = dataset_loader(args)
+        except Exception as e:
+            print(f"[warn] dataset unavailable ({e}); synthetic typed graph")
     hg, target = data if data is not None else synthetic_hetero()
     x_dict, ei_dict, y, train_mask, test_mask = hetero_tensors(hg, target,
                                                                dev)

@@ -13,16 +13,30 @@ PyTorch.
     python -m gammagl_tpu_torch.examples.han_trainer              # the card
     python -m gammagl_tpu_torch.examples.han_trainer --device cpu
 
-It runs on the synthetic movie/director graph of the JAX trainer's
-fallback, made from numpy. The JAX trainer's IMDB loader waits until the
-port has ``datasets/`` and the files are in the tree; ``--dataset`` and
-``--dataset_path`` are accepted and only name the run.
+It trains on IMDB read from the files under ``--dataset_path`` (the JAX
+trainer's ``load``; staged files only, nothing is fetched) and, when they
+are missing, on the JAX trainer's own synthetic movie/director graph,
+which is `synthetic_hetero`'s (the same numpy stream), with the JAX
+trainer's warning line.
 """
 
-from gammagl_tpu_torch.examples.common import base_parser, run_hetero_trainer
+from gammagl_tpu_torch.examples.common import (base_parser, load_imdb,
+                                               run_hetero_trainer,
+                                               synthetic_hetero)
 from gammagl_tpu_torch.models import HANModel
+from gammagl_tpu_torch.utils import resolve_device
 
-__all__ = ["parser", "main"]
+__all__ = ["load", "parser", "main"]
+
+
+def load(args):
+    """(HeteroGraph, target type): IMDB's staged files, else the
+    synthetic typed graph, as the JAX trainer's ``load``."""
+    try:
+        return load_imdb(args)
+    except Exception as e:
+        print(f"[warn] IMDB unavailable ({e}); synthetic typed graph")
+        return synthetic_hetero()
 
 
 def parser():
@@ -34,13 +48,17 @@ def parser():
 
 def main(args, data=None, params=None):
     """Train; returns what `run_hetero_trainer` returns. ``data`` is a
-    (HeteroGraph, target type) pair (None: the synthetic typed graph);
-    ``params`` an optional flax-shaped tree for `load_jax_params`."""
+    (HeteroGraph, target type) pair (None: `load`); ``params`` an
+    optional flax-shaped tree for `load_jax_params`."""
+    resolve_device(args.device)
+
     def make(metadata, num_classes, target, in_channels):
         return HANModel(metadata, args.hidden_dim, num_classes, target,
                         heads=args.heads, drop_rate=args.drop_rate,
                         in_channels=in_channels)
-    return run_hetero_trainer(make, args, data=data, params=params)
+    return run_hetero_trainer(make, args,
+                              data=load(args) if data is None else data,
+                              params=params)
 
 
 if __name__ == "__main__":

@@ -11,13 +11,14 @@ trainer.
     python -m gammagl_tpu_torch.examples.iehgcn_trainer  # the card
     python -m gammagl_tpu_torch.examples.iehgcn_trainer --device cpu
 
-It runs on the synthetic movie/director graph of the JAX trainer's
-fallback, made from numpy. The JAX trainer's IMDB loader waits until the
-port has IMDB's dataset module; ``--dataset`` and ``--dataset_path`` are
-accepted and only name the run.
+It trains on IMDB read from the files under ``--dataset_path`` (the
+JAX trainer's ``load_imdb``; staged files only, nothing is fetched) and,
+when they are missing, on the synthetic movie/director graph of the JAX
+trainer's fallback, made from numpy.
 """
 
-from gammagl_tpu_torch.examples.common import base_parser, run_hetero_trainer
+from gammagl_tpu_torch.examples.common import (base_parser, load_imdb,
+                                               run_hetero_trainer)
 from gammagl_tpu_torch.models import ieHGCNModel
 
 __all__ = ["parser", "main"]
@@ -30,12 +31,14 @@ def parser():
 
 def main(args, data=None, params=None):
     """Train; returns what `run_hetero_trainer` returns. ``data`` is a
-    (HeteroGraph, target type) pair (None: the synthetic typed graph);
+    (HeteroGraph, target type) pair (None: IMDB's staged files, else the
+    synthetic typed graph);
     ``params`` an optional flax-shaped tree for `load_jax_params`."""
     def make(metadata, num_classes, target, in_channels):
         return ieHGCNModel(metadata, args.hidden_dim, num_classes, target,
                            in_channels=in_channels)
-    return run_hetero_trainer(make, args, data=data, params=params)
+    return run_hetero_trainer(make, args, data=data, params=params,
+                              dataset_loader=load_imdb)
 
 
 if __name__ == "__main__":

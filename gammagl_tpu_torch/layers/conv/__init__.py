@@ -34,6 +34,16 @@ from gammagl_tpu_torch.layers.conv.hetero_wave2 import (  # noqa: F401
     RoheHANConv,
     ieHGCNConv,
 )
+from gammagl_tpu_torch.layers.conv.wave2_convs import (  # noqa: F401
+    CompConv,
+    DNAConv,
+    EdgeConv,
+    FILMConv,
+    GaANConv,
+    GMMConv,
+    HypergraphConv,
+    PNAConv,
+)
 
 # the reference's spelling (gammagl/layers/conv/__init__.py)
 Hid_conv = HidConv
@@ -43,4 +53,5 @@ __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
            "SGConv", "GINConv", "APPNPConv", "GCNIIConv", "ChebConv",
            "AGNNConv", "FAGCNConv", "GPRConv", "MixHopConv",
            "JumpingKnowledge", "HPNConv", "ieHGCNConv", "HidConv",
-           "RoheHANConv", "Hid_conv"]
+           "RoheHANConv", "Hid_conv", "PNAConv", "FILMConv", "EdgeConv",
+           "GMMConv", "CompConv", "GaANConv", "DNAConv", "HypergraphConv"]

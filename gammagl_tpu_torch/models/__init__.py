@@ -35,6 +35,12 @@ from gammagl_tpu_torch.models.heco import (  # noqa: F401
     HeCoModel,
     heco_contrast_loss,
 )
+from gammagl_tpu_torch.models.wave2_models import (  # noqa: F401
+    CompGCNModel,
+    DGCNNModel,
+    GaANModel,
+    PNAModel,
+)
 
 # the reference's spellings (gammagl/models/__init__.py)
 HPN = HPNModel
@@ -48,4 +54,5 @@ __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GCNIIModel", "JKNet", "MLP", "ChebNetModel", "MixHopModel",
            "GPRGNNModel", "FAGCNModel", "HiDNetModel", "HPNModel",
            "ieHGCNModel", "RoheHANModel", "HeCoModel", "heco_contrast_loss",
-           "HPN", "HeCo", "Hid_net", "RoheHAN"]
+           "HPN", "HeCo", "Hid_net", "RoheHAN", "PNAModel", "CompGCNModel",
+           "DGCNNModel", "GaANModel"]

@@ -70,15 +70,24 @@ def segment_mean(data, segment_ids, num_segments):
 def _segment_extreme(data, segment_ids, num_segments, reduce):
     ids = _ids(segment_ids, num_segments, data)
     index = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    # include_self=False: a segment with rows takes their max/min alone;
-    # an empty one keeps the zero it started from.
-    out = _zeros(data, num_segments).scatter_reduce_(
-        0, index, data, reduce=reduce, include_self=False)[:num_segments]
     if not data.is_floating_point():
-        return out
+        # include_self=False: a segment with rows takes their max/min
+        # alone; an empty one keeps the zero it started from.
+        return _zeros(data, num_segments).scatter_reduce_(
+            0, index, data, reduce=reduce, include_self=False)[:num_segments]
+    # Floating segments start from -inf (+inf for a min), not 0: the
+    # backward of scatter_reduce counts the starting value among the tied
+    # winners even with include_self=False, so a winner of 0 would share
+    # its cotangent with the start (ROADMAP C23). The start equals only a
+    # winner of -inf (+inf) or an empty segment, both of which give 0 here
+    # and so carry no gradient.
+    fill = -inf if reduce == "amax" else inf
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]),
+                        fill).scatter_reduce_(
+        0, index, data, reduce=reduce, include_self=False)[:num_segments]
     # a -inf winner of a max (+inf of a min) gives 0, as in the JAX
     # package, so an edge softmax over all-masked scores gives 0, not NaN
-    return out.masked_fill(out == (-inf if reduce == "amax" else inf), 0.0)
+    return out.masked_fill(out == fill, 0.0)
 
 
 def segment_max(data, segment_ids, num_segments):

@@ -4,10 +4,12 @@ A port module that has parameters names its flax counterparts in a
 ``flax_tree()`` method: a mapping from the flax name (``"GCNConv_0"``,
 ``"Dense_0"``, ``"bias"``) to a submodule or a parameter. An
 ``nn.Linear`` stands for a flax ``Dense``: its (out, in) weight is the
-transpose of the (in, out) ``kernel``; an ``nn.LayerNorm`` for a flax
-``LayerNorm``, its weight the ``scale``. Raw parameters keep their flax
-shape, whatever their rank: HGT's (H, D, D) relation matrices, its (H,)
-priors and its scalar skip gates.
+transpose of the (in, out) ``kernel``; an ``nn.Conv1d`` for a flax
+``Conv`` of one spatial axis: its (out, in, width) weight is the
+(width, in, out) ``kernel`` with its axes reversed; an ``nn.LayerNorm``
+for a flax ``LayerNorm``, its weight the ``scale``. Raw parameters keep
+their flax shape, whatever their rank: HGT's (H, D, D) relation
+matrices, its (H,) priors and its scalar skip gates.
 """
 
 from collections.abc import Mapping
@@ -21,15 +23,17 @@ __all__ = ["load_jax_params"]
 
 
 def _layout(module, prefix=()):
-    """flax path -> (torch parameter, transpose)."""
-    if isinstance(module, nn.Linear):
-        out = {prefix + ("kernel",): (module.weight, True)}
+    """flax path -> (torch parameter, the permutation of the flax array's
+    axes that gives the parameter's, or None)."""
+    if isinstance(module, (nn.Linear, nn.Conv1d)):
+        perm = (1, 0) if isinstance(module, nn.Linear) else (2, 1, 0)
+        out = {prefix + ("kernel",): (module.weight, perm)}
         if module.bias is not None:
-            out[prefix + ("bias",)] = (module.bias, False)
+            out[prefix + ("bias",)] = (module.bias, None)
         return out
     if isinstance(module, nn.LayerNorm):
-        return {prefix + ("scale",): (module.weight, False),
-                prefix + ("bias",): (module.bias, False)}
+        return {prefix + ("scale",): (module.weight, None),
+                prefix + ("bias",): (module.bias, None)}
     if not hasattr(module, "flax_tree"):
         raise TypeError(f"{type(module).__name__} names no flax "
                         "counterpart (no flax_tree method)")
@@ -38,7 +42,7 @@ def _layout(module, prefix=()):
         if isinstance(child, nn.Module):
             out.update(_layout(child, prefix + (name,)))
         else:
-            out[prefix + (name,)] = (child, False)
+            out[prefix + (name,)] = (child, None)
     return out
 
 
@@ -70,16 +74,16 @@ def load_jax_params(model, params):
         raise KeyError(f"flax tree does not match {type(model).__name__}: "
                        f"missing {missing}, extra {extra}")
     with torch.no_grad():
-        for path, (param, transpose) in want.items():
+        for path, (param, perm) in want.items():
             value = np.asarray(given[path], dtype=np.float32)
-            if transpose:
-                value = value.T
+            if perm is not None:
+                value = value.transpose(perm)
             if isinstance(param, UninitializedParameter):
                 param.materialize(value.shape)
             elif tuple(param.shape) != value.shape:
                 raise ValueError(
-                    f"{'/'.join(path)}: flax shape {value.shape} (after "
-                    f"transpose: {transpose}) != port shape "
+                    f"{'/'.join(path)}: flax shape {value.shape} (axes "
+                    f"permuted: {perm}) != port shape "
                     f"{tuple(param.shape)}")
             param.copy_(torch.tensor(value))
     for m in model.modules():  # lazy layers learn their sizes here

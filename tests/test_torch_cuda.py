@@ -8,7 +8,9 @@ through the kernels, and the serving paths (GraphSAGE and HGT too); the
 CSR-order softmax and multi-head SpMM, HAN's relations between node
 types (ROADMAP C14), RGCN and SimpleHGN, and the propagation zoo
 (SGC, APPNP, GCNII, JKNet, ChebNet, MixHop, GPR-GNN, FAGCN, AGNN) on its
-plan route against their plain paths.
+plan route against their plain paths; the wave-2 convs (COO) on the card
+against the CPU, and the han twin on IMDB's files with its plan route
+against its COO route.
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -1702,3 +1704,129 @@ def test_zoo_plan_route_on_card_matches_plain(card, name):
     for a, b in zip(gg, wg):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+def _wave2_case(name, n=60, e=300, f=6):
+    """(conv, inputs after x and edge_index, keyword arguments) of a
+    wave-2 conv on a random graph of ``n`` nodes whose last rows receive
+    no edge."""
+    from gammagl_tpu_torch.layers import conv as C
+    g = torch.Generator().manual_seed(30)
+    ei = torch.stack([torch.randint(0, n, (e,), generator=g),
+                      torch.randint(0, n - 8, (e,), generator=g)])
+    torch.manual_seed(31)
+    extra, kw = (), {}
+    if name == "pna":
+        conv = C.PNAConv(f, 5)
+    elif name == "film":
+        conv = C.FILMConv(f, 5, num_relations=3)
+        extra = (torch.randint(0, 3, (e,), generator=g),)
+    elif name == "edge":
+        conv = C.EdgeConv(f, 5)
+    elif name == "gmm":
+        conv = C.GMMConv(f, 5)
+        extra = (torch.rand(e, 2, generator=g),)
+    elif name == "comp":
+        conv = C.CompConv(f, 5)
+        extra = (torch.randint(0, 3, (e,), generator=g),
+                 torch.randn(3, f, generator=g))
+    elif name == "gaan":
+        conv = C.GaANConv(f, 5, heads=3)
+    elif name == "dna":
+        conv = C.DNAConv(f, heads=2)
+    else:
+        conv = C.HypergraphConv(f, 5)
+        kw = {"num_edges": n}
+    x = torch.randn((n, 3, f) if name == "dna" else (n, f), generator=g)
+    return conv, x, ei, extra, kw
+
+
+@pytest.mark.parametrize("name", ["pna", "film", "edge", "gmm", "comp",
+                                  "gaan", "dna", "hcha"])
+def test_wave2_conv_on_card_matches_the_cpu(card, name):
+    """Each wave-2 conv (COO on every device, as in JAX) on the card
+    against the same module on the CPU: output and the gradients of a
+    loss in every parameter and in x, float32; no kernel launches."""
+    conv, x, ei, extra, kw = _wave2_case(name)
+    results = []
+    for dev in ("cpu", card):
+        m = copy.deepcopy(conv).to(dev)
+        tx = x.clone().to(dev).requires_grad_()
+        before = _launch_counts()
+        out = m(tx, ei.to(dev), *(a.to(dev) for a in extra), **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        assert _launched(before) == {}
+        # CompConv's relation map does not reach this loss: no gradient
+        results.append((out.detach().cpu(), [tx.grad.cpu()] + [
+            None if p.grad is None else p.grad.cpu()
+            for p in m.parameters()]))
+    (want, wg), (got, gg) = results
+    _close(got, want, 1e-5)
+    for a, b in zip(gg, wg):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
+def _write_imdb(root, sizes=(40, 15, 55), f=12, c=3):
+    """IMDB's processed layout at a small size, more actors than movies
+    (as in the release): each movie one director and three actors."""
+    import os
+    import scipy.sparse as sp
+    rng = np.random.default_rng(32)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw)
+    n_m, n_d, n_a = sizes
+    y = rng.integers(0, c, n_m)
+    for i, n in enumerate(sizes):
+        x = (rng.random((n, f)) < 0.3).astype(np.float32)
+        if i == 0:
+            x[np.arange(n_m), y] = 1.0
+        sp.save_npz(os.path.join(raw, f"features_{i}.npz"), sp.csr_matrix(x))
+    np.save(os.path.join(raw, "labels.npy"), y)
+    perm = rng.permutation(n_m)
+    np.savez(os.path.join(raw, "train_val_test_idx.npz"),
+             train_idx=perm[:20], val_idx=perm[20:25], test_idx=perm[25:])
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    adj = np.zeros((offs[-1], offs[-1]), np.float32)
+    for m in range(n_m):
+        d = n_m + rng.integers(0, n_d)
+        for a in offs[2] + rng.choice(n_a, 3, replace=False):
+            adj[m, a] = adj[a, m] = 1
+        adj[m, d] = adj[d, m] = 1
+    sp.save_npz(os.path.join(raw, "adjM.npz"), sp.csr_matrix(adj))
+
+
+def test_han_twin_on_imdb_files_plan_route_matches_coo(card, tmp_path):
+    """The han twin reads a fabricated IMDB (actor -> movie has more
+    source rows than destination rows, ROADMAP C14) and trains 2 steps on
+    the card, each relation's GAT on its plan: one flash forward a
+    relation a forward, a flash backward and an SpMM for each relation
+    into movies a step; then its model's plan route against its COO
+    route, float32 1e-5 and bf16 3e-2 of max |logit|."""
+    from gammagl_tpu_torch.examples import common, han_trainer
+    _write_imdb(str(tmp_path))
+    args = han_trainer.parser().parse_args(
+        ["--dataset_path", str(tmp_path), "--n_epoch", "2"])
+    hg, target = han_trainer.load(args)
+    assert hg["actor"].num_nodes > hg["movie"].num_nodes
+    before = _launch_counts()
+    out = han_trainer.main(args)
+    torch.cuda.synchronize()
+    # flash forwards: 2 steps and 3 evaluations of 4 relations; an SpMM
+    # for each of the 2 relations into movies a step
+    assert _launched(before) == {"flash": 2 * 4 + 3 * 4, "spmm": 2 * 2}
+    assert np.isfinite(out["losses"]).all()
+    x_dict, ei_dict, _, _, _ = common.hetero_tensors(hg, target, card)
+    model = out["state"].model
+    for dtype, tol in ((None, 1e-5), (torch.bfloat16, 3e-2)):
+        with compute_dtype(dtype):
+            got = common.predict(model, x_dict, ei_dict,
+                                 plan_dict=hg.csr_plans())
+            want = common.predict(model, x_dict, ei_dict)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=tol * float(want.abs().max()))

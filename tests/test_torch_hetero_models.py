@@ -10,6 +10,11 @@ source type has more rows than its padded destination rows (ROADMAP C14):
 the port's plan route is held against the JAX COO route there, which is
 the function the JAX trainer computes (it never passes plans).
 
+Each JAX reference is one jitted function (the forward and its gradients
+under one compile), and a reference that several cases share (the COO
+route's, held against both of the port's routes) is computed once a
+module.
+
 Tolerances, relative to max |out| (max |grad| for gradients), float32:
 1e-5 against the XLA (COO) path, 1e-4 against the Pallas path (bf16x3
 products that drop the lo*lo term). Train-mode dropout cannot be matched
@@ -19,6 +24,7 @@ own train-mode routes against each other.
 """
 
 import argparse
+import functools
 import os.path as osp
 import sys
 
@@ -48,6 +54,7 @@ from gammagl_tpu.ops.pallas import (  # noqa: E402
     build_csr_plan as jax_build_csr_plan)
 from gammagl_tpu.train import TrainState as JaxTrainState  # noqa: E402
 from gammagl_tpu.train import semi_supervised_loss as jax_loss  # noqa: E402
+from tests.test_torch_simple_convs import _jax_out_and_grads  # noqa: E402
 
 from gammagl_tpu_torch.examples import (common, han_trainer,  # noqa: E402
                                         rgcn_trainer, simplehgn_trainer)
@@ -144,9 +151,9 @@ def test_rgcn_conv_matches_jax(form, route):
     params = _np_tree(jconv.init(jax.random.PRNGKey(3), jx, jei, jet))
     jplan = (jax_build_csr_plan(ei[0], ei[1], n, R=8, ET=32)
              if route == "plan" else None)
-    want = jconv.apply(params, jx, jei, jet, plan=jplan)
-    grads = jax.grad(lambda p: (jconv.apply(p, jx, jei, jet, plan=jplan)
-                                * jnp.asarray(g)).sum())(params)
+    want, grads = _jax_out_and_grads(
+        lambda p: jconv.apply(p, jx, jei, jet, plan=jplan),
+        lambda out: (out * jnp.asarray(g)).sum(), params)
     conv = load_jax_params(RGCNConv(8, 6, R, **kw), params)
     plan = build_csr_plan(ei[0], ei[1], n) if route == "plan" else None
     got = conv(torch.tensor(x), torch.tensor(ei), torch.tensor(et),
@@ -178,18 +185,26 @@ def _tensors(x_dict, ei_dict):
             {k: torch.tensor(v) for k, v in ei_dict.items()})
 
 
+@functools.lru_cache(maxsize=None)
+def _han_conv_reference():
+    """The JAX HANConv's parameters and its COO output on the typed
+    graph, once a module."""
+    jhg, hg, x_dict, ei_dict = _graphs()
+    jconv = JaxHANConv(out_channels=4, metadata=jhg.metadata(), heads=2)
+    jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
+    jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
+    params = _np_tree(jax.jit(jconv.init)(jax.random.PRNGKey(5), jx, jei))
+    want = jax.jit(lambda p: jconv.apply(p, jx, jei))(params)
+    return hg, x_dict, ei_dict, params, want
+
+
 @pytest.mark.parametrize("route", ROUTES)
 def test_han_conv_matches_the_jax_coo_route(route):
     """Every relation of the typed graph (two cross-type, one same-type):
     the port's COO route and its plan route (one CSRPlan a relation)
     against the JAX layer's COO route, the function the JAX trainer
     computes."""
-    jhg, hg, x_dict, ei_dict = _graphs()
-    jconv = JaxHANConv(out_channels=4, metadata=jhg.metadata(), heads=2)
-    jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
-    jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
-    params = _np_tree(jconv.init(jax.random.PRNGKey(5), jx, jei))
-    want = jconv.apply(params, jx, jei)
+    hg, x_dict, ei_dict, params, want = _han_conv_reference()
     conv = load_jax_params(HANConv(32, 4, hg.metadata(), heads=2), params)
     got = conv(*_tensors(x_dict, ei_dict),
                plan_dict=hg.csr_plans() if route == "plan" else None)
@@ -219,10 +234,9 @@ def test_cross_type_relation_plan_route_gives_the_jax_coo_function_c14():
         g = np.random.default_rng(7).normal(
             size=(x_dict[dst_t].shape[0], 8)).astype(np.float32)
 
-        def loss(p, plans=None):
-            return (jconv.apply(p, jx, jei, plan_dict=plans)[dst_t]
-                    * jnp.asarray(g)).sum()
-
+        coo, coo_grads = _jax_out_and_grads(
+            lambda p: jconv.apply(p, jx, jei)[dst_t],
+            lambda out: (out * jnp.asarray(g)).sum(), params)
         conv = load_jax_params(HANConv(32, 4, meta, heads=2), params)
         got = conv(*_tensors(x_dict, ei_dict), plan_dict=hg.csr_plans())
         (got[dst_t] * torch.tensor(g)).sum().backward()
@@ -232,8 +246,8 @@ def test_cross_type_relation_plan_route_gives_the_jax_coo_function_c14():
         else:
             _check(got[dst_t], jconv.apply(params, jx, jei,
                                            plan_dict=jplans)[dst_t], 1e-4)
-        _check(got[dst_t], jconv.apply(params, jx, jei)[dst_t], 1e-5)
-        _check_grads(conv, jax.grad(loss)(params), 1e-5)
+        _check(got[dst_t], coo, 1e-5)
+        _check_grads(conv, coo_grads, 1e-5)
 
 
 def _flat_typed(seed=0):
@@ -294,14 +308,11 @@ def test_simplehgn_conv_matches_jax(route):
         jprev, jplan, jg_alpha = jnp.asarray(prev), None, jnp.asarray(g_alpha)
         tprev, plan = torch.tensor(prev), None
 
-    def loss(p):
-        out, alpha = jconv.apply(p, jx, jei, jet, alpha_prev=jprev,
-                                 plan=jplan)
-        return (out * jnp.asarray(g_out)).sum() + (alpha * jg_alpha).sum()
-
-    want_out, want_alpha = jconv.apply(params, jx, jei, jet,
-                                       alpha_prev=jprev, plan=jplan)
-    grads = jax.grad(loss)(params)
+    (want_out, want_alpha), grads = _jax_out_and_grads(
+        lambda p: jconv.apply(p, jx, jei, jet, alpha_prev=jprev,
+                              plan=jplan),
+        lambda oa: ((oa[0] * jnp.asarray(g_out)).sum()
+                    + (oa[1] * jg_alpha).sum()), params)
     conv = load_jax_params(SimpleHGNConv(32, 4, 3, heads=2), params)
     out, alpha = conv(torch.tensor(x), torch.tensor(ei), torch.tensor(et),
                       alpha_prev=tprev, plan=plan)
@@ -325,7 +336,7 @@ def _model_case(name, route):
         jmodel = JaxHANModel(jhg.metadata(), 4, 3, "movie", heads=2)
         jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
         jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
-        params = _np_tree(jmodel.init(jax.random.PRNGKey(10), jx, jei))
+        params = _np_tree(jax.jit(jmodel.init)(jax.random.PRNGKey(10), jx, jei))
         model = HANModel(hg.metadata(), 4, 3, "movie", heads=2,
                          in_channels=32)
         tx, tei = _tensors(x_dict, ei_dict)
@@ -343,13 +354,27 @@ def _model_case(name, route):
         jmodel = JaxSimpleHGNModel(3, 4, 3, heads=2)
         model = SimpleHGNModel(3, 4, 3, heads=2, in_channels=32)
     jx, jei, jet = jnp.asarray(x), jnp.asarray(ei), jnp.asarray(et)
-    params = _np_tree(jmodel.init({"params": jax.random.PRNGKey(13),
+    params = _np_tree(jax.jit(jmodel.init)({"params": jax.random.PRNGKey(13),
                                    "dropout": jax.random.PRNGKey(14)},
                                   jx, jei, jet))
     plan = build_csr_plan(ei[0], ei[1], n) if route == "plan" else None
     tx, tei, tet = torch.tensor(x), torch.tensor(ei), torch.tensor(et)
     return (jmodel, params, lambda p: jmodel.apply(p, jx, jei, jet), model,
             lambda: model(tx, tei, tet, plan=plan))
+
+
+@functools.lru_cache(maxsize=None)
+def _model_reference(name):
+    """The JAX model's COO logits, labels and mask for them, and the
+    gradients of their masked cross-entropy, once a module."""
+    _, params, apply, _, _ = _model_case(name, "coo")
+    rows = jax.eval_shape(apply, params).shape[0]
+    y = np.random.default_rng(15).integers(0, 3, rows)
+    mask = np.random.default_rng(16).random(rows) < 0.6
+    logits, grads = _jax_out_and_grads(
+        apply, lambda out: jax_loss(out, jnp.asarray(y), jnp.asarray(mask)),
+        params)
+    return logits, grads, y, mask
 
 
 @pytest.mark.parametrize("route", ROUTES)
@@ -361,11 +386,7 @@ def test_models_match_jax_with_its_params(name, route):
     route against the JAX COO route: JAX's models run their plan paths
     only through a trainer on a TPU)."""
     jmodel, params, apply, model, forward = _model_case(name, route)
-    logits = apply(params)
-    y = np.random.default_rng(15).integers(0, 3, logits.shape[0])
-    mask = np.random.default_rng(16).random(logits.shape[0]) < 0.6
-    grads = jax.grad(lambda p: jax_loss(apply(p), jnp.asarray(y),
-                                        jnp.asarray(mask)))(params)
+    logits, grads, y, mask = _model_reference(name)
     load_jax_params(model, params).eval()
     got = forward()
     _check(got, logits, 1e-5)

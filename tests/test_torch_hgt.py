@@ -14,7 +14,10 @@ JAX kernels); bf16 3e-2 (the packages round at different points; the JAX
 fused kernels round p and ds to bf16). Train-mode losses cannot be
 matched across the packages (the masks come from different generators),
 so the twin is held against the JAX trainer's loss with ``train=False``,
-and the port's own train-mode routes against each other.
+and the port's own train-mode routes against each other. Each JAX
+reference but the bf16 twin's is one jitted call (its forward, or its
+loss and gradients, under one compile), which also runs the Pallas
+kernels' interpret mode compiled rather than step by step.
 """
 
 import os.path as osp
@@ -163,7 +166,7 @@ def _conv_case(route, dtype, heads=2, out=128, seed=2):
                        dtype=jdt)
     jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
     jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
-    params = jconv.init(jax.random.PRNGKey(seed), jx, jei)
+    params = jax.jit(jconv.init)(jax.random.PRNGKey(seed), jx, jei)
     params = _perturb(jax.tree_util.tree_map(np.asarray, params), seed)
     conv = load_jax_params(HGTConv(None, out, hg.metadata(), heads=heads,
                                    dtype=tdt), params).eval()
@@ -180,7 +183,8 @@ def test_hgt_conv_matches_jax_on_each_route(route, dtype, fused_calls):
     packages take the decomposed route on it."""
     (jconv, params, jx, jei, jplans, conv, tx, tei,
      tplans) = _conv_case(route, dtype)
-    want = jconv.apply(params, jx, jei, plan_dict=jplans)
+    want = jax.jit(lambda p: jconv.apply(p, jx, jei, plan_dict=jplans))(
+        params)
     got = conv(tx, tei, plan_dict=tplans)
     assert sorted(got) == sorted(want) == ["director", "movie"]
     fused = route == "fused" and dtype == "bf16"
@@ -195,7 +199,8 @@ def test_hgt_conv_needs_the_widths_to_fuse(fused_calls):
     decomposed route in both packages."""
     (jconv, params, jx, jei, jplans, conv, tx, tei,
      tplans) = _conv_case("fused", "bf16", heads=3, out=96)
-    want = jconv.apply(params, jx, jei, plan_dict=jplans)
+    want = jax.jit(lambda p: jconv.apply(p, jx, jei, plan_dict=jplans))(
+        params)
     got = conv(tx, tei, plan_dict=tplans)
     assert fused_calls == {"jax": 0, "port": 0}
     for nt in want:
@@ -212,7 +217,7 @@ def _model_case(dtype, hidden, heads, seed=3):
     jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
     jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
     key = jax.random.PRNGKey(seed)
-    params = jmodel.init({"params": key, "dropout": key}, jx, jei)
+    params = jax.jit(jmodel.init)({"params": key, "dropout": key}, jx, jei)
     params = _perturb(jax.tree_util.tree_map(np.asarray, params), seed)
     model = load_jax_params(HGTModel(hg.metadata(), hidden, 3, target,
                                      heads=heads, dtype=tdt), params)
@@ -231,7 +236,8 @@ def test_hgt_model_logits_match_jax(route, dtype, fused_calls):
     jplans = None if window is None else jhg.csr_plans(R=8, ET=32,
                                                        window=window)
     tplans = None if window is None else hg.csr_plans(window=window)
-    want = jmodel.apply(params, jx, jei, plan_dict=jplans)
+    want = jax.jit(lambda p: jmodel.apply(p, jx, jei, plan_dict=jplans))(
+        params)
     got = model.eval()(tx, tei, plan_dict=tplans)
     assert got.shape == (200, 3)
     fused = route == "fused"
@@ -285,7 +291,13 @@ def test_twin_loss_and_gradients_match_the_jax_trainer(dtype, tol,
         logits = jmodel.apply(p, jx, jei, train=False, plan_dict=jplans)
         return jax_loss(logits, jnp.asarray(y), jnp.asarray(mask))
 
-    want_loss, want = jax.value_and_grad(loss_fn)(params)
+    value_and_grad = jax.value_and_grad(loss_fn)
+    if dtype == "f32":
+        # bf16 stays eager: under jit XLA fuses the bf16 ops and moves
+        # their rounding points; the bf16 bound was set on the eager
+        # reference
+        value_and_grad = jax.jit(value_and_grad)
+    want_loss, want = value_and_grad(params)
     want = dict(_flat(want["params"]))
     loss = common.loss_and_grad(model.eval(), tx, tei, torch.tensor(y),
                                 torch.tensor(mask),

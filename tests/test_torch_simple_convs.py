@@ -253,3 +253,76 @@ def test_jumping_knowledge_matches_jax(mode):
         _check(tx.grad, jdx, 1e-4)
     with pytest.raises(ValueError, match="unknown mode"):
         tconv.JumpingKnowledge(mode="lstm")
+
+
+def _c19_hub():
+    """600 sources, each with a self-loop, all pointing into node 0, which
+    has a self-loop too: a row of 601 in-edges."""
+    n = 601
+    src = np.concatenate([np.arange(1, n), np.arange(n)])
+    dst = np.concatenate([np.zeros(n - 1, np.int64), np.arange(n)])
+    return np.stack([src, dst]), n
+
+
+@pytest.mark.parametrize("name,jax_value,port_value", [
+    ("appnp", 16.0, 24.5), ("gpr", 8.5, 12.75)])
+def test_c19_bf16_degrees_do_not_saturate_unlike_the_reference(
+        name, jax_value, port_value):
+    """ROADMAP C19, C1 in the zoo: at a row of 601 in-edges, bfloat16
+    ones, one hop (APPNP at alpha 0; GPR-GNN at K = 1, uniform, half the
+    input plus half the hop), the JAX layers count the row's degree in
+    bfloat16 (256) and sum its messages in bfloat16 (stuck at 16 once the
+    sum reaches 16); the port counts in float32 and sums in float32:
+    601 / sqrt(601) = 24.5. In float32 the two packages agree."""
+    ei, n = _c19_hub()
+    make = {"appnp": (lambda: jconv.APPNPConv(itera_k=1, alpha=0.0),
+                      lambda: tconv.APPNPConv(itera_k=1, alpha=0.0)),
+            "gpr": (lambda: jconv.GPRConv(K=1, weight_init="uniform"),
+                    lambda: tconv.GPRConv(K=1, weight_init="uniform"))}[name]
+    jm = make[0]()
+    ones = np.ones((n, 1), np.float32)
+    params = _np_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(ones),
+                              jnp.asarray(ei)))
+    conv = load_jax_params(make[1](), params)
+    want = jm.apply(params, jnp.asarray(ones, jnp.bfloat16), jnp.asarray(ei))
+    with torch.no_grad():
+        got = conv(torch.tensor(ones, dtype=torch.bfloat16),
+                   torch.tensor(ei))
+        f32 = conv(torch.tensor(ones), torch.tensor(ei))
+    assert float(want[0, 0]) == jax_value
+    assert float(got[0, 0]) == port_value
+    _check(f32, jm.apply(params, jnp.asarray(ones), jnp.asarray(ei)), 1e-5)
+
+
+def test_c20_agnn_input_gradient_at_a_zero_row():
+    """ROADMAP C20: both packages normalise rows as x / (|x| + 1e-12). At
+    an all-zero row JAX's gradient of the norm is NaN, while torch's
+    `vector_norm` backward gives 0 there, so the port's input gradient at
+    that row is the cotangent over 1e-12: finite and huge. The outputs,
+    beta's gradient and the other rows' input gradients agree."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(6, 4)).astype(np.float32)
+    x[2] = 0.0
+    ring = np.arange(6)
+    ei = np.concatenate([np.stack([ring, (ring + 1) % 6]),
+                         np.stack([ring, ring])], axis=1)
+    jm = jconv.AGNNConv(init_beta=1.0)
+    params = _np_tree(jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                              jnp.asarray(ei)))
+    g = rng.normal(size=(6, 4)).astype(np.float32)
+    want, (jgrads, jdx) = _jax_out_and_grads(
+        lambda p, jx: jm.apply(p, jx, jnp.asarray(ei)),
+        lambda out: (out * jnp.asarray(g)).sum(), params, jnp.asarray(x),
+        argnums=(0, 1))
+    conv = load_jax_params(tconv.AGNNConv(init_beta=1.0), params)
+    tx = torch.tensor(x, requires_grad=True)
+    got = conv(tx, torch.tensor(ei))
+    _check(got, want, 1e-5)
+    (got * torch.tensor(g)).sum().backward()
+    _check_grads(conv, jgrads, 1e-5)
+    jdx = np.asarray(jdx)
+    dx = tx.grad.numpy()
+    assert np.isnan(jdx[2]).all() and np.isfinite(dx[2]).all()
+    assert np.abs(dx[2]).max() > 1e6
+    others = np.arange(6) != 2
+    _check(dx[others], jdx[others], 1e-5)

@@ -65,18 +65,12 @@ COVERED = {
 MISSING_NAMES = {
     "datasets/__init__.py": [
         "Reddit", "PPI", "WikiCS", "WebKB", "WikipediaNetwork", "Actor",
-        "IMDB", "DBLP", "HGBDataset", "Flickr", "Yelp", "PolBlogs",
-        "BlogCatalog", "CAGrQc", "CA_GrQc", "Airports", "Entities", "ZINC",
-        "ACM4HeCo", "Bail", "Credit", "AMiner", "MoleculeNet", "MovieLens",
-        "CustomDataset", "ModelNet40", "ShapeNet", "NGSIM_US_101",
+        "Flickr", "Yelp", "ModelNet40", "ShapeNet", "NGSIM_US_101",
         "ACM4DHN", "ACM4Rohe", "ADDataset", "AliRCD",
     ],
     "layers/conv/__init__.py": [
         "FusedGATConv", "MAGCLConv", "MGNNI_m_iter", "HEATlayer",
         "HardGATConv",
-        "PNAConv", "FILMConv",
-        "EdgeConv", "GMMConv", "CompConv", "GaANConv", "DNAConv",
-        "HypergraphConv",
         "DHNConv", "HEATConv", "CoEDConv",
         "ConstCurveLinear", "ConstCurveAgg", "EuclideanEncoder",
         "ManifoldEncoder", "VectorQuantizeE", "VectorQuantizeR",
@@ -98,8 +92,7 @@ MISSING_NAMES = {
         "MVGRLModel", "InfoGraph", "GGDModel", "grace_loss",
         "corrupt_features", "drop_edge_and_feature", "GAEModel",
         "VGAEModel", "inner_product_decoder", "recon_loss",
-        "GraphormerModel", "PNAModel", "CompGCNModel", "DGCNNModel",
-        "GaANModel", "SGFormerModel", "GNNLFHFModel",
+        "GraphormerModel", "SGFormerModel", "GNNLFHFModel",
         "CAGCNModel",
         "MERITModel", "GRADEModel", "tadw", "SpecformerModel",
         "laplacian_eigh", "MGNNIModel",
@@ -184,14 +177,12 @@ MISSING_NAMES = {
 
 MISSING_MODULES = [
     "csrc/__init__.py", "datasets/geom_gcn.py",
-    "datasets/hetero_datasets.py", "datasets/misc_datasets.py",
     "datasets/ppi.py", "datasets/reddit.py", "datasets/saint_datasets.py",
-    "datasets/wave3_datasets.py", "datasets/wave4_datasets.py",
+    "datasets/wave4_datasets.py",
     "datasets/wikics.py", "layers/attention/__init__.py",
     "layers/attention/graphormer.py", "layers/attention/rgt.py",
     "layers/conv/compat_convs.py",
     "layers/conv/rgt_layers.py", "layers/conv/rgt_vq.py",
-    "layers/conv/wave2_convs.py",
     "layers/conv/wave7_convs.py",
     "loader/__init__.py",
     "loader/dataloader.py", "loader/epoch_cache.py",
@@ -203,7 +194,7 @@ MISSING_MODULES = [
     "models/defog.py", "models/embedding.py", "models/gan_distill.py",
     "models/graph_llm.py", "models/graphormer.py",
     "models/rgt.py", "models/seal_cogsl.py",
-    "models/spectral.py", "models/ssl.py", "models/wave2_models.py",
+    "models/spectral.py", "models/ssl.py",
     "models/wave5_models.py",
     "models/wave6_models.py", "models/wave7_models.py",
     "models/wave8_models.py", "parallel/halo_attention.py",
