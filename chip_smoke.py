@@ -284,15 +284,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    labels, features at a tenth), CompGCN (64) on phase 26's flattened
    typed graph with its 3 relations as edge types, DGCNN (32, k 30) on a
    TU batch of 128 graphs.
-34. Print the card's name and power limit, one JSON line on the kernels
+34. The sampled path, from files, on a graph of Reddit's published
+   statistics (232,965 nodes, 114,615,892 directed edges written, 602
+   features, 41 classes, split 153,431 / 23,831 / 55,703), its raw layout
+   written from the seed and read by `Reddit` (every array as written;
+   host seconds of each step printed): (b) the serving twin (batches of
+   128, fanouts 10 and 5, hidden 64, bf16 inputs, every row in the
+   feature cache) serves 50 requests, each within 3e-2 of max |logit| of
+   the float32 forward of its blocks on the CPU, then 48 single-node
+   requests from 8 threads through `MicroBatcher`, every future finite
+   logits of shape (41,); (c) the sage_sample twin from the staged files
+   (batches of 512, fanouts 25 and 10, hidden 64, dropout 0.5, Adam 3e-3,
+   4 batches a sampler call) trains 20 steps, its loss falling by 5%, and
+   scores the test set; float32 step-0 gradients within 1e-4 of each
+   parameter's max |grad| of the CPU on the same blocks; an `EpochCache`
+   replay of 20 batches bitwise the cached ones; the sampler's ms a batch;
+   (d) the gpu_sage twin 10 steps with half the rows cached (hits and
+   misses as counted on the host, every gathered row bitwise x[n_id]) and
+   `PrefetchLoader` batches bitwise the same batches moved at once. No
+   kernel launches (the sampled blocks take no plan, as in JAX).
+35. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
    segment max's fold under spmm_max_csr's, its tie count and count fold
    under segment_max_bwd's, the flash forward's fold under
    flash_forward's; the typed-graph shapes of phase 26 under
-   `by_shape`) and the paths (the wave-2 zoo under "wave2"), and as the
-   last line {"ok": true,
+   `by_shape`) and the paths (the wave-2 zoo under "wave2", phase 34
+   under "sampled"), and as the last line {"ok": true,
    "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
@@ -4461,6 +4480,413 @@ def phase_wave2(k, models, hg, x, ei, dev):
     return out
 
 
+
+# phase 34: the sampled path on a graph of Reddit's published statistics
+# (Hamilton et al. 2017, the GraphSAGE paper; DGL's reddit.zip, which the
+# Reddit dataset reads): 232,965 posts, 114,615,892 directed edges, 602
+# features, 41 classes, 153,431 / 23,831 / 55,703 train / val / test,
+# written in its raw layout from the seed (lognormal degrees, uniform
+# sources, each class's direction planted in the features, so the loss
+# can fall in 20 steps). Serving: the serving twin's protocol (batches
+# of 128, fanouts 10 and 5, hidden 64, bf16 inputs, every row cached),
+# SAMPLED_REQUESTS requests, then MICRO_REQUESTS single-node requests from
+# the MicroBatcher's client threads. Training: the sage_sample twin's
+# defaults (batches of 512, fanouts 25 and 10, hidden 64, dropout 0.5,
+# Adam 3e-3, 4 batches a sampler call), SAMPLED_STEPS steps, then one
+# EpochCache replay of as many batches; the gpu_sage twin (batches of 64,
+# fanouts 8 and 4, hidden 32, half the rows cached) GPU_SAGE_STEPS steps
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+REDDIT_FEAT, REDDIT_CLASSES = 602, 41
+REDDIT_SPLIT = (153_431, 23_831, 55_703)
+REDDIT_SIGNAL = 1.0
+SAMPLED_REQUESTS, MICRO_REQUESTS = 50, 48
+SAMPLED_STEPS, GPU_SAGE_STEPS, N_PREFETCH_CHECK = 20, 10, 5
+# the served logits against the float32 forward of the same blocks on the
+# CPU: the card reads bf16 inputs
+SAMPLED_SERVE_TOL = 3e-2
+# the largest move, as a share of max |pre-activation|, of a first-layer
+# pre-activation that the card and the CPU put on opposite sides of 0
+# (f32 rounding of a 602-term dot product and a mean is ~1e-7 of it)
+FLIP_MOVE_TOL = 1e-5
+
+
+def host_cpu():
+    """The host's CPU model (lscpu's, else /proc/cpuinfo's, else the
+    machine's architecture) and the threads its OpenMP runs by default."""
+    import platform
+    model = None
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        model = next((line.split(":", 1)[1].strip()
+                      for line in out.splitlines()
+                      if line.startswith("Model name")), None)
+    except (OSError, subprocess.SubprocessError):
+        pass
+    if not model:
+        try:
+            with open("/proc/cpuinfo") as f:
+                model = next((line.split(":", 1)[1].strip() for line in f
+                              if line.startswith(("model name", "Model"))),
+                             None)
+        except OSError:
+            pass
+    model = model or f"unknown {platform.machine()}"
+    return model, int(os.environ.get("OMP_NUM_THREADS") or os.cpu_count())
+
+
+def write_reddit(raw_dir, rng):
+    """Reddit's raw files at its published statistics; returns what was
+    written (features, labels, split, and the coalesced edges as sorted
+    row * N + col keys)."""
+    import scipy.sparse as sp
+    n, e = REDDIT_NODES, REDDIT_EDGES
+    os.makedirs(raw_dir, exist_ok=True)
+    w = rng.lognormal(0.0, 1.0, n)
+    deg = np.floor(w / w.sum() * e).astype(np.int64)
+    deg[rng.choice(n, e - int(deg.sum()), replace=False)] += 1
+    key = np.repeat(np.arange(n, dtype=np.int64), deg) * n
+    key += rng.integers(0, n, e)
+    key = torch.from_numpy(key).sort().values.numpy()  # rows, then columns
+    indptr = np.concatenate([[0], np.cumsum(deg)])
+    adj = sp.csr_matrix((np.ones(e, np.float32),
+                         (key % n).astype(np.int32), indptr), shape=(n, n))
+    sp.save_npz(os.path.join(raw_dir, "reddit_graph.npz"), adj,
+                compressed=False)
+    del adj
+    y = rng.integers(0, REDDIT_CLASSES, n)
+    x = rng.standard_normal((n, REDDIT_FEAT), dtype=np.float32)
+    x[np.arange(n), y] += REDDIT_SIGNAL
+    types = np.full(n, 3, np.int64)
+    perm = rng.permutation(n)
+    types[perm[:REDDIT_SPLIT[0]]] = 1
+    types[perm[REDDIT_SPLIT[0]:REDDIT_SPLIT[0] + REDDIT_SPLIT[1]]] = 2
+    np.savez(os.path.join(raw_dir, "reddit_data.npz"), feature=x, label=y,
+             node_types=types)
+    keep = np.ones(e, bool)
+    keep[1:] = key[1:] != key[:-1]
+    return {"x": x, "y": y, "types": types, "keys": key[keep]}
+
+
+def reddit_from_files(k, tmp, rng):
+    """(a): write, load through `Reddit`, hold every array to the written
+    one; the host seconds of each step."""
+    from gammagl_tpu_torch.datasets import Reddit
+    from gammagl_tpu_torch.loader import NeighborSamplerLoader
+    root = os.path.join(tmp, "reddit")
+    t0 = time.perf_counter()
+    want = write_reddit(os.path.join(root, "raw"), rng)
+    t_write_total = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = Reddit(root=root)[0]
+    t_load = time.perf_counter() - t0
+    ei = np.asarray(g.edge_index)
+    n = REDDIT_NODES
+    checks = {
+        "x": np.array_equal(g.x, want["x"]) and g.x.dtype == np.float32,
+        "y": np.array_equal(g.y, want["y"]),
+        "train_mask": np.array_equal(g.train_mask, want["types"] == 1),
+        "val_mask": np.array_equal(g.val_mask, want["types"] == 2),
+        "test_mask": np.array_equal(g.test_mask, want["types"] == 3),
+        "edge_index": (ei.shape == (2, len(want["keys"]))
+                       and np.array_equal(ei[0], want["keys"] // n)
+                       and np.array_equal(ei[1], want["keys"] % n)),
+    }
+    if not all(checks.values()) or g.num_nodes != n:
+        fail(f"Reddit from files: {checks}, {g.num_nodes} nodes")
+    split = tuple(int(np.asarray(g[m]).sum())
+                  for m in ("train_mask", "val_mask", "test_mask"))
+    if split != REDDIT_SPLIT:
+        fail(f"Reddit split {split}")
+    # the loader of (c)'s checks and (d)'s prefetch batches: one CSC, built
+    # here and timed (each twin builds its own)
+    t0 = time.perf_counter()
+    loader = NeighborSamplerLoader(ei, sample_lists=[25, 10],
+                                   batch_size=512, num_nodes=n, shuffle=True,
+                                   seed=SEED + 341, presample_chunks=4)
+    t_csc = time.perf_counter() - t0
+    print(f"  Reddit shape written ({REDDIT_EDGES} directed edges, "
+          f"{ei.shape[1]} kept by coalesce) and read by Reddit, every array "
+          f"as written; host seconds: generate + write {t_write_total:.2f}, "
+          f"load (parse, coalesce, cache) {t_load:.2f}, sampler CSC "
+          f"{t_csc:.2f}")
+    return g, loader, {"edges_written": REDDIT_EDGES,
+                       "edges_kept": int(ei.shape[1]),
+                       "generate_write_s": t_write_total, "load_s": t_load,
+                       "csc_s": t_csc}
+
+
+def sampled_serving(k, g, dev):
+    """(b): the serving twin on the Reddit shape; each timed request's
+    logits against the float32 forward of its blocks on the CPU."""
+    from gammagl_tpu_torch.examples import serving_demo
+    args = serving_demo.parser().parse_args(
+        ["--batch", "128", "--fanout1", "10", "--fanout2", "5",
+         "--requests", str(SAMPLED_REQUESTS), "--micro_requests",
+         str(MICRO_REQUESTS), "--device", str(dev)])
+    out = serving_demo.main(args, data=(g, REDDIT_CLASSES))
+    cpu = copy.deepcopy(out["model"]).cpu().eval()
+    err = 0.0
+    with torch.no_grad():
+        for r, (n_id_p, blocks, sizes, logits) in enumerate(out["records"]):
+            want = cpu(torch.from_numpy(g.x[n_id_p]),
+                       [(torch.from_numpy(b), s)
+                        for b, s in zip(blocks, sizes)])
+            if logits.shape != (128, REDDIT_CLASSES):
+                fail(f"served logits of shape {tuple(logits.shape)}")
+            err = max(err, check_close(
+                f"sampled request {r} vs the CPU float32 forward", logits,
+                want, 0.0, atol=SAMPLED_SERVE_TOL))
+    micro = out["micro"]
+    if not (len(micro["outs"]) == MICRO_REQUESTS and all(
+            o.shape == (REDDIT_CLASSES,) and np.isfinite(o).all()
+            for o in micro["outs"])):
+        fail("a MicroBatcher future gave no finite logits of shape (41,)")
+    lat, mlat = np.sort(out["lat_ms"]), np.sort(micro["lat_ms"])
+    res = {"request_p50_ms": float(np.median(lat)),
+           "request_p95_ms": float(lat[int(len(lat) * 0.95)]),
+           "request_max_ms": float(lat.max()), "timed": int(len(lat)),
+           "sessions": out["sessions"], "max_abs_err": err,
+           "micro_p50_ms": float(np.median(mlat)),
+           "micro_p95_ms": float(mlat[int(len(mlat) * 0.95)]),
+           "micro_wall_ms": micro["wall_ms"],
+           "micro_batches": micro["batches"],
+           "micro_sessions": micro["sessions"]}
+    print(f"  serving: {res['timed']} timed requests, p50 "
+          f"{res['request_p50_ms']:.2f} ms, p95 {res['request_p95_ms']:.2f}, "
+          f"max {res['request_max_ms']:.2f}, {res['sessions']} sessions; "
+          f"MicroBatcher p50 {res['micro_p50_ms']:.2f} ms, p95 "
+          f"{res['micro_p95_ms']:.2f}, {len(micro['batches'])} batches "
+          f"{micro['batches']}")
+    return res
+
+
+def sampled_training(k, root, g, loader, dev):
+    """(c): the sage_sample twin from the staged files for SAMPLED_STEPS
+    steps and its test protocol; float32 step-0 gradients against the
+    CPU; an EpochCache replay of SAMPLED_STEPS batches, bitwise the cached
+    ones; the sampler's ms a batch. ``loader``: (a)'s, at the twin's
+    fanouts and batch."""
+    from gammagl_tpu_torch.examples import sage_sample_trainer as twin
+    from gammagl_tpu_torch.loader import EpochCache
+    from gammagl_tpu_torch.models import GraphSAGESampleModel
+    args = twin.parser().parse_args(["--dataset_path", root, "--device",
+                                     str(dev)])
+    t0 = time.perf_counter()
+    staged, n_class = twin.load(args)
+    t_cache = time.perf_counter() - t0
+    if n_class != REDDIT_CLASSES or not np.array_equal(staged.edge_index,
+                                                       g.edge_index):
+        fail("the twin's staged Reddit differs from the files' graph")
+    del staged
+    out = twin.main(args, data=(g, n_class), steps=SAMPLED_STEPS)
+    losses = out["losses"]
+    if not (np.isfinite(losses).all()
+            and losses[-1] <= (1 - MIN_FALL) * losses[0]):
+        fail(f"sage_sample twin: loss did not fall by {MIN_FALL:.0%}: "
+             f"{losses}")
+    with_host = np.add(out["batch_ms"], out["step_ms"])
+    fcache = out["cache"]
+
+    # float32 step-0 gradients, dropout off, card against the CPU. Where
+    # a first-layer pre-activation sits within f32 rounding of 0 the two
+    # sum orders can take opposite ReLU branches, and that unit's gradient
+    # then moves by a whole upstream term (~|W| / (fanout x batch), some
+    # 1e-3 of max |grad|). So the CPU path takes the card's branch there:
+    # its pre-activation is moved to the card's value (the move must be
+    # rounding, FLIP_MOVE_TOL of max |pre-activation|), its gradient
+    # untouched, and every gradient is held at F32_GRAD_TOL
+    train_idx = np.nonzero(g.train_mask)[0]
+    batch = loader.sample(train_idx[:512])
+    torch.manual_seed(SEED + 340)
+    model = GraphSAGESampleModel(64, REDDIT_CLASSES, drop_rate=0.0,
+                                 in_channels=REDDIT_FEAT)
+    cpu = copy.deepcopy(model)
+    pre, flips = [], {}
+
+    def keep(mod, inp, out):
+        pre.append(out.detach().cpu())
+
+    def card_branch(mod, inp, out):
+        flip = (out > 0) != (pre[0] > 0)
+        moved = (pre[0] - out).detach() * flip
+        flips.update(n=int(flip.sum()), move=float(moved.abs().max()),
+                     scale=float(out.detach().abs().max()))
+        return out + moved
+
+    model.convs[0].register_forward_hook(keep)
+    cpu.convs[0].register_forward_hook(card_branch)
+    feats, eis, sizes, y = twin.device_batch(*batch, fcache, g.y)
+    twin.loss_of(model.to(dev).train(), feats, eis, sizes, y)[0].backward()
+    n_id_p, ceis, _ = twin.pad_batch_ids(*batch)
+    twin.loss_of(cpu.train(), torch.from_numpy(g.x[n_id_p]),
+                 [torch.from_numpy(e) for e in ceis], sizes,
+                 torch.from_numpy(g.y[batch[1][:512]]))[0].backward()
+    if flips["move"] > FLIP_MOVE_TOL * flips["scale"]:
+        fail(f"first-layer pre-activations of the card and the CPU differ "
+             f"by {flips['move']:.3e} across 0 (max {flips['scale']:.3e})")
+    grad_err = 0.0
+    for (name, pc), pg in zip(cpu.named_parameters(), model.parameters()):
+        scale = float(pc.grad.abs().max())
+        d = float((pg.grad.cpu() - pc.grad).abs().max())
+        grad_err = max(grad_err, d / scale)
+        if d > F32_GRAD_TOL * scale:
+            fail(f"sampled step-0 gradient {name}: {d:.3e} > "
+                 f"{F32_GRAD_TOL:g} x {scale:.3e}")
+
+    # the sampler alone: one batch, and a call of 4 batches
+    seeds = [train_idx[i * 512:(i + 1) * 512] for i in range(4)]
+    sampler = loader._sampler
+    t0 = time.perf_counter()
+    for s in seeds:
+        sampler.sample_from_nodes(s)
+    one_ms = (time.perf_counter() - t0) * 1e3 / 4
+    t0 = time.perf_counter()
+    sampler.sample_from_nodes_many(seeds)
+    many_ms = (time.perf_counter() - t0) * 1e3 / 4
+
+    # EpochCache: epoch 0 samples and is kept, epoch 1 replays it
+    state = out["state"]
+    rng = np.random.default_rng(SEED + 342)
+    loader.node_idx = rng.permutation(train_idx)[:SAMPLED_STEPS * 512]
+    cache = EpochCache(loader, resample_every=2, seed=SEED + 344)
+    first = list(cache)
+    kept = [(n_id.copy(), [(a.edge_index.copy(), a.e_id.copy(), a.size)
+                           for a in adjs]) for _, n_id, adjs in first]
+    replay_ms = []
+    for item in cache:
+        j = next(i for i, f in enumerate(first) if f is item)
+        bs, n_id, adjs = item
+        same = np.array_equal(n_id, kept[j][0]) and all(
+            np.array_equal(a.edge_index, e) and np.array_equal(a.e_id, i)
+            and a.size == s for a, (e, i, s) in zip(adjs, kept[j][1]))
+        if not same:
+            fail(f"EpochCache replayed batch {j} differs from the cached one")
+        t0 = time.perf_counter()
+        feats, eis, sizes, y = twin.device_batch(bs, n_id, adjs, fcache,
+                                                 g.y)
+        state.model.train()
+        loss, _ = twin.loss_of(state.model, feats, eis, sizes, y)
+        loss.backward()
+        state.apply_gradients()
+        float(loss.detach())
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    # where a step's device time goes: 3 steps on one cached batch
+    fixed = twin.device_batch(*first[0], fcache, g.y)
+
+    def train_once():
+        state.model.train()
+        loss, _ = twin.loss_of(state.model, *fixed)
+        loss.backward()
+        state.apply_gradients()
+
+    prof = profile("sampled_train", train_once)
+    cpu_model, threads = host_cpu()
+    res = {"losses": losses, "test_acc": out["test_acc"],
+           "profile": prof,
+           "step_ms_median": float(np.median(out["step_ms"][1:])),
+           "step_with_host_ms_median": float(np.median(with_host[1:])),
+           "step_with_host_ms_mean": float(np.mean(with_host[1:])),
+           "batch_ms": out["batch_ms"], "step_ms": out["step_ms"],
+           "replay_step_ms_median": float(np.median(replay_ms)),
+           "replayed": len(replay_ms),
+           "sampler_ms_a_batch": one_ms,
+           "sampler_ms_a_batch_in_calls_of_4": many_ms,
+           "step0_f32_grad_rel_err": grad_err,
+           "step0_relu_inputs_across_0": flips["n"],
+           "step0_relu_inputs_moved_by": flips["move"],
+           "staged_cache_load_s": t_cache,
+           "host_cpu": cpu_model, "omp_threads": threads}
+    print(f"  training: {len(losses)} steps, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; median step {res['step_ms_median']:.2f} ms, "
+          f"with sampling and padding {res['step_with_host_ms_median']:.2f} "
+          f"(mean {res['step_with_host_ms_mean']:.2f}); replay step "
+          f"{res['replay_step_ms_median']:.2f} ms over {len(replay_ms)} "
+          f"batches, bitwise the cached ones; sampler {one_ms:.2f} ms a "
+          f"batch ({many_ms:.2f} in calls of 4) on {cpu_model}, {threads} "
+          f"OpenMP threads; step-0 f32 gradients {grad_err:.3e} of max "
+          f"|grad| ({flips['n']} first-layer ReLU inputs on opposite sides "
+          f"of 0 on the two paths, within {flips['move']:.3e} of it: the CPU "
+          f"took the card's branch there); test acc {out['test_acc']:.4f}")
+    return res
+
+
+def sampled_loaders(k, g, loader, dev):
+    """(d): the gpu_sage twin with half the rows cached (hits and misses
+    as the host counts them, every gathered row bitwise x[n_id]), and
+    PrefetchLoader batches (subgraphs of (a)'s sampler) bitwise the same
+    batches moved at once."""
+    from gammagl_tpu_torch.examples import gpu_sage_trainer
+    from gammagl_tpu_torch.loader import NodeLoader, PrefetchLoader
+    args = gpu_sage_trainer.parser().parse_args(["--device", str(dev)])
+    seen = []
+    out = gpu_sage_trainer.main(
+        args, data=(g, REDDIT_CLASSES), steps=GPU_SAGE_STEPS,
+        on_batch=lambda n_id, x: seen.append(
+            (n_id, bool(torch.equal(x.cpu(), torch.from_numpy(g.x[n_id]))))))
+    cache = out["cache"]
+    hits = sum(int((cache.slot_of[n_id] >= 0).sum()) for n_id, _ in seen)
+    total = sum(len(n_id) for n_id, _ in seen)
+    if (cache.hits, cache.misses) != (hits, total - hits) or not all(
+            ok for _, ok in seen) or cache.misses == 0:
+        fail(f"gpu_sage twin's cache: {cache.hits} hits, {cache.misses} "
+             f"misses (host {hits}, {total - hits}); rows bitwise "
+             f"{[ok for _, ok in seen]}")
+    batches = []
+    for sub in NodeLoader(g, loader._sampler, batch_size=64,
+                          seed=SEED + 345):
+        batches.append(sub)
+        if len(batches) == N_PREFETCH_CHECK:
+            break
+    want = [b.tensor(dev) for b in batches]
+    for a, b in zip(PrefetchLoader(batches, size=2, device=dev), want):
+        for key in b.keys():
+            same = (torch.equal(a[key], b[key])
+                    if isinstance(b[key], torch.Tensor) else a[key] == b[key])
+            if not same:
+                fail(f"PrefetchLoader batch field {key} differs")
+    print(f"  gpu_sage twin: {len(out['losses'])} steps, losses "
+          f"{[round(v, 4) for v in out['losses']]}; cache {cache.hits} hits "
+          f"and {cache.misses} misses as counted on the host, every row "
+          f"bitwise; {N_PREFETCH_CHECK} PrefetchLoader batches bitwise")
+    return {"gpu_sage_losses": out["losses"], "cache_hits": cache.hits,
+            "cache_misses": cache.misses, "hit_rate": cache.hit_rate}
+
+
+def phase_sampled(k, smi):
+    """Phase 34: the sampled path on Reddit's shape, from files: serving
+    behind the MicroBatcher, training, the loaders on the card. No kernel
+    of the 15 runs: the sampled blocks take no plan, as in JAX."""
+    import shutil
+    import tempfile
+    phase_start("phase 34: sampled serving and training on the Reddit shape "
+                "(files -> Reddit -> serving twin and MicroBatcher, "
+                "sage_sample twin and EpochCache, gpu_sage twin)")
+    os.environ["GGL_TPU_OFFLINE"] = "1"
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_reddit_")
+    rng = np.random.default_rng(SEED + 300)
+    sync()
+    reset_counts(k)
+    try:
+        g, loader, data = reddit_from_files(k, tmp, rng)
+        serving = sampled_serving(k, g, dev)
+        training = sampled_training(k, os.path.join(tmp, "reddit"), g,
+                                    loader, dev)
+        loaders = sampled_loaders(k, g, loader, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sync()
+    counts = read_counts(k)
+    if any(counts.values()):
+        fail(f"phase 34 launched kernels: {counts}")
+    torch.cuda.empty_cache()
+    print(f"  ({smi}; host {training['host_cpu']}, "
+          f"{training['omp_threads']} OpenMP threads)")
+    return {"counts": counts, "data": data, "serving": serving,
+            "training": training, "loaders": loaders}
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -4628,6 +5054,7 @@ def main():
     rest = phase_hetero_rest(k, models, han_graph(HeteroGraph), hg, x, ei,
                              dev)
     wave2 = phase_wave2(k, models, hg, x, ei, dev)
+    sampled = phase_sampled(k, smi.splitlines()[0])
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -4653,6 +5080,7 @@ def main():
                  for name, path in rest.items()})
     runs.update({f"wave2_{name}": path["counts"]
                  for name, path in wave2.items()})
+    runs["sampled"] = sampled["counts"]
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -4799,7 +5227,9 @@ def main():
             for name, path in wave2.items()},
         "data_paths": {name: {key: value for key, value in path.items()
                               if key != "counts"}
-                       for name, path in data.items()}}))
+                       for name, path in data.items()},
+        "sampled": {key: value for key, value in sampled.items()
+                    if key != "counts"}}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,14 @@ Layer map:
                  with backwards, and the CSR-order softmax and multi-head
                  SpMM built on them
   sparse/     -- SparseGraph, CSRAdj: host adjacency with cached formats
+  csrc/       -- the CUDA sources of the kernels, and the host neighbour
+                 sampler (sampler.cpp, built by g++ with OpenMP at first
+                 use and bound by ctypes in csrc/__init__.py)
+  sampler/    -- NeighborSampler (C++ or numpy route), padded samples
+  loader/     -- the graph DataLoader, the neighbour, node, link, SAINT,
+                 random-walk and typed-graph loaders, EpochCache, the
+                 feature table on the card (DeviceFeatureCache) and
+                 prefetching onto it (PrefetchLoader)
   data/       -- Graph (cached CSR and block-pair plans, node reorderings,
                  auto_plan, the mapping and batching protocols), HeteroGraph,
                  BatchGraph, padding, the dataset lifecycle (Dataset,
@@ -23,7 +31,8 @@ Layer map:
                  feature and graph stores
   io/         -- raw-file readers: Planetoid, TU, npz, text arrays
   datasets/   -- Planetoid, OgbNodeDataset, TUDataset, the npz datasets,
-                 the synthetic graphs, real-structure adjacencies
+                 the typed-graph datasets, Reddit, the synthetic graphs,
+                 real-structure adjacencies
   parallel/   -- node orderings (RCM, label propagation, degree balance),
                  halo partitions and their SpMM tiers over
                  torch.distributed (flat and planned), full-graph GCN
@@ -36,11 +45,13 @@ Layer map:
   train/      -- loss, accuracy, micro and macro F1, the Adam train state
                  and checkpoints
   utils/      -- self-loops, GCN norm, degree, masks, coalesce,
-                 undirected edges, compute dtype, flax parameter loading,
-                 the default device (the CUDA card) and host arrays to it
-  serve       -- InferenceSession
-  examples/   -- trainer twins (python -m gammagl_tpu_torch.examples.<name>)
-                 and their dataset loader
+                 undirected edges, subgraphs, compute dtype, flax parameter
+                 loading, the default device (the CUDA card) and host
+                 arrays to it
+  serve       -- InferenceSession, MicroBatcher
+  examples/   -- trainer twins (python -m gammagl_tpu_torch.examples.<name>),
+                 the serving demo and the sampler benchmark, and their
+                 dataset loader
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,7 @@ Ported so far: the synthetic graphs, Planetoid, the OGB node datasets,
 TUDataset, the npz datasets, the real-structure loader, the typed-graph
 datasets (IMDB, DBLP, HGB), the assorted ones (PolBlogs, BlogCatalog,
 CA-GrQc, Airports, Entities, ZINC) and wave 3 (ACM4HeCo, Bail, Credit,
-AMiner, MoleculeNet, MovieLens, CustomDataset). Each
+AMiner, MoleculeNet, MovieLens, CustomDataset) and Reddit. Each
 `InMemoryDataset` writes its processed cache under its own name
 (``data_torch.pkl``), so it never reads the JAX package's.
 """
@@ -29,6 +29,7 @@ from gammagl_tpu_torch.datasets.wave3_datasets import (ACM4HeCo, Bail,
                                                        MoleculeNet,
                                                        MovieLens,
                                                        CustomDataset)
+from gammagl_tpu_torch.datasets.reddit import Reddit
 
 __all__ = [
     "Planetoid",
@@ -60,6 +61,7 @@ __all__ = [
     "MoleculeNet",
     "MovieLens",
     "CustomDataset",
+    "Reddit",
 ]
 
 # the reference's spelling (gammagl/datasets/__init__.py exports CA_GrQc)

@@ -29,6 +29,10 @@ from gammagl_tpu_torch.utils.norm import (  # noqa: F401
     calc_gcn_norm_np,
 )
 from gammagl_tpu_torch.utils.params import load_jax_params  # noqa: F401
+from gammagl_tpu_torch.utils.subgraph import (  # noqa: F401
+    k_hop_subgraph,
+    subgraph,
+)
 from gammagl_tpu_torch.utils.undirected import (  # noqa: F401
     is_undirected,
     to_undirected,
@@ -44,4 +48,4 @@ __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "load_jax_params", "resolve_device", "to_device", "degree",
            "mask_to_index", "index_to_mask", "coalesce", "sort_edge_index",
            "to_undirected", "is_undirected", "to_dense_adj",
-           "to_dense_batch"]
+           "to_dense_batch", "subgraph", "k_hop_subgraph"]

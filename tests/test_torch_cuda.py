@@ -10,7 +10,10 @@ types (ROADMAP C14), RGCN and SimpleHGN, and the propagation zoo
 (SGC, APPNP, GCNII, JKNet, ChebNet, MixHop, GPR-GNN, FAGCN, AGNN) on its
 plan route against their plain paths; the wave-2 convs (COO) on the card
 against the CPU, and the han twin on IMDB's files with its plan route
-against its COO route.
+against its COO route; the sampled path (GraphSAGESampleModel on padded
+blocks against the CPU, the feature cache's cold rows through pinned
+memory, prefetching on a side stream, a card session called from the
+MicroBatcher's worker thread).
 
 Every test is marked ``cuda`` and skips without a card. This file imports
 neither JAX nor the JAX package, so it runs on a machine without them:
@@ -1830,3 +1833,110 @@ def test_han_twin_on_imdb_files_plan_route_matches_coo(card, tmp_path):
             want = common.predict(model, x_dict, ei_dict)
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=tol * float(want.abs().max()))
+
+
+def _sampled_graph(n=400, e=3000, f=24, seed=0):
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n - 30, e)])
+    return Graph(x=rng.normal(size=(n, f)).astype(np.float32),
+                 edge_index=ei, y=rng.integers(0, 5, n),
+                 train_mask=rng.random(n) < 0.6)
+
+
+def test_sampled_sage_on_card_matches_the_cpu(card):
+    """GraphSAGESampleModel on a bucket-padded sampled batch (padded
+    destinations out of range): the card's forward and every gradient
+    against the same module on the CPU, f32."""
+    from gammagl_tpu_torch.examples.sage_sample_trainer import pad_batch_ids
+    from gammagl_tpu_torch.loader import NeighborSamplerLoader
+    from gammagl_tpu_torch.models import GraphSAGESampleModel
+    g = _sampled_graph()
+    loader = NeighborSamplerLoader(g.edge_index, sample_lists=[6, 3],
+                                   num_nodes=g.num_nodes, seed=1)
+    n_id_p, eis, sizes = pad_batch_ids(*loader.sample(np.arange(32)))
+    torch.manual_seed(0)
+    cpu = GraphSAGESampleModel(32, 5, drop_rate=0.0, in_channels=24)
+    gpu = copy.deepcopy(cpu).to(card)
+    outs = []
+    for model, dev in ((cpu, torch.device("cpu")), (gpu, card)):
+        x = torch.from_numpy(g.x[n_id_p]).to(dev).requires_grad_()
+        out = model(x, [(torch.from_numpy(e).to(dev), s)
+                        for e, s in zip(eis, sizes)])
+        torch.nn.functional.cross_entropy(
+            out, torch.from_numpy(g.y[n_id_p[:32]]).to(dev)).backward()
+        outs.append((out, x.grad))
+    _close(outs[1][0], outs[0][0], 1e-5)
+    _close(outs[1][1], outs[0][1], 1e-4)
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = float(pc.grad.abs().max())
+        assert float((pg.grad.cpu() - pc.grad).abs().max()) <= 1e-4 * scale, \
+            name
+
+
+@pytest.mark.parametrize("budget", [0, 150, 400])
+def test_device_feature_cache_cold_rows_from_pinned_memory(card, budget):
+    """Hot rows on the card, cold ones through a pinned buffer: every
+    gather bitwise x[idx], hits and misses as the host counts them."""
+    from gammagl_tpu_torch.loader import DeviceFeatureCache
+    g = _sampled_graph()
+    score = np.random.default_rng(2).random(g.num_nodes)
+    cache = DeviceFeatureCache(g.x, budget_rows=budget, score=score)
+    assert cache.device.type == "cuda" and cache.host.is_pinned()
+    assert cache.hot.device.type == "cuda" and len(cache.hot) == budget
+    rng = np.random.default_rng(3)
+    hits = 0
+    for _ in range(5):
+        idx = rng.integers(0, g.num_nodes, 700)
+        got = cache[idx]
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), g.x[idx])
+        hits += int((cache.slot_of[idx] >= 0).sum())
+    assert (cache.hits, cache.misses) == (hits, 5 * 700 - hits)
+
+
+def test_prefetch_loader_on_a_side_stream_matches_sync_copies(card):
+    """Batches moved by the prefetch thread on its stream, bitwise the
+    same batches moved synchronously; the consumer's work on them sees the
+    finished copies."""
+    from gammagl_tpu_torch.loader import NodeNeighborLoader, PrefetchLoader
+    g = _sampled_graph()
+    batches = list(NodeNeighborLoader(g, [5, 3], batch_size=50, seed=4))
+    want = [b.tensor(card) for b in batches]
+    got = list(PrefetchLoader(batches, size=2))
+    assert len(got) == len(want) == 8
+    for a, b in zip(got, want):
+        assert sorted(a.keys()) == sorted(b.keys())
+        for k in b.keys():
+            if isinstance(b[k], torch.Tensor):
+                assert a[k].device.type == "cuda"
+                assert torch.equal(a[k], b[k]), k
+            else:
+                assert a[k] == b[k], k
+        assert torch.equal((a.x * 2).sum(0), (b.x * 2).sum(0))
+
+
+def test_micro_batcher_calls_a_card_session_from_its_worker(card):
+    """`run_fn` runs on the MicroBatcher's thread: an `InferenceSession`
+    on the card called there gives each request its row of the batch's
+    logits, as a call on this thread does."""
+    import threading
+    from gammagl_tpu_torch.serve import MicroBatcher
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 16), torch.nn.ReLU(),
+                                torch.nn.Linear(16, 3))
+    sess = InferenceSession(model, (torch.zeros(8, 6),), device=card)
+    threads = set()
+
+    def run(batch, n_valid):
+        threads.add(threading.get_ident())
+        return sess(batch)
+
+    xs = np.random.default_rng(5).normal(size=(20, 6)).astype(np.float32)
+    with MicroBatcher(run, buckets=(8,), linger_ms=5.0) as mb:
+        outs = [f.result(timeout=60) for f in
+                [mb.submit(x) for x in xs]]
+    assert threading.get_ident() not in threads and len(threads) == 1
+    want = sess(torch.from_numpy(xs)).cpu().numpy()
+    for o, w in zip(outs, want):
+        assert o.shape == (3,)
+        np.testing.assert_allclose(o, w, rtol=1e-5, atol=1e-6)

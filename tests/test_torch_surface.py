@@ -64,7 +64,7 @@ COVERED = {
 
 MISSING_NAMES = {
     "datasets/__init__.py": [
-        "Reddit", "PPI", "WikiCS", "WebKB", "WikipediaNetwork", "Actor",
+        "PPI", "WikiCS", "WebKB", "WikipediaNetwork", "Actor",
         "Flickr", "Yelp", "ModelNet40", "ShapeNet", "NGSIM_US_101",
         "ACM4DHN", "ACM4Rohe", "ADDataset", "AliRCD",
     ],
@@ -115,6 +115,14 @@ MISSING_NAMES = {
         "GEstimationN", "FatraGNNModel", "GraphEditer",
         "modify_structure",
     ],
+    "loader/__init__.py": [
+        "ExtractNodeLoader", "ExtractLinkLoader", "build_structure_batch",
+        "ShardedFeatureStore", "MultiHostNodeLoader", "shard_seeds",
+        "make_global_batch", "pad_sampled_graph",
+    ],
+    "loader/feature_cache.py": [
+        "ShardedFeatureStore",
+    ],
     "models/wave3_models.py": [
         "SGFormerModel", "GNNLFHFModel", "CAGCNModel", "MERITModel",
         "GRADEModel", "tadw",
@@ -148,7 +156,7 @@ MISSING_NAMES = {
     ],
     "serve.py": [
         "export_forward", "save_exported", "load_exported",
-        "ShardedInferenceSession", "MicroBatcher",
+        "ShardedInferenceSession",
     ],
     "train/__init__.py": [
         "save_checkpoint_sharded", "load_checkpoint_sharded",
@@ -160,8 +168,7 @@ MISSING_NAMES = {
         "chain_time", "trace", "device_timer", "calc_A_norm_hat",
         "edge_index_to_adj_matrix", "get_few_shot_split",
         "node_subgraph", "set_device", "shortest_path_distance",
-        "batched_shortest_path_distance", "subgraph", "k_hop_subgraph",
-        "negative_sampling",
+        "batched_shortest_path_distance", "negative_sampling",
         "batched_negative_sampling", "structured_negative_sampling",
         "homophily", "get_laplacian", "to_scipy_sparse_matrix",
         "from_scipy_sparse_matrix", "get_train_val_test_split",
@@ -176,20 +183,15 @@ MISSING_NAMES = {
 }
 
 MISSING_MODULES = [
-    "csrc/__init__.py", "datasets/geom_gcn.py",
-    "datasets/ppi.py", "datasets/reddit.py", "datasets/saint_datasets.py",
+    "datasets/geom_gcn.py",
+    "datasets/ppi.py", "datasets/saint_datasets.py",
     "datasets/wave4_datasets.py",
     "datasets/wikics.py", "layers/attention/__init__.py",
     "layers/attention/graphormer.py", "layers/attention/rgt.py",
     "layers/conv/compat_convs.py",
     "layers/conv/rgt_layers.py", "layers/conv/rgt_vq.py",
     "layers/conv/wave7_convs.py",
-    "loader/__init__.py",
-    "loader/dataloader.py", "loader/epoch_cache.py",
-    "loader/feature_cache.py", "loader/graph_saint.py",
-    "loader/hetero_sampler.py", "loader/link_loader.py",
-    "loader/multihost.py", "loader/neighbor_sampler.py",
-    "loader/node_loader.py", "loader/prefetch.py", "loader/random_walk.py",
+    "loader/multihost.py",
     "loader/rgt_loader.py", "models/autoencoder.py", "models/compat.py",
     "models/defog.py", "models/embedding.py", "models/gan_distill.py",
     "models/graph_llm.py", "models/graphormer.py",
@@ -199,15 +201,13 @@ MISSING_MODULES = [
     "models/wave6_models.py", "models/wave7_models.py",
     "models/wave8_models.py", "parallel/halo_attention.py",
     "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
-    "parallel/strategies.py", "sampler/__init__.py",
-    "sampler/neighbor_sampler.py", "transforms/__init__.py",
+    "parallel/strategies.py", "transforms/__init__.py",
     "transforms/transforms.py", "transforms/vgae_pre.py", "typing.py",
     "utils/compat_utils.py", "utils/conversation.py", "utils/gfm_utils.py",
     "utils/manifold_math.py", "utils/misc.py",
     "utils/negative_sampling.py", "utils/paths_io.py",
     "utils/profiling.py", "utils/pruning.py", "utils/shortest_path.py",
-    "utils/smiles.py", "utils/subgraph.py",
-    "utils/unifews_log.py",
+    "utils/smiles.py", "utils/unifews_log.py",
 ]
 
 
