@@ -303,7 +303,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    misses as counted on the host, every gathered row bitwise x[n_id]) and
    `PrefetchLoader` batches bitwise the same batches moved at once. No
    kernel launches (the sampled blocks take no plan, as in JAX).
-35. Print the card's name and power limit, one JSON line on the kernels
+35. The rest of the datasets and the self-supervised family, COO as in
+   JAX (no kernel launches; ``GGL_TPU_OFFLINE=1``, files in a temporary
+   directory): (a) WikiCS (11,701 nodes, 300 features, 216,123 edges, 10
+   classes) and Flickr (89,250 nodes, 500 features, 899,756 edges, 7
+   classes) written from the seed in their raw layouts, read by their
+   classes at those shapes and moved to the card; the other twelve
+   classes at fixture size (ModelNet40 only where h5py is installed);
+   (b) DGI and GGD at 512 on the arxiv shape, DGI on Flickr's; (c) at
+   the trainers' widths on a graph of Cora's statistics (2,708 nodes,
+   10,556 edges, 81% inside a class, 1,433 features, 7 classes): MVGRL
+   128, GRACE 128, VGAE 32 / 16, Specformer 32 (two filters, a full
+   `eigh` on the host), MGNNI 32 (scales 1, 2; 8 iterations); (d)
+   InfoGraph 32 x 2 on phase 31's TU batch. Each model: the loss of one
+   set of CPU-made draws on the card against the CPU (rtol 1e-4), 5 Adam
+   steps with card draws (3 on Flickr) after which that loss must have
+   fallen, eval requests held against the CPU at 1e-4 of max |out|; DGI
+   and GGD at 512 traced (the COO gather's backward's share printed);
+   then each twin's loop end to end on the card (5 epochs, its probe or
+   score) from the Cora-shape arrays.
+36. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -311,8 +330,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    under segment_max_bwd's, the flash forward's fold under
    flash_forward's; the typed-graph shapes of phase 26 under
    `by_shape`) and the paths (the wave-2 zoo under "wave2", phase 34
-   under "sampled"), and as the last line {"ok": true,
-   "device": {...}}.
+   under "sampled", phase 35 under "ssl"), and as the last line
+   {"ok": true, "device": {...}}.
 
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
@@ -577,9 +596,11 @@ def profile(label, fn, n=3):
     busy = sum(by_name.values()) / n
     print(f"  profile {label}: device busy {busy:.1f} us a call, span "
           f"{span_us:.1f} us, idle {1 - busy / span_us:.3f}")
-    for name, dur in sorted(by_name.items(), key=lambda kv: -kv[1])[:30]:
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:30]
+    for name, dur in top:
         print(f"    {dur / n:9.1f} us {dur / n / busy:6.3f}  {name[:150]}")
-    return {"busy_us": busy, "span_us": span_us}
+    return {"busy_us": busy, "span_us": span_us,
+            "by_kernel_us": {name[:150]: dur / n for name, dur in top[:10]}}
 
 
 def arxiv_edges(rng, n_nodes=N_NODES, n_edges=N_EDGES):
@@ -4887,6 +4908,673 @@ def phase_sampled(k, smi):
             "training": training, "loaders": loaders}
 
 
+# phase 35: the rest of the datasets and the self-supervised family
+# DGI's published width (Velickovic et al. 2019; DGIModel's and GGDModel's
+# default) on the arxiv shape and on Flickr's; the other models at their
+# trainers' defaults on a graph of Cora's published statistics (the
+# adjacency itself is not in the repository, so it is drawn from the seed)
+SSL_WIDE, SSL_STEPS, SSL_FLICKR_STEPS, SSL_REQUESTS = 512, 5, 3, 3
+# Adam's rate for the steps of the models that score nodes against a
+# summary or a sum (DGI, GGD, MVGRL): at their trainers' 1e-3, Adam's first
+# step moves each entry of the discriminator (512 x 512 for DGI) and of
+# the encoder by the rate, every score jumps, and the loss oscillates
+# about ln 4 for ~20 steps before it falls (measured on the CPU: DGI and
+# GGD at 20,000 nodes of the arxiv generator, MVGRL at Cora's shape); at
+# 1e-5 it falls from the first step. The twins run at their own rates.
+SSL_DISC_LR = 1e-5
+CORA_NODES, CORA_EDGES, CORA_FEAT, CORA_CLASSES = 2708, 10556, 1433, 7
+CORA_HOMOPHILY = 0.81
+WIKICS_NODES, WIKICS_FEAT, WIKICS_EDGES, WIKICS_CLASSES = (11_701, 300,
+                                                           216_123, 10)
+FLICKR_NODES, FLICKR_FEAT, FLICKR_EDGES, FLICKR_CLASSES = (89_250, 500,
+                                                           899_756, 7)
+# card against the port's own code on the CPU, float32: outputs within
+# SSL_OUT_TOL of max |out|, losses within SSL_LOSS_RTOL
+SSL_OUT_TOL, SSL_LOSS_RTOL = 1e-4, 1e-4
+
+
+def _pairs(rng, n, m):
+    """``m`` distinct node pairs i < j, drawn from the seed."""
+    out = np.empty((0, 2), np.int64)
+    while len(out) < m:
+        ab = np.sort(rng.integers(0, n, (2 * (m - len(out)) + 64, 2)), 1)
+        ab = ab[ab[:, 0] != ab[:, 1]]
+        out = np.unique(np.concatenate([out, ab]), axis=0)
+    return out[rng.permutation(len(out))[:m]]
+
+
+def write_wikics(raw_dir, rng):
+    """WikiCS's ``data.json`` at its published statistics: 11,701 nodes,
+    300 features, 10 classes, 20 train / val / stopping mask columns; the
+    links one self-loop and 108,061 pairs, so the undirected graph holds
+    216,123 edges."""
+    n = WIKICS_NODES
+    pairs = _pairs(rng, n, (WIKICS_EDGES - 1) // 2)
+    links = [[] for _ in range(n)]
+    for a, b in pairs.tolist():
+        links[a].append(b)
+    links[0].append(0)
+    os.makedirs(raw_dir, exist_ok=True)
+    data = {"features": np.round(rng.random((n, WIKICS_FEAT)), 4).tolist(),
+            "labels": rng.integers(0, WIKICS_CLASSES, n).tolist(),
+            "links": links,
+            "train_masks": (rng.random((20, n)) < 0.05).tolist(),
+            "val_masks": (rng.random((20, n)) < 0.15).tolist(),
+            "stopping_masks": (rng.random((20, n)) < 0.15).tolist(),
+            "test_mask": (rng.random(n) < 0.5).tolist()}
+    with open(os.path.join(raw_dir, "data.json"), "w") as f:
+        json.dump(data, f)
+
+
+def write_flickr(raw_dir, rng):
+    """Flickr's GraphSAINT files at its published statistics: 89,250
+    nodes, 500 features (~180 MB), a symmetric ``adj_full.npz`` of 899,756
+    entries, 7 classes, the 50 / 25 / 25 split."""
+    import scipy.sparse as sp
+    n = FLICKR_NODES
+    ab = _pairs(rng, n, FLICKR_EDGES // 2)
+    adj = sp.coo_matrix((np.ones(2 * len(ab), np.float32),
+                         (np.concatenate([ab[:, 0], ab[:, 1]]),
+                          np.concatenate([ab[:, 1], ab[:, 0]]))),
+                        shape=(n, n)).tocsr()
+    os.makedirs(raw_dir, exist_ok=True)
+    np.savez(os.path.join(raw_dir, "adj_full.npz"), data=adj.data,
+             indices=adj.indices, indptr=adj.indptr,
+             shape=np.asarray(adj.shape))
+    np.save(os.path.join(raw_dir, "feats.npy"),
+            rng.normal(size=(n, FLICKR_FEAT)).astype(np.float32))
+    with open(os.path.join(raw_dir, "class_map.json"), "w") as f:
+        json.dump({str(i): int(c) for i, c in enumerate(
+            rng.integers(0, FLICKR_CLASSES, n))}, f)
+    perm = rng.permutation(n)
+    tr, va = n // 2, n // 2 + n // 4
+    with open(os.path.join(raw_dir, "role.json"), "w") as f:
+        json.dump({"tr": perm[:tr].tolist(), "va": perm[tr:va].tolist(),
+                   "te": perm[va:].tolist()}, f)
+
+
+def write_small_datasets(root, rng):
+    """The other twelve classes' raw layouts at fixture size, each under
+    ``root/<class>``. Returns {class: (constructor keywords, its root)}."""
+    import pickle
+    import scipy.sparse as sp
+    from scipy import io as sio
+
+    def raw(name, *sub):
+        path = os.path.join(root, name, *sub)
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    out = {}
+    for cls, name, sparse in (("WebKB", "cornell", False),
+                              ("WikipediaNetwork", "chameleon", False),
+                              ("Actor", "film", True)):
+        d = raw(cls, name, "raw")
+        n = 20
+        lines = ["node_id\tfeature\tlabel"]
+        for i in range(n):
+            feats = (",".join(str(v) for v in sorted(set(
+                rng.integers(0, 932, 4).tolist()))) if sparse else
+                ",".join(f"{v:.3f}" for v in rng.random(6)))
+            lines.append(f"{i}\t{feats}\t{rng.integers(0, 3)}")
+        with open(os.path.join(d, "out1_node_feature_label.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        with open(os.path.join(d, "out1_graph_edges.txt"), "w") as f:
+            f.write("\n".join(["src\tdst"] + [f"{a}\t{b}" for a, b in
+                                              rng.integers(0, n, (40, 2))])
+                    + "\n")
+        for i in range(10):
+            m = rng.integers(0, 3, n)
+            np.savez(os.path.join(d, f"{name}_split_0.6_0.2_{i}.npz"),
+                     train_mask=(m == 0).astype(np.uint8),
+                     val_mask=(m == 1).astype(np.uint8),
+                     test_mask=(m == 2).astype(np.uint8))
+        out[cls] = ({} if cls == "Actor" else {"name": name},
+                    os.path.join(root, cls))
+    d = raw("PPI", "raw")
+    for split in ("train", "valid", "test"):
+        links = [{"source": int(a) + 6 * g, "target": int(b) + 6 * g}
+                 for g in range(2) for a, b in rng.integers(0, 6, (10, 2))]
+        with open(os.path.join(d, f"{split}_graph.json"), "w") as f:
+            json.dump({"links": links}, f)
+        np.save(os.path.join(d, f"{split}_feats.npy"),
+                rng.random((12, 50)).astype(np.float32))
+        np.save(os.path.join(d, f"{split}_labels.npy"),
+                rng.integers(0, 2, (12, 121)).astype(np.float32))
+        np.save(os.path.join(d, f"{split}_graph_id.npy"),
+                np.repeat([1, 2], 6))
+    out["PPI"] = ({"split": "train"}, os.path.join(root, "PPI"))
+    d = raw("Yelp", "raw")
+    n = 30
+    adj = sp.csr_matrix((rng.random((n, n)) < 0.2).astype(np.float32))
+    np.savez(os.path.join(d, "adj_full.npz"), data=adj.data,
+             indices=adj.indices, indptr=adj.indptr,
+             shape=np.asarray(adj.shape))
+    np.save(os.path.join(d, "feats.npy"), rng.random((n, 300)))
+    with open(os.path.join(d, "class_map.json"), "w") as f:
+        json.dump({str(i): rng.integers(0, 2, 100).tolist()
+                   for i in range(n)}, f)
+    ids = rng.permutation(n)
+    with open(os.path.join(d, "role.json"), "w") as f:
+        json.dump({"tr": ids[:20].tolist(), "va": ids[20:25].tolist(),
+                   "te": ids[25:].tolist()}, f)
+    out["Yelp"] = ({}, os.path.join(root, "Yelp"))
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    if h5py is not None:
+        d = raw("ModelNet40", "raw")
+        for split, k in (("train", 4), ("test", 2)):
+            with h5py.File(os.path.join(d, f"ply_data_{split}0.h5"),
+                           "w") as f:
+                f["data"] = rng.random((k, 2048, 3)).astype(np.float32)
+                f["label"] = rng.integers(0, 40, (k, 1))
+        out["ModelNet40"] = ({"split": "train"},
+                             os.path.join(root, "ModelNet40"))
+    d = raw("ShapeNet", "raw")
+    from gammagl_tpu_torch.datasets import ShapeNet
+    for cid in ShapeNet.category_ids.values():
+        os.makedirs(os.path.join(d, cid), exist_ok=True)
+    os.makedirs(os.path.join(d, "train_test_split"), exist_ok=True)
+    cat = ShapeNet.category_ids["Airplane"]
+    for split, count in (("train", 2), ("val", 1), ("test", 1)):
+        names = []
+        for i in range(count):
+            np.savetxt(os.path.join(d, cat, f"{split}{i}.txt"),
+                       np.hstack([rng.normal(size=(64, 6)),
+                                  rng.integers(0, 4, (64, 1))]))
+            names.append(f"shape_data/{cat}/{split}{i}")
+        with open(os.path.join(d, "train_test_split",
+                               f"shuffled_{split}_file_list.json"),
+                  "w") as f:
+            json.dump(names, f)
+    out["ShapeNet"] = ({"categories": "Airplane", "split": "trainval"},
+                       os.path.join(root, "ShapeNet"))
+    proc = raw("NGSIM_US_101", "ngsim", "processed", "train")
+    open(os.path.join(raw("NGSIM_US_101", "ngsim", "raw", "train"),
+                      "train.zip"), "wb").close()
+    for i in range(3):
+        with open(os.path.join(proc, f"sample_{i}.pkl"), "wb") as f:
+            pickle.dump({"x": rng.normal(size=(5, 10, 2)).astype(np.float32),
+                         "edge_attr": rng.normal(size=(2, 7)).astype(
+                             np.float32),
+                         "edge_type": rng.integers(0, 3, (2, 7))}, f)
+    out["NGSIM_US_101"] = ({"name": "train"},
+                           os.path.join(root, "NGSIM_US_101"))
+    d = raw("ACM4DHN", "raw")
+    with open(os.path.join(d, "MA.txt"), "w") as f:
+        f.write("\n".join(f"M{rng.integers(0, 20)} A{rng.integers(0, 30)}"
+                          for _ in range(50)))
+    out["ACM4DHN"] = ({}, os.path.join(root, "ACM4DHN"))
+    d = raw("ACM4Rohe", "raw")
+    n_p = 40
+    sio.savemat(os.path.join(d, "ACM.mat"), {
+        "PvsL": sp.random(n_p, 8, 0.2, random_state=1, format="csr"),
+        "PvsA": sp.random(n_p, 15, 0.2, random_state=2, format="csr"),
+        "PvsT": sp.random(n_p, 12, 0.3, random_state=3, format="csr"),
+        "PvsC": sp.csr_matrix((np.ones(n_p), (np.arange(n_p), rng.choice(
+            [0, 1, 9, 10, 13], n_p))), shape=(n_p, 14))})
+    out["ACM4Rohe"] = ({}, os.path.join(root, "ACM4Rohe"))
+    d = raw("ADDataset", "inj_cora", "raw")
+    np.savez(os.path.join(d, "inj_cora.npz"),
+             edge_index=rng.integers(0, 20, (2, 60)),
+             x=rng.normal(size=(20, 8)).astype(np.float32),
+             y=rng.integers(0, 2, 20))
+    out["ADDataset"] = ({"name": "inj_cora"}, os.path.join(root,
+                                                           "ADDataset"))
+    d = raw("AliRCD", "raw")
+    emb = ":".join(f"{v:.4f}" for v in rng.random(256))
+    with open(os.path.join(d, "AliRCD_session1_nodes.csv"), "w") as f:
+        f.write("\n".join([f"{i},item,{emb}" for i in range(6)]
+                          + [f"{i},user," for i in range(6, 10)]))
+    with open(os.path.join(d, "AliRCD_session1_edges.csv"), "w") as f:
+        f.write("\n".join(f"{i + 6},{i},user,item,clicks" for i in range(4)))
+    with open(os.path.join(d, "AliRCD_session1_train_labels.csv"), "w") as f:
+        f.write("0,1\n1,0\n2,1\n")
+    out["AliRCD"] = ({}, os.path.join(root, "AliRCD"))
+    return out
+
+
+def ssl_datasets(dev, tmp, rng):
+    """(a): WikiCS and Flickr from raw files at their published shapes,
+    read by their classes and moved to the card; the other twelve classes
+    at fixture size. Returns (Flickr's arrays on the card, figures)."""
+    from gammagl_tpu_torch import datasets as D
+    figures = {}
+    loaded = {}
+    for cls, write, want in (
+            ("WikiCS", write_wikics, (WIKICS_NODES, WIKICS_FEAT,
+                                      WIKICS_EDGES, WIKICS_CLASSES)),
+            ("Flickr", write_flickr, (FLICKR_NODES, FLICKR_FEAT,
+                                      FLICKR_EDGES, FLICKR_CLASSES))):
+        root = os.path.join(tmp, cls)
+        t0 = time.perf_counter()
+        write(os.path.join(root, "raw"), rng)
+        t1 = time.perf_counter()
+        g = getattr(D, cls)(root=root)[0]
+        t2 = time.perf_counter()
+        y = np.asarray(g.y)
+        got = (g.num_nodes, np.asarray(g.x).shape[1], g.num_edges,
+               int(y.max()) + 1)
+        if got != want:
+            fail(f"{cls} loaded as (nodes, features, edges, classes) "
+                 f"{got}, want {want}")
+        on_card = {k: torch.from_numpy(np.asarray(g[k])).to(dev)
+                   for k in ("x", "edge_index", "y", "train_mask",
+                             "val_mask", "test_mask")}
+        sync()
+        t3 = time.perf_counter()
+        loaded[cls] = on_card
+        figures[cls] = {"write_s": t1 - t0, "load_s": t2 - t1,
+                        "to_card_s": t3 - t2, "shape": list(got)}
+        print(f"  {cls}: {got[0]} nodes, {got[1]} features, {got[2]} "
+              f"edges, {got[3]} classes; written {t1 - t0:.2f} s, read "
+              f"{t2 - t1:.2f} s, to the card {t3 - t2:.2f} s")
+    small = write_small_datasets(os.path.join(tmp, "small"), rng)
+    t0 = time.perf_counter()
+    for cls, (kw, root) in small.items():
+        ds = getattr(D, cls)(root=root, **kw)
+        if len(ds) == 0:
+            fail(f"{cls} loaded no item")
+        x = getattr(ds[0], "_store", {}).get("x")
+        if x is not None:
+            torch.as_tensor(np.asarray(x)).to(dev)
+    missing = sorted({"WebKB", "WikipediaNetwork", "Actor", "PPI", "Yelp",
+                      "ModelNet40", "ShapeNet", "NGSIM_US_101", "ACM4DHN",
+                      "ACM4Rohe", "ADDataset", "AliRCD"} - set(small))
+    print(f"  {len(small)} more classes at fixture size read in "
+          f"{time.perf_counter() - t0:.2f} s"
+          + (f"; not read: {missing} (h5py is not installed here)"
+             if missing else ""))
+    figures["small"] = {"read": sorted(small), "not_read": missing}
+    return loaded["Flickr"], figures
+
+
+def ssl_check(label, make, request, loss, draw, cpu_draws, trace=None):
+    """One model: its loss at init from CPU-made draws on the card
+    against the CPU (SSL_LOSS_RTOL), SSL_STEPS Adam steps on the card
+    with fresh card draws, the loss of the init's draws again (it must
+    have fallen: the steps' own losses move with their draws), then
+    SSL_REQUESTS eval requests, the last held against the CPU at
+    SSL_OUT_TOL of max |out|.
+    ``make()`` gives (model, lr) on the CPU; ``request(model, dev)`` and
+    ``loss(model, dev, draws)`` run it on ``dev``'s inputs; ``draw(gen)``
+    makes a step's draws with ``gen``; ``cpu_draws`` the init's. With
+    ``trace`` (a name), 3 more steps are traced with torch.profiler and
+    the share of the COO gather's backward (`indexing_backward_kernel`)
+    in the step's device time is printed."""
+    from gammagl_tpu_torch.train import TrainState
+    dev = torch.device("cuda")
+    model, lr = make()
+    cpu = copy.deepcopy(model).eval()
+    model = model.to(dev).eval()  # dropout off for the comparison
+    with torch.no_grad():
+        got = float(loss(model, dev, cpu_draws))
+        want = float(loss(cpu, "cpu", cpu_draws))
+    if not abs(got - want) <= SSL_LOSS_RTOL * abs(want):
+        fail(f"{label}: init loss on the card {got!r} vs the CPU {want!r}")
+    state = TrainState(model, lr)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+    losses, step_ms = [], []
+    for _ in range(SSL_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        model.train()
+        value = loss(model, dev, draw(gen))
+        value.backward()
+        state.apply_gradients()
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(value.detach()))
+    prof = None
+    if trace is not None:
+        def step():
+            model.train()
+            loss(model, dev, draw(gen)).backward()
+            state.apply_gradients()
+        prof = profile(trace, step)
+        prof["indexing_backward_share"] = sum(
+            us for name, us in prof["by_kernel_us"].items()
+            if "indexing_backward_kernel" in name) / prof["busy_us"]
+        print(f"  {label}: indexing_backward_kernel "
+              f"{prof['indexing_backward_share']:.3f} of the step's device "
+              "time")
+    model.eval()
+    with torch.no_grad():
+        final = float(loss(model, dev, cpu_draws))
+    lat = []
+    for _ in range(SSL_REQUESTS):
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = request(model, dev)
+        sync()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    with torch.no_grad():
+        ref = request(cpu, "cpu")
+    err = check_close(f"{label} request vs the CPU", out.cpu(), ref, 0.0,
+                      atol=SSL_OUT_TOL)
+    print(f"  {label}: loss of the init's draws {got:.6f} (CPU "
+          f"{want:.6f}) -> {final:.6f} after the steps; steps "
+          f"{[round(t, 2) for t in step_ms]} ms, losses "
+          f"{[round(v, 5) for v in losses]}; request p50 "
+          f"{np.median(lat):.2f} ms")
+    if not (np.isfinite(losses).all() and final < got):
+        fail(f"{label}: loss did not fall: {got} -> {final} ({losses})")
+    return {"init_loss": got, "init_loss_cpu": want, "final_loss": final,
+            "losses": losses, "step_ms": step_ms, "request_ms": lat,
+            "max_abs_err": err, "profile": prof, "model": model}
+
+
+def corruption_check(label, cls, x, ei, lr, hidden, views=(), trace=None):
+    """DGI / GGD / MVGRL at ``hidden`` on (x, ei) (CPU tensors; the card
+    copies made once) through `ssl_check`."""
+    from gammagl_tpu_torch.models import corrupt_features
+    n = x.shape[0]
+    on = {"cpu": (x, ei, *views)}
+    on["cuda"] = tuple(v.to("cuda") for v in on["cpu"])
+
+    def inputs(dev):
+        return on["cuda" if str(dev).startswith("cuda") else "cpu"]
+
+    def make():
+        torch.manual_seed(SEED + 35)
+        return cls(hidden_dim=hidden, in_channels=x.shape[1]), lr
+
+    def loss(m, dev, perm):
+        xx, e, *v = inputs(dev)
+        return m(xx, e, *v, corrupt_features(xx, perm=perm))
+
+    return ssl_check(label, make, lambda m, dev: m(*inputs(dev)), loss,
+                     lambda gen: torch.randperm(n, generator=gen,
+                                                device=gen.device),
+                     torch.randperm(n, generator=torch.Generator()
+                                    .manual_seed(SEED + 35)), trace)
+
+
+def cora_shape(rng):
+    """A graph of Cora's published statistics from the seed: 2,708 nodes,
+    5,278 undirected pairs (10,556 directed edges), 81% of them inside a
+    class (Cora's edge homophily), 1,433 binary features (1.27% set, as in
+    Cora) with a class signal, 7 classes; Planetoid's split (20 a class,
+    500 validation, 1,000 test). numpy arrays."""
+    n = CORA_NODES
+    y = rng.integers(0, CORA_CLASSES, n)
+    members = [np.nonzero(y == c)[0] for c in range(CORA_CLASSES)]
+    m = CORA_EDGES // 2
+    pairs = set()
+    while len(pairs) < m:
+        a = int(rng.integers(0, n))
+        b = (int(rng.choice(members[y[a]])) if rng.random() < CORA_HOMOPHILY
+             else int(rng.integers(0, n)))
+        if a != b:
+            pairs.add((min(a, b), max(a, b)))
+    ab = np.asarray(sorted(pairs), np.int64).T
+    ei = np.concatenate([ab, ab[::-1]], 1)
+    x = (rng.random((n, CORA_FEAT)) < 0.0127).astype(np.float32)
+    x[np.arange(n), 200 * y + rng.integers(0, 200, n)] = 1.0
+    perm = rng.permutation(n)
+    masks = {k: np.zeros(n, bool) for k in ("train_mask", "val_mask",
+                                            "test_mask")}
+    for c in range(CORA_CLASSES):
+        masks["train_mask"][perm[y[perm] == c][:20]] = True
+    rest = perm[~masks["train_mask"][perm]]
+    masks["val_mask"][rest[:500]] = True
+    masks["test_mask"][rest[500:1500]] = True
+    return {"x": x, "edge_index": ei, "y": y, **masks}
+
+
+def phase_ssl(k, smi, x, ei):
+    """Phase 35: the rest of the datasets from files, and the
+    self-supervised family (DGI, GGD, GRACE, MVGRL, VGAE, Specformer,
+    MGNNI, InfoGraph) on the card, each against the CPU; COO, as in JAX:
+    no kernel launches."""
+    import shutil
+    import tempfile
+    from gammagl_tpu_torch import models as M
+    from gammagl_tpu_torch.data import BatchGraph
+    from gammagl_tpu_torch.examples import (common, dgi_trainer,
+                                            ggd_trainer, grace_trainer,
+                                            mgnni_trainer, mvgrl_trainer,
+                                            specformer_trainer, vgae_trainer)
+    from gammagl_tpu_torch.train import TrainState, semi_supervised_loss
+    from gammagl_tpu_torch.utils import add_self_loops
+    phase_start("phase 35: the rest of the datasets (WikiCS, Flickr at "
+                "their shapes; twelve more) and the self-supervised family")
+    os.environ["GGL_TPU_OFFLINE"] = "1"
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 35)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ssl_")
+    out = {}
+    sync()
+    reset_counts(k)
+    t_phase = time.perf_counter()
+    try:
+        flickr, out["datasets"] = ssl_datasets(dev, tmp, rng)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (b) DGI and GGD at 512 on the arxiv shape, DGI on Flickr
+    cx, cei = x.cpu(), ei.cpu()
+    for name, cls in (("dgi_arxiv", M.DGIModel), ("ggd_arxiv", M.GGDModel)):
+        out[name] = corruption_check(
+            f"{cls.__name__[:3]} {SSL_WIDE}, arxiv shape", cls, cx, cei,
+            SSL_DISC_LR, SSL_WIDE, trace=name)
+        out[name].pop("model")
+        torch.cuda.empty_cache()
+    fx, fei = flickr["x"], add_self_loops(flickr["edge_index"],
+                                          num_nodes=FLICKR_NODES)[0]
+    torch.manual_seed(SEED + 36)
+    model = M.DGIModel(SSL_WIDE, in_channels=FLICKR_FEAT).to(dev)
+    state = TrainState(model, SSL_DISC_LR)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 36)
+    fixed = torch.randperm(FLICKR_NODES, generator=gen, device=dev)
+
+    def fixed_loss():
+        model.eval()
+        with torch.no_grad():
+            return float(model(fx, fei, M.corrupt_features(fx, perm=fixed)))
+
+    before, flosses, fms = fixed_loss(), [], []
+    for _ in range(SSL_FLICKR_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        model.train()
+        value = model(fx, fei, M.corrupt_features(fx, gen))
+        value.backward()
+        state.apply_gradients()
+        sync()
+        fms.append((time.perf_counter() - t0) * 1e3)
+        flosses.append(float(value.detach()))
+    after = fixed_loss()
+    print(f"  DGI 512 on Flickr: loss of one fixed draw {before:.6f} -> "
+          f"{after:.6f}; steps {[round(t, 2) for t in fms]} ms, losses "
+          f"{[round(v, 5) for v in flosses]}")
+    if not (np.isfinite(flosses).all() and after < before):
+        fail(f"DGI on Flickr: loss did not fall: {before} -> {after}")
+    out["dgi_flickr"] = {"step_ms": fms, "losses": flosses,
+                         "fixed_draw_loss": [before, after]}
+    del model, state, flickr, fx, fei
+    torch.cuda.empty_cache()
+
+    # (c) the trainers' defaults on a graph of Cora's statistics
+    cora = cora_shape(rng)
+    d = {key: v.cpu() for key, v in common.device_graph(cora, "cpu")
+         .items()}
+    cx, cei = d["x"], d["edge_index"]
+    n, e = cx.shape[0], cei.shape[1]
+    out["mvgrl"] = corruption_check(
+        "MVGRL 128, Cora shape", M.MVGRLModel, cx, cei, SSL_DISC_LR,
+        mvgrl_trainer.parser().get_default("hidden_dim"),
+        mvgrl_trainer.diffusion_view(d))
+    out["mvgrl"].pop("model")
+    gp = grace_trainer.parser()
+    rates = [gp.get_default(f"drop_{a}_rate_{i}") for i in (1, 2)
+             for a in ("edge", "feature")]
+    cuda_cora = {"cpu": (cx, cei), "cuda": (cx.to(dev), cei.to(dev))}
+
+    def on(dev_):
+        return cuda_cora["cuda" if str(dev_).startswith("cuda") else "cpu"]
+
+    def grace_draw(gen):
+        return [((torch.rand((1, CORA_FEAT), generator=gen,
+                             device=gen.device) < 1 - rates[2 * v]),
+                 torch.rand(e, generator=gen, device=gen.device)
+                 < 1 - rates[2 * v + 1]) for v in range(2)]
+
+    def grace_loss(m, dev_, draws):
+        xx, ee = on(dev_)
+        (fa, ea), (fb, eb) = draws
+        xa, wa = M.drop_edge_and_feature(xx, ee, rates[0], rates[1],
+                                         feat_mask=fa, edge_mask=ea)
+        xb, wb = M.drop_edge_and_feature(xx, ee, rates[2], rates[3],
+                                         feat_mask=fb, edge_mask=eb)
+        return m(xa, ee, wa, xb, ee, wb)
+
+    hid = gp.get_default("hidden_dim")
+
+    def make_grace():
+        torch.manual_seed(SEED + 35)
+        return (M.GraceModel(hid, hid, in_channels=CORA_FEAT),
+                gp.get_default("lr"))
+
+    out["grace"] = ssl_check(
+        "GRACE 128, Cora shape", make_grace,
+        lambda m, dev_: m(*on(dev_), None), grace_loss, grace_draw,
+        grace_draw(torch.Generator().manual_seed(SEED + 35)))
+    out["grace"].pop("model")
+
+    train_g, _, _, neg = vgae_trainer.link_split(cora, SEED)
+    tei = torch.from_numpy(np.asarray(train_g.edge_index))
+    vg = {"cpu": (cx, tei, torch.from_numpy(neg))}
+    vg["cuda"] = tuple(v.to(dev) for v in vg["cpu"])
+    vp = vgae_trainer.parser()
+
+    def vgae_inputs(dev_):
+        return vg["cuda" if str(dev_).startswith("cuda") else "cpu"]
+
+    def vgae_loss(m, dev_, noise):
+        xx, ee, nn_ = vgae_inputs(dev_)
+        mu, logstd, z = m(xx, ee, noise=noise)
+        return M.recon_loss(z, ee, nn_) + M.VGAEModel.kl_loss(mu, logstd) / n
+
+    def make_vgae():
+        torch.manual_seed(SEED + 35)
+        return (M.VGAEModel(vp.get_default("hidden_dim"), 16,
+                            in_channels=CORA_FEAT), vp.get_default("lr"))
+
+    out["vgae"] = ssl_check(
+        "VGAE 32/16, Cora shape", make_vgae,
+        lambda m, dev_: m(*vgae_inputs(dev_)[:2])[0], vgae_loss,
+        lambda gen: torch.randn(n, 16, generator=gen, device=gen.device),
+        torch.randn(n, 16, generator=torch.Generator().manual_seed(SEED)))
+    out["vgae"].pop("model")
+
+    t0 = time.perf_counter()
+    lam, u = M.laplacian_eigh(cei.numpy(), n)
+    eigh_s = time.perf_counter() - t0
+    sp_in = {"cpu": (cx, torch.from_numpy(lam), torch.from_numpy(u))}
+    sp_in["cuda"] = tuple(v.to(dev) for v in sp_in["cpu"])
+    yy = {"cpu": (d["y"], d["train_mask"])}
+    yy["cuda"] = tuple(v.to(dev) for v in yy["cpu"])
+    spp = specformer_trainer.parser()
+
+    def key_of(dev_):
+        return "cuda" if str(dev_).startswith("cuda") else "cpu"
+
+    def spec_loss(m, dev_, gen):
+        return semi_supervised_loss(m(*sp_in[key_of(dev_)], generator=gen),
+                                    *yy[key_of(dev_)])
+
+    def make_spec():
+        torch.manual_seed(SEED + 35)
+        return (M.SpecformerModel(CORA_CLASSES, spp.get_default("hidden_dim"),
+                                  num_filters=2,
+                                  drop_rate=spp.get_default("drop_rate"),
+                                  in_channels=CORA_FEAT),
+                spp.get_default("lr"))
+
+    out["specformer"] = ssl_check(
+        "Specformer 32, Cora shape (full eigh)", make_spec,
+        lambda m, dev_: m(*sp_in[key_of(dev_)]), spec_loss,
+        lambda gen: gen, None)
+    out["specformer"].pop("model")
+    out["specformer"]["eigh_s"] = eigh_s
+    print(f"  Specformer's full eigh of the {n}-node Laplacian on the host: "
+          f"{eigh_s:.2f} s")
+    mp = mgnni_trainer.parser()
+
+    def make_mgnni():
+        torch.manual_seed(SEED + 35)
+        return (M.MGNNIModel(CORA_CLASSES, mp.get_default("hidden_dim"),
+                             scales=(1, 2), iters=8, in_channels=CORA_FEAT),
+                mp.get_default("lr"))
+
+    def mgnni_loss(m, dev_, _):
+        xx, ee = on(dev_)
+        return semi_supervised_loss(m(xx, ee), *yy[key_of(dev_)])
+
+    out["mgnni"] = ssl_check(
+        "MGNNI 32 (scales 1, 2; 8 iterations), Cora shape", make_mgnni,
+        lambda m, dev_: m(*on(dev_)), mgnni_loss, lambda gen: None, None)
+    out["mgnni"].pop("model")
+
+    # (d) InfoGraph on phase 31's TU batch
+    batch = BatchGraph.from_data_list(tu_graphs()[:TU_BATCH])
+    tb = {"cpu": (torch.from_numpy(np.asarray(batch.x, np.float32)),
+                  torch.from_numpy(np.asarray(batch.edge_index)),
+                  torch.from_numpy(np.asarray(batch.batch)))}
+    tb["cuda"] = tuple(v.to(dev) for v in tb["cpu"])
+
+    def make_info():
+        torch.manual_seed(SEED + 35)
+        return (M.InfoGraph(32, 2, in_channels=tb["cpu"][0].shape[1]),
+                1e-3)
+
+    out["infograph"] = ssl_check(
+        "InfoGraph 32 x 2, TU batch", make_info,
+        lambda m, dev_: m(*tb[key_of(dev_)], TU_BATCH)[1],
+        lambda m, dev_, _: m(*tb[key_of(dev_)], TU_BATCH)[0],
+        lambda gen: None, None)
+    out["infograph"].pop("model")
+
+    # the twins' loops end to end on the card (a few steps, then their
+    # probe or score) from the Cora-shape arrays
+    twins = {}
+    for name, module in (("dgi", dgi_trainer), ("ggd", ggd_trainer),
+                         ("grace", grace_trainer), ("mvgrl", mvgrl_trainer),
+                         ("vgae", vgae_trainer),
+                         ("specformer", specformer_trainer),
+                         ("mgnni", mgnni_trainer)):
+        args = module.parser().parse_args(["--n_epoch", str(SSL_STEPS)])
+        sync()
+        t0 = time.perf_counter()
+        res = module.main(args, data=cora)
+        sync()
+        seconds = time.perf_counter() - t0
+        score = res.get("probe_acc", res.get("auc", res.get("best_test")))
+        twins[name] = {"seconds": seconds, "losses": res["losses"],
+                       "score": score}
+        if not np.isfinite(res["losses"]).all():
+            fail(f"the {name} twin's losses: {res['losses']}")
+    print("  twins on the card, Cora shape, " + str(SSL_STEPS)
+          + " epochs then the probe / score: " + ", ".join(
+              f"{n_} {t['seconds']:.2f} s (score {t['score']:.3f})"
+              for n_, t in twins.items()))
+    out["twins"] = twins
+    sync()
+    counts = read_counts(k)
+    if any(counts.values()):
+        fail(f"phase 35 launched kernels: {counts}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  ({smi}) phase 35 in {out['seconds']:.1f} s; no kernel "
+          "launched")
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -5055,6 +5743,7 @@ def main():
                              dev)
     wave2 = phase_wave2(k, models, hg, x, ei, dev)
     sampled = phase_sampled(k, smi.splitlines()[0])
+    ssl_counts, ssl = phase_ssl(k, smi.splitlines()[0], x, ei)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -5081,6 +5770,7 @@ def main():
     runs.update({f"wave2_{name}": path["counts"]
                  for name, path in wave2.items()})
     runs["sampled"] = sampled["counts"]
+    runs["ssl"] = ssl_counts
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -5229,7 +5919,8 @@ def main():
                               if key != "counts"}
                        for name, path in data.items()},
         "sampled": {key: value for key, value in sampled.items()
-                    if key != "counts"}}))
+                    if key != "counts"},
+        "ssl": ssl}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,9 +5,13 @@ Ported so far: the synthetic graphs, Planetoid, the OGB node datasets,
 TUDataset, the npz datasets, the real-structure loader, the typed-graph
 datasets (IMDB, DBLP, HGB), the assorted ones (PolBlogs, BlogCatalog,
 CA-GrQc, Airports, Entities, ZINC) and wave 3 (ACM4HeCo, Bail, Credit,
-AMiner, MoleculeNet, MovieLens, CustomDataset) and Reddit. Each
-`InMemoryDataset` writes its processed cache under its own name
-(``data_torch.pkl``), so it never reads the JAX package's.
+AMiner, MoleculeNet, MovieLens, CustomDataset), Reddit, and the rest:
+PPI, WikiCS, the geom-gcn sets (WebKB, WikipediaNetwork, Actor), the
+GraphSAINT sets (Flickr, Yelp) and wave 4 (ModelNet40, ShapeNet,
+NGSIM_US_101, ACM4DHN, ACM4Rohe, ADDataset, AliRCD): every dataset class
+of the JAX package. Each `InMemoryDataset` writes its processed cache
+under its own name (``data_torch.pkl``), so it never reads the JAX
+package's.
 """
 
 from gammagl_tpu_torch.datasets.planetoid import Planetoid
@@ -30,6 +34,15 @@ from gammagl_tpu_torch.datasets.wave3_datasets import (ACM4HeCo, Bail,
                                                        MovieLens,
                                                        CustomDataset)
 from gammagl_tpu_torch.datasets.reddit import Reddit
+from gammagl_tpu_torch.datasets.ppi import PPI
+from gammagl_tpu_torch.datasets.wikics import WikiCS
+from gammagl_tpu_torch.datasets.geom_gcn import (WebKB, WikipediaNetwork,
+                                                 Actor)
+from gammagl_tpu_torch.datasets.saint_datasets import Flickr, Yelp
+from gammagl_tpu_torch.datasets.wave4_datasets import (ModelNet40, ShapeNet,
+                                                       NGSIM_US_101, ACM4DHN,
+                                                       ACM4Rohe, ADDataset,
+                                                       AliRCD)
 
 __all__ = [
     "Planetoid",
@@ -62,6 +75,20 @@ __all__ = [
     "MovieLens",
     "CustomDataset",
     "Reddit",
+    "PPI",
+    "WikiCS",
+    "WebKB",
+    "WikipediaNetwork",
+    "Actor",
+    "Flickr",
+    "Yelp",
+    "ModelNet40",
+    "ShapeNet",
+    "NGSIM_US_101",
+    "ACM4DHN",
+    "ACM4Rohe",
+    "ADDataset",
+    "AliRCD",
 ]
 
 # the reference's spelling (gammagl/datasets/__init__.py exports CA_GrQc)

@@ -52,7 +52,8 @@ __all__ = ["synthetic_community_graph", "load_node_dataset",
            "node_arrays", "node_data", "base_parser", "loss_and_grad",
            "train_step", "run_simple_node_trainer", "synthetic_hetero",
            "hetero_tensors", "predict", "staged_dataset", "load_imdb",
-           "run_hetero_trainer", "run_edge_type_trainer", "linear_probe"]
+           "run_hetero_trainer", "run_edge_type_trainer", "linear_probe",
+           "device_graph", "run_two_view_ssl", "run_corruption_ssl"]
 
 
 def node_arrays(graph):
@@ -560,3 +561,121 @@ def linear_probe(emb, d, num_classes, steps=300, lr=1e-2):
         opt.step()
     with torch.no_grad():
         return float(accuracy(emb @ w, d["y"], d["test_mask"]))
+
+
+def device_graph(data, device):
+    """The JAX examples' ``device_graph``: x, the edges with self-loops
+    appended, y and the three masks of ``data`` (a dict of numpy arrays,
+    `node_arrays`) as tensors on ``device``."""
+    n = data["x"].shape[0]
+    ei, _ = add_self_loops(np.asarray(data["edge_index"]), num_nodes=n)
+    out = {"x": torch.from_numpy(np.asarray(data["x"], np.float32)),
+           "edge_index": torch.from_numpy(ei),
+           "y": torch.from_numpy(np.asarray(data["y"]))}
+    for k in ("train_mask", "val_mask", "test_mask"):
+        out[k] = torch.from_numpy(np.asarray(data[k]).reshape(n))
+    return {k: v.to(device) for k, v in out.items()}
+
+
+def run_two_view_ssl(model, args, embed_fn, drop_rates=(0.2, 0.2, 0.3, 0.3),
+                     data=None, params=None, draws=None, log_every=20):
+    """The JAX examples' loop for two-view contrastive models whose
+    forward is (x1, ei, w1, x2, ei, w2) -> loss (`examples/common.py`
+    `run_two_view_ssl`): each step augments two views with
+    `drop_edge_and_feature`, takes an Adam step (``args.lr``), then a
+    `linear_probe` on ``embed_fn(model, x, edge_index)``.
+
+    The rates are ``drop_rates = (edge1, feat1, edge2, feat2)``, or the
+    ``args`` attributes ``drop_edge_rate_{1,2}`` / ``drop_feature_rate_
+    {1,2}`` where they exist. The call keeps JAX's argument order:
+    ``drop_edge_and_feature(x, ei, edge_rate, feature_rate)`` against the
+    signature ``(x, edge_index, feat_drop, edge_drop)``, so the edge rate
+    masks the features and the feature rate drops the edges (ROADMAP
+    C27). The masks are drawn from a generator on ``args.device`` seeded
+    ``args.seed + 1``, or taken from ``draws``: an iterator giving
+    ((feature mask, edge mask) of view a, the same of view b) each step.
+    ``data`` and ``params`` as in `run_simple_node_trainer`.
+
+    Returns {"losses", "probe_acc", "state"}.
+    """
+    from gammagl_tpu_torch.models import drop_edge_and_feature
+
+    de1 = getattr(args, "drop_edge_rate_1", drop_rates[0])
+    df1 = getattr(args, "drop_feature_rate_1", drop_rates[1])
+    de2 = getattr(args, "drop_edge_rate_2", drop_rates[2])
+    df2 = getattr(args, "drop_feature_rate_2", drop_rates[3])
+    dev = resolve_device(args.device)
+    data = node_data(args, data)
+    num_classes = int(np.asarray(data["y"]).max()) + 1
+    d = device_graph(data, dev)
+    x, ei = d["x"], d["edge_index"]
+    if params is not None:
+        load_jax_params(model, params)
+    state = TrainState(model.to(dev), args.lr)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    losses = []
+    for epoch in range(args.n_epoch):
+        (fa, ea), (fb, eb) = next(draws) if draws is not None else (
+            (None, None), (None, None))
+        xa, wa = drop_edge_and_feature(x, ei, de1, df1, gen, fa, ea)
+        xb, wb = drop_edge_and_feature(x, ei, de2, df2, gen, fb, eb)
+        model.train()
+        loss = model(xa, ei, wa, xb, ei, wb)
+        loss.backward()
+        state.apply_gradients()
+        losses.append(loss.detach())
+        if epoch % log_every == 0 or epoch == args.n_epoch - 1:
+            print(f"pretrain {epoch:4d} loss {float(losses[-1]):.4f}")
+    model.eval()
+    with torch.no_grad():
+        emb = embed_fn(model, x, ei)
+    acc = linear_probe(emb, d, num_classes)
+    print(f"probe test acc {acc:.4f} ({dev})")
+    return {"losses": [float(v) for v in losses], "probe_acc": acc,
+            "state": state}
+
+
+def run_corruption_ssl(model, args, views=lambda d: (), data=None,
+                       params=None, draws=None, n_steps=None, log_every=20):
+    """The loop the JAX DGI, GGD and MVGRL examples share: each step
+    corrupts x by a row permutation (`corrupt_features`), takes an Adam
+    step (``args.lr``) on ``model(x, ei, *views(d), x_corrupt)``, then a
+    `linear_probe` on the embeddings ``model(x, ei, *views(d))``.
+
+    ``views(d)`` gives the model's extra inputs from the device graph
+    (MVGRL's diffusion edges and weights). ``n_steps`` defaults to
+    ``args.n_epoch``. The permutations are drawn from a generator on
+    ``args.device`` seeded ``args.seed + 1``, or taken from ``draws``, an
+    iterator of permutations. ``data`` and ``params`` as in
+    `run_simple_node_trainer`. Returns {"losses", "probe_acc", "state"}.
+    """
+    from gammagl_tpu_torch.models import corrupt_features
+
+    dev = resolve_device(args.device)
+    data = node_data(args, data)
+    num_classes = int(np.asarray(data["y"]).max()) + 1
+    d = device_graph(data, dev)
+    x, ei = d["x"], d["edge_index"]
+    extra = views(d)
+    if params is not None:
+        load_jax_params(model, params)
+    state = TrainState(model.to(dev), args.lr)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    losses = []
+    n_steps = args.n_epoch if n_steps is None else n_steps
+    for step in range(n_steps):
+        xc = corrupt_features(x, gen, None if draws is None else next(draws))
+        model.train()
+        loss = model(x, ei, *extra, xc)
+        loss.backward()
+        state.apply_gradients()
+        losses.append(loss.detach())
+        if step % log_every == 0 or step == n_steps - 1:
+            print(f"pretrain {step:4d} loss {float(losses[-1]):.4f}")
+    model.eval()
+    with torch.no_grad():
+        emb = model(x, ei, *extra)
+    acc = linear_probe(emb, d, num_classes)
+    print(f"probe test acc {acc:.4f} ({dev})")
+    return {"losses": [float(v) for v in losses], "probe_acc": acc,
+            "state": state}

@@ -30,12 +30,14 @@ def glorot_uniform_(t):
         return t.uniform_(-lim, lim)
 
 
-def fan_in_normal_(weight, scale):
+def fan_in_normal_(weight, scale, fan_in=None):
     """flax's truncated-normal ``variance_scaling(scale, "fan_in")`` on an
     (out, in) weight: a unit normal cut at +-2, scaled to variance
-    scale / in. ``he_normal`` is scale 2, ``lecun_normal`` (the default
-    ``Dense`` kernel) scale 1."""
-    std = math.sqrt(scale / weight.shape[1]) / 0.87962566103423978
+    scale / in (``fan_in`` when given: a kernel of another layout).
+    ``he_normal`` is scale 2, ``lecun_normal`` (the default ``Dense``
+    kernel) scale 1."""
+    fan_in = weight.shape[1] if fan_in is None else fan_in
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, 1.0, -2.0, 2.0).mul_(std)
 

@@ -41,12 +41,35 @@ from gammagl_tpu_torch.models.wave2_models import (  # noqa: F401
     GaANModel,
     PNAModel,
 )
+from gammagl_tpu_torch.models.ssl import (  # noqa: F401
+    DGIModel,
+    GGDModel,
+    GraceModel,
+    InfoGraph,
+    MVGRLModel,
+    corrupt_features,
+    drop_edge_and_feature,
+    grace_loss,
+)
+from gammagl_tpu_torch.models.autoencoder import (  # noqa: F401
+    GAEModel,
+    VGAEModel,
+    inner_product_decoder,
+    recon_loss,
+)
+from gammagl_tpu_torch.models.spectral import (  # noqa: F401
+    MGNNIModel,
+    SpecformerModel,
+    laplacian_eigh,
+)
 
 # the reference's spellings (gammagl/models/__init__.py)
 HPN = HPNModel
 HeCo = HeCoModel
 Hid_net = HiDNetModel
 RoheHAN = RoheHANModel
+Specformer = SpecformerModel
+MGNNI_m_MLP = MGNNIModel  # the MLP-injection multiscale variant
 
 __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GraphSAGESampleModel", "RGCNModel", "HANModel", "HGTModel",
@@ -55,4 +78,9 @@ __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GPRGNNModel", "FAGCNModel", "HiDNetModel", "HPNModel",
            "ieHGCNModel", "RoheHANModel", "HeCoModel", "heco_contrast_loss",
            "HPN", "HeCo", "Hid_net", "RoheHAN", "PNAModel", "CompGCNModel",
-           "DGCNNModel", "GaANModel"]
+           "DGCNNModel", "GaANModel", "DGIModel", "GraceModel",
+           "MVGRLModel", "InfoGraph", "GGDModel", "grace_loss",
+           "corrupt_features", "drop_edge_and_feature", "GAEModel",
+           "VGAEModel", "inner_product_decoder", "recon_loss",
+           "SpecformerModel", "laplacian_eigh", "MGNNIModel", "Specformer",
+           "MGNNI_m_MLP"]

@@ -28,6 +28,11 @@ from gammagl_tpu_torch.utils.norm import (  # noqa: F401
     calc_gcn_norm,
     calc_gcn_norm_np,
 )
+from gammagl_tpu_torch.utils.negative_sampling import (  # noqa: F401
+    batched_negative_sampling,
+    negative_sampling,
+    structured_negative_sampling,
+)
 from gammagl_tpu_torch.utils.params import load_jax_params  # noqa: F401
 from gammagl_tpu_torch.utils.subgraph import (  # noqa: F401
     k_hop_subgraph,
@@ -48,4 +53,6 @@ __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "load_jax_params", "resolve_device", "to_device", "degree",
            "mask_to_index", "index_to_mask", "coalesce", "sort_edge_index",
            "to_undirected", "is_undirected", "to_dense_adj",
-           "to_dense_batch", "subgraph", "k_hop_subgraph"]
+           "to_dense_batch", "subgraph", "k_hop_subgraph",
+           "negative_sampling", "batched_negative_sampling",
+           "structured_negative_sampling"]

@@ -1940,3 +1940,151 @@ def test_micro_batcher_calls_a_card_session_from_its_worker(card):
     for o, w in zip(outs, want):
         assert o.shape == (3,)
         np.testing.assert_allclose(o, w, rtol=1e-5, atol=1e-6)
+
+
+def _ssl_case(name):
+    """A self-supervised / autoencoder / spectral model of the port at a
+    small size, its inputs (the draws made on the CPU from a seed) and a
+    loss of its output."""
+    from gammagl_tpu_torch import models as M
+    g = torch.Generator().manual_seed(35)
+    n, f, h = 50, 12, 16
+    x = torch.randn(n, f, generator=g)
+    ei = torch.stack([torch.randint(0, n, (200,), generator=g),
+                      torch.randint(0, n, (200,), generator=g)])
+    ei = torch.cat([ei, torch.arange(n).repeat(2, 1)], 1)
+    xc = M.corrupt_features(x, g)
+    fm, em = (torch.rand((1, f), generator=g) < 0.8,
+              torch.rand(ei.shape[1], generator=g) < 0.8)
+    em[-n:] = True  # every node keeps its self-loop (ROADMAP C28)
+    xa, wa = M.drop_edge_and_feature(x, ei, 0.2, 0.2, feat_mask=fm,
+                                     edge_mask=em)
+    torch.manual_seed(35)
+    if name == "dgi":
+        return M.DGIModel(h, f), (x, ei, xc), lambda o: o
+    if name == "ggd":
+        return M.GGDModel(h, f), (x, ei, xc), lambda o: o
+    if name == "mvgrl":
+        w = torch.rand(ei.shape[1], generator=g)
+        return M.MVGRLModel(h, f), (x, ei, ei, w, xc), lambda o: o
+    if name == "grace":
+        return (M.GraceModel(h, h, in_channels=f), (xa, ei, wa, x, ei, None),
+                lambda o: o)
+    if name == "infograph":
+        batch = torch.arange(n) * 5 // n
+        return (M.InfoGraph(h, 2, f), (x, ei, batch, 5),
+                lambda o: o[0] + o[1].square().mean())
+    if name == "gae":
+        return M.GAEModel(h, 8, f), (x, ei), lambda o: o.square().mean()
+    if name == "vgae":
+        noise = torch.randn(n, 8, generator=g)
+        return (M.VGAEModel(h, 8, f), (x, ei, None, None, None, noise),
+                lambda o: M.recon_loss(o[2], ei, ei.flip(0))
+                + M.VGAEModel.kl_loss(o[0], o[1]) / n)
+    if name == "specformer":
+        lam, u = (torch.from_numpy(a) for a in M.laplacian_eigh(ei.numpy(),
+                                                                 n))
+        return (M.SpecformerModel(3, h, num_filters=2, drop_rate=0.0,
+                                  in_channels=f), (x, lam, u),
+                lambda o: o.square().mean())
+    model = M.MGNNIModel(3, h, iters=8, in_channels=f)
+    with torch.no_grad():  # singular values apart (ROADMAP C29)
+        for w in model.ws:
+            w.mul_(torch.linspace(0.6, 1.4, h))
+    return model, (x, ei), lambda o: o.square().mean()
+
+
+def _to(v, dev):
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    return v
+
+
+@pytest.mark.parametrize("name", ["dgi", "ggd", "mvgrl", "grace",
+                                  "infograph", "gae", "vgae", "specformer",
+                                  "mgnni"])
+def test_ssl_model_on_card_matches_the_cpu(card, name):
+    """Each model of `models/ssl.py`, `autoencoder.py` and `spectral.py`
+    (COO on every device, as in JAX) on the card against the same module
+    on the CPU from the same weights and draws: output and loss at 1e-5
+    of max |out|, every parameter's gradient at 1e-4 of its max |grad|
+    (Specformer's attention key bias, whose gradient is 0 by the math,
+    at 1e-4 of the model's largest); no kernel launches. MGNNI's ``w_m``
+    have their singular values apart (ROADMAP C29)."""
+    model, inputs, loss_of = _ssl_case(name)
+    results = []
+    for dev in ("cpu", card):
+        m = copy.deepcopy(model).to(dev)
+        before = _launch_counts()
+        out = m(*(_to(v, dev) for v in inputs))
+        loss = loss_of(out)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert _launched(before) == {}
+        leaves = out if isinstance(out, tuple) else (out,)
+        results.append(([v.detach().cpu() for v in leaves], loss.detach(),
+                        {k: None if p.grad is None else p.grad.cpu()
+                         for k, p in m.named_parameters()}))
+    (want, wl, wg), (got, gl, gg) = results
+    for a, b in zip(got, want):
+        _close(a, b, 1e-5)
+    _close(gl.reshape(1), wl.reshape(1), 1e-5)
+    largest = max(float(b.abs().max()) for b in wg.values() if b is not None)
+    for k, b in wg.items():
+        a = gg[k]
+        assert (a is None) == (b is None)
+        if b is not None:
+            scale = largest if k == "attn.key.bias" else float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
+
+
+def test_ssl_draws_on_the_card(card):
+    """The augmentations draw on the generator's device: a card generator
+    gives card tensors, the same seed the same draw, a permutation."""
+    from gammagl_tpu_torch.models import (corrupt_features,
+                                          drop_edge_and_feature)
+    x = torch.arange(3000.0, device=card).reshape(1000, 3)
+    ei = torch.zeros(2, 5000, dtype=torch.long, device=card)
+    outs = []
+    for _ in range(2):
+        g = torch.Generator(device=card).manual_seed(7)
+        outs.append((corrupt_features(x, g),
+                     *drop_edge_and_feature(x + 1, ei, 0.3, 0.5, g)))
+    for a, b in zip(*outs):
+        assert a.is_cuda and torch.equal(a, b)
+    assert torch.equal(outs[0][0][:, 0].sort().values, x[:, 0])
+    assert abs(float(outs[0][2].mean()) - 0.5) < 0.05
+
+
+@pytest.mark.parametrize("name", ["dgi", "grace", "vgae"])
+def test_ssl_twin_on_card_matches_the_cpu(card, name):
+    """The twin's loop on the card against the same loop on the CPU, from
+    the same init and the same draws (made on the CPU, handed to both):
+    losses at rtol 1e-4."""
+    from gammagl_tpu_torch.examples import (dgi_trainer, grace_trainer,
+                                            vgae_trainer)
+    from gammagl_tpu_torch.examples.common import synthetic_community_graph
+    module = {"dgi": dgi_trainer, "grace": grace_trainer,
+              "vgae": vgae_trainer}[name]
+    data = synthetic_community_graph(num_nodes=80, num_classes=4,
+                                     feat_dim=12, avg_degree=4, seed=3)
+    n, e = 80, None
+    g = torch.Generator().manual_seed(5)
+    if name == "dgi":
+        draws = [torch.randperm(n, generator=g) for _ in range(20)]
+    elif name == "vgae":
+        draws = [torch.randn(n, 16, generator=g) for _ in range(4)]
+    else:
+        e = data["edge_index"].shape[1] + n
+        draws = [tuple((torch.rand((1, 12), generator=g) < 0.8,
+                        torch.cat([torch.rand(e - n, generator=g) < 0.8,
+                                   torch.ones(n, dtype=torch.bool)]))
+                       for _ in range(2)) for _ in range(4)]
+    losses = []
+    for dev in ("cpu", "cuda"):
+        args = module.parser().parse_args(["--device", dev, "--n_epoch",
+                                           "4"])
+        torch.manual_seed(0)
+        out = module.main(args, data=data, draws=iter(draws))
+        losses.append(out["losses"])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
