@@ -5575,6 +5575,461 @@ def phase_ssl(k, smi, x, ei):
     return counts, out
 
 
+
+# phase 36: the wave-5 to wave-8 models (SIGN, UniFews, HardGAT, AdaGAD,
+# Sp2GCL, MAGCL, GCIL, SFGCN, EdgePrompt, AMP, DHN, HEAT, CoED, NodeID,
+# GNRF, GRACE-POT, GRACE-Spco, FatraGNN) at their twins' defaults on a
+# graph of Cora's statistics (DHN, HEAT and FatraGNN on their twins' own
+# synthetic inputs), UniFews and HardGAT also on the arxiv shape; each
+# against the same model on the CPU (float32, dropout off, the same
+# draws): requests at W58_OUT_TOL of max |out|, each step's loss at
+# W58_LOSS_RTOL
+W58_STEPS, W58_ARXIV_STEPS, W58_REQUESTS = 4, 3, 3
+W58_OUT_TOL, W58_LOSS_RTOL = 1e-4, 1e-4
+
+
+def _both(*tensors):
+    """The same CPU tensors and their card copies: {"cpu": .., "cuda": ..}."""
+    return {"cpu": tensors, "cuda": tuple(t.to("cuda") for t in tensors)}
+
+
+def _pick(inputs, dev):
+    return inputs["cuda" if str(dev).startswith("cuda") else "cpu"]
+
+
+def _head(out):
+    """A model's first output (its logits or embeddings)."""
+    if isinstance(out, dict):
+        return out["h1"]
+    return out[0] if isinstance(out, (tuple, list)) else out
+
+
+def pair_check(label, make, request, loss, draws, fixed=None, couple=None):
+    """One model on the card against its copy on the CPU. ``make()`` gives
+    (model, lr, weight decay) on the CPU; ``request(model, dev)`` an eval
+    forward on ``dev``'s inputs; ``loss(model, dev, draw)`` a training
+    loss with ``draw`` (made on the CPU and handed to both devices, or
+    None). W58_REQUESTS timed requests on the card, the last held against
+    the CPU at W58_OUT_TOL of max |out|; then one Adam step a draw on both
+    devices, each step's loss held at W58_LOSS_RTOL. The loss must fall:
+    the last step's below the first, or, with ``fixed`` (a draw), the eval
+    loss of that draw after the steps below the one before them (the
+    steps' own losses move with their draws). ``couple(card model, CPU
+    model)`` may tie the two copies before the run."""
+    from gammagl_tpu_torch.train import TrainState
+    dev = torch.device("cuda")
+    model, lr, l2 = make()
+    cpu = copy.deepcopy(model)
+    model = model.to(dev).eval()
+    if couple is not None:
+        couple(model, cpu)
+    cpu.eval()
+    lat = []
+    for _ in range(W58_REQUESTS):
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = request(model, dev)
+        sync()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        ref = request(cpu, "cpu")
+    err = check_close(f"{label} request vs the CPU", _head(out).cpu(),
+                      _head(ref), 0.0, atol=W58_OUT_TOL)
+
+    def fixed_loss(m, dev_):
+        m.eval()
+        with torch.no_grad():
+            return float(loss(m, dev_, fixed))
+
+    before = None if fixed is None else fixed_loss(model, dev)
+    states = (TrainState(model, lr, l2), TrainState(cpu, lr, l2))
+    losses, cpu_losses, step_ms, cpu_ms = [], [], [], []
+    for draw in draws:
+        for m, state, dev_, vals, ms in ((model, states[0], dev, losses,
+                                          step_ms),
+                                         (cpu, states[1], "cpu", cpu_losses,
+                                          cpu_ms)):
+            sync()
+            t0 = time.perf_counter()
+            m.train()
+            value = loss(m, dev_, draw)
+            value.backward()
+            state.apply_gradients()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            vals.append(float(value.detach()))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    if not (np.isfinite(losses).all() and rel <= W58_LOSS_RTOL):
+        fail(f"{label}: step losses on the card {losses} vs the CPU "
+             f"{cpu_losses}")
+    after = None if fixed is None else fixed_loss(model, dev)
+    fell = (after < before) if fixed is not None else (losses[-1]
+                                                        < losses[0])
+    print(f"  {label}: request p50 {np.median(lat):.2f} ms; steps "
+          f"{[round(t, 2) for t in step_ms]} ms (CPU "
+          f"{[round(t, 1) for t in cpu_ms]}); losses "
+          f"{[round(v, 5) for v in losses]} (worst rel. gap to the CPU "
+          f"{rel:.2e})" + ("" if fixed is None else
+                           f"; loss of a fixed draw {before:.6f} -> "
+                           f"{after:.6f}"))
+    if not fell:
+        fail(f"{label}: loss did not fall ({losses}; fixed draw {before} "
+             f"-> {after})")
+    return {"request_ms": lat, "step_ms": step_ms, "cpu_step_ms": cpu_ms,
+            "losses": losses, "cpu_losses": cpu_losses,
+            "loss_rel_err": rel, "max_abs_err": err,
+            "fixed_draw_loss": None if fixed is None else [before, after]}
+
+
+def phase_wave5_8(k, smi, x, ei):
+    """Phase 36: the wave-5 to wave-8 models at their twins' defaults on
+    the card, each against the CPU (`pair_check`), then the 18 twins'
+    loops end to end. COO, as in JAX: no kernel launches."""
+    import shutil
+    import tempfile
+    from gammagl_tpu_torch import models as M
+    from gammagl_tpu_torch.examples import (
+        adagad_trainer, amgcn_trainer, amp_trainer, coed_trainer, common,
+        dhn_trainer, edgeprompt_trainer, fatragnn_trainer, gcil_trainer,
+        gnrf_trainer, grace_pot_trainer, grace_spco_trainer,
+        hardgat_trainer, heat_trainer, magcl_trainer, nodeid_trainer,
+        sign_trainer, sp2gcl_trainer, unifews_trainer)
+    from gammagl_tpu_torch.train import semi_supervised_loss
+    phase_start("phase 36: the wave-5 to wave-8 models (Cora's shape; "
+                "UniFews and HardGAT also on the arxiv shape) and their "
+                "twins")
+    rng = np.random.default_rng(SEED + 36)
+    cora = cora_shape(rng)
+    d = {key: v.cpu() for key, v in common.device_graph(cora, "cpu")
+         .items()}
+    g = _both(d["x"], d["edge_index"], d["y"], d["train_mask"])
+    n, e = d["x"].shape[0], d["edge_index"].shape[1]
+    out, runs = {}, {}
+    sync()
+    reset_counts(k)
+    t_phase = time.perf_counter()
+
+    def default(module, name):
+        return module.parser().get_default(name)
+
+    def seeded(build):
+        torch.manual_seed(SEED + 36)
+        return build()
+
+    def node_task(label, module, build, inputs=g, forward=None, extra=None,
+                  steps=W58_STEPS, couple=None):
+        """A supervised model: ``build()`` at the twin's defaults (Adam at
+        its rate; decayed weights for the twins on the shared loop)."""
+        fwd = forward or (lambda m, xx, ee: m(xx, ee))
+        decay = (default(module, "l2_coef") if module in (
+            hardgat_trainer, edgeprompt_trainer, coed_trainer,
+            gnrf_trainer) else 0.0)
+
+        def loss(m, dev_, _):
+            xx, ee, yy, mm = _pick(inputs, dev_)
+            o = fwd(m, xx, ee)
+            value = semi_supervised_loss(_head(o), yy, mm)
+            return value if extra is None else value + extra(o)
+
+        runs[label] = pair_check(
+            label, lambda: (seeded(build), default(module, "lr"), decay),
+            lambda m, dev_: fwd(m, *_pick(inputs, dev_)[:2]), loss,
+            [None] * steps, couple=couple)
+
+    fdim, ncls = CORA_FEAT, CORA_CLASSES
+    # (a) supervised node models on Cora's shape
+    xs = [torch.from_numpy(a) for a in sign_trainer.sign_features(
+        cora, default(sign_trainer, "K"))]
+    sign_in = {"cpu": (xs, None, d["y"], d["train_mask"])}
+    sign_in["cuda"] = ([a.cuda() for a in xs], None, d["y"].cuda(),
+                       d["train_mask"].cuda())
+    node_task("SIGN 64 (K 3)", sign_trainer, lambda: M.SIGNModel(
+        ncls, default(sign_trainer, "hidden_dim"), K=3, drop_rate=0.0,
+        in_channels=fdim), inputs=sign_in, forward=lambda m, xx, _: m(xx))
+    thr = default(unifews_trainer, "edge_thr")
+
+    def unifews_weights(label, inputs):
+        """The card's GCN norms, handed to both devices: a norm equal to
+        the threshold in exact arithmetic (degree products of 400 at
+        0.05) is kept or pruned by the last bit of deg^-0.5, which the
+        card and the CPU may round apart (ROADMAP C33); the count of such
+        flips is printed."""
+        from gammagl_tpu_torch.utils import calc_gcn_norm
+        w = {dev_: calc_gcn_norm(inputs[dev_][1], inputs[dev_][0].shape[0])
+             for dev_ in ("cpu", "cuda")}
+        flips = int(((w["cuda"].abs() >= thr).cpu()
+                     != (w["cpu"].abs() >= thr)).sum())
+        kept = float((w["cuda"].abs() >= thr).float().mean())
+        print(f"  {label}: {kept:.4f} of the edges kept at {thr}; "
+              f"{flips} decided apart by the card's and the CPU's "
+              "rounding (the card's weights go to both)")
+        out.setdefault("unifews_threshold_flips", {})[label] = flips
+        return {"cpu": w["cuda"].cpu(), "cuda": w["cuda"]}
+
+    uw = unifews_weights("GCNUniFews, Cora shape", g)
+    node_task("GCNUniFews 16", unifews_trainer, lambda: M.GCNUniFews(
+        ncls, default(unifews_trainer, "hidden_dim"), edge_thr=thr,
+        in_channels=fdim),
+        forward=lambda m, xx, ee: m(xx, ee, _pick(uw, xx.device)))
+    node_task("HardGAT 8 x 8 heads (k 8)", hardgat_trainer,
+              lambda: M.HardGATModel(8, ncls, heads=8, k=8,
+                                     in_channels=fdim))
+    fei = _both(torch.from_numpy(amgcn_trainer.knn_graph(cora["x"])))
+    node_task("SFGCN 16", amgcn_trainer, lambda: M.SFGCNModel(
+        ncls, default(amgcn_trainer, "hidden_dim"), in_channels=fdim),
+        forward=lambda m, xx, ee: m(xx, ee, _pick(fei, xx.device)[0]),
+        extra=lambda o: 0.01 * o[1])
+    node_task("EdgePrompt 16", edgeprompt_trainer,
+              lambda: edgeprompt_trainer.Net(
+                  default(edgeprompt_trainer, "hidden_dim"), ncls,
+                  in_channels=fdim))
+    node_task("AMP 16 (4 steps)", amp_trainer, lambda: M.AMPModel(
+        ncls, default(amp_trainer, "hidden_dim"), max_steps=4,
+        in_channels=fdim))
+    node_task("CoED 16 (alpha 0.3, JK cat)", coed_trainer, lambda: M.CoEDModel(
+        ncls, default(coed_trainer, "hidden_dim"), alpha=0.3,
+        jumping_knowledge="cat", drop_rate=0.0, in_channels=fdim))
+    node_task("NodeID 16 (3 GAT layers, 32 codes)", nodeid_trainer,
+              lambda: M.NodeIDModel(fdim, default(nodeid_trainer,
+                                                  "hidden_dim"), ncls,
+                                    num_codes=32, dropout=0.0),
+              extra=lambda o: 0.25 * o[1])
+    node_task("GNRF 16 (8 RK4 steps)", gnrf_trainer, lambda: M.GNRFModel(
+        ncls, default(gnrf_trainer, "hidden_dim"), num_steps=8, dropout=0.0,
+        in_channels=fdim))
+
+    # (b) UniFews and HardGAT on the arxiv shape (planted labels)
+    _, xd, ya, ma = zoo_inputs(x, ei)
+    arxiv = {"cpu": (xd.cpu(), ei.cpu(), ya.cpu(), ma.cpu()),
+             "cuda": (xd, ei, ya, ma)}
+    uwa = unifews_weights("GCNUniFews, arxiv shape", arxiv)
+    node_task("GCNUniFews 16, arxiv shape", unifews_trainer,
+              lambda: M.GCNUniFews(N_CLASS, default(unifews_trainer,
+                                                    "hidden_dim"),
+                                   edge_thr=thr, in_channels=N_FEAT),
+              inputs=arxiv,
+              forward=lambda m, xx, ee: m(xx, ee, _pick(uwa, xx.device)),
+              steps=W58_ARXIV_STEPS)
+    flips = []
+
+    def card_selection(card, cpu):
+        """HardGAT keeps the edges whose float32 scores reach the k-th of
+        their destination (or 0): where two scores, or a score and 0,
+        are within rounding, the card and the CPU may choose apart. Each
+        layer's CPU forward takes the card's last choice, and counts the
+        edges its own choice differs on."""
+        for cc, pc in ((card.conv0, cpu.conv0), (card.conv1, cpu.conv1)):
+            seen = {}
+
+            def record(*args, real=cc.keep_mask, seen=seen):
+                seen["keep"] = real(*args)
+                return seen["keep"]
+
+            def replay(*args, real=pc.keep_mask, seen=seen):
+                want = seen["keep"].cpu()
+                flips.append(int((real(*args) != want).sum()))
+                return want
+
+            cc.keep_mask, pc.keep_mask = record, replay
+
+    node_task("HardGAT 8 x 8 heads (k 8), arxiv shape", hardgat_trainer,
+              lambda: M.HardGATModel(8, N_CLASS, heads=8, k=8,
+                                     in_channels=N_FEAT), inputs=arxiv,
+              steps=W58_ARXIV_STEPS, couple=card_selection)
+    out["hardgat_arxiv_selection_flips"] = flips
+    print(f"  HardGAT, arxiv shape: the CPU's own top-k choice differs from "
+          f"the card's on {flips} edges (each CPU forward's two layers in "
+          f"turn; of {ei.shape[1]})")
+    del arxiv, xd, uwa
+    torch.cuda.empty_cache()
+
+    # (c) the unsupervised and two-view models on Cora's shape
+    ax, aei, neg, _ = adagad_trainer.inject_anomalies(
+        cora["x"], d["edge_index"].numpy(), SEED)
+    ad = _both(*(torch.from_numpy(a) for a in (ax, aei, neg)))
+    runs["AdaGAD 32/8"] = pair_check(
+        "AdaGAD 32/8", lambda: (seeded(lambda: M.AdaGADModel(
+            default(adagad_trainer, "hidden_dim"), 8, in_channels=fdim)),
+            default(adagad_trainer, "lr"), 0.0),
+        lambda m, dev_: m(*_pick(ad, dev_)[:2]),
+        lambda m, dev_, _: m(*_pick(ad, dev_)), [None] * W58_STEPS)
+    t0 = time.perf_counter()
+    _, u = M.laplacian_eigh(d["edge_index"].numpy(), n)
+    eigh_s = time.perf_counter() - t0
+    spe = default(sp2gcl_trainer, "spe_dim")
+    sp = _both(d["x"], d["edge_index"],
+               torch.from_numpy(np.ascontiguousarray(u[:, :spe])))
+    runs["Sp2GCL 64"] = pair_check(
+        "Sp2GCL 64", lambda: (seeded(lambda: M.Sp2GCLModel(
+            default(sp2gcl_trainer, "hidden_dim"), in_channels=fdim,
+            spe_dim=spe)), default(sp2gcl_trainer, "lr"), 0.0),
+        lambda m, dev_: m.conv1(torch.relu(m.conv0(*_pick(sp, dev_)[:2])),
+                                _pick(sp, dev_)[1]),
+        lambda m, dev_, _: m(*_pick(sp, dev_)), [None] * W58_STEPS)
+    print(f"  Sp2GCL's full eigh of the {n}-node Laplacian on the host: "
+          f"{eigh_s:.2f} s")
+    draw_gen = torch.Generator().manual_seed(SEED + 36)
+
+    def two_view(label, module, build, rates, objective, embed):
+        def draw():
+            return [((torch.rand((1, fdim), generator=draw_gen)
+                      < 1 - rates[2 * v]),
+                     torch.rand(e, generator=draw_gen) < 1 - rates[2 * v + 1])
+                    for v in range(2)]
+
+        def loss(m, dev_, draws):
+            xx, ee = _pick(g, dev_)[:2]
+            (fa, ea), (fb, eb) = draws
+            xa, wa = M.drop_edge_and_feature(xx, ee, rates[0], rates[1],
+                                             feat_mask=fa, edge_mask=ea)
+            xb, wb = M.drop_edge_and_feature(xx, ee, rates[2], rates[3],
+                                             feat_mask=fb, edge_mask=eb)
+            return objective(m, xa, ee, wa, xb, wb)
+
+        fixed = draw()
+        runs[label] = pair_check(
+            label, lambda: (seeded(build), default(module, "lr"), 0.0),
+            lambda m, dev_: embed(m, *_pick(g, dev_)[:2]), loss,
+            [draw() for _ in range(W58_STEPS)], fixed=fixed)
+
+    def rates_of(module):
+        """(edge1, feat1, edge2, feat2): the twin's flags (ROADMAP C27:
+        the edge rate masks the features, as `drop_edge_and_feature` is
+        called here)."""
+        return [default(module, f"drop_{a}_rate_{i}") for i in (1, 2)
+                for a in ("edge", "feature")]
+
+    def loss_form(m, xa, ee, wa, xb, wb):
+        return m(xa, ee, wa, xb, ee, wb)
+
+    two_view("MAGCL 128", magcl_trainer, lambda: M.MAGCLModel(
+        default(magcl_trainer, "hidden_dim"), in_channels=fdim),
+        rates_of(magcl_trainer), loss_form,
+        lambda m, xx, ee: m(xx, ee, None))
+    two_view("GCIL 128", gcil_trainer, lambda: M.GCILModel(
+        default(gcil_trainer, "hidden_dim"), in_channels=fdim),
+        rates_of(gcil_trainer), loss_form,
+        lambda m, xx, ee: m(xx, ee, None))
+    hp = default(grace_pot_trainer, "hidden_dim")
+    two_view("GRACE-POT 64", grace_pot_trainer, lambda: M.GracePOTModel(
+        hp, hp, in_channels=fdim), (0.2, 0.2, 0.3, 0.3),
+        lambda m, xa, ee, wa, xb, wb: m.loss(xa, ee, wa, xb, ee, wb),
+        lambda m, xx, ee: m(xx, ee))
+    hs = default(grace_spco_trainer, "hidden_dim")
+    two_view("GRACE-Spco 64", grace_spco_trainer, lambda: M.GraceSpcoModel(
+        hs, hs, in_channels=fdim), (0.2, 0.2, 0.3, 0.3), loss_form,
+        lambda m, xx, ee: m(xx, ee, torch.ones(ee.shape[1],
+                                               device=ee.device)))
+
+    # (d) the twins' own synthetic inputs: DHN, HEAT, FatraGNN
+    # each of the dhn twin's batches plants its own direction, and each of
+    # the heat twin's scenes has its own agents, so a few steps on fresh
+    # ones need not lower a fixed one's loss: the steps here all take the
+    # first batch (scene)
+    dhn_batch = tuple(torch.from_numpy(a)
+                      for a in next(dhn_trainer.batches(SEED)))
+
+    def dhn_loss(m, dev_, b):
+        n1, n2, y = (t.to(dev_) for t in b)
+        return torch.nn.functional.binary_cross_entropy_with_logits(
+            m(n1, n2)[:, 0], y)
+
+    runs["DHN 32"] = pair_check(
+        "DHN 32", lambda: (seeded(lambda: M.DHNModel(
+            dhn_trainer.F_DIM, dhn_trainer.K,
+            default(dhn_trainer, "hidden_dim"))), default(dhn_trainer, "lr"),
+            0.0),
+        lambda m, dev_: m(*(t.to(dev_) for t in dhn_batch[:2])),
+        dhn_loss, [dhn_batch] * W58_STEPS)
+    scene = tuple(torch.from_numpy(a) for a in heat_trainer.scene(0))
+
+    def heat_loss(m, dev_, sc):
+        xx, ee, attr, et, y = (t.to(dev_) for t in sc)
+        return ((m(xx, ee, attr, et) - y) ** 2).mean()
+
+    runs["HEAT 16/32 (2 heads)"] = pair_check(
+        "HEAT 16/32 (2 heads)", lambda: (seeded(lambda: M.HEATModel(
+            16, 32, heat_trainer.FUT, 16, 16, 16, heads=2,
+            dropout_rate=0.0, in_channels=heat_trainer.HIST * 4,
+            edge_attr_channels=5,
+            edge_type_channels=4)), default(heat_trainer, "lr"), 0.0),
+        lambda m, dev_: m(*(t.to(dev_) for t in scene[:4])),
+        heat_loss, [scene] * W58_STEPS)
+    fx, fei_, fy, sens, ftm = fatragnn_trainer.fairness_graph(SEED)
+    fe2 = M.modify_structure(fei_, fei_, sens, drop=0.6)
+    fg = _both(torch.from_numpy(fx), torch.from_numpy(fei_),
+               torch.from_numpy(fe2), torch.from_numpy(fy.astype(np.float32)),
+               torch.from_numpy(ftm))
+
+    def fatra_loss(m, dev_, _):
+        xx, e1, e2, yy, tm = _pick(fg, dev_)
+        ce = torch.nn.functional.binary_cross_entropy_with_logits(
+            m(xx, e1, 0)[:, 0], yy, reduction="none")
+        ce = torch.where(tm, ce, 0).sum() / tm.sum()
+        o = m(xx, e1, 5, edge_index2=e2)
+        return ce + 0.5 * ((o["h1"] - o["h2"]) ** 2).sum(1).mean()
+
+    runs["FatraGNN 16"] = pair_check(
+        "FatraGNN 16", lambda: (seeded(lambda: M.FatraGNNModel(
+            fx.shape[1], default(fatragnn_trainer, "hidden_dim"))),
+            default(fatragnn_trainer, "lr"), 0.0),
+        lambda m, dev_: m(*_pick(fg, dev_)[:2], 0), fatra_loss,
+        [None] * W58_STEPS)
+    out["models"] = runs
+
+    # (e) the twins' loops end to end on the card (their own draws and
+    # dropout): W58_STEPS epochs, then their probe or score
+    twins = {}
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_unifews_")
+    try:
+        for name, module in (
+                ("sign", sign_trainer), ("unifews", unifews_trainer),
+                ("hardgat", hardgat_trainer), ("adagad", adagad_trainer),
+                ("sp2gcl", sp2gcl_trainer), ("magcl", magcl_trainer),
+                ("gcil", gcil_trainer), ("amgcn", amgcn_trainer),
+                ("edgeprompt", edgeprompt_trainer), ("amp", amp_trainer),
+                ("dhn", dhn_trainer), ("heat", heat_trainer),
+                ("coed", coed_trainer), ("nodeid", nodeid_trainer),
+                ("gnrf", gnrf_trainer), ("grace_pot", grace_pot_trainer),
+                ("grace_spco", grace_spco_trainer),
+                ("fatragnn", fatragnn_trainer)):
+            args = module.parser().parse_args(["--n_epoch", str(W58_STEPS)])
+            kw = ({} if name in ("dhn", "heat", "fatragnn")
+                  else {"data": cora})
+            if name == "unifews":
+                kw["log_dir"] = log_dir
+            sync()
+            t0 = time.perf_counter()
+            res = module.main(args, **kw)
+            sync()
+            score = next((res[key] for key in ("probe_acc", "auc",
+                                               "best_test", "test_acc")
+                          if key in res), None)
+            twins[name] = {"seconds": time.perf_counter() - t0,
+                           "losses": res["losses"], "score": score}
+            if not np.isfinite(res["losses"]).all():
+                fail(f"the {name} twin's losses: {res['losses']}")
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    print(f"  twins on the card, {W58_STEPS} epochs then the probe / "
+          "score: " + ", ".join(
+              f"{n_} {t['seconds']:.2f} s" + ("" if t["score"] is None
+                                              else f" ({t['score']:.3f})")
+              for n_, t in twins.items()))
+    out["twins"] = twins
+    out["sp2gcl_eigh_s"] = eigh_s
+    sync()
+    counts = read_counts(k)
+    if any(counts.values()):
+        fail(f"phase 36 launched kernels: {counts}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  ({smi}) phase 36 in {out['seconds']:.1f} s; no kernel "
+          "launched")
+    torch.cuda.empty_cache()
+    return counts, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -5744,6 +6199,7 @@ def main():
     wave2 = phase_wave2(k, models, hg, x, ei, dev)
     sampled = phase_sampled(k, smi.splitlines()[0])
     ssl_counts, ssl = phase_ssl(k, smi.splitlines()[0], x, ei)
+    w58_counts, w58 = phase_wave5_8(k, smi.splitlines()[0], x, ei)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -5771,6 +6227,7 @@ def main():
                  for name, path in wave2.items()})
     runs["sampled"] = sampled["counts"]
     runs["ssl"] = ssl_counts
+    runs["wave5_8"] = w58_counts
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -5920,7 +6377,7 @@ def main():
                        for name, path in data.items()},
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
-        "ssl": ssl}))
+        "ssl": ssl, "wave5_8": w58}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

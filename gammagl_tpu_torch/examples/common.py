@@ -53,7 +53,8 @@ __all__ = ["synthetic_community_graph", "load_node_dataset",
            "train_step", "run_simple_node_trainer", "synthetic_hetero",
            "hetero_tensors", "predict", "staged_dataset", "load_imdb",
            "run_hetero_trainer", "run_edge_type_trainer", "linear_probe",
-           "device_graph", "run_two_view_ssl", "run_corruption_ssl"]
+           "device_graph", "run_two_view_ssl", "run_corruption_ssl",
+           "binary_auc"]
 
 
 def node_arrays(graph):
@@ -561,6 +562,32 @@ def linear_probe(emb, d, num_classes, steps=300, lr=1e-2):
         opt.step()
     with torch.no_grad():
         return float(accuracy(emb @ w, d["y"], d["test_mask"]))
+
+
+def binary_auc(scores, labels):
+    """ROC AUC by the rank statistic, ties given their average rank (the
+    JAX examples' ``binary_auc``): P(positive score > negative score);
+    0.5 when a class is empty. Numpy in, float out."""
+    scores = np.asarray(scores, np.float64).ravel()
+    labels = np.asarray(labels).ravel().astype(bool)
+    order = np.argsort(scores, kind="mergesort")
+    ranks = np.empty_like(order, np.float64)
+    ranks[order] = np.arange(1, len(scores) + 1)
+    sorted_s = scores[order]
+    i = 0
+    while i < len(sorted_s):
+        j = i
+        while j + 1 < len(sorted_s) and sorted_s[j + 1] == sorted_s[i]:
+            j += 1
+        if j > i:
+            ranks[order[i:j + 1]] = (i + j + 2) / 2.0
+        i = j + 1
+    n_pos = labels.sum()
+    n_neg = len(labels) - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
 
 
 def device_graph(data, device):

@@ -1,0 +1,61 @@
+"""GRACE-POT trainer: GRACE pretraining of the POT model's encoder, then
+a linear probe on the frozen embeddings.
+
+Twin of `examples/grace_pot/grace_pot_trainer.py`: the same model
+(`GracePOTModel`, ``--hidden_dim`` for the encoder and the projection,
+its `loss` as the objective), the same loop (Adam at ``--lr``; each step
+two views by `drop_edge_and_feature` at rates (0.2, 0.2) and (0.3,
+0.3)), the same probe and the same flags, plus ``--device``. The views'
+masks are drawn from a generator on the device seeded ``--seed`` + 1, or
+handed in (``draws``). The encoder takes no plan, as in JAX: its sums are
+the port's COO ops on every device.
+
+    python -m gammagl_tpu_torch.examples.grace_pot_trainer              # the card
+    python -m gammagl_tpu_torch.examples.grace_pot_trainer --device cpu
+"""
+
+import numpy as np
+from torch import nn
+
+from gammagl_tpu_torch.examples.common import (base_parser, node_data,
+                                               run_two_view_ssl)
+from gammagl_tpu_torch.models import GracePOTModel
+
+__all__ = ["parser", "main"]
+
+
+class _Objective(nn.Module):
+    """The model's `loss` as a forward of two views, the form
+    `run_two_view_ssl` trains; the flax tree is the model's."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def flax_tree(self):
+        return self.model.flax_tree()
+
+    def forward(self, x1, ei1, w1, x2, ei2, w2):
+        return self.model.loss(x1, ei1, w1, x2, ei2, w2)
+
+
+def parser():
+    return base_parser(__doc__.splitlines()[0], hidden_dim=64, n_epoch=50,
+                       lr=0.001)
+
+
+def main(args, data=None, params=None, draws=None):
+    """Pretrain and probe; returns what `run_two_view_ssl` returns.
+    ``data``, ``params`` and ``draws`` as there."""
+    data = node_data(args, data)
+    model = GracePOTModel(num_hidden=args.hidden_dim,
+                          num_proj_hidden=args.hidden_dim,
+                          in_channels=np.asarray(data["x"]).shape[1])
+    return run_two_view_ssl(_Objective(model), args,
+                            drop_rates=(0.2, 0.2, 0.3, 0.3),
+                            embed_fn=lambda m, x, ei: m.model(x, ei),
+                            data=data, params=params, draws=draws)
+
+
+if __name__ == "__main__":
+    main(parser().parse_args())

@@ -44,9 +44,25 @@ from gammagl_tpu_torch.layers.conv.wave2_convs import (  # noqa: F401
     HypergraphConv,
     PNAConv,
 )
+from gammagl_tpu_torch.layers.conv.wave7_convs import (  # noqa: F401
+    CoEDConv,
+    DHNConv,
+    HEATConv,
+)
 
-# the reference's spelling (gammagl/layers/conv/__init__.py)
+# the reference's spellings (gammagl/layers/conv/__init__.py)
 Hid_conv = HidConv
+HEATlayer = HEATConv
+
+
+def __getattr__(name):
+    # HardGATConv lives in models.wave5_models, which imports this
+    # package: it is resolved at first use, as in the JAX package
+    if name == "HardGATConv":
+        from gammagl_tpu_torch.models.wave5_models import HardGATConv
+        return HardGATConv
+    raise AttributeError(name)
+
 
 __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
            "RGCNConv", "HeteroConv", "HANConv", "HGTConv", "SimpleHGNConv",
@@ -54,4 +70,5 @@ __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
            "AGNNConv", "FAGCNConv", "GPRConv", "MixHopConv",
            "JumpingKnowledge", "HPNConv", "ieHGCNConv", "HidConv",
            "RoheHANConv", "Hid_conv", "PNAConv", "FILMConv", "EdgeConv",
-           "GMMConv", "CompConv", "GaANConv", "DNAConv", "HypergraphConv"]
+           "GMMConv", "CompConv", "GaANConv", "DNAConv", "HypergraphConv",
+           "DHNConv", "HEATConv", "CoEDConv", "HEATlayer", "HardGATConv"]

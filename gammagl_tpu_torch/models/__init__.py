@@ -63,6 +63,43 @@ from gammagl_tpu_torch.models.spectral import (  # noqa: F401
     laplacian_eigh,
 )
 
+from gammagl_tpu_torch.models.wave5_models import (  # noqa: F401
+    AdaGADModel,
+    GCNUniFews,
+    HardGATConv,
+    HardGATModel,
+    SIGNModel,
+    Sp2GCLModel,
+)
+from gammagl_tpu_torch.models.wave6_models import (  # noqa: F401
+    AMPModel,
+    EdgePromptModel,
+    GCILModel,
+    MAGCLModel,
+    SFGCNModel,
+    dfad_generator_loss,
+    dfad_student_loss,
+)
+from gammagl_tpu_torch.models.wave7_models import (  # noqa: F401
+    CoEDModel,
+    DHNModel,
+    GNRFModel,
+    GracePOTModel,
+    GraceSpcoModel,
+    HEATModel,
+    NodeIDModel,
+    ResidualVectorQuant,
+    VectorQuantize,
+    grace_pot_bounds,
+    odeint_rk4,
+)
+from gammagl_tpu_torch.models.wave8_models import (  # noqa: F401
+    FatraGNNModel,
+    GEstimationN,
+    GraphEditer,
+    modify_structure,
+)
+
 # the reference's spellings (gammagl/models/__init__.py)
 HPN = HPNModel
 HeCo = HeCoModel
@@ -70,6 +107,13 @@ Hid_net = HiDNetModel
 RoheHAN = RoheHANModel
 Specformer = SpecformerModel
 MGNNI_m_MLP = MGNNIModel  # the MLP-injection multiscale variant
+HEAT = HEATModel
+NewGrace = MAGCLModel  # the reference's magcl.py name
+NodeIDGNN = NodeIDModel
+GNRF = GNRFModel
+Graph_Editer = GraphEditer
+PreModel = AdaGADModel  # AdaGAD's masked-reconstruction pretrainer
+EdgePromptGCNModel = EdgePromptModel
 
 __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GraphSAGESampleModel", "RGCNModel", "HANModel", "HGTModel",
@@ -83,4 +127,13 @@ __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "corrupt_features", "drop_edge_and_feature", "GAEModel",
            "VGAEModel", "inner_product_decoder", "recon_loss",
            "SpecformerModel", "laplacian_eigh", "MGNNIModel", "Specformer",
-           "MGNNI_m_MLP"]
+           "MGNNI_m_MLP", "SIGNModel", "GCNUniFews", "HardGATConv",
+           "HardGATModel", "AdaGADModel", "Sp2GCLModel", "MAGCLModel",
+           "GCILModel", "SFGCNModel", "EdgePromptModel", "AMPModel",
+           "dfad_generator_loss", "dfad_student_loss", "DHNModel",
+           "HEATModel", "CoEDModel", "VectorQuantize",
+           "ResidualVectorQuant", "NodeIDModel", "odeint_rk4", "GNRFModel",
+           "GracePOTModel", "grace_pot_bounds", "GraceSpcoModel",
+           "GEstimationN", "FatraGNNModel", "GraphEditer",
+           "modify_structure", "HEAT", "NewGrace", "NodeIDGNN", "GNRF",
+           "Graph_Editer", "PreModel", "EdgePromptGCNModel"]

@@ -34,6 +34,27 @@ from gammagl_tpu_torch.utils.negative_sampling import (  # noqa: F401
     structured_negative_sampling,
 )
 from gammagl_tpu_torch.utils.params import load_jax_params  # noqa: F401
+from gammagl_tpu_torch.utils.misc import (  # noqa: F401
+    from_scipy_sparse_matrix,
+    get_laplacian,
+    get_train_val_test_split,
+    homophily,
+    to_scipy_sparse_matrix,
+)
+from gammagl_tpu_torch.utils.pruning import (  # noqa: F401
+    prune_edges_by_weight,
+    prune_params,
+    rewind,
+    sparsity,
+    threshold_prune,
+)
+from gammagl_tpu_torch.utils.unifews_log import (  # noqa: F401
+    F1Calculator,
+    LayerNumLogger,
+    ModelLogger,
+    Stopwatch,
+    UniFewsLogger,
+)
 from gammagl_tpu_torch.utils.subgraph import (  # noqa: F401
     k_hop_subgraph,
     subgraph,
@@ -55,4 +76,8 @@ __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "to_undirected", "is_undirected", "to_dense_adj",
            "to_dense_batch", "subgraph", "k_hop_subgraph",
            "negative_sampling", "batched_negative_sampling",
-           "structured_negative_sampling"]
+           "structured_negative_sampling", "homophily", "get_laplacian",
+           "to_scipy_sparse_matrix", "from_scipy_sparse_matrix",
+           "get_train_val_test_split", "threshold_prune", "prune_params",
+           "rewind", "sparsity", "prune_edges_by_weight", "UniFewsLogger",
+           "ModelLogger", "LayerNumLogger", "F1Calculator", "Stopwatch"]

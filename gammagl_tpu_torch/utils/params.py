@@ -10,6 +10,11 @@ transpose of the (in, out) ``kernel``; an ``nn.Conv1d`` for a flax
 for a flax ``LayerNorm``, its weight the ``scale``. Raw parameters keep
 their flax shape, whatever their rank: HGT's (H, D, D) relation
 matrices, its (H,) priors and its scalar skip gates.
+
+A module that keeps state of another flax collection (NodeID's codebooks,
+JAX's ``vq_stats``) names it in a ``flax_state()`` method: a mapping from
+the collection to {flax name: buffer}. The collection's tree follows the
+modules' flax names, as the parameters' does.
 """
 
 from collections.abc import Mapping
@@ -22,9 +27,20 @@ from torch.nn.parameter import UninitializedParameter
 __all__ = ["load_jax_params"]
 
 
-def _layout(module, prefix=()):
+def _layout(module, prefix=(), collection="params"):
     """flax path -> (torch parameter, the permutation of the flax array's
-    axes that gives the parameter's, or None)."""
+    axes that gives the parameter's, or None); for another ``collection``,
+    flax path -> (buffer, None)."""
+    if collection != "params":
+        out = {}
+        if hasattr(module, "flax_state"):
+            out.update({prefix + (name,): (buf, None) for name, buf in
+                        module.flax_state().get(collection, {}).items()})
+        if hasattr(module, "flax_tree"):
+            for name, child in module.flax_tree().items():
+                if isinstance(child, nn.Module):
+                    out.update(_layout(child, prefix + (name,), collection))
+        return out
     if isinstance(module, (nn.Linear, nn.Conv1d)):
         perm = (1, 0) if isinstance(module, nn.Linear) else (2, 1, 0)
         out = {prefix + ("kernel",): (module.weight, perm)}
@@ -55,17 +71,22 @@ def _flatten(tree, prefix=()):
 
 
 def load_jax_params(model, params):
-    """Fill ``model`` from flax variables ``{"params": tree}`` whose leaves
-    are arrays (numpy, or anything ``np.asarray`` takes).
+    """Fill ``model`` from flax variables ``{"params": tree, ...}`` whose
+    leaves are arrays (numpy, or anything ``np.asarray`` takes). Every
+    other collection given (``"vq_stats"``) fills the modules'
+    `flax_state` buffers of that name, cast to each buffer's dtype.
 
-    Raises KeyError when the tree misses a parameter of the model or holds
-    one the model lacks, and ValueError on a shape mismatch. A lazy layer
+    Raises KeyError when a tree misses an entry of the model or holds one
+    the model lacks, and ValueError on a shape mismatch. A lazy layer
     (in-features not yet known) takes its shape from the tree. Returns
     ``model``.
     """
     if not isinstance(params, Mapping) or "params" not in params:
         raise KeyError("expected flax variables of the form "
                        "{'params': {...}}")
+    for collection, tree in params.items():
+        if collection != "params":
+            _load_state(model, collection, tree)
     given = dict(_flatten(params["params"]))
     want = _layout(model)
     missing = sorted("/".join(p) for p in set(want) - set(given))
@@ -91,3 +112,22 @@ def load_jax_params(model, params):
                 and not isinstance(m.weight, UninitializedParameter)):
             m.out_features, m.in_features = m.weight.shape
     return model
+
+
+def _load_state(model, collection, tree):
+    given = dict(_flatten(tree))
+    want = _layout(model, collection=collection)
+    missing = sorted("/".join(p) for p in set(want) - set(given))
+    extra = sorted("/".join(p) for p in set(given) - set(want))
+    if missing or extra:
+        raise KeyError(f"flax {collection!r} does not match "
+                       f"{type(model).__name__}: missing {missing}, extra "
+                       f"{extra}")
+    with torch.no_grad():
+        for path, (buf, _) in want.items():
+            value = np.asarray(given[path])
+            if tuple(buf.shape) != value.shape:
+                raise ValueError(f"{collection}/{'/'.join(path)}: flax "
+                                 f"shape {value.shape} != port shape "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(torch.tensor(value))

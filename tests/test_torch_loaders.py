@@ -24,8 +24,19 @@ from gammagl_tpu_torch import loader as tl
 from gammagl_tpu_torch.data import Graph, HeteroGraph
 from gammagl_tpu_torch.serve import MicroBatcher
 from gammagl_tpu_torch.utils import k_hop_subgraph, subgraph
+from tests.test_torch_sampler import pin_jax_sampler_lib
 
 N, E, F = 240, 1200, 6
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_sampler_lib(tmp_path_factory):
+    """The JAX package's sampler, built for this module, so its loaders
+    never fall to their numpy routes (ROADMAP C30,
+    `tests/test_torch_sampler.py`)."""
+    mp = pytest.MonkeyPatch()
+    yield pin_jax_sampler_lib(tmp_path_factory.mktemp("jax_sampler"), mp)
+    mp.undo()
 
 
 def _arrays(n=N, e=E, seed=0):

@@ -37,6 +37,7 @@ from gammagl_tpu.models import GraphSAGESampleModel as JaxSampleModel  # noqa
 from gammagl_tpu.train import TrainState as JaxTrainState  # noqa: E402
 from tests.test_torch_simple_convs import (_check, _check_grads,  # noqa
                                            _jax_out_and_grads, _np_tree)
+from tests.test_torch_sampler import pin_jax_sampler_lib  # noqa: E402
 
 from gammagl_tpu_torch.data import Graph  # noqa: E402
 from gammagl_tpu_torch.datasets import Reddit  # noqa: E402
@@ -58,6 +59,16 @@ SCRIPTS = {
 TWINS = {"sage_sample": sage_sample_trainer, "gpu_sage": gpu_sage_trainer,
          "serving": serving_demo, "sampler": neighbor_sampler}
 N, F, C = 90, 8, 4
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_sampler_lib(tmp_path_factory):
+    """The JAX package's sampler, built for this module, so its loaders
+    never fall to their numpy routes (ROADMAP C30,
+    `tests/test_torch_sampler.py`)."""
+    mp = pytest.MonkeyPatch()
+    yield pin_jax_sampler_lib(tmp_path_factory.mktemp("jax_sampler"), mp)
+    mp.undo()
 
 
 def _tree(path):

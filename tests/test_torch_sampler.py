@@ -6,7 +6,19 @@ Both packages build the same ``sampler.cpp`` (the port its own copy, into
 the same inputs and seeds; both `NeighborSampler` routes draw JAX's
 samples. The port takes no numpy route unless asked (``use_ext=False``):
 a failed build raises.
+
+The JAX package's build of its library is not safe under concurrency: it
+compiles onto its one library path with no temporary name, and a process
+whose build fails keeps ``_lib = None`` for its life (ROADMAP C30). Under
+xdist every worker collects `tests/csrc/`, which builds at collection, so
+a worker can lose that race. The reference here therefore builds its own
+copy (`pin_jax_sampler_lib`, the JAX package's command) into a temporary
+directory and pins the JAX package to it for the module.
 """
+
+import ctypes
+import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -20,6 +32,54 @@ from gammagl_tpu_torch.sampler import NeighborSampler, sample_neighbors_padded
 
 N, E = 300, 1500
 MIX = 0x9E3779B97F4A7C15  # sampler.cpp's per-batch seed step
+
+
+def pin_jax_sampler_lib(directory, monkeypatch):
+    """Compile the JAX package's ``sampler.cpp`` with its own command into
+    ``directory`` (a temporary name, then renamed into place), load it, and
+    make the JAX package's `csrc` use it (``_lib``; ``_build_failed``
+    cleared) through ``monkeypatch``. A failed compile raises with the
+    compiler's message: the reference never falls back to numpy here."""
+    path = os.path.join(str(directory), "_sampler.so")
+    part = f"{path}.{os.getpid()}.part"
+    res = subprocess.run(["g++", "-O3", "-std=c++17", "-fopenmp", "-shared",
+                          "-fPIC", "-o", part, jcsrc._SRC],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"building the JAX sampler failed:\n{res.stderr}")
+    os.replace(part, path)
+    lib = ctypes.CDLL(path)
+    jcsrc._declare(lib)
+    monkeypatch.setattr(jcsrc, "_lib", lib)
+    monkeypatch.setattr(jcsrc, "_build_failed", False)
+    return lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_sampler_lib(tmp_path_factory):
+    """The JAX package's sampler, built for this module (C30)."""
+    mp = pytest.MonkeyPatch()
+    yield pin_jax_sampler_lib(tmp_path_factory.mktemp("jax_sampler"), mp)
+    mp.undo()
+
+
+def test_reference_survives_a_lost_build_race(tmp_path, monkeypatch,
+                                               jax_sampler_lib,
+                                               tmp_path_factory):
+    """ROADMAP C30. The module's reference is the fixture's library, and
+    from the state of a worker that lost the JAX package's build race
+    (``_lib = None``, ``_build_failed = True``: `get_lib` gives None) the
+    fixture's build still gives a library that the comparisons run on."""
+    base = str(tmp_path_factory.getbasetemp())
+    assert jcsrc.get_lib() is jax_sampler_lib
+    assert jax_sampler_lib._name.startswith(base)
+    monkeypatch.setattr(jcsrc, "_lib", None)
+    monkeypatch.setattr(jcsrc, "_build_failed", True)
+    assert jcsrc.get_lib() is None and not jcsrc.available()
+    lib = pin_jax_sampler_lib(tmp_path, monkeypatch)
+    assert jcsrc.get_lib() is lib and lib._name.startswith(str(tmp_path))
+    ind = np.sort(np.random.default_rng(2).integers(0, 40, 200))
+    _same(csrc.ind2ptr_c(ind, 45), jcsrc.ind2ptr_c(ind, 45))
 
 
 def _graph(n=N, e=E, seed=0):

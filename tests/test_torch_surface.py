@@ -64,18 +64,16 @@ COVERED = {
 
 MISSING_NAMES = {
     "layers/conv/__init__.py": [
-        "FusedGATConv", "MAGCLConv", "MGNNI_m_iter", "HEATlayer",
-        "HardGATConv",
-        "DHNConv", "HEATConv", "CoEDConv",
+        "FusedGATConv", "MAGCLConv", "MGNNI_m_iter",
         "ConstCurveLinear", "ConstCurveAgg", "EuclideanEncoder",
         "ManifoldEncoder", "VectorQuantizeE", "VectorQuantizeR",
     ],
     "models/__init__.py": [
-        "HEAT", "GraphSAGE_Full_Model", "GraphSAGE_Sample_Model",
+        "GraphSAGE_Full_Model", "GraphSAGE_Sample_Model",
         "RGCN", "CompGCN", "HAN", "GRADE",
-        "Graphormer", "NewGrace", "NodeIDGNN",
-        "GNRF", "DeepWalkModel", "Node2vecModel", "Graph_Editer",
-        "DGCNN", "PreModel", "EdgePromptGCNModel",
+        "Graphormer",
+        "DeepWalkModel", "Node2vecModel",
+        "DGCNN",
         "AGNNModel", "FILMModel", "GMMModel", "DNAModel", "HCHA",
         "LogReg", "SkipGramModel", "HERec", "TADWModel", "MGNNI_m_att",
         "DFADModel", "DFADGenerator", "Generator", "Discriminator",
@@ -88,23 +86,15 @@ MISSING_NAMES = {
         "CAGCNModel",
         "MERITModel", "GRADEModel", "tadw",
         "GraphGAN", "herec", "distill_loss",
-        "GLNNStudent", "SIGNModel", "GCNUniFews", "HardGATConv",
-        "HardGATModel", "AdaGADModel", "Sp2GCLModel", "DeFoGModel",
+        "GLNNStudent", "DeFoGModel",
         "XEyTransformerLayer", "timestep_embedding",
         "flow_interpolate", "euler_sample_step", "GraphTextCLIP",
         "GraphLlamaAdapter", "GraphLlamaLM", "TinyCausalLM",
         "LLaGAProjector", "build_stage2_batch", "llaga_hop_field",
         "llaga_neighborhood_detail", "LLaGAEncoder",
-        "splice_graph_embeddings", "MAGCLModel", "GCILModel",
-        "SFGCNModel", "EdgePromptModel", "AMPModel",
-        "dfad_generator_loss", "dfad_student_loss",
-        "drnl_node_labeling", "SEALModel", "CoGSLModel", "DHNModel",
-        "HEATModel", "CoEDModel", "VectorQuantize",
-        "ResidualVectorQuant", "NodeIDModel", "odeint_rk4",
-        "GNRFModel", "GracePOTModel", "grace_pot_bounds",
-        "GraceSpcoModel", "RGTModel", "rgt_loss", "rgt_cl_loss",
-        "GEstimationN", "FatraGNNModel", "GraphEditer",
-        "modify_structure",
+        "splice_graph_embeddings",
+        "drnl_node_labeling", "SEALModel", "CoGSLModel",
+        "RGTModel", "rgt_loss", "rgt_cl_loss",
     ],
     "loader/__init__.py": [
         "ExtractNodeLoader", "ExtractLinkLoader", "build_structure_batch",
@@ -160,15 +150,11 @@ MISSING_NAMES = {
         "edge_index_to_adj_matrix", "get_few_shot_split",
         "node_subgraph", "set_device", "shortest_path_distance",
         "batched_shortest_path_distance",
-        "homophily", "get_laplacian", "to_scipy_sparse_matrix",
-        "from_scipy_sparse_matrix", "get_train_val_test_split",
         "segment_softmax", "shortest_path", "from_smiles",
-        "manifold_math", "UniFewsLogger", "ModelLogger",
-        "LayerNumLogger", "F1Calculator", "Stopwatch", "gfm_utils",
+        "manifold_math", "gfm_utils",
         "Conversation", "conv_templates", "get_conv_template",
         "find_all_simple_paths", "read_embeddings", "save_embeddings",
-        "Inspector", "threshold_prune", "prune_params", "rewind",
-        "sparsity", "prune_edges_by_weight",
+        "Inspector",
     ],
 }
 
@@ -177,22 +163,19 @@ MISSING_MODULES = [
     "layers/attention/graphormer.py", "layers/attention/rgt.py",
     "layers/conv/compat_convs.py",
     "layers/conv/rgt_layers.py", "layers/conv/rgt_vq.py",
-    "layers/conv/wave7_convs.py",
     "loader/multihost.py",
     "loader/rgt_loader.py", "models/compat.py",
     "models/defog.py", "models/embedding.py", "models/gan_distill.py",
     "models/graph_llm.py", "models/graphormer.py",
     "models/rgt.py", "models/seal_cogsl.py",
-    "models/wave5_models.py",
-    "models/wave6_models.py", "models/wave7_models.py",
-    "models/wave8_models.py", "parallel/halo_attention.py",
+    "parallel/halo_attention.py",
     "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
     "parallel/strategies.py", "typing.py",
     "utils/compat_utils.py", "utils/conversation.py", "utils/gfm_utils.py",
-    "utils/manifold_math.py", "utils/misc.py",
+    "utils/manifold_math.py",
     "utils/paths_io.py",
-    "utils/profiling.py", "utils/pruning.py", "utils/shortest_path.py",
-    "utils/smiles.py", "utils/unifews_log.py",
+    "utils/profiling.py", "utils/shortest_path.py",
+    "utils/smiles.py",
 ]
 
 
