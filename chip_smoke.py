@@ -338,6 +338,7 @@ It needs a CUDA card and the repository beside it; it imports no JAX.
 
 import copy
 import inspect
+import itertools
 import json
 import os
 import re
@@ -1440,19 +1441,22 @@ def dropout_rng(model, seed):
 
 def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
                 keeps_for=None, check_step0=True, labels=None,
-                plan_key="plan", fkw=None):
+                plan_key="plan", fkw=None, make_plain=None):
     """N_STEPS steps of ``twin``'s step through the kernels and through
     the plain COO path, with the same keep masks (``keeps_for(step)``, or
     drawn by the layers), input-dropout generator state and parameters:
     step-0 gradients (unless ``check_step0`` is False), losses, launches a
     step. ``labels``: (y, mask), else `train_labels`; the plan goes to the
-    model as ``plan_key``, ``fkw`` to every forward. Returns (launches,
+    model as ``plan_key``, ``fkw`` to every forward; ``make_plain``
+    builds the plain path's model where it is not ``make_model``'s (a
+    layer that requires its plan). Returns (launches,
     losses, step times in ms, max step-0 gradient error, (the kernel
     path's state, its labels and mask, both paths' step-0 gradients))."""
     from gammagl_tpu_torch.train import TrainState
     y, mask = labels if labels is not None else train_labels(x)
     dev = y.device
-    states = {path: TrainState(make_model().to(dev), lr, l2)
+    makers = {"kernel": make_model, "plain": make_plain or make_model}
+    states = {path: TrainState(makers[path]().to(dev), lr, l2)
               for path in ("kernel", "plain")}
     want_step = every_kernel(per_step)
     losses = {"kernel": [], "plain": []}
@@ -1519,22 +1523,28 @@ def train_phase(k, label, make_model, twin, per_step, lr, l2, plan, x, ei,
             (states["kernel"], y, mask, step0_grads))
 
 
-def phase_gat_train(k, twin, GATModel, load_jax_params, plan, x, ei):
-    """The keep masks are drawn here, in the caller's edge order, and
-    handed to both paths."""
-    phase_start("phase 7: train GAT (the fusedgat twin's step) against the "
-                "plain path")
+def gat_keeps(k, x, ei):
+    """``keeps_for(step)``: GAT's attention keep masks, drawn here, in the
+    caller's edge order, and handed to both paths of a train phase."""
     dev, E = x.device, ei.shape[1]
     keep_gen = torch.Generator(device=dev).manual_seed(SEED + 6)
 
     def keeps_for(step):
         return [k.attention_keep_mask(keep_gen, GAT_DROP, (E, h), dev)
                 for h in (GAT_HEADS, 1)]
+    return keeps_for
 
+
+GAT_STEP_LAUNCHES = {"spmm_csr": 2, "flash_forward": 2, "flash_backward": 2}
+
+
+def phase_gat_train(k, twin, GATModel, load_jax_params, plan, x, ei):
+    phase_start("phase 7: train GAT (the fusedgat twin's step) against the "
+                "plain path")
     return train_phase(
         k, "GAT", lambda: gat_model(GATModel, load_jax_params), twin,
-        {"spmm_csr": 2, "flash_forward": 2, "flash_backward": 2}, GAT_LR,
-        0.0, plan, x, ei, keeps_for)[:4]
+        GAT_STEP_LAUNCHES, GAT_LR, 0.0, plan, x, ei,
+        gat_keeps(k, x, ei))[:4]
 
 
 def phase_gatv2_train(k, common, GATV2Model, load_jax_params,
@@ -6030,6 +6040,306 @@ def phase_wave5_8(k, smi, x, ei):
     return counts, out
 
 
+# phase 37: FusedGATConv at the arxiv shape (phases 6-7's GAT), then the
+# rest of the slice against the CPU
+W3_STEPS, W3_TWIN_STEPS = 3, 3
+
+
+def fused_gat_model(GATModel, load_jax_params):
+    """`gat_model` with FusedGATConv in place of its two GATConvs (the
+    same arguments, parameters and tree)."""
+    from gammagl_tpu_torch.layers.conv import FusedGATConv
+    model = GATModel(hidden_dim=GAT_HIDDEN, num_class=N_CLASS,
+                     heads=GAT_HEADS, drop_rate=GAT_DROP,
+                     dtype=torch.bfloat16, in_channels=N_FEAT)
+    model.convs = torch.nn.ModuleList([
+        FusedGATConv(N_FEAT, GAT_HIDDEN, heads=GAT_HEADS,
+                     dropout_rate=GAT_DROP, dtype=torch.bfloat16),
+        FusedGATConv(GAT_HIDDEN * GAT_HEADS, N_CLASS, heads=1, concat=False,
+                     dropout_rate=GAT_DROP, dtype=torch.bfloat16)])
+    return load_jax_params(model, gat_params())
+
+
+def fused_gat_path(k, twin, GATModel, load_jax_params, x, ei):
+    """(a) Phases 6-7's GAT with its convs FusedGATConv, on the plan
+    `FusedGATConv.to_graph_format` builds: it raises without the plan;
+    its requests run the flash forward (row 10), equal GATConv's on that
+    plan bit for bit (the same kernels) and are held against the plain
+    COO path; its steps are phase 7's (`train_phase`, row 11 too), with
+    GATModel on the COO path as the plain side."""
+    from gammagl_tpu_torch.layers.conv import FusedGATConv
+    fplan = FusedGATConv.to_graph_format(ei.cpu().numpy(), N_NODES)
+    fused = fused_gat_model(GATModel, load_jax_params).to(x.device).eval()
+    gat = gat_model(GATModel, load_jax_params).to(x.device).eval()
+    try:
+        fused(x, ei)
+        fail("FusedGATConv ran without a plan")
+    except ValueError:
+        pass
+    requests = [x + r * 1e-3 for r in range(N_REQUESTS)]
+    with torch.inference_mode():
+        req_counts, lat = serve_requests(
+            k, requests, lambda xr: fused(xr, ei, plan=fplan),
+            lambda xr: gat(xr, ei), {"flash_forward": 2}, "FusedGATConv",
+            (N_NODES, N_CLASS))
+        for r, xr in enumerate(requests):
+            if not torch.equal(fused(xr, ei, plan=fplan),
+                               gat(xr, ei, plan=fplan)):
+                fail(f"FusedGATConv request {r} != GATConv on the plan")
+        out = {"request_latency_ms": lat.tolist(),
+               "request_ms": cuda_ms(lambda: fused(x, ei, plan=fplan),
+                                     iters=5, warmup=1),
+               "request_plain_ms": cuda_ms(lambda: gat(x, ei), iters=3,
+                                           warmup=1),
+               "request_profile": profile(
+                   "fgat_request", lambda: fused(x, ei, plan=fplan))}
+    print("  FusedGATConv requests equal GATConv's on the plan bit for bit")
+    del fused, gat
+    step_counts, losses, step_ms, grad_err, (state, y, mask, _) = \
+        train_phase(k, "FusedGATConv",
+                    lambda: fused_gat_model(GATModel, load_jax_params), twin,
+                    GAT_STEP_LAUNCHES, GAT_LR, 0.0, fplan, x, ei,
+                    gat_keeps(k, x, ei),
+                    make_plain=lambda: gat_model(GATModel, load_jax_params))
+
+    def one_step():
+        twin.loss_and_grad(state.model, x, ei, y, mask, plan=fplan)
+        state.model.zero_grad(set_to_none=True)
+
+    out["step_profile"] = profile("fgat_step", one_step)
+    out.update(step_ms=step_ms["kernel"], losses=losses["kernel"],
+               plain_losses=losses["plain"],
+               step0_grad_vs_plain_max_abs_err=grad_err)
+    for key, prof in (("request", out["request_profile"]),
+                      ("step", out["step_profile"])):
+        for kname, label in (("flash_fwd", "flash_forward"),
+                             ("flash_bwd", "flash_backward")):
+            out[f"{key}_{label}_us"] = sum(
+                v for n_, v in prof["by_kernel_us"].items() if kname in n_)
+    print(f"  FusedGATConv request {out['request_ms']:.3f} ms (plain COO "
+          f"{out['request_plain_ms']:.3f}); flash forward "
+          f"{out['request_flash_forward_us']:.1f} us a request, in a step "
+          f"forward {out['step_flash_forward_us']:.1f} us, backward "
+          f"{out['step_flash_backward_us']:.1f} us")
+    del state
+    torch.cuda.empty_cache()
+    return req_counts, step_counts, out
+
+
+def phase_wave3(k, smi, twin, GATModel, load_jax_params, x, ei):
+    """Phase 37: FusedGATConv on the flash kernels at the arxiv shape;
+    then SGFormer, GNN-LF/HF, CAGCN, MERIT, GRADE and TADW at their
+    twins' defaults on a graph of Cora's statistics, Graphormer on its
+    twin's graphs and RGT through `ExtractNodeLoader`, each against the
+    CPU (`pair_check`); then the eight twins on the card. Only (a)
+    launches kernels."""
+    from gammagl_tpu_torch import models as M
+    from gammagl_tpu_torch.examples import (
+        cagcn_trainer, common, gnnlfhf_trainer, grade_trainer,
+        graphormer_trainer, merit_trainer, rgt_trainer, sgformer_trainer,
+        tadw_trainer)
+    from gammagl_tpu_torch.train import semi_supervised_loss
+    phase_start("phase 37: FusedGATConv on the flash kernels (arxiv shape), "
+                "the rest of wave 3, Graphormer and RGT against the CPU, and "
+                "their twins")
+    t_phase = time.perf_counter()
+    fgat_counts, fgat_t_counts, fgat = fused_gat_path(
+        k, twin, GATModel, load_jax_params, x, ei)
+    out = {"fused_gat": fgat}
+    rng = np.random.default_rng(SEED + 37)
+    cora = cora_shape(rng)
+    d = {key: v.cpu() for key, v in common.device_graph(cora, "cpu")
+         .items()}
+    g = _both(d["x"], d["edge_index"], d["y"], d["train_mask"])
+    e = d["edge_index"].shape[1]
+    fdim, ncls = CORA_FEAT, CORA_CLASSES
+    runs = {}
+    sync()
+    reset_counts(k)
+
+    def default(module, name):
+        return module.parser().get_default(name)
+
+    def seeded(build):
+        torch.manual_seed(SEED + 37)
+        return build()
+
+    def node_task(label, module, build):
+        """A supervised model at its twin's defaults (dropout off), Adam
+        with decayed weights, as `run_simple_node_trainer`."""
+        def loss(m, dev_, _):
+            xx, ee, yy, mm = _pick(g, dev_)
+            return semi_supervised_loss(m(xx, ee), yy, mm)
+
+        runs[label] = pair_check(
+            label, lambda: (seeded(build), default(module, "lr"),
+                            default(module, "l2_coef")),
+            lambda m, dev_: m(*_pick(g, dev_)[:2]), loss,
+            [None] * W3_STEPS)
+
+    node_task("SGFormer 32", sgformer_trainer, lambda: M.SGFormerModel(
+        default(sgformer_trainer, "hidden_dim"), ncls, drop_rate=0.0,
+        in_channels=fdim))
+    for variant in ("lf", "hf"):
+        node_task(f"GNN-{variant.upper()} 64 (K 10)", gnnlfhf_trainer,
+                  lambda v=variant: M.GNNLFHFModel(
+                      default(gnnlfhf_trainer, "hidden_dim"), ncls,
+                      variant=v, K=10, drop_rate=0.0, in_channels=fdim))
+    node_task("CAGCN 16", cagcn_trainer, lambda: M.CAGCNModel(
+        ncls, default(cagcn_trainer, "hidden_dim"), in_channels=fdim))
+    draw_gen = torch.Generator().manual_seed(SEED + 37)
+
+    def two_view(label, module, build, embed):
+        rates = [default(module, f"drop_{a}_rate_{i}") for i in (1, 2)
+                 for a in ("edge", "feature")]
+
+        def draw():
+            return [((torch.rand((1, fdim), generator=draw_gen)
+                      < 1 - rates[2 * v]),
+                     torch.rand(e, generator=draw_gen) < 1 - rates[2 * v + 1])
+                    for v in range(2)]
+
+        def loss(m, dev_, draws):
+            xx, ee = _pick(g, dev_)[:2]
+            (fa, ea), (fb, eb) = draws
+            xa, wa = M.drop_edge_and_feature(xx, ee, rates[0], rates[1],
+                                             feat_mask=fa, edge_mask=ea)
+            xb, wb = M.drop_edge_and_feature(xx, ee, rates[2], rates[3],
+                                             feat_mask=fb, edge_mask=eb)
+            return m(xa, ee, wa, xb, ee, wb)
+
+        runs[label] = pair_check(
+            label, lambda: (seeded(build), default(module, "lr"), 0.0),
+            lambda m, dev_: embed(m, *_pick(g, dev_)[:2]), loss,
+            [draw() for _ in range(W3_STEPS)], fixed=draw())
+
+    two_view("MERIT 128", merit_trainer, lambda: merit_trainer.Net(
+        default(merit_trainer, "hidden_dim"), in_channels=fdim),
+        lambda m, xx, ee: m(xx, ee, None))
+    two_view("GRADE 128", grade_trainer, lambda: M.GRADEModel(
+        default(grade_trainer, "hidden_dim"), in_channels=fdim),
+        lambda m, xx, ee: m(xx, ee, None))
+
+    # TADW on the card (its default device) against the CPU from the same
+    # draws: one step (finite), and its twin's 20, where both diverge
+    # (ROADMAP C38)
+    adj, text = tadw_trainer.inputs(cora)
+    tadw_out = {}
+    for steps in (1, default(tadw_trainer, "n_epoch")):
+        sync()
+        t0 = time.perf_counter()
+        card = M.tadw(adj, text, dim=default(tadw_trainer, "hidden_dim"),
+                      iters=steps)
+        sync()
+        card_s = time.perf_counter() - t0
+        cpu = M.tadw(adj, text, dim=default(tadw_trainer, "hidden_dim"),
+                     iters=steps, device="cpu")
+        finite = bool(np.isfinite(card).all())
+        tadw_out[steps] = {"seconds": card_s, "finite": finite,
+                           "cpu_finite": bool(np.isfinite(cpu).all())}
+        if steps == 1:
+            tadw_out[steps]["max_abs_err"] = check_close(
+                "TADW 80, one step, card vs CPU", torch.from_numpy(card),
+                torch.from_numpy(cpu), 0.0, atol=1e-4)
+        elif finite or tadw_out[steps]["cpu_finite"]:
+            fail(f"TADW at {steps} steps was finite on one device: C38 "
+                 "says both diverge")
+        print(f"  TADW {steps} steps: {card_s:.3f} s on the card, finite "
+              f"{finite} (CPU {tadw_out[steps]['cpu_finite']})")
+    out["tadw"] = tadw_out
+
+    # (c) Graphormer on its twin's graphs
+    gs = graphormer_trainer.graphs(SEED, default(graphormer_trainer,
+                                                 "num_graphs"))
+    gt = [_both(*(torch.as_tensor(a) for a in gr[:4]),
+                torch.tensor([gr[4]])) for gr in gs]
+
+    def graphormer_loss(m, dev_, _):
+        return sum(torch.nn.functional.cross_entropy(
+            m(*_pick(t, dev_)[:4])[None], _pick(t, dev_)[4]) for t in gt)
+
+    runs["Graphormer 32"] = pair_check(
+        "Graphormer 32", lambda: (seeded(lambda: M.GraphormerModel(
+            default(graphormer_trainer, "hidden_dim"), 2, num_layers=2,
+            num_heads=2, dropout_rate=0.0, in_channels=8)),
+            default(graphormer_trainer, "lr"), 0.0),
+        lambda m, dev_: m(*_pick(gt[0], dev_)[:4]), graphormer_loss,
+        [None] * W3_STEPS)
+
+    # (d) RGT through ExtractNodeLoader at its twin's defaults
+    rargs = rgt_trainer.parser().parse_args([])
+    t0 = time.perf_counter()
+    loader = rgt_trainer.loader(cora, rargs)
+    batches = list(itertools.islice(iter(loader), W3_STEPS + 1))
+    loader_s = time.perf_counter() - t0
+    rb = [{"cpu": rgt_trainer.batch_args(b, "cpu"),
+           "cuda": rgt_trainer.batch_args(b, "cuda")} for b in batches]
+    flips = []
+
+    def rgt_request(m, dev_):
+        o = m(*_pick(rb[0], dev_))
+        if str(dev_).startswith("cuda"):
+            flips.append([i.cpu() for i in o["indices"]])
+        else:
+            flips[-1] = sum(int((a != b).sum()) for a, b in zip(
+                flips[-1], o["indices"]))
+        return o["q_E"]
+
+    runs["RGT 64 (2 layers)"] = pair_check(
+        "RGT 64 (2 layers)", lambda: (seeded(lambda: M.RGTModel(
+            fdim, hidden_dim=rargs.hidden_dim, embed_dim=32, n_layers=2,
+            codebook_size=64, codebook_dim=16, codebook_heads=4)),
+            rargs.lr, 0.0),
+        rgt_request, lambda m, dev_, b: m.train_loss(*_pick(b, dev_))[0],
+        rb[1:], fixed=rb[0])
+    out["rgt_vq_argmin_flips"] = flips[-1]
+    out["rgt_loader_s"] = loader_s
+    print(f"  RGT: {flips[-1]} of the card's codebook choices (3 "
+          f"quantisers x {rb[0]['cpu'][0].shape[0]} rows x 4 heads) differ "
+          f"from the CPU's on the last request; loader {loader_s:.2f} s for "
+          f"{len(batches)} batches")
+    out["models"] = runs
+
+    # (e) the twins end to end on the card
+    twins = {}
+    for name, module, argv, kw in (
+            ("sgformer", sgformer_trainer, [], {"data": cora}),
+            ("gnnlfhf", gnnlfhf_trainer, [], {"data": cora}),
+            ("cagcn", cagcn_trainer, [], {"data": cora}),
+            ("merit", merit_trainer, [], {"data": cora}),
+            ("grade", grade_trainer, [], {"data": cora}),
+            ("tadw", tadw_trainer, ["--n_epoch", "1"], {"data": cora}),
+            ("graphormer", graphormer_trainer, ["--n_epoch", "1"], {}),
+            ("rgt", rgt_trainer, ["--n_epoch", "1"],
+             {"data": cora, "max_steps": 2 * W3_TWIN_STEPS})):
+        if not argv:
+            argv = ["--n_epoch", str(W3_TWIN_STEPS)]
+        args = module.parser().parse_args(argv)
+        sync()
+        t0 = time.perf_counter()
+        res = module.main(args, **kw)
+        sync()
+        score = next((res[key] for key in ("probe_acc", "best_test", "acc")
+                      if key in res), None)
+        vals = res["losses"] if "losses" in res else res["embedding"]
+        twins[name] = {"seconds": time.perf_counter() - t0, "score": score,
+                       "losses": res.get("losses")}
+        if not np.isfinite(vals).all():
+            fail(f"the {name} twin: non-finite {vals}")
+    print("  twins on the card: " + ", ".join(
+        f"{n_} {t['seconds']:.2f} s ({t['score']:.3f})"
+        for n_, t in twins.items()))
+    out["twins"] = twins
+    sync()
+    counts = read_counts(k)
+    if any(counts.values()):
+        fail(f"phase 37's COO models launched kernels: {counts}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  ({smi}) phase 37 in {out['seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return fgat_counts, fgat_t_counts, counts, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -6200,6 +6510,8 @@ def main():
     sampled = phase_sampled(k, smi.splitlines()[0])
     ssl_counts, ssl = phase_ssl(k, smi.splitlines()[0], x, ei)
     w58_counts, w58 = phase_wave5_8(k, smi.splitlines()[0], x, ei)
+    fgat_counts, fgat_t_counts, w3_counts, w3 = phase_wave3(
+        k, smi.splitlines()[0], twin, GATModel, load_jax_params, x, ei)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -6228,6 +6540,8 @@ def main():
     runs["sampled"] = sampled["counts"]
     runs["ssl"] = ssl_counts
     runs["wave5_8"] = w58_counts
+    runs["fgat"], runs["fgat-t"] = fgat_counts, fgat_t_counts
+    runs["wave3"] = w3_counts
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -6377,7 +6691,7 @@ def main():
                        for name, path in data.items()},
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
-        "ssl": ssl, "wave5_8": w58}))
+        "ssl": ssl, "wave5_8": w58, "wave3": w3}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Layers."""
 
 from gammagl_tpu_torch.layers import pool  # noqa: F401
+from gammagl_tpu_torch.layers import attention  # noqa: F401
 
 from gammagl_tpu_torch.layers.conv import (  # noqa: F401
     GATConv,

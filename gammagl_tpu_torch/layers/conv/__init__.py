@@ -49,6 +49,21 @@ from gammagl_tpu_torch.layers.conv.wave7_convs import (  # noqa: F401
     DHNConv,
     HEATConv,
 )
+from gammagl_tpu_torch.layers.conv.rgt_layers import (  # noqa: F401
+    ConstCurveAgg,
+    ConstCurveLinear,
+    EuclideanEncoder,
+    ManifoldEncoder,
+)
+from gammagl_tpu_torch.layers.conv.rgt_vq import (  # noqa: F401
+    VectorQuantizeE,
+    VectorQuantizeR,
+)
+from gammagl_tpu_torch.layers.conv.compat_convs import (  # noqa: F401
+    FusedGATConv,
+    MAGCLConv,
+    MGNNI_m_iter,
+)
 
 # the reference's spellings (gammagl/layers/conv/__init__.py)
 Hid_conv = HidConv
@@ -71,4 +86,7 @@ __all__ = ["MessagePassing", "GCNConv", "GATConv", "GATV2Conv", "SAGEConv",
            "JumpingKnowledge", "HPNConv", "ieHGCNConv", "HidConv",
            "RoheHANConv", "Hid_conv", "PNAConv", "FILMConv", "EdgeConv",
            "GMMConv", "CompConv", "GaANConv", "DNAConv", "HypergraphConv",
-           "DHNConv", "HEATConv", "CoEDConv", "HEATlayer", "HardGATConv"]
+           "DHNConv", "HEATConv", "CoEDConv", "HEATlayer", "HardGATConv",
+           "ConstCurveLinear", "ConstCurveAgg", "EuclideanEncoder",
+           "ManifoldEncoder", "VectorQuantizeE", "VectorQuantizeR",
+           "FusedGATConv", "MAGCLConv", "MGNNI_m_iter"]

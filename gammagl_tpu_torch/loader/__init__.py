@@ -3,8 +3,8 @@ gammagl/loader/).
 
 Ported: the graph DataLoader, the node, link and layered neighbour
 loaders over the C++ sampler, GraphSAINT, random walks, the typed-graph
-sampler, the epoch cache, the feature table on the card and prefetching
-onto it. Not yet: the RGT loaders (`rgt_loader.py`), the multi-host loader
+sampler, the epoch cache, the feature table on the card, prefetching
+onto it and RGT's structure loaders. Not yet: the multi-host loader
 (`multihost.py`) and `ShardedFeatureStore`, which shard over a device
 mesh.
 """
@@ -26,6 +26,9 @@ from gammagl_tpu_torch.loader.prefetch import (PrefetchLoader,
                                                prefetch_to_device, pipeline)
 from gammagl_tpu_torch.loader.epoch_cache import EpochCache
 from gammagl_tpu_torch.loader.feature_cache import DeviceFeatureCache
+from gammagl_tpu_torch.loader.rgt_loader import (ExtractLinkLoader,
+                                                 ExtractNodeLoader,
+                                                 build_structure_batch)
 
 __all__ = [
     "DataLoader",
@@ -49,6 +52,9 @@ __all__ = [
     "pipeline",
     "EpochCache",
     "DeviceFeatureCache",
+    "ExtractNodeLoader",
+    "ExtractLinkLoader",
+    "build_structure_batch",
     "NeighborSampler",
     "RandomWalk",
 ]

@@ -26,10 +26,22 @@ from gammagl_tpu_torch.models.simple_models import (  # noqa: F401
     SGCModel,
 )
 from gammagl_tpu_torch.models.wave3_models import (  # noqa: F401
+    CAGCNModel,
+    GNNLFHFModel,
+    GRADEModel,
     HiDNetModel,
     HPNModel,
+    MERITModel,
     RoheHANModel,
+    SGFormerModel,
     ieHGCNModel,
+    tadw,
+)
+from gammagl_tpu_torch.models.graphormer import GraphormerModel  # noqa: F401
+from gammagl_tpu_torch.models.rgt import (  # noqa: F401
+    RGTModel,
+    rgt_cl_loss,
+    rgt_loss,
 )
 from gammagl_tpu_torch.models.heco import (  # noqa: F401
     HeCoModel,
@@ -136,4 +148,7 @@ __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GracePOTModel", "grace_pot_bounds", "GraceSpcoModel",
            "GEstimationN", "FatraGNNModel", "GraphEditer",
            "modify_structure", "HEAT", "NewGrace", "NodeIDGNN", "GNRF",
-           "Graph_Editer", "PreModel", "EdgePromptGCNModel"]
+           "Graph_Editer", "PreModel", "EdgePromptGCNModel",
+           "SGFormerModel", "GNNLFHFModel", "CAGCNModel", "MERITModel",
+           "GRADEModel", "tadw", "GraphormerModel", "RGTModel", "rgt_loss",
+           "rgt_cl_loss"]

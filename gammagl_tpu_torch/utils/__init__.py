@@ -67,6 +67,8 @@ from gammagl_tpu_torch.utils.to_dense import (  # noqa: F401
     to_dense_adj,
     to_dense_batch,
 )
+from gammagl_tpu_torch.utils.shortest_path import shortest_path  # noqa: F401
+from gammagl_tpu_torch.utils import manifold_math  # noqa: F401
 
 __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "calc_gcn_norm", "calc_gcn_norm_np", "compute_dtype",
@@ -80,4 +82,5 @@ __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "to_scipy_sparse_matrix", "from_scipy_sparse_matrix",
            "get_train_val_test_split", "threshold_prune", "prune_params",
            "rewind", "sparsity", "prune_edges_by_weight", "UniFewsLogger",
-           "ModelLogger", "LayerNumLogger", "F1Calculator", "Stopwatch"]
+           "ModelLogger", "LayerNumLogger", "F1Calculator", "Stopwatch",
+           "shortest_path", "manifold_math"]

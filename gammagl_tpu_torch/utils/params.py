@@ -7,7 +7,8 @@ A port module that has parameters names its flax counterparts in a
 transpose of the (in, out) ``kernel``; an ``nn.Conv1d`` for a flax
 ``Conv`` of one spatial axis: its (out, in, width) weight is the
 (width, in, out) ``kernel`` with its axes reversed; an ``nn.LayerNorm``
-for a flax ``LayerNorm``, its weight the ``scale``. Raw parameters keep
+for a flax ``LayerNorm``, its weight the ``scale``; an ``nn.Embedding`` for
+a flax ``Embed``, its weight the ``embedding``. Raw parameters keep
 their flax shape, whatever their rank: HGT's (H, D, D) relation
 matrices, its (H,) priors and its scalar skip gates.
 
@@ -50,6 +51,8 @@ def _layout(module, prefix=(), collection="params"):
     if isinstance(module, nn.LayerNorm):
         return {prefix + ("scale",): (module.weight, None),
                 prefix + ("bias",): (module.bias, None)}
+    if isinstance(module, nn.Embedding):
+        return {prefix + ("embedding",): (module.weight, None)}
     if not hasattr(module, "flax_tree"):
         raise TypeError(f"{type(module).__name__} names no flax "
                         "counterpart (no flax_tree method)")

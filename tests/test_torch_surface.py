@@ -63,11 +63,6 @@ COVERED = {
 }
 
 MISSING_NAMES = {
-    "layers/conv/__init__.py": [
-        "FusedGATConv", "MAGCLConv", "MGNNI_m_iter",
-        "ConstCurveLinear", "ConstCurveAgg", "EuclideanEncoder",
-        "ManifoldEncoder", "VectorQuantizeE", "VectorQuantizeR",
-    ],
     "models/__init__.py": [
         "GraphSAGE_Full_Model", "GraphSAGE_Sample_Model",
         "RGCN", "CompGCN", "HAN", "GRADE",
@@ -82,9 +77,6 @@ MISSING_NAMES = {
         "amp_elbo_regression_loss",
         "DeepWalk",
         "Node2Vec", "MetaPath2Vec",
-        "GraphormerModel", "SGFormerModel", "GNNLFHFModel",
-        "CAGCNModel",
-        "MERITModel", "GRADEModel", "tadw",
         "GraphGAN", "herec", "distill_loss",
         "GLNNStudent", "DeFoGModel",
         "XEyTransformerLayer", "timestep_embedding",
@@ -94,19 +86,13 @@ MISSING_NAMES = {
         "llaga_neighborhood_detail", "LLaGAEncoder",
         "splice_graph_embeddings",
         "drnl_node_labeling", "SEALModel", "CoGSLModel",
-        "RGTModel", "rgt_loss", "rgt_cl_loss",
     ],
     "loader/__init__.py": [
-        "ExtractNodeLoader", "ExtractLinkLoader", "build_structure_batch",
         "ShardedFeatureStore", "MultiHostNodeLoader", "shard_seeds",
         "make_global_batch", "pad_sampled_graph",
     ],
     "loader/feature_cache.py": [
         "ShardedFeatureStore",
-    ],
-    "models/wave3_models.py": [
-        "SGFormerModel", "GNNLFHFModel", "CAGCNModel", "MERITModel",
-        "GRADEModel", "tadw",
     ],
     "parallel/__init__.py": [
         "EdgePartition", "partition_edges_by_dst",
@@ -150,8 +136,7 @@ MISSING_NAMES = {
         "edge_index_to_adj_matrix", "get_few_shot_split",
         "node_subgraph", "set_device", "shortest_path_distance",
         "batched_shortest_path_distance",
-        "segment_softmax", "shortest_path", "from_smiles",
-        "manifold_math", "gfm_utils",
+        "segment_softmax", "from_smiles", "gfm_utils",
         "Conversation", "conv_templates", "get_conv_template",
         "find_all_simple_paths", "read_embeddings", "save_embeddings",
         "Inspector",
@@ -159,23 +144,14 @@ MISSING_NAMES = {
 }
 
 MISSING_MODULES = [
-    "layers/attention/__init__.py",
-    "layers/attention/graphormer.py", "layers/attention/rgt.py",
-    "layers/conv/compat_convs.py",
-    "layers/conv/rgt_layers.py", "layers/conv/rgt_vq.py",
-    "loader/multihost.py",
-    "loader/rgt_loader.py", "models/compat.py",
+    "loader/multihost.py", "models/compat.py",
     "models/defog.py", "models/embedding.py", "models/gan_distill.py",
-    "models/graph_llm.py", "models/graphormer.py",
-    "models/rgt.py", "models/seal_cogsl.py",
+    "models/graph_llm.py", "models/seal_cogsl.py",
     "parallel/halo_attention.py",
     "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
     "parallel/strategies.py", "typing.py",
     "utils/compat_utils.py", "utils/conversation.py", "utils/gfm_utils.py",
-    "utils/manifold_math.py",
-    "utils/paths_io.py",
-    "utils/profiling.py", "utils/shortest_path.py",
-    "utils/smiles.py",
+    "utils/paths_io.py", "utils/profiling.py", "utils/smiles.py",
 ]
 
 
