@@ -61,7 +61,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    path with the same masks, generator state and parameters: step-0
    gradients of every parameter and the 5 losses held within stated
    tolerances, the loss finite and falling, and per step exactly 2 flash
-   forward, 2 flash backward and 2 SpMM launches.
+   forward, 2 flash backward and 4 SpMM launches (each gathered backward
+   sends the score's and the features' per-edge gradients to their
+   sources by `spmm_csr` on the edge-scatter plan, ROADMAP C39).
 8. Serve GATv2 (GATV2Model: 8 heads x 8 concatenated, ELU, 1 head x 40;
    bf16 compute through the process default) through an `InferenceSession`
    on its default device, the card: 8 requests against the plain COO
@@ -206,7 +208,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    each): 8 requests against the plain COO path, exactly 2 flash forward
    launches each; a trace; float32 step-0 gradients; 5 steps (Adam lr
    0.005) against the plain path under one generator state, per step
-   exactly 2 flash forward, 2 flash backward and 2 SpMM launches; a trace.
+   exactly 2 flash forward, 2 flash backward and 4 SpMM launches; a trace.
 28. SimpleHGN (SimpleHGNModel: 8 heads x 64, edge embeddings of 32, 2
    layers, beta 0.05, residual, attention dropout 0.5, float32) on the
    flattened typed graph: 8 requests against the plain COO path, exactly
@@ -242,8 +244,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and the han twin on them for 2 steps on the card (its plans: actor ->
    movie has more source rows than destinations, ROADMAP C14): step-0
    loss and gradients bitwise those of the same `HeteroGraph` handed in
-   (in PyTorch's deterministic mode: HAN's backward sums score gradients
-   with atomic adds), exactly 20 flash forward, 4 flash backward and 4
+   (in PyTorch's deterministic mode: the cross-type relations' clipped
+   destination rows go back through an indexed gather, whose backward
+   adds atomically), exactly 20 flash forward, 4 flash backward and 8
    `spmm_csr` launches, the plan route within 3e-2 of max |logit| of the
    COO route in bf16. The host seconds of each load are printed with the
    card's name and power limit.
@@ -322,7 +325,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and GGD at 512 traced (the COO gather's backward's share printed);
    then each twin's loop end to end on the card (5 epochs, its probe or
    score) from the Cora-shape arrays.
-36. Print the card's name and power limit, one JSON line on the kernels
+36. The wave 5-8 models at their twins' defaults against their
+   copies on the CPU, and their twins' loops on the card (COO).
+37. FusedGATConv on the flash kernels at the arxiv shape (requests and
+   phase 7's steps), the rest of wave 3, Graphormer and RGT against the
+   CPU, and their twins.
+38. (a) ROADMAP C39: phase 7's GAT step run twice from one state (the
+   same parameters, keep masks, labels and generator state): the loss
+   and every step-0 gradient bitwise equal, exactly 2 flash forward, 2
+   flash backward and 4 `spmm_csr` launches a step (the gathered
+   backward sends the score's and the features' gradients to their
+   sources by `spmm_csr`), then 5 timed steps and a trace; (b)
+   `gammagl_tpu_torch.utils.profiling` on the main path: `chain_time` of
+   `spmm_csr` at F = 40 bf16 (K = 8) beside its CUDA-event time, `trace`
+   around one step of phase 20's GCN on the CSR plan (its kernel events
+   must name `spmm_csr` as often as the wrappers count: 6), and
+   `device_timer` around another; (c) DeepWalk, Node2Vec, MetaPath2Vec,
+   GraphGAN, GLNN, SEAL, CoGSL and DeFoG at their twins' defaults (a
+   graph of Cora's statistics; MetaPath2Vec on the synthetic typed
+   graph) against their copies on the CPU (`pair_check`), COO: no kernel.
+39. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -568,26 +590,27 @@ def timing(label, kernel, plain, nbytes, flops, library=None,
     return row
 
 
+# chrome traces of the phases (gitignored)
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "gammagl_tpu_torch", "_build", "traces")
+
+
 def profile(label, fn, n=3):
     """Trace n calls of fn with torch.profiler; print the device time by
     kernel (chrome trace events of category kernel, memcpy and memset),
     the device busy time and the idle share of the host-clock span, all
     per call."""
-    from torch.profiler import ProfilerActivity
+    from gammagl_tpu_torch.utils.profiling import trace
     fn()
     sync()
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with trace(TRACE_DIR) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         sync()
         span_us = (time.perf_counter() - t0) * 1e6 / n
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "gammagl_tpu_torch", "_build", "traces")
-    os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"trace_{label}.json")
-    prof.export_chrome_trace(path)
+    path = os.path.join(TRACE_DIR, f"trace_{label}.json")
+    os.replace(prof.trace_path, path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     by_name = {}
@@ -1535,7 +1558,10 @@ def gat_keeps(k, x, ei):
     return keeps_for
 
 
-GAT_STEP_LAUNCHES = {"spmm_csr": 2, "flash_forward": 2, "flash_backward": 2}
+# a step: 2 flash forwards, 2 gathered flash backwards, each followed by
+# 2 SpMM on the edge-scatter plan (the score's and the features'
+# gradients to their sources, ROADMAP C39)
+GAT_STEP_LAUNCHES = {"spmm_csr": 4, "flash_forward": 2, "flash_backward": 2}
 
 
 def phase_gat_train(k, twin, GATModel, load_jax_params, plan, x, ei):
@@ -3301,8 +3327,8 @@ def phase_han(k, common, HANModel, HANConv, HeteroGraph, compute_dtype,
     """HAN (8 heads x 8, attention dropout 0.6) on two metapath relations
     over the arxiv-shape node set, bf16 compute (the process default): a
     request is 2 flash forward launches (one a relation); a step 2 flash
-    forward, 2 flash backward and 2 SpMM (each GAT's feature gradient), as
-    phase 7's GAT step. Step-0 gradients are held in float32 compute.
+    forward, 2 flash backward and 4 SpMM (each GAT's score and feature
+    gradients), as phase 7's GAT step. Step-0 gradients are held in float32 compute.
     First the cross-type check at a small size."""
     phase_start("phase 27: serve and train HAN on two metapath relations")
     cross_err = han_cross_type_check(k, common, HANConv, dev)
@@ -3323,7 +3349,7 @@ def phase_han(k, common, HANModel, HANConv, HeteroGraph, compute_dtype,
             {"flash_forward": 2}, "HAN", (N_NODES, N_CLASS))
         serve_prof = profile("han_serve", lambda: common.predict(
             model, x_dict, ei_dict, plan_dict=plans))
-    per_step = {"flash_forward": 2, "flash_backward": 2, "spmm_csr": 2}
+    per_step = {"flash_forward": 2, "flash_backward": 2, "spmm_csr": 4}
     with compute_dtype(None):
         grad_err, _ = f32_step0_grads(
             k, "HAN", lambda: han_model(HANModel, hg), common, per_step,
@@ -3899,10 +3925,9 @@ def data_imdb_path(k, common, tmp, dev):
         return max([float((a[0] - b[0]).abs())]
                    + [float((a[1][n] - b[1][n]).abs().max()) for n in a[1]])
 
-    # HAN's backward sums per-edge score gradients into node rows with
-    # index_add_ (and the cross-type relations' clipped destination rows
-    # with an indexed gather's backward), whose atomic adds land in any
-    # order: two runs on one graph can differ in the last bits. The
+    # HAN's backward sums the cross-type relations' clipped destination
+    # rows with an indexed gather's backward, whose atomic adds land in
+    # any order: two runs on one graph can differ in the last bits. The
     # comparison of the two graphs runs in PyTorch's deterministic mode
     # (the hand-written kernels are deterministic in any mode)
     nondet = apart(step0(mem), step0(mem))
@@ -3923,7 +3948,7 @@ def data_imdb_path(k, common, tmp, dev):
     evals = sum(e % 10 == 0 or e == IMDB_STEPS - 1
                 for e in range(IMDB_STEPS)) + 1
     per_step = {"flash_forward": rels, "flash_backward": into,
-                "spmm_csr": into}
+                "spmm_csr": 2 * into}
     expect = {name: IMDB_STEPS * n + (evals * rels
                                       if name == "flash_forward" else 0)
               for name, n in per_step.items()}
@@ -6340,6 +6365,351 @@ def phase_wave3(k, smi, twin, GATModel, load_jax_params, x, ei):
     return fgat_counts, fgat_t_counts, counts, out
 
 
+# -- phase 38: slice 21 (C39, the port's profiling utilities, A6e) ----------
+
+# phase 7's step on the card before the gathered backward's score
+# gradient took `spmm_csr` (NVIDIA H100 80GB HBM3, 700 W): 5.53-6.78 ms;
+# row 1 at F = 40 bf16 on the arxiv shape (PERF.md section 6): 0.1804 ms
+ATOMIC_GAT_STEP_MS, ROW1_F40_MS = (5.53, 6.78), 0.1804
+P38_STEPS, P38_CHAIN_K = 3, 8
+
+
+def c39_gat_steps(k, twin, GATModel, load_jax_params, plan, x, ei):
+    """(a) ROADMAP C39 on the card: phase 7's GAT step (bf16, the arxiv
+    shape, heads (8, 8) then (1, 40)) run twice from the same parameters,
+    keep masks, labels and generator state: the loss and every step-0
+    gradient bitwise equal; each step exactly 2 flash forward, 2 flash
+    backward and 4 `spmm_csr` launches; then N_STEPS of the twin's step,
+    timed, and a trace of one."""
+    from gammagl_tpu_torch.train import TrainState
+    y, mask = train_labels(x)
+    keeps_for = gat_keeps(k, x, ei)
+    keeps = keeps_for(0)
+    want = every_kernel(GAT_STEP_LAUNCHES)
+    launches = every_kernel({})
+
+    def counted(label):
+        counts = read_counts(k)
+        if counts != want:
+            fail(f"C39 {label}: expected launches {want}, counted {counts}")
+        for name in launches:
+            launches[name] += counts[name]
+
+    runs = []
+    for _ in range(2):
+        model = gat_model(GATModel, load_jax_params).to(x.device).train()
+        kw = {"plan": plan, "keeps": keeps,
+              **dropout_rng(model, SEED + 100)}
+        sync()
+        reset_counts(k)
+        loss = twin.loss_and_grad(model, x, ei, y, mask, **kw)
+        sync()
+        counted("step 0")
+        runs.append((loss.detach().clone(),
+                     [p.grad.clone() for p in model.parameters()]))
+    (la, ga), (lb, gb) = runs
+    apart = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(ga, gb))
+    if not torch.equal(la, lb) or not all(torch.equal(a, b)
+                                          for a, b in zip(ga, gb)):
+        fail(f"C39: two runs of one GAT step differ (loss {float(la)} vs "
+             f"{float(lb)}, gradients {apart:.3e} apart)")
+    largest = max(float(g.float().abs().max()) for g in ga)
+    print(f"  C39: two GAT steps from one state: loss {float(la):.6f} and "
+          f"all {len(ga)} gradients bitwise equal (max |grad| "
+          f"{largest:.4e})")
+    model.zero_grad(set_to_none=True)
+    state = TrainState(model, GAT_LR)
+    step_ms = []
+    for step in range(N_STEPS):
+        kw = {"plan": plan, "keeps": keeps_for(step),
+              **dropout_rng(model, SEED + 100 + step)}
+        sync()
+        reset_counts(k)
+        t0 = time.perf_counter()
+        twin.train_step(state, x, ei, y, mask, **kw)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counted(f"step {step}")
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 200)
+    prof = profile("c39_gat_step", lambda: twin.train_step(
+        state, x, ei, y, mask, plan=plan, generator=gen))
+    med = float(np.median(step_ms[1:]))
+    print(f"  C39 GAT step (steps 1-{N_STEPS - 1}): median {med:.2f} ms "
+          f"(phase 7 with the atomic score scatter: "
+          f"{ATOMIC_GAT_STEP_MS[0]}-{ATOMIC_GAT_STEP_MS[1]} ms), device "
+          f"busy {prof['busy_us']:.1f} us; launches {launches}")
+    del state, model, runs
+    torch.cuda.empty_cache()
+    return launches, {"step0_loss": float(la), "max_abs_grad": largest,
+                      "step_ms": step_ms, "step_median_ms": med,
+                      "profile": prof}
+
+
+def profiling_path(k, GCNModel, load_jax_params, plan, x, ei):
+    """(b) `gammagl_tpu_torch.utils.profiling` on the main path:
+    `chain_time` of `spmm_csr` (row 1) at F = 40 bf16 on the arxiv shape
+    beside its CUDA-event time and the table's figure; `trace` around one
+    step of phase 20's GCN (3 layers, bf16) on the CSR plan, whose kernel
+    events must name `spmm_csr` as often as the wrappers count; and
+    `device_timer` around the same step."""
+    from gammagl_tpu_torch.examples import common
+    from gammagl_tpu_torch.train import TrainState
+    from gammagl_tpu_torch.utils.profiling import (chain_time, device_timer,
+                                                   trace)
+    dev = x.device
+    w = k.pad_edge_weights(plan, gcn_weights(ei, N_NODES))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    h0 = torch.randn(N_NODES, N_CLASS, generator=gen,
+                     device=dev).bfloat16()
+
+    def step(h):
+        return k.spmm_csr(h, w, plan, weights_padded=True)
+
+    chain_ms = chain_time(step, h0, K=P38_CHAIN_K, reps=3) * 1e3
+    event_ms = cuda_ms(lambda: step(h0))
+    print(f"  chain_time(spmm_csr, F = 40 bf16, K = {P38_CHAIN_K}): "
+          f"{chain_ms:.4f} ms a step (with its bound h / (max|h| + 1)); "
+          f"CUDA events of the launch alone {event_ms:.4f} ms; PERF.md row "
+          f"1: {ROW1_F40_MS} ms")
+    y, mask = train_labels(x)
+    model = gcn_model(GCNModel, load_jax_params).to(dev)
+    state = TrainState(model, GCN_LR, GCN_L2)
+    common.train_step(state, x, ei, y, mask, plan=plan)  # warm
+    want = every_kernel({"spmm_csr": 2 * N_LAYERS})
+    launches = every_kernel({})
+    sync()
+    reset_counts(k)
+    with trace(TRACE_DIR) as prof:
+        common.train_step(state, x, ei, y, mask, plan=plan)
+    counts = read_counts(k)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    named = [ev["name"] for ev in events
+             if ev.get("cat") == "kernel" and "spmm_csr" in ev["name"]]
+    if counts != want or len(named) != counts["spmm_csr"]:
+        fail(f"trace: the GCN step counted {counts} (expected {want}); its "
+             f"trace names spmm_csr in {len(named)} kernel events")
+    for name in launches:
+        launches[name] += counts[name]
+    busy = sum(ev["dur"] for ev in events if ev.get("cat") == "kernel")
+    lines = []
+    sync()
+    reset_counts(k)
+    with device_timer("GCN train step (3 x 256, bf16, CSR plan)",
+                      sink=lines.append):
+        common.train_step(state, x, ei, y, mask, plan=plan)
+    counts = read_counts(k)
+    if counts != want or len(lines) != 1:
+        fail(f"device_timer: counted {counts}, lines {lines}")
+    for name in launches:
+        launches[name] += counts[name]
+    print(f"  trace: {len(events)} events, {len(named)} spmm_csr kernels "
+          f"(the wrappers counted {counts['spmm_csr']}), kernel time "
+          f"{busy:.1f} us; {os.path.relpath(prof.trace_path)}")
+    print(f"  device_timer: {lines[0]}")
+    del state, model
+    torch.cuda.empty_cache()
+    return launches, {"chain_ms": chain_ms, "event_ms": event_ms,
+                      "trace_spmm_kernels": len(named),
+                      "trace_kernel_us": busy, "device_timer": lines[0]}
+
+
+def a6e_models(k):
+    """(c) The A6e models at their twins' defaults, each against its copy
+    on the CPU (`pair_check`: requests at W58_OUT_TOL of max |out|, step
+    losses at W58_LOSS_RTOL, the loss falling; for the models that draw
+    new walks, batches or noise each step, one fixed draw's loss). COO,
+    as in JAX: no kernel launches."""
+    from gammagl_tpu_torch import models as M
+    from gammagl_tpu_torch.examples import (
+        cogsl_trainer, common, deepwalk_trainer, defog_trainer,
+        glnn_trainer, graphgan_trainer, metapath2vec_trainer,
+        node2vec_trainer, seal_trainer)
+    from gammagl_tpu_torch.models.defog import (flow_draws,
+                                                flow_interpolate_apply)
+    rng = np.random.default_rng(SEED + 38)
+    cora = cora_shape(rng)
+    d = {key: v.cpu() for key, v in common.device_graph(cora, "cpu")
+         .items()}
+    n, ncls, fdim = CORA_NODES, CORA_CLASSES, CORA_FEAT
+    runs = {}
+    sync()
+    reset_counts(k)
+
+    def default(module, name):
+        return module.parser().get_default(name)
+
+    def seeded(build):
+        torch.manual_seed(SEED + 38)
+        return build()
+
+    def walk_model(label, module, cls, **kw):
+        hidden = default(module, "hidden_dim")
+        model = seeded(lambda: cls(n, hidden, walk_length=10, **kw))
+        walks = iter(model.make_loader(cora["edge_index"], batch_size=default(
+            module, "batch_size"), seed=SEED))
+        draws = [_both(*(torch.from_numpy(a) for a in next(walks)))
+                 for _ in range(P38_STEPS + 1)]
+        runs[label] = pair_check(
+            label, lambda: (model, default(module, "lr"), 0.0),
+            lambda m, dev_: m().detach(),
+            lambda m, dev_, w: m(*_pick(w, dev_)),
+            draws[1:], fixed=draws[0])
+
+    walk_model("DeepWalk 128", deepwalk_trainer, M.DeepWalk)
+    walk_model("Node2Vec 128 (p 4, q 1)", node2vec_trainer, M.Node2Vec,
+               p=default(node2vec_trainer, "p"),
+               q=default(node2vec_trainer, "q"))
+
+    hg, _ = common.synthetic_hetero()
+    ei_dict = {key: np.asarray(v) for key, v in hg.edge_index_dict.items()}
+    n_dict = {"movie": 200, "director": 60}
+    mp = seeded(lambda: M.MetaPath2Vec(
+        n_dict, metapath2vec_trainer.METAPATH,
+        default(metapath2vec_trainer, "hidden_dim"), walk_length=4))
+    mrng = np.random.default_rng(SEED)
+
+    def mp_draw():
+        walks = mp.sample_walks(ei_dict, mrng.integers(0, 200, 128), mrng)
+        neg = mrng.integers(0, 260, (128, 1, walks.shape[1]))
+        return _both(torch.from_numpy(walks), torch.from_numpy(neg))
+
+    mdraws = [mp_draw() for _ in range(P38_STEPS + 1)]
+    runs["MetaPath2Vec 64"] = pair_check(
+        "MetaPath2Vec 64", lambda: (mp, default(metapath2vec_trainer, "lr"),
+                                    0.0),
+        lambda m, dev_: m.embed("movie"),
+        lambda m, dev_, w: m(*_pick(w, dev_)), mdraws[1:], fixed=mdraws[0])
+
+    ei = cora["edge_index"]
+    grng = np.random.default_rng(SEED)
+
+    def gan_draw(kind):
+        pos = ei[:, grng.integers(0, ei.shape[1], 256)]
+        fake = grng.integers(0, n, 256)
+        u = torch.from_numpy(np.concatenate([pos[0], pos[0]]))
+        v = torch.from_numpy(np.concatenate([pos[1], fake]))
+        lab = torch.cat([torch.ones(256), torch.zeros(256)])
+        return {**_both(u, v, lab), "kind": kind}
+
+    def gan_loss(m, dev_, b):
+        u, v, lab = _pick(b, dev_)
+        return (m(u, v, lab) if b["kind"] == "d"
+                else m(u[:256], v[256:]))
+
+    gfixed = gan_draw("d")
+    runs["GraphGAN 64"] = pair_check(
+        "GraphGAN 64", lambda: (seeded(lambda: M.GraphGAN(
+            n, default(graphgan_trainer, "hidden_dim"))),
+            default(graphgan_trainer, "lr"), 0.0),
+        lambda m, dev_: m.dis_score(*_pick(gfixed, dev_)[:2]), gan_loss,
+        [gan_draw(kind) for _ in range(P38_STEPS) for kind in "dg"],
+        fixed=gfixed)
+
+    with torch.no_grad():
+        teacher = seeded(lambda: M.GCNModel(16, ncls, drop_rate=0.0))
+        t_logits = common.predict(teacher, d["x"], d["edge_index"])
+    gl = _both(d["x"], t_logits, d["y"], d["train_mask"])
+    runs["GLNN 16"] = pair_check(
+        "GLNN 16", lambda: (seeded(lambda: M.GLNNStudent(
+            default(glnn_trainer, "hidden_dim"), ncls, drop_rate=0.0,
+            in_channels=fdim)), default(glnn_trainer, "lr"), 0.0),
+        lambda m, dev_: m(_pick(gl, dev_)[0]),
+        lambda m, dev_, _: M.distill_loss(m(_pick(gl, dev_)[0]),
+                                          *_pick(gl, dev_)[1:], lam=0.5),
+        [None] * P38_STEPS)
+
+    srng = np.random.default_rng(SEED)
+    bs = default(seal_trainer, "batch_size")
+
+    def seal_draw():
+        lab, sei, b, y, ng = seal_trainer.subgraph_batch(ei, n, srng, bs)
+        return {**_both(*(torch.from_numpy(a) for a in (lab, sei, b, y))),
+                "ng": ng}
+
+    def seal_out(m, dev_, b):
+        lab, sei, bb, _ = _pick(b, dev_)
+        return m(lab, sei, None, bb, b["ng"])
+
+    sdraws = [seal_draw() for _ in range(P38_STEPS + 1)]
+    runs["SEAL 16 (k 6)"] = pair_check(
+        "SEAL 16 (k 6)", lambda: (seeded(lambda: M.SEALModel(
+            default(seal_trainer, "hidden_dim"), k=6)),
+            default(seal_trainer, "lr"), 0.0),
+        lambda m, dev_: seal_out(m, dev_, sdraws[0]),
+        lambda m, dev_, b: torch.nn.functional.
+        binary_cross_entropy_with_logits(seal_out(m, dev_, b)[:, 0],
+                                         _pick(b, dev_)[3].float()),
+        sdraws[1:], fixed=sdraws[0])
+
+    e2 = torch.from_numpy(cogsl_trainer.second_view(
+        d["edge_index"].numpy(), SEED))
+    cg = _both(d["x"], d["edge_index"], e2, d["y"], d["train_mask"])
+    runs["CoGSL 16"] = pair_check(
+        "CoGSL 16", lambda: (seeded(lambda: M.CoGSLModel(
+            ncls, default(cogsl_trainer, "hidden_dim"), in_channels=fdim)),
+            default(cogsl_trainer, "lr"), 0.0),
+        lambda m, dev_: m(*_pick(cg, dev_)[:3])[0][2],
+        lambda m, dev_, _: cogsl_trainer.cogsl_loss(
+            m(*_pick(cg, dev_)[:3]), *_pick(cg, dev_)[3:]),
+        [None] * P38_STEPS)
+
+    fgen = torch.Generator().manual_seed(SEED + 38)
+    frng = np.random.default_rng(SEED)
+
+    def flow_draw():
+        X1 = torch.nn.functional.one_hot(torch.from_numpy(
+            frng.integers(0, 4, 8)), 4).float()
+        e = frng.integers(0, 3, (8, 8))
+        E1 = torch.nn.functional.one_hot(torch.from_numpy(
+            np.triu(e) + np.triu(e, 1).T), 3).float()
+        t = torch.rand((), generator=fgen)
+        fd = flow_draws(fgen, 8, 4, 3, t)
+        keys = sorted(fd)
+        return {**_both(X1, E1, t.reshape(1), *(fd[key] for key in keys)),
+                "keys": keys}
+
+    def flow_loss(m, dev_, b):
+        X1, E1, t, *rest = _pick(b, dev_)
+        Xt, Et = flow_interpolate_apply(dict(zip(b["keys"], rest)), X1, E1)
+        return defog_trainer.flow_loss(m, Xt, Et, torch.zeros(1, device=
+                                       X1.device), t[0], X1, E1)
+
+    fdraws = [flow_draw() for _ in range(P38_STEPS + 1)]
+    runs["DeFoG (2 layers)"] = pair_check(
+        "DeFoG (2 layers)", lambda: (seeded(lambda: M.DeFoGModel(
+            **defog_trainer.DIMS)), default(defog_trainer, "lr"), 0.0),
+        lambda m, dev_: m(*_pick(fdraws[0], dev_)[:2],
+                          torch.zeros(1, device=dev_),
+                          _pick(fdraws[0], dev_)[2][0]),
+        flow_loss, fdraws[1:], fixed=fdraws[0])
+    sync()
+    counts = read_counts(k)
+    if any(counts.values()):
+        fail(f"phase 38's COO models launched kernels: {counts}")
+    return counts, runs
+
+
+def phase_slice21(k, smi, twin, GATModel, GCNModel, load_jax_params, plan,
+                  x, ei):
+    """Phase 38: (a) C39's deterministic gathered flash backward held
+    bitwise over two GAT steps; (b) the port's profiling utilities on
+    row 1 and the GCN step; (c) the A6e models against the CPU."""
+    phase_start("phase 38: C39 bitwise GAT steps, utils.profiling on the "
+                "main path, the A6e models against the CPU")
+    t_phase = time.perf_counter()
+    gat_counts, c39 = c39_gat_steps(k, twin, GATModel, load_jax_params,
+                                    plan, x, ei)
+    prof_counts, prof = profiling_path(k, GCNModel, load_jax_params, plan,
+                                       x, ei)
+    a6e_counts, a6e = a6e_models(k)
+    out = {"c39": c39, "profiling": prof, "a6e": a6e,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) phase 38 in {out['seconds']:.1f} s")
+    return gat_counts, prof_counts, a6e_counts, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -6512,6 +6882,9 @@ def main():
     w58_counts, w58 = phase_wave5_8(k, smi.splitlines()[0], x, ei)
     fgat_counts, fgat_t_counts, w3_counts, w3 = phase_wave3(
         k, smi.splitlines()[0], twin, GATModel, load_jax_params, x, ei)
+    c39_counts, prof_counts, a6e_counts, s21 = phase_slice21(
+        k, smi.splitlines()[0], twin, GATModel, GCNModel, load_jax_params,
+        plan, x, ei)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -6542,6 +6915,8 @@ def main():
     runs["wave5_8"] = w58_counts
     runs["fgat"], runs["fgat-t"] = fgat_counts, fgat_t_counts
     runs["wave3"] = w3_counts
+    runs["gat-c39"], runs["profiling"] = c39_counts, prof_counts
+    runs["a6e"] = a6e_counts
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -6691,7 +7066,7 @@ def main():
                        for name, path in data.items()},
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
-        "ssl": ssl, "wave5_8": w58, "wave3": w3}))
+        "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -111,6 +111,29 @@ from gammagl_tpu_torch.models.wave8_models import (  # noqa: F401
     GraphEditer,
     modify_structure,
 )
+from gammagl_tpu_torch.models.embedding import (  # noqa: F401
+    DeepWalk,
+    MetaPath2Vec,
+    Node2Vec,
+)
+from gammagl_tpu_torch.models.gan_distill import (  # noqa: F401
+    GLNNStudent,
+    GraphGAN,
+    distill_loss,
+    herec,
+)
+from gammagl_tpu_torch.models.seal_cogsl import (  # noqa: F401
+    CoGSLModel,
+    SEALModel,
+    drnl_node_labeling,
+)
+from gammagl_tpu_torch.models.defog import (  # noqa: F401
+    DeFoGModel,
+    XEyTransformerLayer,
+    euler_sample_step,
+    flow_interpolate,
+    timestep_embedding,
+)
 
 # the reference's spellings (gammagl/models/__init__.py)
 HPN = HPNModel
@@ -151,4 +174,8 @@ __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "Graph_Editer", "PreModel", "EdgePromptGCNModel",
            "SGFormerModel", "GNNLFHFModel", "CAGCNModel", "MERITModel",
            "GRADEModel", "tadw", "GraphormerModel", "RGTModel", "rgt_loss",
-           "rgt_cl_loss"]
+           "rgt_cl_loss", "DeepWalk", "Node2Vec", "MetaPath2Vec",
+           "GraphGAN", "herec", "distill_loss", "GLNNStudent",
+           "drnl_node_labeling", "SEALModel", "CoGSLModel", "DeFoGModel",
+           "XEyTransformerLayer", "timestep_embedding", "flow_interpolate",
+           "euler_sample_step"]

@@ -26,10 +26,11 @@ row of more than `ROW_SPLIT` edges is cut into items, whose partial
 
 Per-edge tensors are in the plan's CSR order (the JAX package's are in
 its padded lane order). `flash_gat_attention` takes node rows instead:
-the kernel gathers ``score`` and ``msg`` at each edge's source. The gradient
-of the features reaches the source rows through `spmm_csr` on
+the kernel gathers ``score`` and ``msg`` at each edge's source. The
+gradients of both reach the source rows through `spmm_csr` on
 `CSRPlan.edge_scatter_plan` (the counterpart of `gather_rows`' VJP,
-`segment_matmul.py:496-515`).
+`segment_matmul.py:496-515`): no atomic add, so a backward repeats
+bitwise.
 
 The order of ``keep`` follows from ``gather``: with per-edge inputs it is
 in CSR order, like them; with node rows (``gather``) it is in the caller's
@@ -46,7 +47,7 @@ from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _csr_rows
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _first_order_only
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
-from gammagl_tpu_torch.ops.cuda.segment_matmul import (_items,
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (_items, _pad_rows,
                                                        _part_stride,
                                                        _raise_on, _slots,
                                                        spmm_csr)
@@ -318,10 +319,11 @@ class _FlashAttention(torch.autograd.Function):
 
     Forward: one launch of the forward kernel, saving (out, m, l).
     Backward: one launch of the backward kernel. With ``gather`` the
-    per-edge gradients go back to node rows: the score's by a plain
-    ``index_add_`` over (E, H) scalars (the JAX package reduces them in
-    XLA too), the features' by `spmm_csr` on the plan's edge-scatter
-    transpose (a kernel launch on the card)."""
+    per-edge gradients go back to their source rows by `spmm_csr` on the
+    plan's edge-scatter transpose, the score's (E, H) float32 and the
+    features' (E, H*F) alike: two more kernel launches on the card, each
+    row summed in CSR order, so a step repeats bitwise (the JAX package
+    reduces them with ``segment_sum``)."""
 
     @staticmethod
     def forward(ctx, score, a_dst, msg, keep, plan, slope, gather):
@@ -340,13 +342,9 @@ class _FlashAttention(torch.autograd.Function):
                                       grad, plan, ctx.slope, gather)
         d_score, d_msg = ds, dmsg
         if gather:
-            col = plan.arrays(ds.device)[1].long()
-            d_score = torch.zeros(score.shape, device=ds.device).index_add_(
-                0, col, ds)
-            d_msg = spmm_csr(dmsg, None, plan.edge_scatter_plan())
-            if msg.shape[0] > plan.num_src:  # rows no edge reads
-                d_msg = torch.cat([d_msg, d_msg.new_zeros(
-                    msg.shape[0] - plan.num_src, d_msg.shape[1])])
+            scatter = plan.edge_scatter_plan()
+            d_score = _pad_rows(spmm_csr(ds, None, scatter), score.shape[0])
+            d_msg = _pad_rows(spmm_csr(dmsg, None, scatter), msg.shape[0])
         return (d_score, None if a_dst is None else da, d_msg, None, None,
                 None, None)
 

@@ -69,6 +69,36 @@ from gammagl_tpu_torch.utils.to_dense import (  # noqa: F401
 )
 from gammagl_tpu_torch.utils.shortest_path import shortest_path  # noqa: F401
 from gammagl_tpu_torch.utils import manifold_math  # noqa: F401
+from gammagl_tpu_torch.utils.smiles import from_smiles  # noqa: F401
+from gammagl_tpu_torch.utils.profiling import (  # noqa: F401
+    chain_time,
+    device_timer,
+    trace,
+)
+from gammagl_tpu_torch.utils import gfm_utils  # noqa: F401
+from gammagl_tpu_torch.utils.conversation import (  # noqa: F401
+    Conversation,
+    conv_templates,
+    get_conv_template,
+)
+from gammagl_tpu_torch.utils.paths_io import (  # noqa: F401
+    Inspector,
+    find_all_simple_paths,
+    read_embeddings,
+    save_embeddings,
+)
+from gammagl_tpu_torch.utils.compat_utils import (  # noqa: F401
+    batched_shortest_path_distance,
+    calc_A_norm_hat,
+    edge_index_to_adj_matrix,
+    get_few_shot_split,
+    node_subgraph,
+    set_device,
+    shortest_path_distance,
+)
+# re-exported from ops, as the JAX package's utils does (last: ops imports
+# utils' submodules)
+from gammagl_tpu_torch.ops.softmax import segment_softmax  # noqa: F401,E402
 
 __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "calc_gcn_norm", "calc_gcn_norm_np", "compute_dtype",
@@ -83,4 +113,10 @@ __all__ = ["add_self_loops", "remove_self_loops", "contains_self_loops",
            "get_train_val_test_split", "threshold_prune", "prune_params",
            "rewind", "sparsity", "prune_edges_by_weight", "UniFewsLogger",
            "ModelLogger", "LayerNumLogger", "F1Calculator", "Stopwatch",
-           "shortest_path", "manifold_math"]
+           "shortest_path", "manifold_math", "chain_time", "trace",
+           "device_timer", "calc_A_norm_hat", "edge_index_to_adj_matrix",
+           "get_few_shot_split", "node_subgraph", "set_device",
+           "shortest_path_distance", "batched_shortest_path_distance",
+           "segment_softmax", "from_smiles", "gfm_utils", "Conversation",
+           "conv_templates", "get_conv_template", "find_all_simple_paths",
+           "read_embeddings", "save_embeddings", "Inspector"]

@@ -18,7 +18,10 @@ def _local_ids(batch, batch_size, max_num_nodes):
     if max_num_nodes is None:
         max_num_nodes = int(counts.max())
     ptr = torch.cumsum(counts, 0) - counts
-    local = torch.arange(batch.shape[0], device=batch.device) - ptr[batch]
+    # a graph id outside [0, batch_size) (a padded node) reads any ptr:
+    # its row is dropped
+    local = torch.arange(batch.shape[0], device=batch.device) - ptr[
+        batch.clamp(0, max(batch_size - 1, 0))]
     return batch_size, max_num_nodes, local
 
 
@@ -50,15 +53,16 @@ def to_dense_batch(x, batch=None, fill_value=0.0, max_num_nodes=None,
                    batch_size=None):
     """Ragged node rows -> ((B, N_max, ...) padded with ``fill_value``,
     (B, N_max) bool mask of the real rows). Without ``batch`` the whole
-    of x is one graph. A node past ``max_num_nodes`` in its graph is
-    dropped, as the JAX scatter drops it."""
+    of x is one graph. A node past ``max_num_nodes`` in its graph, or of
+    a graph id outside [0, batch_size) (a padded node), is dropped, as
+    the JAX scatter drops it."""
     if batch is None:
         return x[None], torch.ones((1, x.shape[0]), dtype=torch.bool,
                                    device=x.device)
     batch = torch.as_tensor(batch, device=x.device).long()
     batch_size, max_num_nodes, local = _local_ids(batch, batch_size,
                                                   max_num_nodes)
-    keep = local < max_num_nodes
+    keep = (local < max_num_nodes) & (batch >= 0) & (batch < batch_size)
     b, local = batch[keep], local[keep]
     out = torch.full((batch_size, max_num_nodes) + tuple(x.shape[1:]),
                      fill_value, dtype=x.dtype, device=x.device)

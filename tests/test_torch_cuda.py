@@ -422,14 +422,77 @@ def test_gat_training_through_the_kernels_matches_the_plain_path(card):
         torch.cuda.synchronize()
         after = (kops.flash_forward.launches, kops.flash_backward.launches,
                  kops.spmm_csr.launches)
+        # each gathered backward: the score's and the features' SpMM on
+        # the edge-scatter plan (ROADMAP C39)
         assert tuple(a - b for a, b in zip(after, before)) == (
-            (2, 2, 2) if plan is not None else (0, 0, 0))
+            (2, 2, 4) if plan is not None else (0, 0, 0))
         results.append((out.detach(), [p.grad for p in model.parameters()]))
     (out_k, grads_k), (out_p, grads_p) = results
     _close(out_k, out_p, 1e-4)
     for g_, w_ in zip(grads_k, grads_p):
         torch.testing.assert_close(g_, w_, rtol=0,
                                    atol=1e-4 * float(w_.abs().max()))
+
+
+def _gat_step_grads(card, model, xt, ei, plan, keeps, y, seed):
+    model.zero_grad()
+    gen = torch.Generator(device=card).manual_seed(seed)
+    out = model(xt, ei, plan=plan, keeps=keeps, generator=gen)
+    loss = torch.nn.functional.cross_entropy(out, y)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), [p.grad.clone() for p in model.parameters()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gathered_flash_backward_repeats_bitwise_c39(card, dtype):
+    """ROADMAP C39: a GAT step (8 heads x 8, then 1 x 5: the gathered
+    backward at H = 8 and at H = 1) on a graph whose sources feed
+    thousands of edges each, run twice from the same parameters, masks
+    and generator state: the loss and every gradient bitwise equal. Then
+    `flash_gat_attention` on a plan with no edges: zero gradients, twice
+    bitwise, and the backward's two SpMM launches."""
+    rng = np.random.default_rng(40)
+    n, e = 3000, 60000
+    src = rng.integers(0, 40, e)  # 40 hub sources
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    graph = Graph(x=x, edge_index=np.stack(
+        [src, rng.integers(0, n, e)])).add_self_loop()
+    xt = torch.tensor(x, device=card)
+    ei = torch.tensor(graph.edge_index, device=card)
+    g = torch.Generator(device=card).manual_seed(41)
+    keeps = [kops.attention_keep_mask(g, 0.6, (ei.shape[1], h), card)
+             for h in (8, 1)]
+    torch.manual_seed(42)
+    model = GATModel(hidden_dim=8, num_class=5, heads=8, dtype=dtype,
+                     in_channels=24).to(card).train()
+    y = torch.arange(n, device=card) % 5
+    plan = graph.csr_plan()
+    before = kops.spmm_csr.launches
+    (la, ga), (lb, gb) = [_gat_step_grads(card, model, xt, ei, plan, keeps,
+                                          y, 43) for _ in range(2)]
+    assert kops.spmm_csr.launches - before == 2 * 4
+    assert torch.equal(la, lb)
+    for a, b in zip(ga, gb):
+        assert torch.equal(a, b)
+
+    empty = kops.build_csr_plan([], [], 6, num_src=5)
+    grads = []
+    for _ in range(2):
+        leaves = [torch.randn(5, 8, device=card, generator=g.manual_seed(7)),
+                  torch.randn(6, 8, device=card),
+                  torch.randn(5, 8, 4, device=card)]
+        leaves = [t.to(dtype if i == 2 else torch.float32).requires_grad_()
+                  for i, t in enumerate(leaves)]
+        before = kops.spmm_csr.launches
+        out = kops.flash_gat_attention(leaves[0], leaves[1], leaves[2], empty)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert kops.spmm_csr.launches - before == 2
+        assert not out.any()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b) and not a.any()
 
 
 def test_gat_session_on_card_matches_the_plain_path(card):
@@ -1808,7 +1871,7 @@ def test_han_twin_on_imdb_files_plan_route_matches_coo(card, tmp_path):
     """The han twin reads a fabricated IMDB (actor -> movie has more
     source rows than destination rows, ROADMAP C14) and trains 2 steps on
     the card, each relation's GAT on its plan: one flash forward a
-    relation a forward, a flash backward and an SpMM for each relation
+    relation a forward, a flash backward and two SpMM for each relation
     into movies a step; then its model's plan route against its COO
     route, float32 1e-5 and bf16 3e-2 of max |logit|."""
     from gammagl_tpu_torch.examples import common, han_trainer
@@ -1820,9 +1883,10 @@ def test_han_twin_on_imdb_files_plan_route_matches_coo(card, tmp_path):
     before = _launch_counts()
     out = han_trainer.main(args)
     torch.cuda.synchronize()
-    # flash forwards: 2 steps and 3 evaluations of 4 relations; an SpMM
-    # for each of the 2 relations into movies a step
-    assert _launched(before) == {"flash": 2 * 4 + 3 * 4, "spmm": 2 * 2}
+    # flash forwards: 2 steps and 3 evaluations of 4 relations; two SpMM
+    # (the score's and the features' gradients, ROADMAP C39) for each of
+    # the 2 relations into movies a step
+    assert _launched(before) == {"flash": 2 * 4 + 3 * 4, "spmm": 2 * 2 * 2}
     assert np.isfinite(out["losses"]).all()
     x_dict, ei_dict, _, _, _ = common.hetero_tensors(hg, target, card)
     model = out["state"].model

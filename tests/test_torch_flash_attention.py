@@ -403,3 +403,58 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="no kernel"):
         kops.flash_edge_attention_mh(s.to("meta"), a.to("meta"),
                                      x.to("meta"), plan)
+
+
+@pytest.mark.parametrize("H,F,e", [(8, 4, 240), (1, 40, 240), (2, 8, 0)])
+def test_gathered_score_gradient_matches_jax_c39(H, F, e, monkeypatch):
+    """ROADMAP C39: the gathered backward sums the score's per-edge
+    gradients into their source rows with `spmm_csr` on the plan's
+    edge-scatter transpose (no atomic add on the card), as it sums the
+    features'. On node rows with 3 rows past the plan's sources (they get
+    zero rows), at H = 8, H = 1 and on a plan with no edges: the output
+    and the gradients of the score, the destination score and the
+    features against the JAX package's XLA composition (gather,
+    `segment_softmax`, `segment_sum`), f32 at 1e-5. The backward takes
+    exactly two `spmm_csr` calls, both on the edge-scatter plan."""
+    from gammagl_tpu_torch.ops.cuda import flash_attention as fa
+    rng = np.random.default_rng(31 + H + e)
+    n_dst, n_src, extra = 30, 26, 3
+    src, dst = rng.integers(0, n_src, e), rng.integers(0, n_dst, e)
+    plan = kops.build_csr_plan(src, dst, n_dst, num_src=n_src)
+    s_node = rng.normal(size=(n_src + extra, H)).astype(np.float32)
+    x_node = rng.normal(size=(n_src + extra, H, F)).astype(np.float32)
+    a = rng.normal(size=(n_dst, H)).astype(np.float32)
+    keep = (rng.random((e, H)) < 0.6).astype(np.float32) / 0.6
+    g = rng.normal(size=(n_dst, H, F)).astype(np.float32)
+
+    calls = []
+
+    def counted(x, w, p, *args, **kw):
+        calls.append(p)
+        return kops.spmm_csr(x, w, p, *args, **kw)
+
+    monkeypatch.setattr(fa, "spmm_csr", counted)
+    leaves = [torch.tensor(t, requires_grad=True) for t in (s_node, a,
+                                                             x_node)]
+    out = kops.flash_gat_attention(leaves[0], leaves[1], leaves[2], plan,
+                                   SLOPE, keep=torch.tensor(keep))
+    (out * torch.tensor(g)).sum().backward()
+    assert len(calls) == 2 and all(p is plan.edge_scatter_plan()
+                                   for p in calls)
+
+    jsrc, jdst = jnp.asarray(src), jnp.asarray(dst)
+
+    def loss(s, a_, x):
+        z = s[jsrc] + a_[jdst]
+        z = jnp.where(z >= 0, z, SLOPE * z)
+        alpha = jax_segment_softmax(z, jdst, n_dst) * keep
+        o = jax_segment_sum(alpha[..., None] * x[jsrc], jdst, n_dst)
+        return jnp.sum(o * g), o
+
+    (_, want), want_g = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True))(s_node, a, x_node)
+    _close(out, want, 1e-5, 1e-5)
+    for leaf, wg in zip(leaves, want_g):
+        _close(leaf.grad, wg, 1e-5, 1e-5)
+    assert not leaves[0].grad[n_src:].any()
+    assert not leaves[2].grad[n_src:].any()

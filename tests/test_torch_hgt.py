@@ -17,9 +17,13 @@ so the twin is held against the JAX trainer's loss with ``train=False``,
 and the port's own train-mode routes against each other. Each JAX
 reference but the bf16 twin's is one jitted call (its forward, or its
 loss and gradients, under one compile), which also runs the Pallas
-kernels' interpret mode compiled rather than step by step.
+kernels' interpret mode compiled rather than step by step. The JAX
+layers and models, their jitted ``init`` and their jitted forwards are
+built once for the module (cached by configuration), so cases of one
+configuration share one compile.
 """
 
+import functools
 import os.path as osp
 import sys
 
@@ -154,19 +158,50 @@ def test_heterograph_matches_jax_and_caches_plans():
     assert g.csr_plans() == {}  # endpoint types without sizes: no plan
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_graph():
+    """The JAX package's synthetic typed graph (seed 0), its inputs as
+    arrays, and its plans by window (built once)."""
+    jhg, hg, _ = _graphs()
+    x_dict, ei_dict = _inputs(hg)
+    jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
+    jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
+    plans = {None: None}
+    for window in (False, True):
+        plans[window] = jhg.csr_plans(R=8, ET=32, window=window)
+    return jhg, jx, jei, plans
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_conv(dtype, heads, out):
+    """(JAX HGTConv, its jitted init) of one configuration."""
+    _, hg, _ = _graphs()
+    jconv = JaxHGTConv(out_channels=out, metadata=hg.metadata(), heads=heads,
+                       dtype=DTYPES[dtype][0])
+    return jconv, jax.jit(jconv.init)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(kind, dtype, heads, width, window):
+    """The jitted forward of the cached JAX conv or model of one
+    configuration on the cached graph's plans of ``window``."""
+    module = (_jax_conv(dtype, heads, width)[0] if kind == "conv"
+              else _jax_model(dtype, width, heads)[0])
+    _, jx, jei, plans = _jax_graph()
+    jplans = plans[window]
+    return jax.jit(lambda p: module.apply(p, jx, jei, plan_dict=jplans))
+
+
 def _conv_case(route, dtype, heads=2, out=128, seed=2):
     jhg, hg, _ = _graphs()
     x_dict, ei_dict = _inputs(hg)
-    jdt, tdt = DTYPES[dtype]
+    tdt = DTYPES[dtype][1]
     window = ROUTES[route]
-    jplans = None if window is None else jhg.csr_plans(R=8, ET=32,
-                                                       window=window)
+    jplans = _jax_graph()[3][window]
     tplans = None if window is None else hg.csr_plans(window=window)
-    jconv = JaxHGTConv(out_channels=out, metadata=hg.metadata(), heads=heads,
-                       dtype=jdt)
-    jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
-    jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
-    params = jax.jit(jconv.init)(jax.random.PRNGKey(seed), jx, jei)
+    jconv, init = _jax_conv(dtype, heads, out)
+    _, jx, jei, _ = _jax_graph()
+    params = init(jax.random.PRNGKey(seed), jx, jei)
     params = _perturb(jax.tree_util.tree_map(np.asarray, params), seed)
     conv = load_jax_params(HGTConv(None, out, hg.metadata(), heads=heads,
                                    dtype=tdt), params).eval()
@@ -183,8 +218,7 @@ def test_hgt_conv_matches_jax_on_each_route(route, dtype, fused_calls):
     packages take the decomposed route on it."""
     (jconv, params, jx, jei, jplans, conv, tx, tei,
      tplans) = _conv_case(route, dtype)
-    want = jax.jit(lambda p: jconv.apply(p, jx, jei, plan_dict=jplans))(
-        params)
+    want = _jax_forward("conv", dtype, 2, 128, ROUTES[route])(params)
     got = conv(tx, tei, plan_dict=tplans)
     assert sorted(got) == sorted(want) == ["director", "movie"]
     fused = route == "fused" and dtype == "bf16"
@@ -199,25 +233,31 @@ def test_hgt_conv_needs_the_widths_to_fuse(fused_calls):
     decomposed route in both packages."""
     (jconv, params, jx, jei, jplans, conv, tx, tei,
      tplans) = _conv_case("fused", "bf16", heads=3, out=96)
-    want = jax.jit(lambda p: jconv.apply(p, jx, jei, plan_dict=jplans))(
-        params)
+    want = _jax_forward("conv", "bf16", 3, 96, True)(params)
     got = conv(tx, tei, plan_dict=tplans)
     assert fused_calls == {"jax": 0, "port": 0}
     for nt in want:
         _check(got[nt], want[nt], 3e-2)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_model(dtype, hidden, heads):
+    """(JAX HGTModel, its jitted init) of one configuration."""
+    _, hg, target = _graphs()
+    jmodel = JaxHGTModel(metadata=hg.metadata(), hidden_channels=hidden,
+                         num_class=3, target_ntype=target, heads=heads,
+                         dtype=DTYPES[dtype][0])
+    return jmodel, jax.jit(jmodel.init)
+
+
 def _model_case(dtype, hidden, heads, seed=3):
     jhg, hg, target = _graphs()
     x_dict, ei_dict = _inputs(hg)
-    jdt, tdt = DTYPES[dtype]
-    jmodel = JaxHGTModel(metadata=hg.metadata(), hidden_channels=hidden,
-                         num_class=3, target_ntype=target, heads=heads,
-                         dtype=jdt)
-    jx = {k: jnp.asarray(v) for k, v in x_dict.items()}
-    jei = {k: jnp.asarray(v) for k, v in ei_dict.items()}
+    tdt = DTYPES[dtype][1]
+    jmodel, init = _jax_model(dtype, hidden, heads)
+    jhg, jx, jei, _ = _jax_graph()
     key = jax.random.PRNGKey(seed)
-    params = jax.jit(jmodel.init)({"params": key, "dropout": key}, jx, jei)
+    params = init({"params": key, "dropout": key}, jx, jei)
     params = _perturb(jax.tree_util.tree_map(np.asarray, params), seed)
     model = load_jax_params(HGTModel(hg.metadata(), hidden, 3, target,
                                      heads=heads, dtype=tdt), params)
@@ -233,11 +273,8 @@ def test_hgt_model_logits_match_jax(route, dtype, fused_calls):
     jhg, hg, jmodel, params, jx, jei, model, tx, tei = _model_case(
         dtype, 128, 2)
     window = ROUTES[route]
-    jplans = None if window is None else jhg.csr_plans(R=8, ET=32,
-                                                       window=window)
     tplans = None if window is None else hg.csr_plans(window=window)
-    want = jax.jit(lambda p: jmodel.apply(p, jx, jei, plan_dict=jplans))(
-        params)
+    want = _jax_forward("model", dtype, 2, 128, window)(params)
     got = model.eval()(tx, tei, plan_dict=tplans)
     assert got.shape == (200, 3)
     fused = route == "fused"
@@ -285,7 +322,7 @@ def test_twin_loss_and_gradients_match_the_jax_trainer(dtype, tol,
     jhg, hg, jmodel, params, jx, jei, model, tx, tei = _model_case(
         dtype, 128, 2, seed=4)
     y, mask = hg["movie"].y, hg["movie"].train_mask
-    jplans = jhg.csr_plans(R=8, ET=32, window=True)
+    jplans = _jax_graph()[3][True]
 
     def loss_fn(p):
         logits = jmodel.apply(p, jx, jei, train=False, plan_dict=jplans)

@@ -75,17 +75,11 @@ MISSING_NAMES = {
         "EigenMLP", "Encoder", "SpaSpeNode", "ReModel",
         "EdgePromptNodeClassifier", "FusedGATModel", "GNN",
         "amp_elbo_regression_loss",
-        "DeepWalk",
-        "Node2Vec", "MetaPath2Vec",
-        "GraphGAN", "herec", "distill_loss",
-        "GLNNStudent", "DeFoGModel",
-        "XEyTransformerLayer", "timestep_embedding",
-        "flow_interpolate", "euler_sample_step", "GraphTextCLIP",
+        "GraphTextCLIP",
         "GraphLlamaAdapter", "GraphLlamaLM", "TinyCausalLM",
         "LLaGAProjector", "build_stage2_batch", "llaga_hop_field",
         "llaga_neighborhood_detail", "LLaGAEncoder",
         "splice_graph_embeddings",
-        "drnl_node_labeling", "SEALModel", "CoGSLModel",
     ],
     "loader/__init__.py": [
         "ShardedFeatureStore", "MultiHostNodeLoader", "shard_seeds",
@@ -131,27 +125,14 @@ MISSING_NAMES = {
     "train/state.py": [
         "save_checkpoint_sharded", "load_checkpoint_sharded",
     ],
-    "utils/__init__.py": [
-        "chain_time", "trace", "device_timer", "calc_A_norm_hat",
-        "edge_index_to_adj_matrix", "get_few_shot_split",
-        "node_subgraph", "set_device", "shortest_path_distance",
-        "batched_shortest_path_distance",
-        "segment_softmax", "from_smiles", "gfm_utils",
-        "Conversation", "conv_templates", "get_conv_template",
-        "find_all_simple_paths", "read_embeddings", "save_embeddings",
-        "Inspector",
-    ],
 }
 
 MISSING_MODULES = [
     "loader/multihost.py", "models/compat.py",
-    "models/defog.py", "models/embedding.py", "models/gan_distill.py",
-    "models/graph_llm.py", "models/seal_cogsl.py",
+    "models/graph_llm.py",
     "parallel/halo_attention.py",
     "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
-    "parallel/strategies.py", "typing.py",
-    "utils/compat_utils.py", "utils/conversation.py", "utils/gfm_utils.py",
-    "utils/paths_io.py", "utils/profiling.py", "utils/smiles.py",
+    "parallel/strategies.py",
 ]
 
 
