@@ -327,9 +327,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    score) from the Cora-shape arrays.
 36. The wave 5-8 models at their twins' defaults against their
    copies on the CPU, and their twins' loops on the card (COO).
-37. FusedGATConv on the flash kernels at the arxiv shape (requests and
-   phase 7's steps), the rest of wave 3, Graphormer and RGT against the
-   CPU, and their twins.
+37. The rest of wave 3, Graphormer and RGT against the CPU, and their
+   twins (its FusedGATConv path runs `FusedGATModel` in phase 39 (b)).
 38. (a) ROADMAP C39: phase 7's GAT step run twice from one state (the
    same parameters, keep masks, labels and generator state): the loss
    and every step-0 gradient bitwise equal, exactly 2 flash forward, 2
@@ -344,7 +343,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    GraphGAN, GLNN, SEAL, CoGSL and DeFoG at their twins' defaults (a
    graph of Cora's statistics; MetaPath2Vec on the synthetic typed
    graph) against their copies on the CPU (`pair_check`), COO: no kernel.
-39. Print the card's name and power limit, one JSON line on the kernels
+39. (a) Phase 5's GCN through `serve.export_forward` on its CSR plan (the
+   graph must call `gammagl.spmm_csr` once a layer), `save_exported`, and
+   `load_exported` in a fresh process that imports only
+   `gammagl_tpu_torch.serve` (and neither JAX nor the models): 8 requests
+   there, each exactly 3 `spmm_csr` launches and logits bitwise the live
+   `InferenceSession`'s (sha256 of the bytes); the artifact's bytes, the
+   load time, both request medians (host clock) and both on CUDA events;
+   the live request through the op and through the direct launch, in
+   turns (op, direct, direct, op), bitwise equal; (b) `FusedGATModel`
+   (phases 6-7's shape and parameters, bf16): it raises without its plan,
+   8 requests (2 flash forward each) bitwise GATModel's on the plan and
+   within 3e-2 of the plain COO path, phase 7's 5 steps (2 flash
+   forward, 2 flash backward, 4 `spmm_csr` each) against GATModel on COO
+   without attention dropout, traces; (c) the graph-LLM twins at their
+   defaults (graphgpt stages 1 and 2, llaga nd and ho; the llmrec,
+   nlgraph and walklm splices) on the card and on the CPU from one
+   host-drawn init: every step's loss at rtol 1e-4, the forwards at 1e-4
+   of max |out|, the losses falling by 5%, each step's time; (d) the 18
+   thin models of `models/compat.py` and its ELBO loss at Cora's shape,
+   card vs CPU at 1e-4 of max |out|; (c)-(d) COO: no kernel.
+40. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -359,6 +378,7 @@ It needs a CUDA card and the repository beside it; it imports no JAX.
 """
 
 import copy
+import hashlib
 import inspect
 import itertools
 import json
@@ -6070,68 +6090,78 @@ def phase_wave5_8(k, smi, x, ei):
 W3_STEPS, W3_TWIN_STEPS = 3, 3
 
 
-def fused_gat_model(GATModel, load_jax_params):
-    """`gat_model` with FusedGATConv in place of its two GATConvs (the
-    same arguments, parameters and tree)."""
-    from gammagl_tpu_torch.layers.conv import FusedGATConv
-    model = GATModel(hidden_dim=GAT_HIDDEN, num_class=N_CLASS,
-                     heads=GAT_HEADS, drop_rate=GAT_DROP,
-                     dtype=torch.bfloat16, in_channels=N_FEAT)
-    model.convs = torch.nn.ModuleList([
-        FusedGATConv(N_FEAT, GAT_HIDDEN, heads=GAT_HEADS,
-                     dropout_rate=GAT_DROP, dtype=torch.bfloat16),
-        FusedGATConv(GAT_HIDDEN * GAT_HEADS, N_CLASS, heads=1, concat=False,
-                     dropout_rate=GAT_DROP, dtype=torch.bfloat16)])
-    return load_jax_params(model, gat_params())
+def fused_gat_model(load_jax_params):
+    """`models.FusedGATModel` with phases 6-7's GAT parameters (its convs'
+    flax names). Like the JAX model it has no attention dropout and no
+    dtype of its own: it is called under `compute_dtype(bfloat16)`."""
+    from gammagl_tpu_torch.models import FusedGATModel
+    tree = gat_params()["params"]
+    model = FusedGATModel(hidden_dim=GAT_HIDDEN, num_class=N_CLASS,
+                          heads=GAT_HEADS, drop_rate=GAT_DROP,
+                          in_channels=N_FEAT)
+    return load_jax_params(model, {"params": {
+        f"FusedGATConv_{i}": tree[f"GATConv_{i}"] for i in (0, 1)}})
 
 
 def fused_gat_path(k, twin, GATModel, load_jax_params, x, ei):
-    """(a) Phases 6-7's GAT with its convs FusedGATConv, on the plan
-    `FusedGATConv.to_graph_format` builds: it raises without the plan;
-    its requests run the flash forward (row 10), equal GATConv's on that
-    plan bit for bit (the same kernels) and are held against the plain
-    COO path; its steps are phase 7's (`train_phase`, row 11 too), with
-    GATModel on the COO path as the plain side."""
-    from gammagl_tpu_torch.layers.conv import FusedGATConv
-    fplan = FusedGATConv.to_graph_format(ei.cpu().numpy(), N_NODES)
-    fused = fused_gat_model(GATModel, load_jax_params).to(x.device).eval()
+    """(b) `FusedGATModel` (bf16, `compute_dtype`) on the plan
+    `FusedGATModel.to_graph_format` builds: it raises without the plan;
+    its requests run the flash forward (row 10), equal phase 6's GATModel
+    on that plan bit for bit (the same kernels) and are held against the
+    plain COO path; its steps are phase 7's (`train_phase`, row 11 too),
+    with GATModel on the COO path as the plain side, its attention
+    dropout off as FusedGATModel's is (the input dropout from one
+    generator on both)."""
+    from gammagl_tpu_torch.models import FusedGATModel
+    from gammagl_tpu_torch.utils import compute_dtype
+    fplan = FusedGATModel.to_graph_format(ei.cpu().numpy(), N_NODES)
+    fused = fused_gat_model(load_jax_params).to(x.device).eval()
     gat = gat_model(GATModel, load_jax_params).to(x.device).eval()
-    try:
-        fused(x, ei)
-        fail("FusedGATConv ran without a plan")
-    except ValueError:
-        pass
-    requests = [x + r * 1e-3 for r in range(N_REQUESTS)]
-    with torch.inference_mode():
-        req_counts, lat = serve_requests(
-            k, requests, lambda xr: fused(xr, ei, plan=fplan),
-            lambda xr: gat(xr, ei), {"flash_forward": 2}, "FusedGATConv",
-            (N_NODES, N_CLASS))
-        for r, xr in enumerate(requests):
-            if not torch.equal(fused(xr, ei, plan=fplan),
-                               gat(xr, ei, plan=fplan)):
-                fail(f"FusedGATConv request {r} != GATConv on the plan")
-        out = {"request_latency_ms": lat.tolist(),
-               "request_ms": cuda_ms(lambda: fused(x, ei, plan=fplan),
-                                     iters=5, warmup=1),
-               "request_plain_ms": cuda_ms(lambda: gat(x, ei), iters=3,
-                                           warmup=1),
-               "request_profile": profile(
-                   "fgat_request", lambda: fused(x, ei, plan=fplan))}
-    print("  FusedGATConv requests equal GATConv's on the plan bit for bit")
-    del fused, gat
-    step_counts, losses, step_ms, grad_err, (state, y, mask, _) = \
-        train_phase(k, "FusedGATConv",
-                    lambda: fused_gat_model(GATModel, load_jax_params), twin,
-                    GAT_STEP_LAUNCHES, GAT_LR, 0.0, fplan, x, ei,
-                    gat_keeps(k, x, ei),
-                    make_plain=lambda: gat_model(GATModel, load_jax_params))
 
-    def one_step():
-        twin.loss_and_grad(state.model, x, ei, y, mask, plan=fplan)
-        state.model.zero_grad(set_to_none=True)
+    def plain_gat():
+        model = gat_model(GATModel, load_jax_params)
+        for conv in model.convs:
+            conv.dropout_rate = 0.0
+        return model
 
-    out["step_profile"] = profile("fgat_step", one_step)
+    with compute_dtype(torch.bfloat16):
+        try:
+            fused(x, ei)
+            fail("FusedGATModel ran without a plan")
+        except ValueError:
+            pass
+        requests = [x + r * 1e-3 for r in range(N_REQUESTS)]
+        with torch.inference_mode():
+            req_counts, lat = serve_requests(
+                k, requests, lambda xr: fused(xr, ei, plan=fplan),
+                lambda xr: gat(xr, ei), {"flash_forward": 2},
+                "FusedGATModel", (N_NODES, N_CLASS))
+            for r, xr in enumerate(requests):
+                if not torch.equal(fused(xr, ei, plan=fplan),
+                                   gat(xr, ei, plan=fplan)):
+                    fail(f"FusedGATModel request {r} != GATModel on the "
+                         "plan")
+            out = {"request_latency_ms": lat.tolist(),
+                   "request_ms": cuda_ms(lambda: fused(x, ei, plan=fplan),
+                                         iters=5, warmup=1),
+                   "request_plain_ms": cuda_ms(lambda: gat(x, ei), iters=3,
+                                               warmup=1),
+                   "request_profile": profile(
+                       "fgat_request", lambda: fused(x, ei, plan=fplan))}
+        print("  FusedGATModel requests equal GATModel's on the plan bit "
+              "for bit")
+        del fused, gat
+        step_counts, losses, step_ms, grad_err, (state, y, mask, _) = \
+            train_phase(k, "FusedGATModel",
+                        lambda: fused_gat_model(load_jax_params), twin,
+                        GAT_STEP_LAUNCHES, GAT_LR, 0.0, fplan, x, ei,
+                        make_plain=plain_gat)
+
+        def one_step():
+            twin.loss_and_grad(state.model, x, ei, y, mask, plan=fplan)
+            state.model.zero_grad(set_to_none=True)
+
+        out["step_profile"] = profile("fgat_step", one_step)
     out.update(step_ms=step_ms["kernel"], losses=losses["kernel"],
                plain_losses=losses["plain"],
                step0_grad_vs_plain_max_abs_err=grad_err)
@@ -6141,7 +6171,7 @@ def fused_gat_path(k, twin, GATModel, load_jax_params, x, ei):
                              ("flash_bwd", "flash_backward")):
             out[f"{key}_{label}_us"] = sum(
                 v for n_, v in prof["by_kernel_us"].items() if kname in n_)
-    print(f"  FusedGATConv request {out['request_ms']:.3f} ms (plain COO "
+    print(f"  FusedGATModel request {out['request_ms']:.3f} ms (plain COO "
           f"{out['request_plain_ms']:.3f}); flash forward "
           f"{out['request_flash_forward_us']:.1f} us a request, in a step "
           f"forward {out['step_flash_forward_us']:.1f} us, backward "
@@ -6151,26 +6181,22 @@ def fused_gat_path(k, twin, GATModel, load_jax_params, x, ei):
     return req_counts, step_counts, out
 
 
-def phase_wave3(k, smi, twin, GATModel, load_jax_params, x, ei):
-    """Phase 37: FusedGATConv on the flash kernels at the arxiv shape;
-    then SGFormer, GNN-LF/HF, CAGCN, MERIT, GRADE and TADW at their
-    twins' defaults on a graph of Cora's statistics, Graphormer on its
-    twin's graphs and RGT through `ExtractNodeLoader`, each against the
-    CPU (`pair_check`); then the eight twins on the card. Only (a)
-    launches kernels."""
+def phase_wave3(k, smi, x, ei):
+    """Phase 37: SGFormer, GNN-LF/HF, CAGCN, MERIT, GRADE and TADW at
+    their twins' defaults on a graph of Cora's statistics, Graphormer on
+    its twin's graphs and RGT through `ExtractNodeLoader`, each against
+    the CPU (`pair_check`); then the eight twins on the card. No kernel
+    (its FusedGATConv path runs `FusedGATModel` in phase 39)."""
     from gammagl_tpu_torch import models as M
     from gammagl_tpu_torch.examples import (
         cagcn_trainer, common, gnnlfhf_trainer, grade_trainer,
         graphormer_trainer, merit_trainer, rgt_trainer, sgformer_trainer,
         tadw_trainer)
     from gammagl_tpu_torch.train import semi_supervised_loss
-    phase_start("phase 37: FusedGATConv on the flash kernels (arxiv shape), "
-                "the rest of wave 3, Graphormer and RGT against the CPU, and "
-                "their twins")
+    phase_start("phase 37: the rest of wave 3, Graphormer and RGT against "
+                "the CPU, and their twins")
     t_phase = time.perf_counter()
-    fgat_counts, fgat_t_counts, fgat = fused_gat_path(
-        k, twin, GATModel, load_jax_params, x, ei)
-    out = {"fused_gat": fgat}
+    out = {}
     rng = np.random.default_rng(SEED + 37)
     cora = cora_shape(rng)
     d = {key: v.cpu() for key, v in common.device_graph(cora, "cpu")
@@ -6362,7 +6388,7 @@ def phase_wave3(k, smi, twin, GATModel, load_jax_params, x, ei):
     out["seconds"] = time.perf_counter() - t_phase
     print(f"  ({smi}) phase 37 in {out['seconds']:.1f} s")
     torch.cuda.empty_cache()
-    return fgat_counts, fgat_t_counts, counts, out
+    return counts, out
 
 
 # -- phase 38: slice 21 (C39, the port's profiling utilities, A6e) ----------
@@ -6710,6 +6736,312 @@ def phase_slice21(k, smi, twin, GATModel, GCNModel, load_jax_params, plan,
     return gat_counts, prof_counts, a6e_counts, out
 
 
+# -- phase 39: the export trio, FusedGATModel, the graph-LLM
+# twins and the thin models of models/compat.py
+
+# the fresh process of phase 39 (a): it imports only `serve`, loads the
+# artifact, and runs the requests (argv: the directory, the count)
+EXPORT_CHILD = r'''
+import hashlib, json, sys, time
+import torch
+t0 = time.perf_counter()
+from gammagl_tpu_torch.serve import load_exported
+prog = load_exported(sys.argv[1] + "/gcn.pt2")
+load_s = time.perf_counter() - t0
+sm = sys.modules["gammagl_tpu_torch.ops.cuda.segment_matmul"]
+x = torch.load(sys.argv[1] + "/x.pt").cuda()
+ei = torch.load(sys.argv[1] + "/ei.pt").cuda()
+lat, launches, digests = [], [], []
+with torch.no_grad():
+    prog(x, ei)
+    torch.cuda.synchronize()
+    for r in range(int(sys.argv[2])):
+        xr = x + r * 1e-3
+        torch.cuda.synchronize()
+        before = sm.spmm_csr.launches
+        t = time.perf_counter()
+        out = prog(xr, ei)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        launches.append(sm.spmm_csr.launches - before)
+        digests.append(hashlib.sha256(
+            out.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+            .hexdigest())
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        prog(x, ei)
+    stop.record()
+    torch.cuda.synchronize()
+bad = [m for m in sys.modules if m == "gammagl_tpu" or m.startswith(
+    ("gammagl_tpu.", "gammagl_tpu_torch.models", "jax"))]
+print(json.dumps({"load_s": load_s, "lat_ms": lat, "launches": launches,
+                  "digests": digests, "imported": bad,
+                  "events_ms": start.elapsed_time(stop) / 20}))
+'''
+
+
+def _digest(t):
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def gcn_request_routes(sess, xr, ei):
+    """One GCN request timed through the op (``gammagl::spmm_csr``) and
+    through the route without it (`_forward` launching the kernel
+    directly), in turns op, direct, direct, op, 20
+    requests each on CUDA events; the two outputs bitwise equal."""
+    import gammagl_tpu_torch.ops.cuda.segment_matmul as sm
+    with_op = sm._forward
+
+    def direct(x, w, plan, per_edge=False):
+        return sm._launch(x, w, plan, per_edge)
+
+    ms, outs = {"op": [], "direct": []}, {}
+    try:
+        for route in ("op", "direct", "direct", "op"):
+            sm._forward = with_op if route == "op" else direct
+            outs[route] = sess(xr, ei)
+            ms[route].append(cuda_ms(lambda: sess(xr, ei), iters=20,
+                                     warmup=3))
+    finally:
+        sm._forward = with_op
+    if not torch.equal(outs["op"], outs["direct"]):
+        fail("the GCN request differs through the op and without it")
+    print(f"  GCN request through gammagl::spmm_csr {ms['op']} ms, through "
+          f"the direct launch {ms['direct']} ms (CUDA events, 20 requests; "
+          "bitwise equal)")
+    return ms
+
+
+def export_path(k, GCNModel, InferenceSession, load_jax_params, plan, x, ei):
+    """(a) Phase 5's GCN exported on its CSR plan, saved, and loaded in a
+    fresh process that imports only `serve`: its logits bitwise the live
+    session's, 3 `spmm_csr` launches a request there."""
+    import tempfile
+    from gammagl_tpu_torch.serve import (export_forward, load_exported,
+                                         save_exported)
+    model = gcn_model(GCNModel, load_jax_params)
+    sess = InferenceSession(model, (x, ei), device="cuda",
+                            compute_dtype=torch.bfloat16, plan=plan)
+    requests = [x + r * 1e-3 for r in range(N_REQUESTS)]
+    out = {"request_ms_by_route": gcn_request_routes(sess, requests[0], ei)}
+    sync()
+    reset_counts(k)
+    live, live_lat = [], []
+    for xr in requests:
+        t0 = time.perf_counter()
+        logits = sess(xr, ei)
+        sync()
+        live_lat.append((time.perf_counter() - t0) * 1e3)
+        live.append(_digest(logits))
+    if read_counts(k) != every_kernel({"spmm_csr": N_LAYERS}, N_REQUESTS):
+        fail(f"GCN session launches {read_counts(k)}")
+    t0 = time.perf_counter()
+    ep = export_forward(model, (x, ei), device="cuda",
+                        compute_dtype=torch.bfloat16, plan=plan)
+    out["export_s"] = time.perf_counter() - t0
+    ops = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+    if ops.count("gammagl.spmm_csr.default") != N_LAYERS:
+        fail(f"the exported GCN calls gammagl.spmm_csr "
+             f"{ops.count('gammagl.spmm_csr.default')} times")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_exported(ep, os.path.join(tmp, "gcn.pt2"))
+        out["artifact_bytes"] = os.path.getsize(os.path.join(tmp, "gcn.pt2"))
+        torch.save(x.cpu(), os.path.join(tmp, "x.pt"))
+        torch.save(ei.cpu(), os.path.join(tmp, "ei.pt"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, tmp, str(N_REQUESTS)],
+            capture_output=True, text=True, timeout=300, cwd=root,
+            env=dict(os.environ, PYTHONPATH=root))
+        out["child_s"] = time.perf_counter() - t0
+        # the same artifact here too, timed in turns with the live session
+        # (live, loaded, loaded, live) on one warm card
+        prog = load_exported(os.path.join(tmp, "gcn.pt2"))
+    with torch.no_grad():
+        if _digest(prog(requests[0], ei)) != live[0]:
+            fail("the artifact loaded here differs from the live session")
+        turns = {"live": [], "loaded": []}
+        for who in ("live", "loaded", "loaded", "live"):
+            run = sess if who == "live" else prog
+            turns[who].append(cuda_ms(lambda: run(x, ei), iters=20))
+    out["events_ms_in_turns"] = turns
+    if res.returncode != 0:
+        fail(f"the exported GCN's process failed:\n{res.stderr[-3000:]}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    if child["imported"]:
+        fail(f"loading the artifact imported {child['imported']}")
+    if child["launches"] != [N_LAYERS] * N_REQUESTS:
+        fail(f"the loaded program launched {child['launches']} spmm_csr")
+    if child["digests"] != live:
+        fail("the loaded program's logits differ from the live session's")
+    out.update(load_s=child["load_s"], loaded_request_ms=child["lat_ms"],
+               live_request_ms=live_lat,
+               loaded_p50_ms=float(np.median(child["lat_ms"])),
+               live_p50_ms=float(np.median(live_lat)),
+               loaded_events_ms=child["events_ms"])
+    print(f"  exported GCN: {out['artifact_bytes']} bytes, export "
+          f"{out['export_s']:.2f} s, load {child['load_s']:.2f} s in a fresh "
+          f"process ({out['child_s']:.1f} s in all); requests p50 "
+          f"{out['loaded_p50_ms']:.3f} ms loaded, {out['live_p50_ms']:.3f} "
+          f"ms live (host clock); there on CUDA events "
+          f"{out['loaded_events_ms']:.3f} ms; here in turns live "
+          f"{turns['live']} ms, loaded {turns['loaded']} ms (20 requests "
+          f"each); logits bitwise equal, {N_LAYERS} spmm_csr a request")
+    counts = every_kernel({})
+    counts["spmm_csr"] = sum(child["launches"])
+    return counts, out
+
+
+def llm_twins():
+    """(c) The graph-LLM twins at their defaults, on the card and on the
+    CPU from the same host-drawn init: each step's loss at rtol
+    W58_LOSS_RTOL, the forwards (graph tokens, spliced inputs) at
+    W58_OUT_TOL of max |out|, the losses falling by MIN_FALL."""
+    from gammagl_tpu_torch.examples import (graphgpt_trainer, llaga_trainer,
+                                            llmrec_trainer, nlgraph_trainer,
+                                            walklm_trainer)
+    os.environ["GGL_TPU_OFFLINE"] = "1"
+    out = {}
+    for label, module, flags in (
+            ("graphgpt_stage1", graphgpt_trainer, []),
+            ("graphgpt_stage2", graphgpt_trainer, ["--stage", "2"]),
+            ("llaga_nd", llaga_trainer, ["--template", "nd"]),
+            ("llaga_ho", llaga_trainer, ["--template", "ho"])):
+        res = {dev: module.main(module.parser().parse_args(
+            ["--device", dev, *flags])) for dev in ("cuda", "cpu")}
+        card, cpu = res["cuda"]["losses"], res["cpu"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        if not (np.isfinite(card).all() and rel <= W58_LOSS_RTOL):
+            fail(f"{label}: losses on the card {card} vs the CPU {cpu}")
+        if not card[-1] < (1 - MIN_FALL) * card[0]:
+            fail(f"{label}: loss did not fall by {MIN_FALL:.0%}: {card}")
+        if "graph_tokens" in res["cuda"]:
+            check_close(f"{label} graph tokens vs the CPU",
+                        res["cuda"]["graph_tokens"].cpu(),
+                        res["cpu"]["graph_tokens"], 0.0, atol=W58_OUT_TOL)
+        steps = res["cuda"]["step_ms"]
+        print(f"  {label}: {len(card)} steps, losses {card[0]:.5f} -> "
+              f"{card[-1]:.5f} (worst rel. gap to the CPU {rel:.2e}); step "
+              f"ms {[round(t, 2) for t in steps]}")
+        out[label] = {"losses": card, "cpu_losses": cpu, "loss_rel_err": rel,
+                      "step_ms": steps, "cpu_step_ms": res["cpu"]["step_ms"]}
+    for label, module in (("llmrec", llmrec_trainer),
+                          ("nlgraph", nlgraph_trainer),
+                          ("walklm", walklm_trainer)):
+        got = {dev: module.main(module.parser().parse_args(["--device", dev]))
+               for dev in ("cuda", "cpu")}
+        out[label] = {"max_abs_err": check_close(
+            f"{label} spliced input vs the CPU", got["cuda"].cpu(),
+            got["cpu"], 0.0, atol=W58_OUT_TOL)}
+    return out
+
+
+def compat_models():
+    """(d) The thin models of `models/compat.py` at Cora's shape (the
+    graph of phase 35) and their twins' widths, each built on the CPU,
+    its forward there, then on a copy on the card: every output at
+    W58_OUT_TOL of max |out|."""
+    from gammagl_tpu_torch.models import compat as C
+    rng = np.random.default_rng(SEED + 39)
+    cora = cora_shape(rng)
+    x, ei = (torch.from_numpy(cora[key]) for key in ("x", "edge_index"))
+    n, f, c = CORA_NODES, CORA_FEAT, CORA_CLASSES
+    g = torch.Generator().manual_seed(SEED + 39)
+    walks = torch.randint(0, n, (64, 6), generator=g)
+    u, v = torch.randint(0, n, (256,), generator=g), torch.randint(
+        0, n, (256,), generator=g)
+    evecs, evals = torch.randn(n, 16, generator=g), torch.linspace(0, 2, 16)
+    cases = {
+        "AGNNModel": (lambda: C.AGNNModel(c, in_channels=f), (x, ei)),
+        "FILMModel": (lambda: C.FILMModel(c, in_channels=f), (x, ei)),
+        "GMMModel": (lambda: C.GMMModel(c, in_channels=f), (x, ei)),
+        "DNAModel": (lambda: C.DNAModel(c, in_channels=f), (x, ei)),
+        "HCHA": (lambda: C.HCHA(c, in_channels=f), (x, ei, None, n, n)),
+        "MGNNI_m_att": (lambda: C.MGNNI_m_att(c, in_channels=f), (x, ei)),
+        "DFADModel": (lambda: C.DFADModel(c), (x, ei)),
+        "GNN": (lambda: C.GNN(c, use_mlp_in=True, in_channels=f), (x, ei)),
+        "LogReg": (lambda: C.LogReg(c, in_channels=f), (x,)),
+        "EdgePromptNodeClassifier": (
+            lambda: C.EdgePromptNodeClassifier(c, in_channels=f), (x,)),
+        "ReModel": (lambda: C.ReModel(3), (torch.rand(n, 3, generator=g),)),
+        "SkipGramModel": (lambda: C.SkipGramModel(n),
+                          (walks, walks.flip(0))),
+        "Generator": (lambda: C.Generator(n), (u, v, torch.rand(256))),
+        "Discriminator": (lambda: C.Discriminator(n),
+                          (u, v, (torch.arange(256) % 2).float())),
+        "Encoder": (lambda: C.Encoder(in_channels=f), (x, ei)),
+        "EigenMLP": (lambda: C.EigenMLP(), (evecs, evals)),
+        "SpaSpeNode": (lambda: C.SpaSpeNode(in_channels=f),
+                       (x, ei, evecs, evals)),
+        "DFADGenerator": (lambda: C.DFADGenerator(32, f, in_channels=32),
+                          (torch.randn(8, 32, generator=g),)),
+    }
+    out = {}
+
+    def leaves(o):
+        return [o] if isinstance(o, torch.Tensor) else [
+            t for part in o for t in leaves(part)]
+
+    def on(dev, args):
+        return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    for label, (make, args) in cases.items():
+        torch.manual_seed(SEED + 39)
+        cpu = make().eval()
+        with torch.no_grad():
+            want = leaves(cpu(*args))
+            card = copy.deepcopy(cpu).to("cuda")
+            sync()
+            t0 = time.perf_counter()
+            got = leaves(card(*on("cuda", args)))
+            sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        err = max(check_close(f"{label} forward vs the CPU", a.cpu(), b, 0.0,
+                              atol=W58_OUT_TOL) for a, b in zip(got, want))
+        out[label] = {"max_abs_err": err, "request_ms": ms}
+    a = (torch.randn(64, 3, 2, generator=g), torch.randn(64, 2, generator=g),
+         *torch.randn(3, 1, 3, generator=g), torch.tensor(0.3),
+         torch.softmax(torch.randn(1, 3, generator=g), 1), 64.0)
+    want = C.amp_elbo_regression_loss(*a)
+    got = C.amp_elbo_regression_loss(*on("cuda", a))
+    out["amp_elbo_regression_loss"] = {"max_abs_err": check_close(
+        "amp_elbo_regression_loss vs the CPU", got.cpu()[None], want[None],
+        W58_LOSS_RTOL, atol=0.0)}
+    return out
+
+
+def phase_slice22(k, smi, twin, GATModel, GCNModel, InferenceSession,
+                  load_jax_params, plan, x, ei):
+    """Phase 39: (a) the exported GCN run from a file in a fresh process,
+    the GCN request through the op and the direct launch; (b)
+    FusedGATModel (phase 7's shape and parameters) on the flash kernels;
+    (c) the graph-LLM twins and (d) the thin models of `models/compat.py`
+    against the CPU (COO: no kernel)."""
+    phase_start("phase 39: the exported GCN from a file, FusedGATModel, the "
+                "graph-LLM twins and the compat models against the CPU")
+    t_phase = time.perf_counter()
+    export_counts, export = export_path(k, GCNModel, InferenceSession,
+                                        load_jax_params, plan, x, ei)
+    fgat_counts, fgat_t_counts, fgat = fused_gat_path(
+        k, twin, GATModel, load_jax_params, x, ei)
+    sync()
+    reset_counts(k)
+    llm = llm_twins()
+    compat = compat_models()
+    coo_counts = read_counts(k)
+    if any(coo_counts.values()):
+        fail(f"the COO models of phase 39 launched kernels: {coo_counts}")
+    out = {"export": export, "fused_gat_model": fgat, "llm_twins": llm,
+           "compat": compat, "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) phase 39 in {out['seconds']:.1f} s")
+    return export_counts, fgat_counts, fgat_t_counts, coo_counts, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -6880,11 +7212,13 @@ def main():
     sampled = phase_sampled(k, smi.splitlines()[0])
     ssl_counts, ssl = phase_ssl(k, smi.splitlines()[0], x, ei)
     w58_counts, w58 = phase_wave5_8(k, smi.splitlines()[0], x, ei)
-    fgat_counts, fgat_t_counts, w3_counts, w3 = phase_wave3(
-        k, smi.splitlines()[0], twin, GATModel, load_jax_params, x, ei)
+    w3_counts, w3 = phase_wave3(k, smi.splitlines()[0], x, ei)
     c39_counts, prof_counts, a6e_counts, s21 = phase_slice21(
         k, smi.splitlines()[0], twin, GATModel, GCNModel, load_jax_params,
         plan, x, ei)
+    export_counts, fgat_counts, fgat_t_counts, s22_counts, s22 = \
+        phase_slice22(k, smi.splitlines()[0], twin, GATModel, GCNModel,
+                      InferenceSession, load_jax_params, plan, x, ei)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -6917,6 +7251,7 @@ def main():
     runs["wave3"] = w3_counts
     runs["gat-c39"], runs["profiling"] = c39_counts, prof_counts
     runs["a6e"] = a6e_counts
+    runs["gcn-x"], runs["slice22_coo"] = export_counts, s22_counts
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -7066,7 +7401,8 @@ def main():
                        for name, path in data.items()},
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
-        "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21}))
+        "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21,
+        "slice22": s22}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,9 +58,17 @@ __version__ = "0.1.0"
 
 from gammagl_tpu_torch import ops  # noqa: F401
 from gammagl_tpu_torch import utils  # noqa: F401
-from gammagl_tpu_torch import data  # noqa: F401
-from gammagl_tpu_torch import layers  # noqa: F401
-from gammagl_tpu_torch import models  # noqa: F401
-from gammagl_tpu_torch import train  # noqa: F401
-from gammagl_tpu_torch import serve  # noqa: F401
-from gammagl_tpu_torch import sparse  # noqa: F401
+
+# The other subpackages load at first use (``gammagl_tpu_torch.models``, or
+# an import of one of their modules), so a program that needs one part,
+# such as a server that loads an exported model through `serve`, imports
+# no model code. `ops` loads first, as it always has: `parallel` and the
+# block-pair plans import each other's modules in that order.
+_SUBPACKAGES = ("data", "layers", "models", "train", "serve", "sparse")
+
+
+def __getattr__(name):
+    if name in _SUBPACKAGES:
+        import importlib
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

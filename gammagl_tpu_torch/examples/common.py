@@ -54,7 +54,7 @@ __all__ = ["synthetic_community_graph", "load_node_dataset",
            "hetero_tensors", "predict", "staged_dataset", "load_imdb",
            "run_hetero_trainer", "run_edge_type_trainer", "linear_probe",
            "device_graph", "run_two_view_ssl", "run_corruption_ssl",
-           "binary_auc"]
+           "binary_auc", "run_splice_demo"]
 
 
 def node_arrays(graph):
@@ -706,3 +706,50 @@ def run_corruption_ssl(model, args, views=lambda d: (), data=None,
     print(f"probe test acc {acc:.4f} ({dev})")
     return {"losses": [float(v) for v in losses], "probe_acc": acc,
             "state": state}
+
+
+def run_splice_demo(args, instruction, data=None, params=None):
+    """The LLM-pipeline demos' shared body (the llmrec, nlgraph and walklm
+    scripts): print the ``graphchat_v1`` prompt of ``instruction`` around
+    the graph placeholder, embed the graph's nodes with a
+    `GraphLlamaAdapter` (64 from 32 on the first 32 features; ``params``
+    its flax tree, else drawn from ``torch.manual_seed(args.seed)``), and
+    splice the first node's embedding into 16 toy token embeddings
+    (``np.random.default_rng(0)``) at position 3. Returns the (16, 64)
+    spliced input on ``args.device``."""
+    from gammagl_tpu_torch.models import (GraphLlamaAdapter,
+                                          splice_graph_embeddings)
+    from gammagl_tpu_torch.utils.conversation import get_conv_template
+    from gammagl_tpu_torch.utils.gfm_utils import (DEFAULT_G_END_TOKEN,
+                                                   DEFAULT_G_START_TOKEN,
+                                                   DEFAULT_GRAPH_TOKEN,
+                                                   GRAPH_TOKEN_INDEX)
+    dev = resolve_device(args.device)
+    data = node_data(args, data)
+    x = torch.from_numpy(np.asarray(data["x"])[:, :32].astype(
+        np.float32)).to(dev)
+    ei = torch.from_numpy(np.asarray(data["edge_index"])).to(dev)
+    conv = get_conv_template("graphchat_v1")
+    conv.append_message(conv.roles[0],
+                        DEFAULT_G_START_TOKEN + DEFAULT_GRAPH_TOKEN
+                        + DEFAULT_G_END_TOKEN + " " + instruction)
+    conv.append_message(conv.roles[1], None)
+    print("prompt:", conv.get_prompt()[:140], "...")
+    torch.manual_seed(args.seed)
+    adapter = GraphLlamaAdapter(lm_hidden_size=64, graph_hidden_size=32,
+                                in_channels=x.shape[1])
+    if params is not None:
+        load_jax_params(adapter, params)
+    adapter = adapter.to(dev).eval()
+    T, H = 16, 64
+    rng = np.random.default_rng(0)
+    input_ids = np.arange(T)
+    input_ids[3] = GRAPH_TOKEN_INDEX          # the sentinel's position
+    tok_emb = torch.from_numpy(rng.normal(size=(T, H)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        g_emb = adapter(x, ei)
+        spliced = splice_graph_embeddings(
+            torch.from_numpy(input_ids).to(dev), tok_emb, g_emb[:1])
+    print("LM input with graph tokens:", tuple(spliced.shape))
+    return spliced

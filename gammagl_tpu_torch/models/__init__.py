@@ -135,20 +135,29 @@ from gammagl_tpu_torch.models.defog import (  # noqa: F401
     timestep_embedding,
 )
 
-# the reference's spellings (gammagl/models/__init__.py)
-HPN = HPNModel
-HeCo = HeCoModel
-Hid_net = HiDNetModel
-RoheHAN = RoheHANModel
-Specformer = SpecformerModel
-MGNNI_m_MLP = MGNNIModel  # the MLP-injection multiscale variant
-HEAT = HEATModel
-NewGrace = MAGCLModel  # the reference's magcl.py name
-NodeIDGNN = NodeIDModel
-GNRF = GNRFModel
-Graph_Editer = GraphEditer
-PreModel = AdaGADModel  # AdaGAD's masked-reconstruction pretrainer
-EdgePromptGCNModel = EdgePromptModel
+from gammagl_tpu_torch.models.graph_llm import (  # noqa: F401
+    GraphLlamaAdapter,
+    GraphLlamaLM,
+    GraphTextCLIP,
+    LLaGAEncoder,
+    LLaGAProjector,
+    TinyCausalLM,
+    build_stage2_batch,
+    llaga_hop_field,
+    llaga_neighborhood_detail,
+    splice_graph_embeddings,
+)
+from gammagl_tpu_torch.models.compat import (  # noqa: F401
+    # the reference's spellings (gammagl/models/__init__.py)
+    HEAT, GraphSAGE_Full_Model, GraphSAGE_Sample_Model, RGCN, CompGCN,
+    HAN, GRADE, HPN, HeCo, Hid_net, RoheHAN, Graphormer, Specformer,
+    NewGrace, NodeIDGNN, GNRF, DeepWalkModel, Node2vecModel, Graph_Editer,
+    DGCNN, PreModel, EdgePromptGCNModel, MGNNI_m_MLP, AGNNModel,
+    FILMModel, GMMModel, DNAModel, HCHA, LogReg, SkipGramModel, HERec,
+    TADWModel, MGNNI_m_att, DFADModel, DFADGenerator, Generator,
+    Discriminator, EigenMLP, Encoder, SpaSpeNode, ReModel,
+    EdgePromptNodeClassifier, FusedGATModel, GNN,
+    amp_elbo_regression_loss)
 
 __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GraphSAGESampleModel", "RGCNModel", "HANModel", "HGTModel",
@@ -178,4 +187,18 @@ __all__ = ["GCNModel", "GATModel", "GATV2Model", "GraphSAGEModel",
            "GraphGAN", "herec", "distill_loss", "GLNNStudent",
            "drnl_node_labeling", "SEALModel", "CoGSLModel", "DeFoGModel",
            "XEyTransformerLayer", "timestep_embedding", "flow_interpolate",
-           "euler_sample_step"]
+           "euler_sample_step",
+           # models/compat.py: the reference's spellings and thin models
+           "GraphSAGE_Full_Model", "GraphSAGE_Sample_Model", "RGCN",
+           "CompGCN", "HAN", "GRADE", "Graphormer", "DeepWalkModel",
+           "Node2vecModel", "DGCNN", "AGNNModel", "FILMModel", "GMMModel",
+           "DNAModel", "HCHA", "LogReg", "SkipGramModel", "HERec",
+           "TADWModel", "MGNNI_m_att", "DFADModel", "DFADGenerator",
+           "Generator", "Discriminator", "EigenMLP", "Encoder", "SpaSpeNode",
+           "ReModel", "EdgePromptNodeClassifier", "FusedGATModel", "GNN",
+           "amp_elbo_regression_loss",
+           # models/graph_llm.py
+           "GraphTextCLIP", "GraphLlamaAdapter", "LLaGAEncoder",
+           "splice_graph_embeddings", "TinyCausalLM", "GraphLlamaLM",
+           "build_stage2_batch", "llaga_hop_field",
+           "llaga_neighborhood_detail", "LLaGAProjector"]

@@ -77,8 +77,10 @@ class _DenseGeneral(nn.Module):
 
 class _SelfAttention(nn.Module):
     """flax's ``SelfAttention`` (``query``, ``key``, ``value``, ``out``) on
-    one sequence (L, F), no dropout: per head softmax(q k^T / sqrt(D)) v,
-    the heads mapped back to F."""
+    sequences (..., L, F), no dropout: per head softmax(q k^T / sqrt(D)) v,
+    the heads mapped back to F. ``mask`` (bool, broadcast to (..., heads,
+    L, L); True attends) fills the scores it masks with the dtype's
+    finfo min before the softmax, as flax does (not -inf)."""
 
     def __init__(self, features, num_heads):
         super().__init__()
@@ -93,13 +95,16 @@ class _SelfAttention(nn.Module):
         return {"query": self.query, "key": self.key, "value": self.value,
                 "out": self.out}
 
-    def forward(self, h):
-        q, k, v = (torch.einsum("lf,fhd->lhd", h, m.kernel) + m.bias
+    def forward(self, h, mask=None):
+        q, k, v = (torch.einsum("...lf,fhd->...lhd", h, m.kernel) + m.bias
                    for m in (self.query, self.key, self.value))
         q = q / math.sqrt(q.shape[-1])
-        w = torch.softmax(torch.einsum("qhd,khd->hqk", q, k), dim=-1)
-        out = torch.einsum("hqk,khd->qhd", w, v)
-        return torch.einsum("qhd,hdf->qf", out, self.out.kernel) + \
+        s = torch.einsum("...qhd,...khd->...hqk", q, k)
+        if mask is not None:
+            s = s.masked_fill(~mask, torch.finfo(s.dtype).min)
+        w = torch.softmax(s, dim=-1)
+        out = torch.einsum("...hqk,...khd->...qhd", w, v)
+        return torch.einsum("...qhd,hdf->...qf", out, self.out.kernel) + \
             self.out.bias
 
 

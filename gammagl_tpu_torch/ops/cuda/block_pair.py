@@ -44,6 +44,7 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_KERNEL_DTYPES,
                                                        _pad_rows, _raise_on,
                                                        build_csr_plan,
                                                        spmm_csr)
+from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.parallel.halo import reorder_bandwidth
 
 __all__ = ["BlockPairPlan", "build_block_pair_plan", "spmm_block_pair",
@@ -335,6 +336,7 @@ def _launch(x, w, plan, padded):
 
 
 def _forward(x, w, plan, padded):
+    refuse_trace("spmm_block_pair")
     if x.device.type == "cpu":
         return _reference(x, w, plan, padded)
     return _launch(x, w, plan, padded)
@@ -355,6 +357,7 @@ def _dw(x, g, plan, padded):
     caller's order, 0 at edges the plan does not hold, or (num_plan_edges,)
     in the plan's order (``padded``)."""
     n_out = plan.num_plan_edges if padded else plan.num_edges
+    refuse_trace("block_pair_dw")
     if x.device.type == "cpu":
         return _dw_reference(x, g, plan, padded, n_out)
     _check_cuda("block_pair_dw", x, g)

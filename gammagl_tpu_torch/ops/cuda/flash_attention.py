@@ -45,6 +45,7 @@ import torch
 
 from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _csr_rows
+from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _first_order_only
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 from gammagl_tpu_torch.ops.cuda.segment_matmul import (_items, _pad_rows,
@@ -226,6 +227,7 @@ def flash_forward(score, a_dst, msg, keep, plan, slope, gather):
     `flash_forward_reference`; a CUDA tensor launches the kernel, and
     `flash_fwd_fold` after it on a plan with cut rows, or raises."""
     H, F = _check(score, a_dst, msg, keep, plan, gather)
+    refuse_trace("flash_forward")
     if msg.device.type == "cpu":
         return flash_forward_reference(score, a_dst, msg, keep, plan, slope,
                                        gather)
@@ -282,6 +284,7 @@ def flash_backward(score, a_dst, msg, keep, m, l, out, grad, plan, slope,
     outputs in CSR order. A CPU tensor takes `flash_backward_reference`;
     a CUDA tensor launches the kernel or raises."""
     H, F = _check(score, a_dst, msg, keep, plan, gather)
+    refuse_trace("flash_backward")
     if msg.device.type == "cpu":
         return flash_backward_reference(score, a_dst, msg, keep, m, l, out,
                                         grad, plan, slope, gather)

@@ -31,6 +31,7 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
                                                        _first_order_only,
                                                        _forward, _pad_rows,
                                                        _raise_on)
+from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["hgt_flash_packed", "hgt_forward", "hgt_backward",
@@ -137,6 +138,7 @@ def hgt_forward(kv, q, plan):
     `hgt_forward_reference`; a CUDA tensor launches the kernel or
     raises."""
     H, D = _check(kv, q, plan)
+    refuse_trace("hgt_forward")
     if kv.device.type == "cpu":
         return hgt_forward_reference(kv, q, plan)
     dev, N = kv.device, plan.num_nodes
@@ -162,6 +164,7 @@ def hgt_backward(kv, q, out, grad, m, l, plan):
     tensor takes `hgt_backward_reference`; a CUDA tensor launches the
     kernel or raises."""
     H, D = _check(kv, q, plan)
+    refuse_trace("hgt_backward")
     if kv.device.type == "cpu":
         return hgt_backward_reference(kv, q, out, grad, m, l, plan)
     dev, N, E = kv.device, plan.num_nodes, plan.num_edges

@@ -49,6 +49,7 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
                                                        _forward, _pad_rows,
                                                        _ptr, _raise_on,
                                                        _weigh)
+from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["expand_dst_csr", "sddmm_csr", "sddmm_csr_mh",
@@ -120,6 +121,7 @@ def _expand(x, plan, scale=None):
     per edge and head by ``scale`` (E, H) f32. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel, one warp for each work
     item of the plan at `EDGE_SPLIT` edges, or raises."""
+    refuse_trace("expand_dst_csr")
     if x.device.type == "cpu":
         return expand_dst_csr_reference(x, plan, scale)
     if x.device.type != "cuda":
@@ -157,6 +159,7 @@ def _sddmm(a, x_dst, plan, heads, gather):
     if a.device != x_dst.device:
         raise ValueError(f"sddmm_csr: inputs on {a.device} and "
                          f"{x_dst.device}")
+    refuse_trace("sddmm_csr")
     if a.device.type == "cpu":
         return sddmm_csr_reference(a, x_dst, plan, heads, gather)
     if a.device.type != "cuda":

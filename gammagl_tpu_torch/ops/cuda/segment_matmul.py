@@ -38,11 +38,26 @@ edges (`build_row_split`, built once per plan and cached per device by
 many lanes instead of walked by one warp. The partial sums of a cut row
 are folded in item order by a second kernel (`csr_fold`, launches counted
 in ``csr_fold.launches``), so the result stays deterministic.
+
+The forward of `spmm_csr` and `segment_sum_csr` is the custom op
+``torch.ops.gammagl.spmm_csr`` (registered when this module is imported;
+nothing is built until its first CUDA launch): its arguments are x, the
+weights and the plan's arrays, its CPU implementation the plain version,
+its CUDA implementation the kernel. Eager calls and `torch.export` take
+that one route, so an exported model runs the kernel from a file
+(`serve.export_forward`). While a trace runs, a plan caches nothing: its
+arrays come from the export wrapper's buffers (`bind_plan_arrays`) or are
+built for that trace alone. The other kernels have no op yet; a trace
+that reaches one raises `NotImplementedError` (`refuse_trace`) rather
+than record its plain version.
 """
 
+import contextlib
 import ctypes
 import functools
+import threading
 from collections import namedtuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -109,6 +124,58 @@ def build_row_split(rowptr, K=ROW_SPLIT):
                     np.flatnonzero(cut).astype(np.int32), cut_ptr)
 
 
+def _tracing():
+    """True while `torch.export` or `torch.compile` traces the caller:
+    tensors made then are fake or belong to that trace alone."""
+    return torch.compiler.is_compiling()
+
+
+def refuse_trace(kernel):
+    """Raise `NotImplementedError` while a trace runs: ``kernel`` has no
+    ``torch.library`` op, so a trace would record its plain version (or
+    reach a pointer of a fake tensor) in place of the kernel."""
+    if _tracing():
+        raise NotImplementedError(
+            f"{kernel} has no torch.library op, so it cannot be exported or "
+            "compiled; only spmm_csr and segment_sum_csr have one "
+            "(gammagl::spmm_csr)")
+
+
+_BOUND = threading.local()
+
+
+def _bound(plan):
+    """The arrays `bind_plan_arrays` gives ``plan`` in this thread, or
+    None."""
+    return getattr(_BOUND, "plans", {}).get(id(plan))
+
+
+def plan_buffers(plan, device):
+    """The tensors of ``plan`` that the CSR op reads, by name, on
+    ``device``: rowptr, col and perm, and the work items at `ROW_SPLIT`
+    when it has cut rows. An export wrapper registers them as buffers, so
+    the artifact carries them (`serve.export_forward`)."""
+    out = dict(zip(("rowptr", "col", "perm"), plan.arrays(device)))
+    item_ptr, meta, cut_row, cut_ptr, _ = plan.split_arrays(device)
+    if meta is not None:
+        out.update(item_ptr=item_ptr, item_meta=meta, cut_row=cut_row,
+                   cut_ptr=cut_ptr)
+    return out
+
+
+@contextlib.contextmanager
+def bind_plan_arrays(bound):
+    """Within the block, each plan of ``bound`` ({plan: the dict of
+    `plan_buffers`, as buffers of a module}) reads those tensors in a
+    trace, in place of its own device copies."""
+    before = getattr(_BOUND, "plans", {})
+    _BOUND.plans = {**before, **{id(p): b for p, b in bound.items()}}
+    try:
+        yield
+    finally:
+        _BOUND.plans = before
+
+
 class CSRPlan:
     """Destination-sorted CSR of a graph, built once on the host.
 
@@ -125,6 +192,9 @@ class CSRPlan:
     One copy of the arrays is kept per device (`arrays`), and of the
     kernels' work items per device and item size (`split_arrays`); the
     transpose plans of the backward are built on first use and kept too.
+    While a trace runs none of these caches is filled: a tensor made then
+    is the trace's own (a fake one in `torch.export`), and a later eager
+    call would read it.
     """
 
     def __init__(self, rowptr, col, perm, num_nodes, num_src, num_edges,
@@ -147,27 +217,39 @@ class CSRPlan:
         ``col`` the destination of each edge, and ``perm`` the position of
         each of its edges in THIS plan's CSR order, so weights in CSR
         order follow with ``w[transpose().perm]``."""
-        if self._transpose is None:
-            rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64),
-                             np.diff(self.rowptr))
-            self._transpose = build_csr_plan(
-                rows, self.col, self.num_src, num_src=self.num_nodes)
-        return self._transpose
+        if self._transpose is not None:
+            return self._transpose
+        rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64),
+                         np.diff(self.rowptr))
+        tp = build_csr_plan(rows, self.col, self.num_src,
+                            num_src=self.num_nodes)
+        if not _tracing():
+            self._transpose = tp
+        return tp
 
     def edge_scatter_plan(self):
         """A plan whose rows are this plan's sources and whose ``col`` is
         the CSR position of each edge: `spmm_csr` with it sums per-edge
         rows, given in this plan's CSR order, into their source rows."""
-        if self._edge_scatter is None:
-            tp = self.transpose()
-            self._edge_scatter = CSRPlan(
-                tp.rowptr, tp.perm.astype(np.int32), tp.perm,
-                self.num_src, self.num_edges, self.num_edges)
-        return self._edge_scatter
+        if self._edge_scatter is not None:
+            return self._edge_scatter
+        tp = self.transpose()
+        plan = CSRPlan(tp.rowptr, tp.perm.astype(np.int32), tp.perm,
+                       self.num_src, self.num_edges, self.num_edges)
+        if not _tracing():
+            self._edge_scatter = plan
+        return plan
 
     def arrays(self, device):
-        """(rowptr, col, perm) as tensors on ``device``, copied once."""
+        """(rowptr, col, perm) as tensors on ``device``, copied once (in a
+        trace: the bound buffers, or copies for that trace alone)."""
         device = _placed_device(device)
+        if _tracing():
+            bound = _bound(self)
+            if bound is not None:
+                return bound["rowptr"], bound["col"], bound["perm"]
+            return tuple(torch.from_numpy(a).to(device)
+                         for a in (self.rowptr, self.col, self.perm))
         placed = self._placed.get(device)
         if placed is None:
             # ordinary tensors even when first placed under inference
@@ -190,21 +272,31 @@ class CSRPlan:
         """The work items at ``K`` as the kernels read them on ``device``,
         copied once for each device and K: (item_ptr, item_meta, cut_row,
         cut_ptr, n_slots). A plan without cut rows has one item per row:
-        item_ptr is rowptr itself and the others are None (and 0)."""
+        item_ptr is rowptr itself and the others are None (and 0). In a
+        trace: the bound buffers at `ROW_SPLIT`, or copies for that trace
+        alone."""
         device = _placed_device(device)
-        placed = self._split_placed.get((device, K))
-        if placed is None:
-            split = self.row_split(K)
-            if split.cut_row.shape[0] == 0:
-                placed = (self.arrays(device)[0], None, None, None, 0)
-            else:
-                with torch.inference_mode(False):
-                    meta = np.stack([split.item_row, split.item_slot], 1)
-                    placed = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                                   .to(device) for a in (
-                                       split.item_ptr, meta, split.cut_row,
-                                       split.cut_ptr)) + (
-                                           int(split.cut_ptr[-1]),)
+        tracing = _tracing()
+        placed = None if tracing else self._split_placed.get((device, K))
+        if placed is not None:
+            return placed
+        split = self.row_split(K)
+        bound = _bound(self) if tracing and K == ROW_SPLIT else None
+        if split.cut_row.shape[0] == 0:
+            placed = (self.arrays(device)[0], None, None, None, 0)
+        elif bound is not None:
+            placed = (bound["item_ptr"], bound["item_meta"],
+                      bound["cut_row"], bound["cut_ptr"],
+                      int(split.cut_ptr[-1]))
+        else:
+            with torch.inference_mode(False):
+                meta = np.stack([split.item_row, split.item_slot], 1)
+                placed = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                               .to(device) for a in (
+                                   split.item_ptr, meta, split.cut_row,
+                                   split.cut_ptr)) + (
+                                       int(split.cut_ptr[-1]),)
+        if not tracing:
             self._split_placed[(device, K)] = placed
         return placed
 
@@ -299,10 +391,14 @@ def _check_x(x, plan):
 
 def _csr_rows(plan, device):
     """The destination row of each CSR edge: (E,) int64 on ``device``."""
-    rowptr = plan.arrays(device)[0]
+    return _rows_of(plan.arrays(device)[0], plan.num_edges)
+
+
+def _rows_of(rowptr, num_edges):
+    """The row of each of ``num_edges`` CSR edges of ``rowptr``."""
     return torch.repeat_interleave(
-        torch.arange(plan.num_nodes, device=device), rowptr.diff(),
-        output_size=plan.num_edges)
+        torch.arange(rowptr.shape[0] - 1, device=rowptr.device),
+        rowptr.diff(), output_size=num_edges)
 
 
 def _weigh(v, w):
@@ -320,17 +416,23 @@ def _csr_sum_reference(x, w, plan, per_edge, prev=None):
     x[r(e)]`` over the CSR edges of d, with r(e) = e (``per_edge``) or
     col[e], w None, (E,) or (E, H) in CSR order, prev None (0) or (N_dst,
     F); float32 sums from prev, in CSR order, cast once to x's dtype."""
-    col = plan.arrays(x.device)[1]
+    rowptr, col, _ = plan.arrays(x.device)
+    return _csr_sum_arrays(x, w, rowptr, col, per_edge, prev)
+
+
+def _csr_sum_arrays(x, w, rowptr, col, per_edge, prev=None):
+    """`_csr_sum_reference` on the plan's rowptr and col."""
+    E = col.shape[0]
     acc = torch.promote_types(x.dtype, torch.float32)
-    msg = (x[:plan.num_edges] if per_edge else x[col.long()]).to(acc)
+    msg = (x[:E] if per_edge else x[col.long()]).to(acc)
     if w is not None:
         msg = _weigh(msg, w.to(acc))
     if prev is None:
-        out = torch.zeros(plan.num_nodes, x.shape[1], dtype=acc,
+        out = torch.zeros(rowptr.shape[0] - 1, x.shape[1], dtype=acc,
                           device=x.device)
     else:
         out = prev.to(acc, copy=True)
-    return out.index_add_(0, _csr_rows(plan, x.device), msg).to(x.dtype)
+    return out.index_add_(0, _rows_of(rowptr, E), msg).to(x.dtype)
 
 
 def spmm_csr_reference(x, edge_weight, plan, weights_padded=False):
@@ -415,6 +517,15 @@ def _launch(x, w, plan, per_edge=False, prev=None, out=None):
     accumulating form. Writes into ``out`` when given (it may be prev).
     Counts the launch in `spmm_csr`, per edge in `segment_sum_csr`, with
     prev in `spmm_csr_acc`; a plan with cut rows then runs `csr_fold`."""
+    rowptr, col, _ = plan.arrays(x.device)
+    return _launch_arrays(x, w, rowptr, col, *plan.split_arrays(x.device),
+                          per_edge=per_edge, prev=prev, out=out)
+
+
+def _launch_arrays(x, w, rowptr, col, item_ptr, meta, cut_row, cut_ptr,
+                   n_slots, per_edge=False, prev=None, out=None):
+    """`_launch` on a plan's arrays: ``item_ptr`` ... ``n_slots`` as
+    `CSRPlan.split_arrays` gives them (meta None: an item a row)."""
     op = ("segment_sum_csr" if per_edge else "spmm_csr" if prev is None
           else "spmm_csr_acc")
     if x.device.type != "cuda":
@@ -424,7 +535,7 @@ def _launch(x, w, plan, per_edge=False, prev=None, out=None):
                         f"{_KERNEL_DTYPES}")
     if not x.is_contiguous():
         raise ValueError(f"{op}: x must be contiguous")
-    col = plan.arrays(x.device)[1]
+    num_nodes = rowptr.shape[0] - 1
     heads = 1
     if w is not None:
         if w.device != x.device:
@@ -432,13 +543,14 @@ def _launch(x, w, plan, per_edge=False, prev=None, out=None):
         w = w.contiguous()
         heads = 1 if w.dim() == 1 else w.shape[1]
     if out is None:
-        out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
+        out = torch.empty(num_nodes, x.shape[1], dtype=x.dtype,
                           device=x.device)
     if out.numel() == 0:
         return out
     F = x.shape[1]
-    item_ptr, meta, cut_row, cut_ptr, n_slots = plan.split_arrays(x.device)
-    n_items = plan.num_nodes if meta is None else meta.shape[0]
+    if item_ptr is None:
+        item_ptr = rowptr
+    n_items = num_nodes if meta is None else meta.shape[0]
     stride = _part_stride(F)
     part = (torch.empty(n_slots, stride, dtype=torch.float32,
                         device=x.device) if n_slots else None)
@@ -511,10 +623,55 @@ def csr_fold(part, cut_row, cut_ptr, prev, out):
 csr_fold.launches = 0
 
 
+@torch.library.custom_op("gammagl::spmm_csr", mutates_args=())
+def _spmm_csr_op(x: torch.Tensor, w: Optional[torch.Tensor],
+                 rowptr: torch.Tensor, col: torch.Tensor,
+                 item_ptr: Optional[torch.Tensor],
+                 item_meta: Optional[torch.Tensor],
+                 cut_row: Optional[torch.Tensor],
+                 cut_ptr: Optional[torch.Tensor], n_slots: int,
+                 per_edge: int) -> torch.Tensor:
+    """``out[d] = sum_e w_e * x[r(e)]`` over the CSR edges of row d, with
+    r(e) = col[e], or e when ``per_edge``: the forward of `spmm_csr` and
+    `segment_sum_csr` on a plan's arrays (`_op_args`). CPU: the plain
+    version; CUDA: the kernel (and `csr_fold`), counted as the wrappers
+    count it."""
+    raise ValueError(f"gammagl::spmm_csr: no kernel for device {x.device}")
+
+
+@_spmm_csr_op.register_kernel("cpu")
+def _spmm_csr_cpu(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
+                  n_slots, per_edge):
+    return _csr_sum_arrays(x, w, rowptr, col, bool(per_edge))
+
+
+@_spmm_csr_op.register_kernel("cuda")
+def _spmm_csr_cuda(x, w, rowptr, col, item_ptr, item_meta, cut_row,
+                   cut_ptr, n_slots, per_edge):
+    return _launch_arrays(x, w, rowptr, col, item_ptr, item_meta, cut_row,
+                          cut_ptr, n_slots, per_edge=bool(per_edge))
+
+
+@_spmm_csr_op.register_fake
+def _spmm_csr_fake(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
+                   n_slots, per_edge):
+    return x.new_empty(rowptr.shape[0] - 1, x.shape[1])
+
+
+def _op_args(plan, device):
+    """The plan's arguments of ``gammagl::spmm_csr`` on ``device``:
+    rowptr, col, the work items (None for a plan without cut rows, whose
+    items are its rows) and the scratch slots."""
+    rowptr, col, _ = plan.arrays(device)
+    item_ptr, meta, cut_row, cut_ptr, n_slots = plan.split_arrays(device)
+    if meta is None:
+        item_ptr = None
+    return rowptr, col, item_ptr, meta, cut_row, cut_ptr, n_slots
+
+
 def _forward(x, w, plan, per_edge=False):
-    if x.device.type == "cpu":
-        return _csr_sum_reference(x, w, plan, per_edge)
-    return _launch(x, w, plan, per_edge)
+    return torch.ops.gammagl.spmm_csr(x, w, *_op_args(plan, x.device),
+                                      int(per_edge))
 
 
 def _check_prev(prev, x, plan):
@@ -624,6 +781,7 @@ def spmm_csr_acc(x, edge_weight, plan, prev=None, weights_padded=False,
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spmm_csr_acc: no kernel for device {x.device}")
+    refuse_trace("spmm_csr_acc")
     _check_x(x, plan)
     _check_prev(prev, x, plan)
     if out is not None and (out.shape != (plan.num_nodes, x.shape[1])

@@ -52,6 +52,7 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_check_x, _csr_rows,
                                                        _pad_rows,
                                                        _part_stride, _ptr,
                                                        _raise_on, _slots)
+from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["spmm_max_csr", "spmm_min_csr", "segment_max_csr",
@@ -177,6 +178,7 @@ def _extreme(x, w, plan, per_edge, negate, counter):
     """The forward: a CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (counted in ``counter.launches``), and the fold
     after it on a plan with cut rows, or raises."""
+    refuse_trace(counter.__name__)
     if x.device.type == "cpu":
         return _extreme_reference(x, w, plan, per_edge, negate)
     _check_cuda(counter.__name__, x, w)
@@ -238,6 +240,7 @@ def segment_max_bwd(x, w, out, grad, plan, per_edge, want_dw):
     ``segment_max_bwd.launches``), after `segment_max_count` and
     `segment_max_count_fold` on a plan with cut rows, or raises."""
     want_dw = want_dw and w is not None
+    refuse_trace("segment_max_bwd")
     if x.device.type == "cpu":
         return segment_max_bwd_reference(x, w, out, grad, plan, per_edge,
                                          want_dw)

@@ -1,15 +1,28 @@
-"""Serving: a model placed on its device and warmed up once.
+"""Serving: a model placed on its device and warmed up once, or
+exported to a file that runs without the model's code.
 
-Counterpart of `InferenceSession` in `gammagl_tpu/serve.py`. The JAX
-session compiles the forward ahead of time; here construction moves the
-model to the device and runs one warm-up call, which builds the kernels
-and places each plan's arrays on the device, so the first request runs at
-steady-state cost.
+Counterpart of `gammagl_tpu/serve.py`. The JAX session compiles the
+forward ahead of time; here construction moves the model to the device
+and runs one warm-up call, which builds the kernels and places each
+plan's arrays on the device, so the first request runs at steady-state
+cost.
 
     sess = InferenceSession(model, (x, edge_index), device="cuda",
                             compute_dtype=torch.bfloat16,
                             plan=graph.csr_plan())
     logits = sess(x, edge_index)
+
+`export_forward` traces the same forward with `torch.export`: the
+parameters and a plan's arrays go into the artifact, and the CSR SpMM is
+recorded as the op ``gammagl::spmm_csr``, so the reloaded program runs the
+hand-written kernel (a model that reaches a kernel without an op raises
+`NotImplementedError`). The artifact is traced for one device and one
+set of shapes; reloading imports the ops and not the model's code:
+
+    ep = export_forward(model, (x, edge_index), device="cuda",
+                        compute_dtype=torch.bfloat16, plan=plan)
+    save_exported(ep, "gcn.pt2")          # ship this file
+    logits = load_exported("gcn.pt2")(x, edge_index)
 
 `MicroBatcher` batches concurrent single requests: a worker thread stacks
 what is queued, pads it to a bucket and calls a function of the batch,
@@ -39,7 +52,96 @@ import torch
 
 from gammagl_tpu_torch.utils.device import resolve_device
 
-__all__ = ["InferenceSession", "MicroBatcher"]
+__all__ = ["export_forward", "save_exported", "load_exported",
+           "InferenceSession", "MicroBatcher"]
+
+
+def _as_tensor(a, device):
+    if not isinstance(a, torch.Tensor):
+        a = torch.tensor(np.asarray(a))
+    return a.to(device)
+
+
+class _Exported(torch.nn.Module):
+    """The model with its forward keywords bound: each `CSRPlan` among
+    them has the arrays its op reads as buffers of this module, so the
+    exported program carries them, and the trace reads them in place of
+    the plan's own copies (`bind_plan_arrays`). Float inputs are cast to
+    ``compute_dtype`` first, as `InferenceSession` casts them."""
+
+    def __init__(self, model, device, compute_dtype, forward_kwargs):
+        super().__init__()
+        from gammagl_tpu_torch.ops.cuda.segment_matmul import (CSRPlan,
+                                                               plan_buffers)
+        self.model = model
+        self.compute_dtype = compute_dtype
+        self.forward_kwargs = forward_kwargs
+        self._plans = {}
+        for key, value in forward_kwargs.items():
+            if isinstance(value, CSRPlan):
+                names = {}
+                for name, t in plan_buffers(value, device).items():
+                    names[name] = f"{key}_{name}"
+                    self.register_buffer(names[name], t.clone())
+                self._plans[key] = names
+
+    def forward(self, *inputs):
+        from gammagl_tpu_torch.ops.cuda.segment_matmul import (
+            bind_plan_arrays)
+        if self.compute_dtype is not None:
+            inputs = tuple(a.to(self.compute_dtype)
+                           if a.is_floating_point() else a for a in inputs)
+        bound = {self.forward_kwargs[key]: {name: getattr(self, buf)
+                                            for name, buf in names.items()}
+                 for key, names in self._plans.items()}
+        with bind_plan_arrays(bound):
+            return self.model(*inputs, **self.forward_kwargs)
+
+
+def export_forward(model, example_inputs, device=None, compute_dtype=None,
+                   **forward_kwargs):
+    """`torch.export` of ``model(*inputs, **forward_kwargs)`` in eval mode
+    on ``device`` (None: the current CUDA card; ``"cpu"`` for the plain
+    versions), with float inputs cast to ``compute_dtype``. The
+    parameters live in the model; a `CSRPlan` among the keywords has its
+    arrays carried as buffers. Returns the ``ExportedProgram``, traced
+    for ``device`` and the example inputs' shapes and dtypes (JAX's
+    ``platforms`` has no counterpart: one artifact, one device).
+
+    The CSR SpMM and per-edge segment sum are recorded as
+    ``gammagl::spmm_csr``; a model that reaches another kernel raises
+    `NotImplementedError` naming it."""
+    device = resolve_device(device)
+    model = model.to(device).eval()
+    wrapper = _Exported(model, device, compute_dtype, forward_kwargs)
+    inputs = tuple(_as_tensor(a, device) for a in example_inputs)
+    with torch.no_grad():
+        if any(isinstance(p, torch.nn.parameter.UninitializedParameter)
+               for p in model.parameters()):
+            wrapper(*inputs)  # lazy layers take their sizes, as flax's init
+        return torch.export.export(wrapper, inputs)
+
+
+def save_exported(exported, path):
+    """Write an ``ExportedProgram`` (`export_forward`) to ``path``:
+    the program, its parameters and buffers, without the example inputs
+    it was traced with (a graph's whole feature table)."""
+    example = exported.example_inputs
+    exported.example_inputs = None
+    try:
+        torch.export.save(exported, path)
+    finally:
+        exported.example_inputs = example
+
+
+def load_exported(path):
+    """Reload an artifact of `save_exported`. The port's ops are
+    registered first (importing no model code); returns the program as a
+    callable module, its parameters frozen for serving:
+    ``load_exported(path)(x, edge_index)`` runs it on the device it was
+    traced for."""
+    import gammagl_tpu_torch.ops.cuda.segment_matmul  # noqa: F401 (the op)
+    return torch.export.load(path).module().requires_grad_(False)
 
 
 class InferenceSession:

@@ -2152,3 +2152,56 @@ def test_ssl_twin_on_card_matches_the_cpu(card, name):
         out = module.main(args, data=data, draws=iter(draws))
         losses.append(out["losses"])
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+@pytest.mark.parametrize("per_edge", [0, 1])
+@pytest.mark.parametrize("cut", [False, True])
+def test_spmm_csr_op_passes_opcheck_on_the_card(card, per_edge, cut):
+    """``gammagl::spmm_csr`` (the kernel behind `spmm_csr` and
+    `segment_sum_csr`): schema, fake tensor and dispatch checks on CUDA
+    tensors, bf16 with (E, 2) weights, on a plan with and without cut
+    rows."""
+    from gammagl_tpu_torch.ops.cuda.segment_matmul import _op_args
+    plan, _ = _plan(7)
+    if cut:
+        src = np.concatenate([plan.col, np.arange(kops.ROW_SPLIT + 9) % 420])
+        dst = np.concatenate([np.repeat(np.arange(plan.num_nodes),
+                                        np.diff(plan.rowptr)),
+                              np.full(kops.ROW_SPLIT + 9, 2)])
+        plan = kops.build_csr_plan(src, dst, plan.num_nodes, num_src=420)
+        assert plan.row_split().cut_row.shape[0] == 1
+    g = torch.Generator().manual_seed(8)
+    rows = plan.num_edges if per_edge else plan.num_src
+    v = torch.randn(rows, 16, generator=g).to(card, torch.bfloat16)
+    w = torch.rand(plan.num_edges, 2, generator=g).to(card)
+    args = (v, w, *_op_args(plan, card), per_edge)
+    torch.library.opcheck(torch.ops.gammagl.spmm_csr.default, args)
+
+
+def test_exported_gcn_runs_the_kernel_from_a_file(card, tmp_path):
+    """A planned 3-layer GCN exported on the card, saved and loaded gives
+    the live session's logits bitwise, with 3 `spmm_csr` launches a
+    request."""
+    from gammagl_tpu_torch.serve import (export_forward, load_exported,
+                                         save_exported)
+    rng = np.random.default_rng(9)
+    n, e = 3000, 24000
+    x = rng.normal(size=(n, 48)).astype(np.float32)
+    graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    model = GCNModel(hidden_dim=64, num_class=7, num_layers=3,
+                     dtype=torch.bfloat16)
+    plan = graph.csr_plan()
+    sess = InferenceSession(model, (x, graph.edge_index), device="cuda",
+                            compute_dtype=torch.bfloat16, plan=plan)
+    want = sess(x, graph.edge_index)
+    ep = export_forward(model, (x, graph.edge_index), device="cuda",
+                        compute_dtype=torch.bfloat16, plan=plan)
+    save_exported(ep, tmp_path / "gcn.pt2")
+    prog = load_exported(tmp_path / "gcn.pt2")
+    xt = torch.from_numpy(x).to(card)
+    eit = torch.as_tensor(np.asarray(graph.edge_index)).to(card)
+    before = kops.spmm_csr.launches
+    got = prog(xt, eit)
+    torch.cuda.synchronize()
+    assert kops.spmm_csr.launches == before + 3
+    assert torch.equal(got, want)

@@ -63,24 +63,6 @@ COVERED = {
 }
 
 MISSING_NAMES = {
-    "models/__init__.py": [
-        "GraphSAGE_Full_Model", "GraphSAGE_Sample_Model",
-        "RGCN", "CompGCN", "HAN", "GRADE",
-        "Graphormer",
-        "DeepWalkModel", "Node2vecModel",
-        "DGCNN",
-        "AGNNModel", "FILMModel", "GMMModel", "DNAModel", "HCHA",
-        "LogReg", "SkipGramModel", "HERec", "TADWModel", "MGNNI_m_att",
-        "DFADModel", "DFADGenerator", "Generator", "Discriminator",
-        "EigenMLP", "Encoder", "SpaSpeNode", "ReModel",
-        "EdgePromptNodeClassifier", "FusedGATModel", "GNN",
-        "amp_elbo_regression_loss",
-        "GraphTextCLIP",
-        "GraphLlamaAdapter", "GraphLlamaLM", "TinyCausalLM",
-        "LLaGAProjector", "build_stage2_batch", "llaga_hop_field",
-        "llaga_neighborhood_detail", "LLaGAEncoder",
-        "splice_graph_embeddings",
-    ],
     "loader/__init__.py": [
         "ShardedFeatureStore", "MultiHostNodeLoader", "shard_seeds",
         "make_global_batch", "pad_sampled_graph",
@@ -116,7 +98,6 @@ MISSING_NAMES = {
         "partition_edges_uniform",
     ],
     "serve.py": [
-        "export_forward", "save_exported", "load_exported",
         "ShardedInferenceSession",
     ],
     "train/__init__.py": [
@@ -128,8 +109,7 @@ MISSING_NAMES = {
 }
 
 MISSING_MODULES = [
-    "loader/multihost.py", "models/compat.py",
-    "models/graph_llm.py",
+    "loader/multihost.py",
     "parallel/halo_attention.py",
     "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
     "parallel/strategies.py",
