@@ -363,7 +363,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of max |out|, the losses falling by 5%, each step's time; (d) the 18
    thin models of `models/compat.py` and its ELBO loss at Cora's shape,
    card vs CPU at 1e-4 of max |out|; (c)-(d) COO: no kernel.
-40. Print the card's name and power limit, one JSON line on the kernels
+40. (a) The planned two-level halo tier (`build_hier_halo_partition_
+   planned`) on phase 24's papers shard over a (2, 2) slice x dp grid of
+   4 processes on the one card (`chip_smoke.py --hier-worker DIR RANK`,
+   gloo, a file store; each process loads its share of the partition
+   built here): forward and transpose, bf16 F = 256, each row within
+   3e-2 of its max |out| under phase 24's single `spmm_csr` plan, and in
+   f32 within 1e-3 of it under the plain version; each rank's launches
+   exact (1 `spmm_csr` and one `spmm_csr_acc` a class with edges, a fold
+   a plan with cut rows); both directions timed (the slowest rank's wall
+   clock) beside phase 24's one-part tier; 2 of phase 25's staged GCN
+   steps on it, launches exact, the loss the same on every rank and its
+   first within 5e-3 of phase 25's; the partitioned GAT layer at 4 parts
+   on a random graph, forward and backward twice, bitwise equal on every
+   rank, within 1e-4 of max |ref| of the layer at one part. (b) `make_partitioned_gat_train` at one
+   part on the arxiv shape with phases 6-7's widths (bf16, phase 30's
+   planted labels): step-0 gradients within 3e-2 of each parameter's max
+   |grad| of the same recipe on the CPU, two `loss_and_grads` from one
+   state bitwise equal, 20 AdamW steps (4 flash forward with remat, 2
+   flash backward, 4 `spmm_csr` each, exact) with the loss falling 5%, 3
+   eval forwards (2 flash forward each). Then `parallel.scaling`'s card
+   figures: a 1 GiB copy's rate and phase 24's tier forward in edges a
+   second.
+41. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -418,6 +440,28 @@ N_BP_CALLS = 3
 # 256, 3 layers, 172 classes, AdamW lr 0.01, no decay) on the papers
 # twin's synthetic shard at 1% of papers100M, one part
 PAPERS_SCALE, PAPERS_LAYERS, PAPERS_LR = 0.01, 3, 1e-2
+# phase 40 (a): the planned two-level tier on that shard over a HIER_GRID
+# (slices x dp) grid of processes, all on the one card (gloo moves the
+# CUDA tensors of the collectives through host memory), and HIER_STEPS of
+# phase 25's staged GCN steps on it; (b) the partitioned GAT at one part
+# on the arxiv shape with phases 6-7's widths (bf16, AdamW at phase 7's
+# lr, no dropout) on phase 30's planted labels: PGAT_STEPS steps (5 fell
+# by 2% in a CPU rehearsal at 20,000 nodes, 20 by 10%) and PGAT_REQUESTS
+# eval forwards
+HIER_GRID, HIER_STEPS = (2, 2), 2
+# (a) also holds the tier per row: each row's max error within a share of
+# that row's own max |ref| (bf16 against one `spmm_csr` plan at 3e-2; an
+# f32 run against the plain version at 1e-3, since a hub row's f32 sum of
+# 1.4M edges moves with the order by ~5e-5 of its spread; a floor of 1e-7
+# of the global max), so that ordinary rows fail, not only the hubs that
+# set the global max; and runs the partitioned GAT layer on a random
+# graph of HIER_GAT_SHAPE (nodes, edges, heads, width a head; f32) over
+# the grid's processes twice from one input, bitwise equal, against the
+# layer at one part at 1e-4 of max |ref|
+HIER_ROW_TOL = {"bf16": 3e-2, "f32": 1e-3}
+HIER_ROW_FLOOR = 1e-7
+HIER_GAT_SHAPE = (20_000, 320_000, 8, 8)
+PGAT_STEPS, PGAT_REQUESTS = 20, 3
 # the typed-edge paths, on the typed graph of phases 15-16 flattened to
 # one node set (papers first, each relation an edge type) as the simplehgn
 # twin flattens: RGCN at OGB's ogbn-mag R-GCN baseline width (hidden 64)
@@ -538,6 +582,28 @@ def check_close(label, got, want, rtol, atol=1e-5, scale=None):
     if not bool((err <= bound).all()):
         fail(f"{label}: kernel disagrees with the plain version")
     return max_err
+
+
+def check_rows(label, got, want, rtol, floor=HIER_ROW_FLOOR):
+    """Row by row: max |got - want| of each row <= rtol * that row's max
+    |want| + floor * the global max |want|. Returns the max abs error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape:
+        fail(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: non-finite values")
+    err = (got - want).abs().amax(1)
+    row = want.abs().amax(1)
+    bound = rtol * row + floor * float(row.max())
+    worst = float((err / bound.clamp_min(1e-30)).max())
+    print(f"  {label}: max_abs_err {float(err.max()):.3e}, worst row "
+          f"err/tol {worst:.3f} (rtol {rtol:g} of the row's max |ref| + "
+          f"{floor:g}*max|ref|, max|ref| {float(row.max()):.3e}, median row "
+          f"max {float(row.median()):.3e})")
+    if not bool((err <= bound).all()):
+        fail(f"{label}: {int((err > bound).sum())} rows disagree with the "
+             "reference")
+    return float(err.max())
 
 
 def sync():
@@ -2842,7 +2908,7 @@ def phase_papers_tier(k, shard):
     N = part.rows_per
     ei, w = shard["ei"], shard["w"]
     t0 = time.perf_counter()
-    single = k.build_csr_plan(ei[0], ei[1], N, num_src=N)
+    single = shard["single"] = k.build_csr_plan(ei[0], ei[1], N, num_src=N)
     print(f"  single CSR plan of the whole graph in "
           f"{time.perf_counter() - t0:.2f} s")
     w_single = torch.from_numpy(w[single.perm]).to(dev)
@@ -6398,6 +6464,7 @@ def phase_wave3(k, smi, x, ei):
 # row 1 at F = 40 bf16 on the arxiv shape (PERF.md section 6): 0.1804 ms
 ATOMIC_GAT_STEP_MS, ROW1_F40_MS = (5.53, 6.78), 0.1804
 P38_STEPS, P38_CHAIN_K = 3, 8
+P38_STEP_SPAN = "phase38_gcn_step"  # the traced step's span
 
 
 def c39_gat_steps(k, twin, GATModel, load_jax_params, plan, x, ei):
@@ -6507,10 +6574,25 @@ def profiling_path(k, GCNModel, load_jax_params, plan, x, ei):
     sync()
     reset_counts(k)
     with trace(TRACE_DIR) as prof:
-        common.train_step(state, x, ei, y, mask, plan=plan)
+        # one small kernel and a wait first: a trace once lost one of the
+        # step's kernel events (5 of 6 `spmm_csr`, the wrappers counting
+        # 6); that the first launch after the capture opens is the one
+        # lost is a guess, not confirmed. The step runs in its own span,
+        # and the kernel time counts only the kernels that start in it.
+        torch.ones(1, device=dev).add_(1)
+        sync()
+        with torch.profiler.record_function(P38_STEP_SPAN):
+            common.train_step(state, x, ei, y, mask, plan=plan)
     counts = read_counts(k)
     with open(prof.trace_path) as f:
         events = json.load(f)["traceEvents"]
+    spans = [ev for ev in events if ev.get("name") == P38_STEP_SPAN
+             and ev.get("ph") == "X"]
+    if not spans:
+        fail(f"trace: no {P38_STEP_SPAN} span in the trace")
+    t_step = min(ev["ts"] for ev in spans)
+    events = [ev for ev in events
+              if ev.get("cat") != "kernel" or ev["ts"] >= t_step]
     named = [ev["name"] for ev in events
              if ev.get("cat") == "kernel" and "spmm_csr" in ev["name"]]
     if counts != want or len(named) != counts["spmm_csr"]:
@@ -7042,6 +7124,510 @@ def phase_slice22(k, smi, twin, GATModel, GCNModel, InferenceSession,
     return export_counts, fgat_counts, fgat_t_counts, coo_counts, out
 
 
+def hier_part_launches(part, r):
+    """Kernel launches of one call of the planned two-level tier on part
+    r: the interior class is `spmm_csr`, each later class with edges
+    `spmm_csr_acc`, and each of those plans with cut rows one fold."""
+    run = [part.interior[r]] + [c[r] for c in (part.intra, part.inter)
+                                if c[r].num_edges]
+    return {"spmm_csr": 1, "spmm_csr_acc": len(run) - 1,
+            "csr_fold": sum(1 for p in run if p.row_split().cut_row.size)}
+
+
+def hier_rank_share(part, r):
+    """Part r's share of a planned two-level partition, for its process:
+    its own plans (the others None) and no COO edge lists, which the
+    planned tier never reads."""
+    fields = ("interior", "interior_w", "intra", "intra_w", "inter",
+              "inter_w")
+    share = part._replace(
+        base=part.base._replace(edge_index=None, edge_weight=None),
+        **{f: tuple(v if i == r else None
+                    for i, v in enumerate(getattr(part, f)))
+           for f in fields})
+    if part.transpose is not None:
+        share = share._replace(transpose=hier_rank_share(part.transpose, r))
+    return share
+
+
+def hier_worker(tmp, rank):
+    """One process of phase 40 (a), ``chip_smoke.py --hier-worker DIR
+    RANK``: joins the gloo group of the HIER_GRID processes (a file store
+    in DIR), loads its share of the partition, runs both directions of the
+    tier on its block of the inputs once with its launches checked (its
+    output saved as bf16 bits) and 3 times timed, then HIER_STEPS staged
+    GCN steps with their launches checked; writes result<RANK>.json."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gammagl_tpu_torch.ops import cuda as k
+    from gammagl_tpu_torch.parallel import (
+        hier_world, make_hier_halo_spmm_planned_pair,
+        make_partitioned_gcn_train_staged, shard_nodes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    S, D = HIER_GRID
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=S * D,
+                            timeout=datetime.timedelta(seconds=600))
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    with open(os.path.join(tmp, f"part{rank}.pkl"), "rb") as f:
+        part = pickle.load(f)
+    with open(os.path.join(tmp, "meta.json")) as f:
+        meta = json.load(f)
+    inp = {name: np.load(os.path.join(tmp, f"{name}.npy"), mmap_mode="r")
+           for name in ("x_bits", "g_bits", "feat", "y", "train")}
+    grid = hier_world(S, D)
+    spmm, spmm_t = make_hier_halo_spmm_planned_pair(part, grid)
+    res = {"rank": rank, "launches": {}, "ms": {}}
+    for label, fn, bits, p in (("forward", spmm, "x_bits", part),
+                               ("transpose", spmm_t, "g_bits",
+                                part.transpose)):
+        blk = shard_nodes(inp[bits], part, rank=rank,
+                          device=dev).view(bf16)
+        want = every_kernel(hier_part_launches(p, rank))
+        dist.barrier()
+        sync()
+        reset_counts(k)
+        out = fn(blk)
+        sync()
+        counts = read_counts(k)
+        if counts != want:
+            fail(f"hier tier {label} rank {rank}: expected launches {want}, "
+                 f"counted {counts}")
+        res["launches"][label] = counts
+        np.save(os.path.join(tmp, f"{label}{rank}.npy"),
+                out.view(torch.int16).cpu().numpy())
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            fn(blk)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["ms"][label] = times
+        dist.barrier()
+        np.save(os.path.join(tmp, f"{label}_f32_{rank}.npy"),
+                fn(blk.float()).cpu().numpy())
+    per_step = {name: PAPERS_LAYERS * n for name, n in
+                hier_part_launches(part, rank).items()}
+    for name, n in hier_part_launches(part.transpose, rank).items():
+        per_step[name] += (PAPERS_LAYERS - 1) * n
+    xs = shard_nodes(inp["feat"], part, rank=rank, device=dev, dtype=bf16)
+    ys = shard_nodes(inp["y"], part, rank=rank, device=dev)
+    ms = shard_nodes(inp["train"], part, rank=rank, device=dev)
+    params, opt, step, _ = make_partitioned_gcn_train_staged(
+        part, meta["f"], HIDDEN, meta["c"], num_layers=PAPERS_LAYERS,
+        compute_dtype=bf16, learning_rate=PAPERS_LR, device=dev,
+        group=grid)
+    res.update(losses=[], step_ms=[], step_launches=every_kernel({}))
+    for i in range(HIER_STEPS):
+        dist.barrier()
+        sync()
+        reset_counts(k)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, xs, ys, ms)
+        res["losses"].append(float(loss))
+        sync()
+        res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(k)
+        if counts != every_kernel(per_step):
+            fail(f"hier GCN step {i} rank {rank}: expected launches "
+                 f"{per_step}, counted {counts}")
+        for name in counts:
+            res["step_launches"][name] += counts[name]
+    res["gat"] = hier_gat_check(k, rank)
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"result{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def hier_gat_check(k, rank):
+    """In `hier_worker`: the partitioned GAT layer over every process of
+    the group on a random graph of HIER_GAT_SHAPE (the same in each, f32),
+    forward and backward twice from one input by one layer: output and
+    the gradients in h, a_src and a_dst bitwise equal (a sent row's
+    gradient comes back through the exchange and is summed into its owner
+    by `spmm_csr` on the scatter plan, never by atomics); each run 1 flash
+    forward, 1 flash backward and 3 `spmm_csr`; the own rows of the output
+    and of dh, and a_src's and a_dst's gradients summed over the
+    processes, against the layer at one part within 1e-4 of max |ref|."""
+    import torch.distributed as dist
+    from gammagl_tpu_torch.parallel import (build_halo_partition_attn,
+                                            make_partitioned_gat_layer,
+                                            shard_nodes)
+    dev = torch.device("cuda")
+    n, e, heads, fh = HIER_GAT_SHAPE
+    rng = np.random.default_rng(SEED + 41)
+    ei = rng.integers(0, n, (2, e))
+    h = rng.normal(size=(n, heads * fh)).astype(np.float32)
+    a_s, a_d = (rng.normal(size=(heads, fh)).astype(np.float32) * 0.3
+                for _ in range(2))
+    part = build_halo_partition_attn(ei, n, dist.get_world_size())
+    one = build_halo_partition_attn(ei, n, 1)
+    want = {"flash_forward": 1, "flash_backward": 1, "spmm_csr": 3}
+
+    def run(p, layer, r):
+        hb = shard_nodes(h, p, rank=r, device=dev).requires_grad_()
+        st = torch.tensor(a_s, device=dev, requires_grad=True)
+        at = torch.tensor(a_d, device=dev, requires_grad=True)
+        dist.barrier()
+        sync()
+        reset_counts(k)
+        out = layer(hb, st, at)
+        (out ** 2).sum().backward()
+        sync()
+        return (out.detach(), hb.grad, st.grad, at.grad), read_counts(k)
+
+    layer = make_partitioned_gat_layer(part, heads)
+    runs = [run(part, layer, rank) for _ in range(2)]
+    for i, (_, counts) in enumerate(runs):
+        if {name: counts[name] for name in want} != want:
+            fail(f"partitioned GAT at {part.num_parts} parts, rank {rank}, "
+                 f"run {i}: expected launches {want}, counted {counts}")
+    (a, _), (b, _) = runs
+    for name, x, y in zip(("out", "dh", "da_src", "da_dst"), a, b):
+        if not torch.equal(x, y):
+            fail(f"partitioned GAT at {part.num_parts} parts, rank {rank}: "
+                 f"two runs from one input differ in {name}")
+    ref, _ = run(one, make_partitioned_gat_layer(one, heads), 0)
+    lo = rank * part.rows_per
+    hi = min(lo + part.rows_per, n)
+    err = 0.0
+    for name, got, full in (("out", a[0], ref[0]), ("dh", a[1], ref[1])):
+        err = max(err, check_close(
+            f"rank {rank}: partitioned GAT {name} vs one part",
+            got[:hi - lo], full[lo:hi], 0.0, atol=1e-4,
+            scale=float(full[:n].abs().max())))
+    for name, got, full in (("da_src", a[2], ref[2]),
+                            ("da_dst", a[3], ref[3])):
+        got = got.clone()
+        dist.all_reduce(got)
+        err = max(err, check_close(
+            f"rank {rank}: partitioned GAT {name}, summed over the parts, "
+            "vs one part", got, full, 0.0, atol=1e-4))
+    return {"parts": part.num_parts, "launches": runs[0][1],
+            "max_abs_err": err, "bitwise_repeat": True}
+
+
+def phase_hier_tier(k, shard, tier_calls, papers_losses, smi):
+    """Phase 40 (a): the planned two-level tier at HIER_GRID on phase 24's
+    papers shard in HIER_GRID processes on the one card (`hier_worker`),
+    bf16 F = 256: forward and transpose against phase 24's single plan
+    within 3e-2 of max |out|, each rank's launches exact, both directions
+    timed beside phase 24's one-part tier; then HIER_STEPS staged GCN
+    steps, the loss the same on every rank, the first within LOSS_TOL of
+    phase 25's. Returns (tier launches, step launches, the figures)."""
+    import pickle
+    import shutil
+    import tempfile
+    from gammagl_tpu_torch.parallel import (build_hier_halo_partition_planned,
+                                            traffic_report)
+    S, D = HIER_GRID
+    phase_start(f"phase 40 (a): the planned two-level tier at ({S}, {D}) on "
+                f"the papers shard, {S * D} processes on the one card")
+    t_phase = time.perf_counter()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    ei, w, n = shard["ei"], shard["w"], shard["x"].shape[0]
+    t0 = time.perf_counter()
+    part = build_hier_halo_partition_planned(ei, n, S, D, w)
+    t_part = time.perf_counter() - t0
+    base = part.base
+    rep = traffic_report(base, HIDDEN, bf16)
+    classes = {name: [p.num_edges for p in getattr(part, name)]
+               for name in ("interior", "intra", "inter")}
+    print(f"  partition in {t_part:.2f} s: rows_per {base.rows_per}, H1 "
+          f"{base.h_intra}, H2 {base.h_inter}; edges by rank {classes}; "
+          f"a layer at F={HIDDEN} bf16: {rep}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    try:
+        t0 = time.perf_counter()
+        for r in range(S * D):
+            with open(os.path.join(tmp, f"part{r}.pkl"), "wb") as f:
+                pickle.dump(hier_rank_share(part, r), f, protocol=5)
+        gen = torch.Generator().manual_seed(SEED + 40)
+        x = torch.randn(n, HIDDEN, generator=gen).to(bf16)
+        g = torch.randn(n, HIDDEN, generator=gen).to(bf16)
+        for name, arr in (("x_bits", x.view(torch.int16).numpy()),
+                          ("g_bits", g.view(torch.int16).numpy()),
+                          ("feat", shard["x"]), ("y", shard["y"]),
+                          ("train", shard["train"].astype(np.float32))):
+            np.save(os.path.join(tmp, f"{name}.npy"), arr)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"f": int(shard["x"].shape[1]), "c": int(shard["c"])},
+                      f)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--hier-worker", tmp,
+             str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(S * D)]
+        # the references meanwhile: phase 24's plan of the whole graph
+        # (its rows padded to the one-part partition's rows_per)
+        single = shard["single"]
+        w_single = torch.from_numpy(w[single.perm]).to(dev)
+        tp = single.transpose()
+        pad = torch.zeros(single.num_src - n, HIDDEN, dtype=bf16)
+        refs = {"forward": k.spmm_csr(torch.cat([x, pad]).to(dev), w_single,
+                                      single, weights_padded=True)[:n],
+                "transpose": k.spmm_csr(torch.cat([g, pad]).to(dev),
+                                        w_single[tp.arrays(dev)[2]], tp,
+                                        weights_padded=True)[:n]}
+
+        def plain(v, wv, plan):
+            # the plain version in f32, 64 columns at a time (its per-edge
+            # messages of the whole width would take 17 GB)
+            v = torch.cat([v, pad]).float().to(dev)
+            return torch.cat([k.spmm_csr_reference(
+                v[:, c:c + 64].contiguous(), wv, plan, weights_padded=True)
+                for c in range(0, HIDDEN, 64)], 1)[:n]
+
+        plain32 = {"forward": lambda: plain(x, w_single, single),
+                   "transpose": lambda: plain(g, w_single[tp.arrays(dev)[2]],
+                                              tp)}
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        t_workers = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            if proc.returncode != 0:
+                fail(f"hier worker {r} exited {proc.returncode}:\n"
+                     f"{log[-4000:]}")
+        results = []
+        for r in range(S * D):
+            with open(os.path.join(tmp, f"result{r}.json")) as f:
+                results.append(json.load(f))
+        inv = torch.from_numpy(part.node_inv).to(dev)
+        err, err32 = 0.0, 0.0
+        for label in ("forward", "transpose"):
+            out = torch.cat([torch.from_numpy(np.load(os.path.join(
+                tmp, f"{label}{r}.npy"))) for r in range(S * D)]).view(bf16)
+            out = out[:n].to(dev)[inv]
+            err = max(err, check_rows(
+                f"two-level tier {label} vs one plan bf16 F={HIDDEN}", out,
+                refs[label], HIER_ROW_TOL["bf16"]))
+            del out
+            out = torch.cat([torch.from_numpy(np.load(os.path.join(
+                tmp, f"{label}_f32_{r}.npy"))) for r in range(S * D)])
+            out = out[:n].to(dev)[inv]
+            err32 = max(err32, check_rows(
+                f"two-level tier {label} f32 vs the plain version F={HIDDEN}",
+                out, plain32[label](), HIER_ROW_TOL["f32"]))
+            del out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tier_launches_all = every_kernel({})
+    step_launches_all = every_kernel({})
+    for res in results:
+        for name in tier_launches_all:
+            tier_launches_all[name] += (res["launches"]["forward"][name]
+                                        + res["launches"]["transpose"][name])
+            step_launches_all[name] += res["step_launches"][name]
+        print(f"  rank {res['rank']}: launches forward "
+              f"{ {n_: c for n_, c in res['launches']['forward'].items() if c} }"
+              f", transpose "
+              f"{ {n_: c for n_, c in res['launches']['transpose'].items() if c} }"
+              f"; losses {res['losses']}, step ms {res['step_ms']}")
+        gat = res["gat"]
+        print(f"  rank {res['rank']}: the GAT layer at {gat['parts']} parts "
+              f"(random graph {HIER_GAT_SHAPE}, f32): two runs bitwise "
+              f"equal, launches a run "
+              f"{ {n_: c for n_, c in gat['launches'].items() if c} }, "
+              f"max_abs_err {gat['max_abs_err']:.3e} vs one part")
+    losses = results[0]["losses"]
+    if any(res["losses"] != losses for res in results):
+        fail(f"hier GCN: the ranks' losses differ: "
+             f"{[res['losses'] for res in results]}")
+    want = papers_losses["kernel"][0]
+    if not np.isfinite(losses).all() or abs(losses[0] - want) > (
+            LOSS_TOL * abs(want)):
+        fail(f"hier GCN step-0 loss {losses[0]} vs phase 25's {want}")
+    # a call's time: the slowest rank's wall clock, median of 3
+    ms = {label: float(np.median(np.max([res["ms"][label] for res in
+                                         results], axis=0)))
+          for label in ("forward", "transpose")}
+    step_ms = [max(res["step_ms"][i] for res in results)
+               for i in range(HIER_STEPS)]
+    out = {"grid": [S, D], "partition_s": t_part,
+           "write_s": t_write, "workers_s": t_workers,
+           "rows_per": int(base.rows_per), "h_intra": int(base.h_intra),
+           "h_inter": int(base.h_inter), "class_edges": classes,
+           "traffic_bf16_f256": rep, "vs_one_plan_max_abs_err": err,
+           "f32_vs_plain_max_abs_err": err32,
+           "gat_4_parts": [res["gat"] for res in results],
+           "tier_forward_ms": ms["forward"],
+           "tier_transpose_ms": ms["transpose"],
+           "one_part_tier_forward_ms": tier_calls["tier_forward_ms"],
+           "one_part_tier_transpose_ms": tier_calls["tier_transpose_ms"],
+           "gcn_losses": losses, "gcn_step_ms": step_ms,
+           "phase25_step0_loss": want,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) a call, slowest rank, median of 3: forward "
+          f"{ms['forward']:.3f} ms, transpose {ms['transpose']:.3f} ms "
+          f"(phase 24's one part: {tier_calls['tier_forward_ms']:.3f} / "
+          f"{tier_calls['tier_transpose_ms']:.3f} ms); GCN steps "
+          f"{[round(t, 2) for t in step_ms]} ms; workers {t_workers:.1f} s, "
+          f"inputs written in {t_write:.1f} s")
+    return tier_launches_all, step_launches_all, out
+
+
+def copy_rate_gbps(dev):
+    """Bytes read plus bytes written a second by a device-to-device copy of
+    1 GiB (bf16), CUDA events, mean of 20: the memory rate HwModel()
+    takes."""
+    src = torch.empty(2 ** 29, dtype=torch.bfloat16, device=dev).normal_()
+    dst = torch.empty_like(src)
+    ms = cuda_ms(lambda: dst.copy_(src))
+    del src, dst
+    return 2 * 2 ** 30 / (ms * 1e-3) / 1e9
+
+
+def phase_partitioned_gat(k, x, ei, smi):
+    """Phase 40 (b): `make_partitioned_gat_train` at one part on the
+    arxiv-shape graph (phases 6-7's widths, bf16, phase 30's planted
+    labels): step-0 gradients against the same recipe on the CPU within
+    GRAD_TOL of each parameter's max |grad|, two loss_and_grads from one
+    state bitwise equal, PGAT_STEPS steps with launches checked (remat:
+    each layer's flash forward runs twice; 2 flash backward and 4 SpMM)
+    and the loss falling MIN_FALL, PGAT_REQUESTS eval forwards (2 flash
+    forward each). Returns (request launches, step launches, figures)."""
+    from gammagl_tpu_torch.parallel import (build_halo_partition_attn,
+                                            make_partitioned_gat_train,
+                                            shard_nodes)
+    phase_start("phase 40 (b): the partitioned GAT (make_partitioned_gat_"
+                "train) at one part on the arxiv shape")
+    t_phase = time.perf_counter()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    ei_np = ei.cpu().numpy()
+    t0 = time.perf_counter()
+    part = build_halo_partition_attn(ei_np, N_NODES, 1)
+    t_part = time.perf_counter() - t0
+    _, x_dir, y, mask = zoo_inputs(x, ei)
+    arrays = {"x": x_dir.cpu().numpy(), "y": y.cpu().numpy(),
+              "m": mask.float().cpu().numpy()}
+    plan = part.plans[0]
+    fold = int(bool(plan.row_split().cut_row.size))
+    sfold = int(bool(plan.edge_scatter_plan().row_split().cut_row.size))
+    per_step = {"flash_forward": 4, "flash_fwd_fold": 4 * fold,
+                "flash_backward": 2, "spmm_csr": 4, "csr_fold": 4 * sfold}
+    per_request = {"flash_forward": 2, "flash_fwd_fold": 2 * fold}
+
+    def build(device, remat=True):
+        params, opt, step, ev = make_partitioned_gat_train(
+            part, N_FEAT, GAT_HIDDEN, N_CLASS, heads=GAT_HEADS, num_layers=2,
+            compute_dtype=bf16, learning_rate=GAT_LR, remat=remat,
+            device=device)
+        xs, ys, ms = (shard_nodes(arrays[key], part, device=device)
+                      for key in ("x", "y", "m"))
+        return params, opt, step, ev, xs, ys, ms
+
+    t0 = time.perf_counter()
+    cparams, _, cstep, _, cx, cy, cm = build("cpu", remat=False)
+    cpu_loss, cpu_grads = cstep.loss_and_grads(cparams, cx, cy, cm)
+    t_cpu = time.perf_counter() - t0
+    params, opt, step, ev, xs, ys, ms = build(dev)
+    runs = []
+    for i in range(2):
+        sync()
+        reset_counts(k)
+        runs.append(step.loss_and_grads(params, xs, ys, ms))
+        sync()
+        counts = read_counts(k)
+        if counts != every_kernel(per_step):
+            fail(f"partitioned GAT loss_and_grads {i}: expected launches "
+                 f"{per_step}, counted {counts}")
+    (l0, g0), (l1, g1) = runs
+    if not torch.equal(l0, l1) or any(not torch.equal(g0[n_], g1[n_])
+                                      for n_ in g0):
+        fail("partitioned GAT: two loss_and_grads from one state differ")
+    print(f"  two loss_and_grads from one state bitwise equal (loss "
+          f"{float(l0):.6f}); the CPU's {float(cpu_loss):.6f} in "
+          f"{t_cpu:.1f} s")
+    grad_err = 0.0
+    for name, want in cpu_grads.items():
+        grad_err = max(grad_err, check_close(
+            f"partitioned GAT step-0 grad {name} vs the CPU", g0[name],
+            want.to(dev), 0.0, atol=GRAD_TOL))
+    losses, step_ms = [], []
+    step_launches = every_kernel({})
+    for i in range(PGAT_STEPS):
+        sync()
+        reset_counts(k)
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt, xs, ys, ms)
+        losses.append(float(loss))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(k)
+        if counts != every_kernel(per_step):
+            fail(f"partitioned GAT step {i}: expected launches {per_step}, "
+                 f"counted {counts}")
+        for name in counts:
+            step_launches[name] += counts[name]
+    if not (np.isfinite(losses).all()
+            and losses[-1] < (1 - MIN_FALL) * losses[0]):
+        fail(f"partitioned GAT: loss did not fall by {MIN_FALL:.0%}: "
+             f"{losses}")
+    req_launches = every_kernel({})
+    lat = []
+    for _ in range(PGAT_REQUESTS):
+        sync()
+        reset_counts(k)
+        t0 = time.perf_counter()
+        logits = ev(params, xs)
+        sync()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts(k)
+        if counts != every_kernel(per_request):
+            fail(f"partitioned GAT request: expected launches {per_request}"
+                 f", counted {counts}")
+        for name in counts:
+            req_launches[name] += counts[name]
+    if logits.shape != (part.rows_per, N_CLASS) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"partitioned GAT logits {tuple(logits.shape)}")
+    out = {"partition_s": t_part, "cpu_step0_s": t_cpu,
+           "step0_grad_max_abs_err": grad_err, "losses": losses,
+           "step_ms": float(np.median(step_ms[1:])),
+           "request_ms": float(np.median(lat)),
+           "launches_a_step": per_step, "launches_a_request": per_request,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) step median {out['step_ms']:.3f} ms (steps "
+          f"1-{PGAT_STEPS - 1}), request {out['request_ms']:.3f} ms; losses "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; launches a step {per_step}")
+    return req_launches, step_launches, out
+
+
+def phase_partitioned(k, shard, tier_calls, papers_losses, x, ei, smi):
+    """Phase 40: (a) `phase_hier_tier`, (b) `phase_partitioned_gat`, and
+    the figures of `parallel.scaling.HwModel()`: the copy rate and phase
+    24's one-part tier forward in edges a second."""
+    t_phase = time.perf_counter()
+    hier_t, hier_s, hier = phase_hier_tier(k, shard, tier_calls,
+                                           papers_losses, smi)
+    pgat, pgat_t, gat = phase_partitioned_gat(k, x, ei, smi)
+    E = int(shard["ei"].shape[1])
+    hw = {"hbm_gbps": copy_rate_gbps(torch.device("cuda")),
+          "spmm_edges_per_s": E / (tier_calls["tier_forward_ms"] * 1e-3),
+          "edges": E}
+    print(f"  ({smi}) HwModel figures: copy {hw['hbm_gbps']:.1f} GB/s "
+          f"(read + write), the one-part planned tier's forward on the "
+          f"papers shard (bf16 F={HIDDEN}, {E} edges) "
+          f"{hw['spmm_edges_per_s']:.4e} edges/s")
+    out = {"hier_tier": hier, "partitioned_gat": gat, "hw_model": hw,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) phase 40 in {out['seconds']:.1f} s")
+    return hier_t, hier_s, pgat, pgat_t, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -7219,6 +7805,8 @@ def main():
     export_counts, fgat_counts, fgat_t_counts, s22_counts, s22 = \
         phase_slice22(k, smi.splitlines()[0], twin, GATModel, GCNModel,
                       InferenceSession, load_jax_params, plan, x, ei)
+    hier_t, hier_s, pgat, pgat_t, parted = phase_partitioned(
+        k, shard, tier_calls, papers_losses, x, ei, smi.splitlines()[0])
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -7252,6 +7840,8 @@ def main():
     runs["gat-c39"], runs["profiling"] = c39_counts, prof_counts
     runs["a6e"] = a6e_counts
     runs["gcn-x"], runs["slice22_coo"] = export_counts, s22_counts
+    runs["hier-t"], runs["hier-s"] = hier_t, hier_s
+    runs["pgat"], runs["pgat-t"] = pgat, pgat_t
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -7402,7 +7992,7 @@ def main():
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
         "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21,
-        "slice22": s22}))
+        "slice22": s22, "partitioned": parted}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7410,4 +8000,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--hier-worker"]:
+        hier_worker(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

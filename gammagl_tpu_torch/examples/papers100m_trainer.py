@@ -1,5 +1,5 @@
 """ogbn-papers100M-scale full-graph GCN (or SIGN) training on a halo
-partition, in one process.
+partition, one part a process.
 
 Twin of `examples/papers100m/papers100m_trainer.py` and of the one-chip
 recipe `scripts/papers100m_single_chip.py`: the graph staged in OGB's
@@ -9,38 +9,55 @@ by `datasets.OgbNodeDataset` as memory maps), else the npy files named
 by ``--features`` / ``--edges-file`` / ``--labels`` / ``--train-idx`` /
 ``--val-idx``, else a synthetic power-law, homophilous citation graph at
 ``--scale`` of papers100M (the same generator, seed and arrays);
-self-loops, GCN norms on the host, a planned
-halo partition of one part with `auto_src_blocks` source blocks, node
-features resident in the compute dtype, and the layer-staged trainer
+``--rcm`` reorders the nodes by reverse Cuthill-McKee first
+(`reorder_bandwidth`); then self-loops, GCN norms on the host, a planned
+halo partition with `auto_src_blocks` source blocks, node features
+resident in the compute dtype, and the layer-staged trainer
 (`make_partitioned_gcn_train_staged`; ``--monolithic`` for the autograd
-one). On the card every aggregation runs the CSR SpMM kernel and its
+one).
+
+Without a process group the run is one part in one process. Under an
+initialised ``torch.distributed`` world of P processes (``torchrun``: the
+script joins its ``env://`` group, `join_launcher_group`), each process runs
+one part: a partition of P parts, or with ``--slices S`` the two-level
+partition of an (S, P / S) grid (`build_hier_halo_partition_planned`,
+``--flat``: `build_hier_halo_partition`), and only rank 0 prints. On the card every aggregation runs the CSR SpMM kernel and its
 accumulating form; on the CPU their plain versions. Without ``--scale``
 the shard is the largest whose `estimate_hbm_gb` fits ``--hbm-gb``.
 
     python -m gammagl_tpu_torch.examples.papers100m_trainer          # card
     python -m gammagl_tpu_torch.examples.papers100m_trainer \\
         --device cpu --scale 0.00002 --epochs 3
+    torchrun --nproc-per-node 4 -m \\
+        gammagl_tpu_torch.examples.papers100m_trainer --slices 2 \\
+        --scale 0.001 --epochs 3                      # a (2, 2) grid
 
 Prints per-epoch loss, ms and edges/s, and one JSON line (the median
-epoch from the third on). The JAX script's pod-slice extrapolation is
-left out: its model (`parallel/scaling.py`) holds TPU link constants.
+epoch from the third on). The one-chip script's extrapolation to a pod
+slice is not part of the twin; `parallel.scaling` models the card.
 """
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gammagl_tpu_torch.datasets import OgbNodeDataset
 from gammagl_tpu_torch.parallel import (auto_src_blocks,
                                         build_halo_partition,
                                         build_halo_partition_planned,
+                                        build_hier_halo_partition,
+                                        build_hier_halo_partition_planned,
                                         estimate_hbm_gb,
                                         make_partitioned_gcn_train,
                                         make_partitioned_gcn_train_staged,
-                                        shard_nodes, sign_precompute)
+                                        reorder_bandwidth, shard_nodes,
+                                        sign_precompute, traffic_report,
+                                        world)
 from gammagl_tpu_torch.parallel.full_graph import jax_labels
 from gammagl_tpu_torch.utils import (calc_gcn_norm_np, index_to_mask,
                                      resolve_device)
@@ -175,6 +192,13 @@ def parser():
     p.add_argument("--no-balance", action="store_true",
                    help="keep the natural node order (no degree-balanced "
                         "relabeling; the identity with one part anyway)")
+    p.add_argument("--rcm", action="store_true",
+                   help="reorder the nodes by reverse Cuthill-McKee before "
+                        "partitioning (smaller halos)")
+    p.add_argument("--slices", type=int, default=1,
+                   help=">1: the two-level halo over a (slices, P / "
+                        "slices) grid of the torch.distributed world's P "
+                        "processes (parallel/hier_halo.py)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default, the card) or cpu")
     return p
@@ -185,10 +209,26 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _all_sum(*ts):
+    """The tensors summed over the world's processes (none without a
+    group), in place."""
+    if world()[1] > 1:
+        for t in ts:
+            dist.all_reduce(t)
+    return ts
+
+
 def _val_acc(logits, ys, vs):
     pred = logits.argmax(1)
-    return float(((pred == ys.long()) & (vs > 0)).sum()
-                 / vs.sum().clamp_min(1))
+    hit, tot = _all_sum(((pred == ys.long()) & (vs > 0)).sum().float(),
+                        vs.sum().float())
+    return float(hit / tot.clamp_min(1))
+
+
+def _say(*args, **kwargs):
+    """print on rank 0 only."""
+    if world()[0] == 0:
+        print(*args, **kwargs)
 
 
 def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
@@ -198,7 +238,7 @@ def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
     feats = torch.cat(sign_precompute(part, xs, args.hops,
                                       store_dtype=cdtype), 1)
     _sync(device)
-    print(f"SIGN precompute ({args.hops} sweeps): "
+    _say(f"SIGN precompute ({args.hops} sweeps): "
           f"{time.perf_counter() - t:.2f}s; training is graph-free")
     rng = np.random.default_rng(0)
     d_in = feats.shape[1]
@@ -217,13 +257,15 @@ def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
 
     losses, times = [], []
     m = ms.float()
+    msum, = _all_sum(m.sum())  # the mean runs over every part's rows
     for epoch in range(args.epochs):
         t = time.perf_counter()
         ls = torch.nn.functional.cross_entropy(
             fwd(feats), jax_labels(ys, c), reduction="none")
-        loss = (ls * m).sum() / m.sum().clamp_min(1.0)
+        loss = (ls * m).sum() / msum.clamp_min(1.0)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        loss, *_ = _all_sum(loss.detach(), *(t.grad for t in p.values()))
         opt.step()
         _sync(device)
         times.append(time.perf_counter() - t)
@@ -231,8 +273,8 @@ def _train_sign(args, part, xs, ys, ms, vs, c, cdtype, device):
         if epoch % 5 == 0 or epoch == args.epochs - 1:
             with torch.no_grad():
                 va = _val_acc(fwd(feats), ys, vs)
-            print(f"epoch {epoch:3d}  loss {losses[-1]:.4f}  val acc "
-                  f"{va:.4f}  {times[-1] * 1e3:.1f} ms")
+            _say(f"epoch {epoch:3d}  loss {losses[-1]:.4f}  val acc "
+                 f"{va:.4f}  {times[-1] * 1e3:.1f} ms")
     return losses, times
 
 
@@ -250,36 +292,70 @@ def prepare(args, data=None):
     ei, x, y, train_mask, val_mask, c = (data if data is not None
                                          else load_data(args, scale))
     n, f = x.shape
-    est = estimate_hbm_gb(n, f, args.hidden, args.layers, 1,
+    _, nparts, _ = world()
+    if args.slices > 1 and nparts == 1:
+        raise ValueError("--slices > 1 needs an initialised "
+                         "torch.distributed world of several processes "
+                         "(torchrun), one part a process")
+    if args.slices < 1 or nparts % args.slices:
+        raise ValueError(f"--slices {args.slices} does not divide the "
+                         f"{nparts} processes of the torch.distributed "
+                         "world")
+    est = estimate_hbm_gb(n, f, args.hidden, args.layers, nparts,
                           ei.shape[1] / max(n, 1), cdtype,
                           not args.no_remat)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     what = "staged files" if staged else f"scale {scale:.6f}"
-    print(f"graph: {what} -> {n:,} nodes, {ei.shape[1]:,} edges, "
-          f"{f} feats, {c} classes; est {est:.2f} GB on {name} "
-          f"(ready in {time.perf_counter() - t0:.1f}s)", flush=True)
+    _say(f"graph: {what} -> {n:,} nodes, {ei.shape[1]:,} edges, "
+         f"{f} feats, {c} classes; est {est:.2f} GB on {name} "
+         f"(ready in {time.perf_counter() - t0:.1f}s)", flush=True)
+
+    if args.rcm:
+        perm, inv = reorder_bandwidth(ei, n)
+        ei = inv[np.asarray(ei)]
+        x, y, train_mask, val_mask = (x[perm], y[perm], train_mask[perm],
+                                      val_mask[perm])
 
     t0 = time.perf_counter()
     ei = np.concatenate(  # self-loops, as the reference gcn_trainer
         [np.asarray(ei), np.tile(np.arange(n, dtype=np.int64), (2, 1))], 1)
     w = calc_gcn_norm_np(ei, n)
     nsb = None
-    if args.flat:
-        part = build_halo_partition(ei, n, 1, w,
-                                    balance=not args.no_balance)
-    else:
-        nsb = args.src_blocks or auto_src_blocks(n, max(f, args.hidden),
-                                                 cdtype)
-        part = build_halo_partition_planned(ei, n, 1, w,
-                                            num_src_blocks=nsb,
-                                            balance=not args.no_balance)
-    t_part = time.perf_counter() - t0
+    balance = not args.no_balance
     tier = "flat" if args.flat else "planned"
-    blocks = "" if args.flat else (f", {len(part.interior)} interior "
-                                   f"plans over {nsb} source blocks")
-    print(f"partition ({tier}): rows {part.rows_per:,}{blocks} "
-          f"({t_part:.1f}s)", flush=True)
+    if args.slices > 1:
+        S, D = args.slices, nparts // args.slices
+        if args.flat:
+            part = base = build_hier_halo_partition(ei, n, S, D, w,
+                                                    balance=balance)
+        else:
+            part = build_hier_halo_partition_planned(ei, n, S, D, w,
+                                                     balance=balance)
+            base = part.base
+        rep = traffic_report(base, max(f, args.hidden), cdtype)
+        detail = (f"{S}x{D} grid, halo intra {base.h_intra:,} / inter "
+                  f"{base.h_inter:,}; between slices "
+                  f"{rep['dcn_bytes'] / 1e6:.1f} MB a layer (dedup "
+                  f"{rep['dcn_dedup_factor']:.1f}x vs flat)")
+        tier = "hier-" + tier
+    elif args.flat:
+        part = build_halo_partition(ei, n, nparts, w, balance=balance)
+        detail = ""
+    else:
+        nsb = args.src_blocks or auto_src_blocks(
+            -(-n // nparts), max(f, args.hidden), cdtype)
+        part = build_halo_partition_planned(ei, n, nparts, w,
+                                            num_src_blocks=nsb,
+                                            balance=balance)
+        detail = (f"{len(part.interior)} interior plans over {nsb} source "
+                  f"blocks")
+    if nparts > 1:
+        detail = f"{nparts} parts" + (", " if detail else "") + detail
+    t_part = time.perf_counter() - t0
+    _say(f"partition ({tier}): rows {part.rows_per:,}"
+         + (", " if detail else "") + f"{detail} ({t_part:.1f}s)",
+         flush=True)
 
     t0 = time.perf_counter()
     xs = shard_nodes(x, part, device=device, dtype=cdtype)
@@ -287,8 +363,8 @@ def prepare(args, data=None):
     ms = shard_nodes(train_mask.astype(np.float32), part, device=device)
     vs = shard_nodes(val_mask.astype(np.float32), part, device=device)
     _sync(device)
-    print(f"transfer: {xs.numel() * xs.element_size() / 1e9:.2f} GB in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    _say(f"transfer: {xs.numel() * xs.element_size() / 1e9:.2f} GB in "
+         f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     return {"device": device, "cdtype": cdtype, "scale": scale, "n": n,
             "f": f, "c": c, "edges": int(ei.shape[1]), "est": est,
@@ -332,7 +408,7 @@ def train(args, prep):
             if epoch % 5 == 0 or epoch == args.epochs - 1:
                 va = _val_acc(eval_logits(params, xs), ys, vs)
                 line += f"  val acc {va:.4f}"
-            print(line, flush=True)
+            _say(line, flush=True)
 
     steady = times[2:] or times
     sustained = sorted(steady)[len(steady) // 2]
@@ -342,12 +418,14 @@ def train(args, prep):
         "scale": prep["scale"], "layers": args.layers, "hidden": args.hidden,
         "feat_dim": int(f), "dtype": str(cdtype).replace("torch.", ""),
         "tier": prep["tier"], "src_blocks": prep["nsb"],
-        "staged": not args.monolithic, "partition_s": prep["t_part"],
+        "staged": not args.monolithic, "parts": part.num_parts,
+        "slices": args.slices, "rcm": bool(args.rcm),
+        "partition_s": prep["t_part"],
         "sustained_epoch_ms": sustained * 1e3,
         "edges_per_s": E / sustained,
         "est_hbm_gb": float(prep["est"]), "device": prep["name"],
         "losses": losses}
-    print(json.dumps(payload), flush=True)
+    _say(json.dumps(payload), flush=True)
     return {**payload, "epoch_ms": [t * 1e3 for t in times]}
 
 
@@ -359,5 +437,39 @@ def main(args, data=None):
     return train(args, prepare(args, data))
 
 
+def launcher_backend(device_type, local_world, cards):
+    """The ``torch.distributed`` backend for ``local_world`` processes of
+    one host with ``cards`` visible cards: NCCL when each process has a
+    card of its own, gloo on the CPU or when the processes outnumber the
+    cards (NCCL refuses two ranks on one device; gloo moves CUDA tensors
+    through host memory)."""
+    if device_type != "cuda" or local_world > cards:
+        return "gloo"
+    return "nccl"
+
+
+def join_launcher_group(device):
+    """Join the ``env://`` group that a launcher such as ``torchrun``
+    describes in the environment (``WORLD_SIZE`` > 1), one part a
+    process, on the card ``LOCAL_RANK`` modulo the visible cards, with
+    `launcher_backend`'s backend. Returns whether it joined."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return False
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                     os.environ["WORLD_SIZE"]))
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cards:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")) % cards)
+    dist.init_process_group(launcher_backend(device.type, local_world,
+                                             cards))
+    return True
+
+
 if __name__ == "__main__":
-    main(parser().parse_args())
+    args = parser().parse_args()
+    joined = join_launcher_group(resolve_device(args.device))
+    try:
+        main(args)
+    finally:
+        if joined:
+            dist.destroy_process_group()

@@ -24,8 +24,15 @@ Recipes, as in the JAX package:
   1.1M rows, bf16), and it saves one SpMM a layer.
 * `sign_precompute`: K sweeps of the tier, [X, AX, ..., A^K X], for a
   graph-free model.
+* `make_partitioned_gat_train`: an L-layer GAT over an `AttnHaloPartition`
+  on the flash kernels (`parallel.halo_attention`), autograd through it.
 
-Both GCN builders return ``(params, opt_state, train_step, eval_logits)``
+Every GCN recipe runs on the four tiers: flat and planned, each on a
+partition of P parts (``group``: the process group) or on a two-level
+partition (``group``: its `HierGrid`, or the group to build one over);
+the loss and the gradients are summed over every part.
+
+The builders return ``(params, opt_state, train_step, eval_logits)``
 with the JAX step signature ``train_step(params, opt_state, x, y, mask) ->
 (params, opt_state, loss)``: params are a dict of float32 ``w{i}`` (fan_in,
 fan_out) and ``b{i}`` tensors, drawn as in the JAX package from the same
@@ -43,25 +50,47 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from gammagl_tpu_torch.parallel.halo import HaloPartition, make_halo_spmm
-from gammagl_tpu_torch.parallel.halo_plan import (PlannedHaloPartition,
-                                                  _itemsize,
-                                                  make_halo_spmm_planned,
-                                                  make_halo_spmm_planned_pair)
-from gammagl_tpu_torch.parallel.mesh import part_world
+from gammagl_tpu_torch.parallel.halo_plan import (
+    PlannedHaloPartition, PlannedHierHaloPartition, _itemsize,
+    make_halo_spmm_planned, make_halo_spmm_planned_pair,
+    make_hier_halo_spmm_planned, make_hier_halo_spmm_planned_pair)
+from gammagl_tpu_torch.parallel.hier_halo import (HierHaloPartition,
+                                                  make_hier_halo_spmm)
+from gammagl_tpu_torch.parallel.mesh import hier_world, part_world
 from gammagl_tpu_torch.utils.device import resolve_device, to_device
 
 __all__ = ["pad_nodes", "unpad_nodes", "shard_nodes", "sign_precompute",
            "make_partitioned_gcn_train", "make_partitioned_gcn_train_staged",
-           "estimate_hbm_gb", "params_from_jax"]
+           "make_partitioned_gat_train", "estimate_hbm_gb",
+           "params_from_jax"]
 
 # the JAX recipe's loss chunking on one part: f32 logits are formed CH
 # rows at a time once a part holds more than CHUNK_ROWS rows
 CH, CHUNK_ROWS = 131_072, 262_144
 
 
+def _world(part, group):
+    """(nparts, the group the parts' sums run over, the tier's group): a
+    two-level partition's tier takes its `HierGrid` (``group`` may be one,
+    else it is built over ``group``), and the sums run over the whole
+    grid."""
+    if isinstance(part, (HierHaloPartition, PlannedHierHaloPartition)):
+        grid = hier_world(part.num_slices, part.dp_per_slice, group)
+        return part.num_parts, grid.group, grid
+    _, nparts, group = part_world(part.num_parts, group)
+    return nparts, group, group
+
+
 def _make_spmm(part, group=None):
     """The halo SpMM tier by partition type: the flat tier
-    (`HaloPartition`) or the planned tier (`PlannedHaloPartition`)."""
+    (`HaloPartition`), the planned tier (`PlannedHaloPartition`), the
+    two-level tier (`HierHaloPartition`) or the planned two-level tier
+    (`PlannedHierHaloPartition`); ``group`` is the grid of the two-level
+    tiers."""
+    if isinstance(part, PlannedHierHaloPartition):
+        return make_hier_halo_spmm_planned(part, group)
+    if isinstance(part, HierHaloPartition):
+        return make_hier_halo_spmm(part, group)
     if isinstance(part, PlannedHaloPartition):
         return make_halo_spmm_planned(part, group)
     if isinstance(part, HaloPartition):
@@ -122,7 +151,7 @@ def sign_precompute(part, x_blk, num_hops, store_dtype=torch.bfloat16,
     block, each cast to ``store_dtype`` (the reference's SIGN transform,
     `gammagl/transforms/sign.py:7`, takes dense powers; here each sweep is
     one exchange and a local sum, and the graph can be dropped after)."""
-    spmm = _make_spmm(part, group)
+    spmm = _make_spmm(part, _world(part, group)[2])
     ops = [x_blk.to(store_dtype)]
     h = x_blk
     for _ in range(num_hops):
@@ -284,8 +313,8 @@ def make_partitioned_gcn_train(part, feat_dim, hidden_dim, num_classes,
     (rows_per, C) logits. ``device`` None means the card.
     """
     device = resolve_device(device)
-    _, nparts, group = part_world(part.num_parts, group)
-    spmm = _make_spmm(part, group)
+    nparts, group, tier_group = _world(part, group)
+    spmm = _make_spmm(part, tier_group)
     dims = [feat_dim] + [hidden_dim] * (num_layers - 1) + [num_classes]
     params = _init_params(seed, dims, device)
     opt_state = _adamw(params, learning_rate, weight_decay)
@@ -333,17 +362,20 @@ def make_partitioned_gcn_train_staged(part, feat_dim, hidden_dim,
         backward_i: dh -> dW_i = a_i^T dh (a bf16 product summed in
                     float32), db_i, dh_i = A^T (dh W_i^T)
 
-    On a `PlannedHaloPartition` A^T runs the pair's ``spmm_t`` (the
-    kernels on the transpose partition, which the partition must carry);
-    on the flat tier it is the tier's autograd transpose. Same signature
-    and returns as the monolithic builder.
+    On a `PlannedHaloPartition` or a `PlannedHierHaloPartition` A^T runs
+    the pair's ``spmm_t`` (the kernels on the transpose partition, which
+    the partition must carry); on the flat tiers it is the tier's
+    autograd transpose. Same signature and returns as the monolithic
+    builder.
     """
     device = resolve_device(device)
-    _, nparts, group = part_world(part.num_parts, group)
+    nparts, group, tier_group = _world(part, group)
     if isinstance(part, PlannedHaloPartition):
-        spmm, spmm_t = make_halo_spmm_planned_pair(part, group)
+        spmm, spmm_t = make_halo_spmm_planned_pair(part, tier_group)
+    elif isinstance(part, PlannedHierHaloPartition):
+        spmm, spmm_t = make_hier_halo_spmm_planned_pair(part, tier_group)
     else:
-        spmm = _make_spmm(part, group)
+        spmm = _make_spmm(part, tier_group)
 
         def spmm_t(da):
             with torch.enable_grad():
@@ -396,6 +428,80 @@ def make_partitioned_gcn_train_staged(part, feat_dim, hidden_dim,
         for i in range(num_layers):
             h, _ = fwd_layer(p[f"w{i}"], p[f"b{i}"], h, i < num_layers - 1)
         return h.float()
+
+    return params, opt_state, _step_fns(loss_and_grads), eval_logits
+
+
+def make_partitioned_gat_train(part, feat_dim, hidden_dim, num_classes,
+                               heads=4, num_layers=2,
+                               compute_dtype=torch.bfloat16, remat=True,
+                               learning_rate=1e-2, weight_decay=0.0,
+                               negative_slope=0.2, seed=0, group=None,
+                               device=None):
+    """Build ``(params, opt_state, train_step, eval_logits)`` for an
+    L-layer GAT over an `AttnHaloPartition` (the reference's GATModel,
+    `gammagl/models/gat.py:10`: heads concatenated on hidden layers and
+    averaged on the output layer), with the GCN recipes' signature.
+
+    ``hidden_dim`` is per head; hidden activations are (rows_per,
+    heads*hidden_dim). Each layer: one projection matmul on the part's
+    block, one halo exchange, the flash kernels over the part's plan
+    (`make_partitioned_gat_layer`), ELU on hidden layers. Parameters
+    ``w{i}``, ``as{i}``, ``ad{i}`` (heads, out), ``b{i}`` are drawn as in
+    the JAX recipe from ``default_rng(seed)``, in that order a layer;
+    AdamW, and the masked mean cross-entropy over all parts. ``remat``
+    recomputes each layer in the backward (`torch.utils.checkpoint`: its
+    exchange and flash forward run again). ``device`` None means the card.
+    """
+    from gammagl_tpu_torch.parallel.halo_attention import (
+        AttnHaloPartition, make_partitioned_gat_layer)
+    if not isinstance(part, AttnHaloPartition):
+        raise TypeError(f"make_partitioned_gat_train needs an "
+                        f"AttnHaloPartition, got {type(part).__name__}")
+    device = resolve_device(device)
+    _, nparts, group = part_world(part.num_parts, group)
+    attn = make_partitioned_gat_layer(part, heads, group=group,
+                                      negative_slope=negative_slope)
+    rng = np.random.default_rng(seed)
+    dims_in = [feat_dim] + [heads * hidden_dim] * (num_layers - 1)
+    dims_out = [hidden_dim] * (num_layers - 1) + [num_classes]
+    tree = {}
+    for i in range(num_layers):
+        tree[f"w{i}"] = _glorot(rng, dims_in[i], heads * dims_out[i])
+        tree[f"as{i}"] = _glorot(rng, heads, dims_out[i])
+        tree[f"ad{i}"] = _glorot(rng, heads, dims_out[i])
+        tree[f"b{i}"] = np.zeros(
+            dims_out[i] * (heads if i < num_layers - 1 else 1), np.float32)
+    params = params_from_jax(tree, device)
+    opt_state = _adamw(params, learning_rate, weight_decay)
+    cd = compute_dtype
+
+    def layer(h, w, a_s, a_d, b, last):
+        h = attn(h @ w.to(cd), a_s, a_d).to(cd)
+        if not last:
+            return F.elu(h + b.to(cd))
+        # the output layer averages the heads (the reference's concat=False)
+        return h.view(h.shape[0], heads, -1).mean(1) + b.to(cd)
+
+    def forward(p, x):
+        h = x.to(cd)
+        for i in range(num_layers):
+            args = (h, p[f"w{i}"], p[f"as{i}"], p[f"ad{i}"], p[f"b{i}"],
+                    i == num_layers - 1)
+            h = (checkpoint(layer, *args, use_reentrant=False) if remat
+                 else layer(*args))
+        return h
+
+    def loss_and_grads(p, x, y, mask):
+        _check_params(p, opt_state)
+        with torch.enable_grad():
+            loss = _loss(forward(p, x), y, mask, nparts, group)
+            grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        return _sum_over_parts(loss.detach(), grads, nparts, group)
+
+    @torch.no_grad()
+    def eval_logits(p, x):
+        return forward(p, x).float()
 
     return params, opt_state, _step_fns(loss_and_grads), eval_logits
 

@@ -1,7 +1,9 @@
 """The planned halo tier: overlapped, kernel-backed halo SpMM.
 
-Counterpart of `gammagl_tpu/parallel/halo_plan.py` (its flat tier; the
-two-level tier comes with `hier_halo`). Over `parallel.halo`:
+Counterpart of `gammagl_tpu/parallel/halo_plan.py`: the flat planned tier
+over `parallel.halo`, and the two-level planned tier over
+`parallel.hier_halo` (`PlannedHierHaloPartition`). Over the halo
+partitions:
 
 1. **Interior/boundary split.** Edges whose source a part owns
    ("interior") aggregate straight from its own block with no dependency
@@ -31,6 +33,15 @@ TPU and its compiler: the tile padding of `_pad_plans` (replaced by one
 width), ``optimization_barrier`` (eager launches on one stream are
 ordered), ``as_args`` and ``_zero_cotangents`` (the jit boundary), and
 ``interpret``.
+
+The two-level tier splits each part's edges into three classes by the
+table their source lies in: interior (the own block), intra (the rows of
+the slice's peers, ``[0, D*H1)``) and inter (the table of other slices'
+rows, ``[0, D*S*H2)``). Per part: both ``all_to_all`` start, the interior
+class folds from the own block while they run, the intra class after the
+dp exchange, and the inter class after the slice exchange and the
+``all_gather`` over dp. The JAX tier's single interior class is kept (no
+source blocks).
 """
 
 from typing import NamedTuple
@@ -43,11 +54,17 @@ from gammagl_tpu_torch.ops.cuda.segment_matmul import (_first_order_only,
                                                        spmm_csr_acc,
                                                        spmm_csr_acc_reference)
 from gammagl_tpu_torch.parallel.halo import _balanced_relabel, _halo_sets
-from gammagl_tpu_torch.parallel.mesh import part_world
+from gammagl_tpu_torch.parallel.hier_halo import (HierHaloPartition,
+                                                  _all_gather, _grid_arrays,
+                                                  build_hier_halo_partition)
+from gammagl_tpu_torch.parallel.mesh import hier_world, part_world
 
 __all__ = ["PlannedHaloPartition", "build_halo_partition_planned",
            "make_halo_spmm_planned", "make_halo_spmm_planned_pair",
-           "auto_src_blocks"]
+           "auto_src_blocks", "PlannedHierHaloPartition",
+           "build_hier_halo_partition_planned",
+           "make_hier_halo_spmm_planned",
+           "make_hier_halo_spmm_planned_pair"]
 
 
 class PlannedHaloPartition(NamedTuple):
@@ -253,6 +270,15 @@ def build_halo_partition_planned(edge_index, num_nodes, num_parts,
         src_spans=tuple((int(lo), int(hi)) for lo, hi in blocks))
 
 
+def _acc(kernel, x, w, plan, prev):
+    """prev + A x on ``plan`` (``prev`` None: A x), in place in ``prev``
+    on the kernel; ``kernel=False`` takes the plain version."""
+    if kernel:
+        return spmm_csr_acc(x, w, plan, prev=prev, weights_padded=True,
+                            out=prev)
+    return spmm_csr_acc_reference(x, w, plan, prev=prev, weights_padded=True)
+
+
 class _Tier:
     """One direction of the planned tier on this process's part:
     ``tier(x_blk) -> (rows_per, F)`` of x's dtype, recording no autograd
@@ -279,13 +305,6 @@ class _Tier:
                 torch.from_numpy(self.send_idx).to(dev))
         return self._placed[dev]
 
-    def _acc(self, x, w, plan, prev):
-        if self.kernel:
-            return spmm_csr_acc(x, w, plan, prev=prev, weights_padded=True,
-                                out=prev)
-        return spmm_csr_acc_reference(x, w, plan, prev=prev,
-                                      weights_padded=True)
-
     @torch.no_grad()
     def __call__(self, x_blk):
         if x_blk.dim() != 2 or x_blk.shape[0] != self.rows_per:
@@ -306,12 +325,12 @@ class _Tier:
         out = None
         for (lo, hi, plan, _), w in zip(self.blocks, w_in):
             if out is None or plan.num_edges:
-                out = self._acc(x_blk[lo:hi], w, plan, out)
+                out = _acc(self.kernel, x_blk[lo:hi], w, plan, out)
         if work is not None:
             work.wait()
             plan = self.boundary[0]
             if plan.num_edges:
-                out = self._acc(recv, w_bd, plan, out)
+                out = _acc(self.kernel, recv, w_bd, plan, out)
         return out
 
 
@@ -367,3 +386,210 @@ def make_halo_spmm_planned_pair(part: PlannedHaloPartition, group=None):
                          "built with with_transpose=True")
     return (_Tier(part, group, True),
             _Tier(part.transpose._replace(transpose=None), group, True))
+
+
+class PlannedHierHaloPartition(NamedTuple):
+    """The two-level partition's three edge classes, one `CSRPlan` a part
+    and class, over the part's own rows.
+
+    ``interior[r]`` reads the own block, ``intra[r]`` the received intra
+    rows ``[0, D*H1)``, ``inter[r]`` the inter table ``[0, D*S*H2)`` of
+    part r = s*D + d; ``*_w[r]`` are their float32 weights in the plan's
+    CSR order. ``base`` is the `HierHaloPartition` (its senders' tables
+    and traffic counters); ``transpose`` the reversed graph's partition
+    (dx).
+    """
+    base: HierHaloPartition
+    interior: tuple
+    interior_w: tuple
+    intra: tuple
+    intra_w: tuple
+    inter: tuple
+    inter_w: tuple
+    transpose: object = None
+    node_perm: object = None
+    node_inv: object = None
+
+    @property
+    def num_slices(self):
+        return self.base.num_slices
+
+    @property
+    def dp_per_slice(self):
+        return self.base.dp_per_slice
+
+    @property
+    def num_parts(self):
+        return self.base.num_parts
+
+    @property
+    def rows_per(self):
+        return self.base.rows_per
+
+    @property
+    def num_nodes(self):
+        return self.base.num_nodes
+
+
+def build_hier_halo_partition_planned(edge_index, num_nodes, num_slices,
+                                      dp_per_slice, edge_weight=None,
+                                      R=256, ET=512, with_transpose=True,
+                                      balance=True):
+    """`build_hier_halo_partition`'s analysis, then each part's edges
+    split by source table (own / intra / inter) into one plan a class.
+
+    ``balance`` (default) applies the in-degree-balanced relabeling; the
+    permutation rides on the outer partition's ``node_perm`` /
+    ``node_inv``. ``with_transpose`` attaches the reversed graph's
+    partition for the backward. ``R`` and ``ET``, the JAX package's tile
+    sizes, are accepted and ignored: the plans have no tiles.
+    """
+    if balance:
+        ei_b, perm, inv = _balanced_relabel(edge_index, num_nodes,
+                                            int(num_slices)
+                                            * int(dp_per_slice))
+        if perm is not None:
+            return build_hier_halo_partition_planned(
+                ei_b, num_nodes, num_slices, dp_per_slice, edge_weight,
+                with_transpose=with_transpose,
+                balance=False)._replace(node_perm=perm, node_inv=inv)
+        edge_index = ei_b
+    if with_transpose:
+        ei = np.asarray(edge_index)
+        part_t = build_hier_halo_partition_planned(
+            ei[[1, 0]], num_nodes, num_slices, dp_per_slice, edge_weight,
+            with_transpose=False, balance=False)
+        return build_hier_halo_partition_planned(
+            ei, num_nodes, num_slices, dp_per_slice, edge_weight,
+            with_transpose=False,
+            balance=False)._replace(transpose=part_t)
+
+    base = build_hier_halo_partition(edge_index, num_nodes, num_slices,
+                                     dp_per_slice, edge_weight,
+                                     balance=False)
+    S, D = base.num_slices, base.dp_per_slice
+    rows_per, H1, H2 = base.rows_per, base.h_intra, base.h_inter
+    classes = ((0, rows_per), (rows_per, D * H1),
+               (rows_per + D * H1, D * S * H2))
+    plans = [[] for _ in classes]
+    for s in range(S):
+        for d in range(D):
+            src = base.edge_index[s, d, 0].astype(np.int64)
+            dst = base.edge_index[s, d, 1].astype(np.int64)
+            w = base.edge_weight[s, d]
+            valid = dst < rows_per  # pads carry dst = rows_per
+            src, dst, w = src[valid], dst[valid], w[valid]
+            for c, (lo, nsrc) in enumerate(classes):
+                m = (src >= lo) & (src < lo + nsrc)
+                plans[c].append(_plan_with_weights(src[m] - lo, dst[m],
+                                                   w[m], rows_per, nsrc))
+    (interior, intra, inter) = (tuple(pl for pl, _ in c) for c in plans)
+    (interior_w, intra_w, inter_w) = (tuple(w for _, w in c) for c in plans)
+    return PlannedHierHaloPartition(
+        base=base, interior=interior, interior_w=interior_w, intra=intra,
+        intra_w=intra_w, inter=inter, inter_w=inter_w)
+
+
+class _HierTier:
+    """One direction of the planned two-level tier on this process's
+    part: ``tier(x_blk) -> (rows_per, F)`` of x's dtype, recording no
+    autograd graph."""
+
+    def __init__(self, part, grid, kernel):
+        self.grid = grid
+        r = grid.rank
+        self.rows_per = part.rows_per
+        self.classes = tuple((plans[r], w[r]) for plans, w in (
+            (part.interior, part.interior_w), (part.intra, part.intra_w),
+            (part.inter, part.inter_w)))
+        self.sends = _grid_arrays(part.base, grid)
+        self.kernel = kernel
+        self._placed = {}
+
+    def _weights(self, dev):
+        if dev not in self._placed:
+            self._placed[dev] = (
+                [torch.from_numpy(w).to(dev) for _, w in self.classes],
+                [torch.from_numpy(a).to(dev) for a in self.sends])
+        return self._placed[dev]
+
+    @torch.no_grad()
+    def __call__(self, x_blk):
+        if x_blk.dim() != 2 or x_blk.shape[0] != self.rows_per:
+            raise ValueError(f"x_blk must be this part's ({self.rows_per}, "
+                             f"F) block, got {tuple(x_blk.shape)}")
+        x_blk = x_blk.contiguous()
+        ws, (send1, send2) = self._weights(x_blk.device)
+        grid = self.grid
+        S, D = grid.num_slices, grid.dp_per_slice
+        # both exchanges start before any sum; an axis of one process
+        # sends its chunk to itself, so it runs no collective
+        recv1 = x_blk[send1]
+        recv2 = x_blk[send2]
+        work1 = work2 = None
+        if D > 1:
+            send, recv1 = recv1, torch.empty_like(recv1)
+            work1 = torch.distributed.all_to_all_single(
+                recv1, send, group=grid.dp, async_op=True)
+        if S > 1:
+            send, recv2 = recv2, torch.empty_like(recv2)
+            work2 = torch.distributed.all_to_all_single(
+                recv2, send, group=grid.slice, async_op=True)
+        (p_in, _), (p_ia, _), (p_ir, _) = self.classes
+        # the interior class writes out; a later class without edges
+        # would only copy out to itself, so it is not launched
+        out = _acc(self.kernel, x_blk, ws[0], p_in, None)
+        if work1 is not None:
+            work1.wait()
+        if p_ia.num_edges:
+            out = _acc(self.kernel, recv1, ws[1], p_ia, out)
+        if work2 is not None:
+            work2.wait()
+        table2 = _all_gather(recv2, grid.dp, D) if D > 1 else recv2
+        if p_ir.num_edges:
+            out = _acc(self.kernel, table2, ws[2], p_ir, out)
+        return out
+
+
+def _hier_tiers(part, groups, kernel):
+    grid = hier_world(part.num_slices, part.dp_per_slice, groups)
+    fwd = _HierTier(part, grid, kernel)
+    bwd = (None if part.transpose is None
+           else _HierTier(part.transpose, grid, kernel))
+    return fwd, bwd
+
+
+def make_hier_halo_spmm_planned(part: PlannedHierHaloPartition, groups=None,
+                                kernel=True):
+    """``spmm(x_blk) -> (rows_per, F)``: the planned two-level tier on this
+    process's part, ``x_blk`` its own (rows_per, F) float32 or bfloat16
+    block; the result has x's dtype.
+
+    ``groups`` is this process's `HierGrid` (None: `hier_world` over the
+    default group). Per part: start the intra (dp) and inter (slice)
+    ``all_to_all`` (async), fold the interior class from the own block
+    while they run (the first launch writes ``out``), wait for the intra
+    rows and fold their class into ``out`` (`spmm_csr_acc`), wait for the
+    inter rows, ``all_gather`` them over dp, and fold the inter class. A
+    class without edges is not launched. Each class rounds once to x's
+    dtype (the JAX tier adds bf16 partials). Differentiable once: dx is
+    the same tier on ``part.transpose``. ``kernel=False`` takes the plain
+    versions.
+    """
+    fwd, bwd = _hier_tiers(part, groups, kernel)
+
+    def spmm(x_blk):
+        return _PlannedSpmm.apply(x_blk, fwd, bwd)
+
+    return spmm
+
+
+def make_hier_halo_spmm_planned_pair(part: PlannedHierHaloPartition,
+                                     groups=None):
+    """``(spmm, spmm_t)``: A x and A^T g of the planned two-level tier as
+    separate callables on the kernels, neither differentiable (the staged
+    recipe owns the chain rule)."""
+    if part.transpose is None:
+        raise ValueError("make_hier_halo_spmm_planned_pair needs a "
+                         "partition built with with_transpose=True")
+    return _hier_tiers(part, groups, True)

@@ -2205,3 +2205,247 @@ def test_exported_gcn_runs_the_kernel_from_a_file(card, tmp_path):
     torch.cuda.synchronize()
     assert kops.spmm_csr.launches == before + 3
     assert torch.equal(got, want)
+
+
+def _hier_case(seed=12, n=3000, e=40000, F=64):
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n, e)])
+    w = rng.normal(size=e).astype(np.float32)
+    x = rng.normal(size=(n, F)).astype(np.float32)
+    return ei, w, x
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_hier_tier_at_one_part_on_card_matches_the_cpu(card, dtype, rtol):
+    """Forward and x's gradient of <out, c> for a fixed c (so each
+    direction rounds once in bf16, whatever the other did) against the
+    CPU's plain versions; 1 `spmm_csr` each direction, no class but the
+    interior at one part."""
+    from gammagl_tpu_torch import parallel as tpar
+    ei, w, x = _hier_case()
+    part = tpar.build_hier_halo_partition_planned(ei, 3000, 1, 1, w)
+    c = torch.randn(part.rows_per, x.shape[1],
+                    generator=torch.Generator().manual_seed(3))
+    outs, grads = [], []
+    for dev in (card, torch.device("cpu")):
+        xt = tpar.shard_nodes(x, part, device=dev,
+                              dtype=dtype).requires_grad_()
+        before = (kops.spmm_csr.launches, kops.spmm_csr_acc.launches)
+        out = tpar.make_hier_halo_spmm_planned(part)(xt)
+        (out.float() * c.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (kops.spmm_csr.launches - before[0],
+                    kops.spmm_csr_acc.launches - before[1]) == (2, 0)
+        outs.append(out.detach().cpu())
+        grads.append(xt.grad.cpu())
+    _close(outs[0], outs[1], rtol)
+    _close(grads[0], grads[1], rtol)
+
+
+def _gat_case(seed=13, n=2000, e=30000, heads=4, fh=8):
+    rng = np.random.default_rng(seed)
+    ei = np.stack([rng.integers(0, n, e), rng.integers(0, n - 9, e)])
+    h = rng.normal(size=(n, heads * fh)).astype(np.float32)
+    a_s = rng.normal(size=(heads, fh)).astype(np.float32) * 0.3
+    a_d = rng.normal(size=(heads, fh)).astype(np.float32) * 0.3
+    return ei, h, a_s, a_d
+
+
+def _gat_layer_run(part, heads, h, a_s, a_d, dev, dtype, rank=0):
+    from gammagl_tpu_torch import parallel as tpar
+    hb = tpar.shard_nodes(h, part, rank=rank, device=dev,
+                          dtype=dtype).requires_grad_()
+    st = torch.tensor(a_s, device=dev, requires_grad=True)
+    at = torch.tensor(a_d, device=dev, requires_grad=True)
+    out = tpar.make_partitioned_gat_layer(part, heads)(hb, st, at)
+    (out.float() ** 2).sum().backward()
+    return out.detach(), hb.grad, st.grad, at.grad
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2)])
+def test_partitioned_gat_layer_on_card_matches_the_cpu(card, dtype, rtol):
+    """The layer at one part: one flash forward, one flash backward and
+    the backward's two SpMM on the edge-scatter plan; output and the
+    gradients in h, a_src and a_dst against the CPU's plain versions;
+    repeated bitwise."""
+    from gammagl_tpu_torch import parallel as tpar
+    ei, h, a_s, a_d = _gat_case()
+    part = tpar.build_halo_partition_attn(ei, 2000, 1)
+    before = (kops.flash_forward.launches, kops.flash_backward.launches,
+              kops.spmm_csr.launches)
+    got = _gat_layer_run(part, 4, h, a_s, a_d, card, dtype)
+    torch.cuda.synchronize()
+    after = (kops.flash_forward.launches, kops.flash_backward.launches,
+             kops.spmm_csr.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 2)
+    again = _gat_layer_run(part, 4, h, a_s, a_d, card, dtype)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = _gat_layer_run(part, 4, h, a_s, a_d, torch.device("cpu"), dtype)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float().cpu(), b.float(), rtol=rtol,
+                                   atol=rtol * float(b.float().abs().max()))
+
+
+def test_partitioned_gat_steps_repeat_bitwise_on_card(card):
+    """Two steps of `make_partitioned_gat_train` from one state give
+    bitwise equal losses and gradients; a step launches 4 flash forwards
+    (remat reruns each layer), 2 flash backwards and 4 SpMM."""
+    from gammagl_tpu_torch import parallel as tpar
+    ei, h, _, _ = _gat_case(heads=1, fh=24)
+    rng = np.random.default_rng(14)
+    y = rng.integers(0, 5, 2000)
+    m = (rng.random(2000) < 0.5).astype(np.float32)
+    part = tpar.build_halo_partition_attn(ei, 2000, 1)
+    params, opt, step, _ = tpar.make_partitioned_gat_train(
+        part, 24, 8, 5, heads=8, compute_dtype=torch.bfloat16, device=card)
+    xs, ys, ms = (tpar.shard_nodes(a, part, device=card) for a in (h, y, m))
+    runs = []
+    for _ in range(2):
+        before = (kops.flash_forward.launches, kops.flash_backward.launches,
+                  kops.spmm_csr.launches)
+        loss, grads = step.loss_and_grads(params, xs, ys, ms)
+        torch.cuda.synchronize()
+        after = (kops.flash_forward.launches, kops.flash_backward.launches,
+                 kops.spmm_csr.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (4, 2, 4)
+        runs.append((loss, grads))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k_ in runs[0][1]:
+        assert torch.equal(runs[0][1][k_], runs[1][1][k_]), k_
+
+
+MULTI_WORKER = r"""
+import datetime, sys
+import numpy as np, torch, torch.distributed as dist
+inp, rank, store = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+d = np.load(inp)
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=4,
+                        timeout=datetime.timedelta(seconds=120))
+from gammagl_tpu_torch import parallel as tpar
+from gammagl_tpu_torch.ops import cuda as k
+dev = torch.device("cuda")
+res = {}
+try:
+    probe = torch.ones(4, 2, device=dev)
+    dist.all_to_all_single(torch.empty_like(probe), probe)
+    dist.all_gather([torch.empty_like(probe) for _ in range(4)], probe)
+except RuntimeError as err:
+    res["unsupported"] = np.asarray(str(err)[:300])
+if "unsupported" not in res:
+    n = d["x"].shape[0]
+    part = tpar.build_hier_halo_partition_planned(d["ei"], n, 2, 2, d["w"])
+    spmm = tpar.make_hier_halo_spmm_planned(part)
+    later = [sum(1 for c in (p.intra, p.inter) if c[rank].num_edges)
+             for p in (part, part.transpose)]
+    for dt in ("f32", "bf16"):
+        x = tpar.shard_nodes(d["x"], part, device=dev, dtype={
+            "f32": torch.float32, "bf16": torch.bfloat16}[dt])
+        x.requires_grad_()
+        before = (k.spmm_csr.launches, k.spmm_csr_acc.launches)
+        out = spmm(x)
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        res[dt + ":launches"] = np.asarray(
+            [k.spmm_csr.launches - before[0],
+             k.spmm_csr_acc.launches - before[1], 2, sum(later)])
+        res[dt + ":out"] = out.detach().float().cpu().numpy()
+        res[dt + ":grad"] = x.grad.float().cpu().numpy()
+    gpart = tpar.build_halo_partition_attn(d["gei"], d["gh"].shape[0], 4)
+    layer = tpar.make_partitioned_gat_layer(gpart, 4)
+    runs = []
+    for _ in range(2):
+        hb = tpar.shard_nodes(d["gh"], gpart, device=dev).requires_grad_()
+        st = torch.tensor(d["gas"], device=dev, requires_grad=True)
+        at = torch.tensor(d["gad"], device=dev, requires_grad=True)
+        before = (k.flash_forward.launches, k.flash_backward.launches,
+                  k.spmm_csr.launches)
+        out = layer(hb, st, at)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        res["gat:launches"] = np.asarray(
+            [k.flash_forward.launches - before[0],
+             k.flash_backward.launches - before[1],
+             k.spmm_csr.launches - before[2]])
+        runs.append((out.detach(), hb.grad, st.grad, at.grad))
+    # the halo rows' gradients come back to their owners through the
+    # exchange and `spmm_csr` on the scatter plan: the same bits each time
+    res["gat:repeat_equal"] = np.asarray(
+        [torch.equal(a, b) for a, b in zip(*runs)])
+    out, dh, das, dad = runs[0]
+    res["gat:out"] = out.cpu().numpy()
+    res["gat:dh"] = dh.cpu().numpy()
+    res["gat:das"] = das.cpu().numpy()
+    res["gat:dad"] = dad.cpu().numpy()
+dist.barrier()
+dist.destroy_process_group()
+np.savez(inp[:-4] + f"_out{rank}.npz", **res)
+"""
+
+
+def test_tiers_in_four_processes_on_one_card(card, tmp_path):
+    """Four gloo processes on the one card: the planned two-level tier at
+    (2, 2) and the partitioned GAT layer at 4 parts, against the CPU's
+    single-process references; each rank's launches (the tier: 1 SpMM and
+    one accumulating launch a class with edges, each direction; the
+    layer: 1 flash forward, 1 backward, 3 SpMM); the layer's forward and
+    backward run twice by each rank, bitwise equal. Skips when this
+    torch's gloo refuses CUDA tensors."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    from gammagl_tpu_torch import parallel as tpar
+    ei, w, x = _hier_case()
+    gei, gh, gas, gad = _gat_case()
+    inp = tmp_path / "in.npz"
+    np.savez(inp, ei=ei, w=w, x=x, gei=gei, gh=gh, gas=gas, gad=gad)
+    repo = Path(__file__).resolve().parents[1]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", MULTI_WORKER, str(inp), str(r),
+         str(tmp_path / "store")], cwd=repo, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log}"
+    parts = [dict(np.load(tmp_path / f"in_out{r}.npz")) for r in range(4)]
+    if "unsupported" in parts[0]:
+        pytest.skip(f"gloo refuses CUDA tensors: {parts[0]['unsupported']}")
+    one = tpar.build_hier_halo_partition_planned(ei, 3000, 1, 1, w)
+    part = tpar.build_hier_halo_partition_planned(ei, 3000, 2, 2, w)
+    for dt, dtype, rtol in (("f32", torch.float32, 1e-5),
+                            ("bf16", torch.bfloat16, 2e-2)):
+        for p in parts:
+            got = p[dt + ":launches"]
+            assert (got[0], got[1]) == (got[2], got[3])
+        xt = tpar.shard_nodes(x, one, device="cpu",
+                              dtype=dtype).requires_grad_()
+        out = tpar.make_hier_halo_spmm_planned(one)(xt)
+        (out.float() ** 2).sum().backward()
+        for key, want in ((":out", out.detach()), (":grad", xt.grad)):
+            got = tpar.unpad_nodes(np.concatenate(
+                [p[dt + key] for p in parts]), part)
+            want = torch.from_numpy(tpar.unpad_nodes(want.float(), one))
+            torch.testing.assert_close(
+                torch.from_numpy(got), want, rtol=rtol,
+                atol=rtol * float(want.abs().max()))
+    one = tpar.build_halo_partition_attn(gei, 2000, 1)
+    want = _gat_layer_run(one, 4, gh, gas, gad, torch.device("cpu"),
+                          torch.float32)
+    gpart = tpar.build_halo_partition_attn(gei, 2000, 4)
+    for p in parts:
+        assert p["gat:launches"].tolist() == [1, 1, 3]
+        assert p["gat:repeat_equal"].tolist() == [True] * 4
+    got = (np.concatenate([p["gat:out"] for p in parts]),
+           np.concatenate([p["gat:dh"] for p in parts]),
+           sum(p["gat:das"] for p in parts), sum(p["gat:dad"] for p in parts))
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = b.float().numpy()
+        if i < 2:
+            a = a[:2000]
+            b = b[:2000]
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-4 * np.abs(b).max())

@@ -15,7 +15,9 @@ against the port's `ops/cuda/`. Two frozen lists:
 Each list may only shrink: the tests fail when the port lacks a name or
 a module the lists do not hold, and when a listed name or module appears
 in the port and is not removed from the list. TPU-only names are not
-missing: COVERED names what covers each one in the port.
+missing: COVERED names what covers each one in the port, and
+COVERED_OPTIONS the TPU-only parameters and switches that ported
+functions leave out, with the reason.
 """
 
 import ast
@@ -44,6 +46,8 @@ _TPU_KERNELS = {
                       "the kernels read bf16 rows 16 bytes at a time: no "
                       "packed table of halves"),
 }
+_V5E = ("parallel/scaling.py", "HwModel",
+        "a TPU's figures; the port's model is HwModel(), the H100's")
 COVERED = {
     "ops/pallas/__init__.py": _TPU_KERNELS,
     "ops/pallas/segment_matmul.py": {
@@ -54,12 +58,36 @@ COVERED = {
                                    "its traced-layout SpMM: spmm_csr and "
                                    "spmm_csr_acc on the plan's arrays"),
     },
-    "parallel/__init__.py": {name: _MESH for name in (
-        "make_mesh", "replicate", "shard", "PartitionSpec",
-        "NamedSharding")},
+    "parallel/__init__.py": {
+        **{name: _MESH for name in ("make_mesh", "replicate", "shard",
+                                    "PartitionSpec", "NamedSharding")},
+        "V5E": _V5E},
     "parallel/mesh.py": {name: _MESH for name in (
         "make_mesh", "replicate", "shard", "PartitionSpec",
         "NamedSharding")},
+    "parallel/scaling.py": {"V5E": _V5E},
+}
+
+# TPU-only options of ported functions (a parameter, or a module-level
+# switch): JAX module -> {option: (port module, why the port has none)}
+_JIT = ("the jit boundary: the port's tiers run eagerly, their plans "
+        "placed on the card once, never embedded in a program")
+_INTERPRET = ("Pallas interpret mode; a CPU tensor takes the kernels' "
+              "plain versions")
+_PACKED = ("the packed bf16 gather of the halo tiers: the CSR kernels "
+           "read bf16 rows 16 bytes at a time, in every width")
+COVERED_OPTIONS = {
+    "parallel/halo_plan.py": {
+        "as_args": ("parallel/halo_plan.py", _JIT),
+        "interpret": ("parallel/halo_plan.py", _INTERPRET),
+        "_PACKED_HALO": ("parallel/halo_plan.py", _PACKED),
+    },
+    "parallel/full_graph.py": {
+        "as_args": ("parallel/full_graph.py", _JIT),
+    },
+    "parallel/halo_attention.py": {
+        "interpret": ("parallel/halo_attention.py", _INTERPRET),
+    },
 }
 
 MISSING_NAMES = {
@@ -73,25 +101,10 @@ MISSING_NAMES = {
     "parallel/__init__.py": [
         "EdgePartition", "partition_edges_by_dst",
         "partition_edges_uniform", "sharded_spmm", "make_sharded_spmm",
-        "HierHaloPartition", "build_hier_halo_partition",
-        "make_hier_halo_spmm", "traffic_report",
-        "PlannedHierHaloPartition",
-        "build_hier_halo_partition_planned",
-        "make_hier_halo_spmm_planned", "AttnHaloPartition",
-        "build_halo_partition_attn", "make_partitioned_gat_layer",
         "pipeline_apply", "make_feature_sharded_spmm",
         "relation_expert_spmm", "make_relation_expert_spmm",
         "shard_expert_weights", "make_pipeline_apply",
-        "shard_pipeline_params", "make_partitioned_gat_train",
-        "HwModel", "V5E", "halo_scaling_estimate",
-    ],
-    "parallel/full_graph.py": [
-        "make_partitioned_gat_train",
-    ],
-    "parallel/halo_plan.py": [
-        "PlannedHierHaloPartition",
-        "build_hier_halo_partition_planned",
-        "make_hier_halo_spmm_planned",
+        "shard_pipeline_params",
     ],
     "parallel/partition.py": [
         "EdgePartition", "partition_edges_by_dst",
@@ -110,8 +123,7 @@ MISSING_NAMES = {
 
 MISSING_MODULES = [
     "loader/multihost.py",
-    "parallel/halo_attention.py",
-    "parallel/hier_halo.py", "parallel/scaling.py", "parallel/spmm.py",
+    "parallel/spmm.py",
     "parallel/strategies.py",
 ]
 
@@ -195,4 +207,32 @@ def test_covered_names_name_what_covers_them(path):
     for name, (module, cover, why) in COVERED[path].items():
         assert name in jax_names and name not in port_names, name
         assert cover in (_all(PORT_MODULES[module]) or ()), (name, cover)
+        assert why
+
+
+def _options(path):
+    """Every function parameter and module-level name bound in ``path``."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            a = node.args
+            names.update(x.arg for x in a.posonlyargs + a.args
+                         + a.kwonlyargs)
+    for node in tree.body:
+        if isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(COVERED_OPTIONS))
+def test_covered_options_are_jax_only(path):
+    """Each TPU-only option is a parameter or module-level switch of the
+    JAX module and of no function or module level of the port's."""
+    jax_opts = _options(JAX_MODULES[path])
+    for option, (module, why) in COVERED_OPTIONS[path].items():
+        assert option in jax_opts, option
+        assert option not in _options(PORT_MODULES[module]), option
         assert why
