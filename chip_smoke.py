@@ -385,7 +385,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    eval forwards (2 flash forward each). Then `parallel.scaling`'s card
    figures: a 1 GiB copy's rate and phase 24's tier forward in edges a
    second.
-41. Print the card's name and power limit, one JSON line on the kernels
+41. (a) `parallel.make_sharded_spmm` at one part on the arxiv shape's
+   `partition_edges_uniform` (GCN weights, F = 128 f32), forward and dx,
+   bitwise equal to `spmm_csr` on the graph's plan, timed beside it;
+   `make_relation_expert_spmm` at one part on phase 26's flattened typed
+   graph at RGCN's widths (128 -> 64 -> 349 f32, 3 relations), each layer
+   forward and backward against the per-edge COO plain version within
+   1e-5 of max |out| and of each max |grad|, timed beside it; the
+   hetero_rgcn twin's `--ep 1` for 5 steps (4 `spmm_csr` a step, 2 an
+   accuracy forward). (b) 4 processes on the one card
+   (`chip_smoke.py --parallel-worker DIR RANK`, gloo): the sharded SpMM
+   by destination (bitwise one plan) and uniform (1e-5), forward and dx;
+   the feature-sharded SpMM on a quarter of the columns; the expert SpMM
+   with 7 random relations on the arxiv shape (a padding block on rank
+   3); the pipeline at 4 stages against the sequential composition;
+   `ShardedInferenceSession` on phase 5's GCN (the graph padded to a
+   multiple of 4 rows) bitwise `InferenceSession`'s logits, 3 `spmm_csr`
+   a request; `ShardedFeatureStore` gathers bitwise (clipped ids among
+   them); a `MultiHostNodeLoader` epoch, the seeds disjoint across
+   ranks; the hetero_rgcn twin's `--ep 4` for 5 steps with a sharded
+   checkpoint after step 3 and a resume repeating steps 4-5 bitwise, its
+   losses within 1e-4 of (a)'s; every launch count exact.
+42. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -7628,6 +7649,609 @@ def phase_partitioned(k, shard, tier_calls, papers_losses, x, ei, smi):
     return hier_t, hier_s, pgat, pgat_t, out
 
 
+# -- phase 41: the last of parallel/, sharded serving and checkpoints -------
+# (a) one process: `make_sharded_spmm` on the arxiv shape's uniform
+# partition at one part (the GCN weights, F = 128 f32), bitwise equal to
+# `spmm_csr` on the graph's plan; `make_relation_expert_spmm` at one part on
+# phase 26's flattened typed graph at RGCN's widths (128 -> 64 -> 349 f32,
+# a full map a relation) against the per-edge COO plain version within
+# EXPERT_TOL of max |out| and of each max |grad|; the hetero_rgcn twin's
+# --ep path at its defaults for EP_STEPS steps. (b) P41_PROCS processes on
+# the one card under gloo (`parallel_worker`): the sharded SpMM by
+# destination (bitwise one plan) and uniform, the feature-sharded and the
+# expert SpMMs (P41_RELATIONS relations on the arxiv shape, a padding block
+# on the last process), the pipeline at P41_PROCS stages (P41_PIPE: micro-
+# batches, rows, width), `ShardedInferenceSession` on phase 5's GCN (the
+# graph padded by one isolated node to a multiple of P41_PROCS rows)
+# bitwise equal to `InferenceSession`'s logits, `ShardedFeatureStore`
+# gathers bitwise, a `MultiHostNodeLoader` epoch (P41_LOADER: every k-th
+# node a seed, batch, fanouts), and the hetero_rgcn twin's --ep P41_PROCS
+# for EP_STEPS steps with a sharded checkpoint after step EP_CKPT and a
+# resume that repeats the rest bitwise
+EXPERT_TOL, EP_STEPS, EP_CKPT = 1e-5, 5, 3
+P41_PROCS, P41_RELATIONS, P41_EXPERT_OUT = 4, 7, 64
+P41_PIPE = (8, 4096, 256)
+P41_LOADER = (8, 1024, (10, 5))
+P41_GATHER = 20_000
+
+
+def csr_launches(plan, n=1):
+    """Launches of n `spmm_csr` calls on ``plan``: the kernel, and a fold
+    each where the plan has cut rows."""
+    cut = int(plan.row_split().cut_row.size > 0)
+    return {"spmm_csr": n, "csr_fold": cut * n}
+
+
+def add_launches(*dicts):
+    out = {}
+    for d in dicts:
+        for name, n in d.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def expert_plain(x, ei, et, W):
+    """The per-edge COO plain version of the expert SpMM: each relation's
+    edges' messages ``x[src] @ W_r``, summed into their destinations with
+    ``index_add`` (differentiable)."""
+    out = x.new_zeros(x.shape[0], W.shape[2])
+    for r in range(W.shape[0]):
+        m = et == r
+        out = out.index_add(0, ei[1][m], x[ei[0][m]] @ W[r])
+    return out
+
+
+def expert_check(k, label, run, x, ei, et, W, w_local, tol=EXPERT_TOL):
+    """One expert layer forward and backward (a random cotangent) against
+    `expert_plain` on the same inputs: out, dx and this process's dW block
+    within ``tol`` of each max |ref|. Returns (max abs err, launches)."""
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 41)
+    per = w_local.shape[0]
+    lo = dist_rank() * per
+    xk = x.detach().clone().requires_grad_()
+    wk = w_local.detach().clone().requires_grad_()
+    sync()
+    reset_counts(k)
+    out = run(ei, et, xk, wk)
+    g = torch.randn(out.shape, generator=gen, device=x.device)
+    out.backward(g)
+    sync()
+    counts = read_counts(k)
+    xp = x.detach().clone().requires_grad_()
+    wp = W.detach().clone().requires_grad_()
+    want = expert_plain(xp, ei, et, wp)
+    want.backward(g)
+    err = check_close(f"{label} out", out.detach(), want.detach(), 0.0,
+                      atol=tol)
+    err = max(err, check_close(f"{label} dx", xk.grad, xp.grad, 0.0,
+                               atol=tol))
+    hi = min(lo + per, W.shape[0])
+    dw = wp.grad[lo:hi]
+    err = max(err, check_close(f"{label} dW (this block)", wk.grad[:hi - lo],
+                               dw, 0.0, atol=tol,
+                               scale=float(wp.grad.abs().max())))
+    if hi - lo < per and bool(wk.grad[hi - lo:].any()):
+        fail(f"{label}: a padding relation's gradient is not zero")
+    return err, counts
+
+
+def dist_rank():
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def ep_args(ep, device="cuda"):
+    from gammagl_tpu_torch.examples import hetero_rgcn_trainer as het
+    return het.parser().parse_args(["--device", device, "--n_epoch",
+                                    str(EP_STEPS), "--ep", str(ep)])
+
+
+def phase_slice24_one(k, simplehgn_trainer, hg, graph, x, ei, smi):
+    """Phase 41 (a): the sharded SpMM at one part on the arxiv shape, the
+    expert SpMM at one part on the flattened typed graph at RGCN's widths,
+    and the hetero_rgcn twin's --ep path; each with its launches. Returns
+    (launches by path, figures)."""
+    from gammagl_tpu_torch.examples import hetero_rgcn_trainer as het
+    from gammagl_tpu_torch.parallel import (make_relation_expert_spmm,
+                                            make_sharded_spmm,
+                                            partition_edges_uniform,
+                                            shard_expert_weights)
+    phase_start("phase 41 (a): the sharded and expert SpMMs at one part, "
+                "the hetero_rgcn twin's --ep path")
+    dev = torch.device("cuda")
+    out, runs = {}, {}
+    plan = graph.csr_plan()
+    w = gcn_weights(ei, graph.num_nodes)
+    t0 = time.perf_counter()
+    part = partition_edges_uniform(graph.edge_index, graph.num_nodes, 1,
+                                   w.cpu().numpy())
+    t_part = time.perf_counter() - t0
+    spmm = make_sharded_spmm(graph.num_nodes)
+    ws = torch.from_numpy(part.edge_weight).to(dev)
+    xg = x.detach().clone().requires_grad_()
+    sync()
+    reset_counts(k)
+    t0 = time.perf_counter()
+    got = spmm(part.edge_index, ws, xg)
+    sync()
+    t_first = time.perf_counter() - t0
+    got.backward(torch.ones_like(got))
+    sync()
+    counts = read_counts(k)
+    want_counts = every_kernel(add_launches(csr_launches(plan),
+                                            csr_launches(plan.transpose())))
+    if counts != want_counts:
+        fail(f"sharded SpMM at one part: expected launches {want_counts}, "
+             f"counted {counts}")
+    runs["shard-1"] = counts
+    ref = k.spmm_csr(x, w, plan)
+    if not torch.equal(got.detach(), ref):
+        fail("sharded SpMM at one part: not bitwise equal to spmm_csr on "
+             "the graph's plan")
+    # row 1 at this shape (its plain version and cuSPARSE beside it), then
+    # the sharded call, which adds the weights' gather into CSR order
+    wp = k.pad_edge_weights(plan, w)
+    rowptr, col, _ = plan.arrays(dev)
+    N, E, F = plan.num_nodes, plan.num_edges, x.shape[1]
+    A = torch.sparse_csr_tensor(rowptr, col.long(), wp, size=(N, N))
+    row = timing(f"spmm_csr F={F} f32, arxiv shape",
+                 lambda: k.spmm_csr(x, wp, plan, weights_padded=True),
+                 lambda: k.spmm_csr_reference(x, wp, plan,
+                                              weights_padded=True),
+                 # x, col, rowptr and w in, out
+                 nbytes=N * F * 4 + E * 4 + (N + 1) * 8 + E * 4 + N * F * 4,
+                 flops=2 * E * F, library=lambda: A @ x)
+    del A
+    ms_shard = cuda_ms(lambda: spmm(part.edge_index, ws, x))
+    print(f"  ({smi}) sharded SpMM at one part, F={F} f32: bitwise "
+          f"spmm_csr on the graph's plan; {ms_shard:.4f} ms a call against "
+          f"{row['ms']:.4f} ms for spmm_csr alone; the partition "
+          f"{t_part:.2f} s, the first call with its plan {t_first:.2f} s "
+          f"(host); launches {nonzero(counts)}")
+    out["sharded_one_part"] = {"ms": ms_shard, "spmm_csr": row,
+                               "partition_s": t_part,
+                               "first_call_s": t_first}
+
+    tg, _ = flat_typed_graph(k, simplehgn_trainer, hg, dev)
+    xt, eit, ett, R = tg["x"], tg["ei"], tg["fkw"]["edge_type"], tg["R"]
+    rng = np.random.default_rng(SEED + 41)
+    widths = [(HGT_FEAT, RGCN_HIDDEN), (RGCN_HIDDEN, HGT_CLASSES)]
+    Ws = [torch.from_numpy((rng.normal(size=(R, a, b)) / np.sqrt(a))
+                           .astype(np.float32)).to(dev) for a, b in widths]
+    run = make_relation_expert_spmm(tg["n"])
+    # the plan the expert SpMM builds (one process: every relation)
+    et_np, ei_np = ett.cpu().numpy(), eit.cpu().numpy()
+    eplan = k.build_csr_plan(et_np * tg["n"] + ei_np[0], ei_np[1], tg["n"],
+                             num_src=R * tg["n"])
+    want_layer = every_kernel(add_launches(csr_launches(eplan),
+                                           csr_launches(eplan.transpose())))
+    del et_np, ei_np, eplan
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        run(eit, ett, xt, shard_expert_weights(Ws[0]))
+    sync()
+    t_plan = time.perf_counter() - t0
+    err, lay_counts, lay_ms = 0.0, [], []
+    h = xt
+    for i, W in enumerate(Ws):
+        e, c = expert_check(k, f"expert SpMM layer {i + 1} "
+                            f"({W.shape[1]} -> {W.shape[2]}) f32", run, h,
+                            eit, ett, W, shard_expert_weights(W))
+        err = max(err, e)
+        lay_counts.append(c)
+        wl = shard_expert_weights(W)
+        hk = h.detach()
+        k_ms, p_ms, _ = paired_ms(lambda: run(eit, ett, hk, wl),
+                                  lambda: expert_plain(hk, eit, ett, W),
+                                  plain_iters=2)
+        lay_ms.append({"ms": k_ms, "plain_ms": p_ms})
+        print(f"  ({smi}) expert layer {i + 1}: {k_ms:.4f} ms a forward "
+              f"(dense transforms + spmm_csr), per-edge plain {p_ms:.4f} "
+              f"ms; launches fwd + bwd {nonzero(c)}")
+        with torch.no_grad():
+            h = torch.relu(run(eit, ett, hk, wl))
+    for i, c in enumerate(lay_counts):
+        if c != want_layer:
+            fail(f"expert layer {i + 1}: expected launches {want_layer}, "
+                 f"counted {c}")
+    runs["expert-1"] = {name: sum(c[name] for c in lay_counts)
+                        for name in lay_counts[0]}
+    out["expert_one_part"] = {"first_call_s": t_plan, "max_abs_err": err,
+                              "layers": lay_ms, "relations": R,
+                              "edges": int(eit.shape[1])}
+    del tg, xt, eit, ett, h, Ws
+    torch.cuda.empty_cache()
+
+    sync()
+    reset_counts(k)
+    t0 = time.perf_counter()
+    res = het.main_ep(ep_args(1))
+    sync()
+    t_twin = time.perf_counter() - t0
+    counts = read_counts(k)
+    # 4 a step (2 layers, forward and backward) and 2 an accuracy forward
+    # (after the first step and at the end)
+    want = every_kernel({"spmm_csr": 4 * EP_STEPS + 4})
+    if counts != want:
+        fail(f"hetero_rgcn --ep 1: expected launches {want}, counted "
+             f"{counts}")
+    losses = res["losses"]
+    if not np.isfinite(losses).all() or losses[-1] > losses[0] * (
+            1 - MIN_FALL):
+        fail(f"hetero_rgcn --ep 1: losses {losses} do not fall")
+    runs["ep-t"] = counts
+    print(f"  ({smi}) hetero_rgcn --ep 1, {EP_STEPS} steps: losses "
+          f"{losses}, {t_twin:.2f} s; launches {nonzero(counts)}")
+    out["hetero_rgcn_ep1"] = {"losses": losses, "seconds": t_twin}
+    return runs, out
+
+
+def nonzero(counts):
+    return {name: n for name, n in counts.items() if n}
+
+
+def parallel_worker(tmp, rank):
+    """One process of phase 41 (b), ``chip_smoke.py --parallel-worker DIR
+    RANK``: joins the gloo group of P41_PROCS processes (a file store in
+    DIR), reads the arxiv shape from DIR, runs each parallel path with its
+    launches counted and checked, and writes result<RANK>.json (and its
+    seeds, rows and losses as npy files for the parent)."""
+    import datetime
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from gammagl_tpu_torch.data import Graph
+    from gammagl_tpu_torch.examples import common
+    from gammagl_tpu_torch.examples import hetero_rgcn_trainer as het
+    from gammagl_tpu_torch.loader import (MultiHostNodeLoader,
+                                          ShardedFeatureStore)
+    from gammagl_tpu_torch.models import GCNModel
+    from gammagl_tpu_torch.ops import cuda as k
+    from gammagl_tpu_torch import parallel as par
+    from gammagl_tpu_torch.sampler import NeighborSampler
+    from gammagl_tpu_torch.serve import (InferenceSession,
+                                         ShardedInferenceSession)
+    from gammagl_tpu_torch.train import (load_checkpoint_sharded,
+                                         save_checkpoint_sharded)
+    from gammagl_tpu_torch.utils import load_jax_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    P = P41_PROCS
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                            rank=rank, world_size=P,
+                            timeout=datetime.timedelta(seconds=600))
+    dev = torch.device("cuda")
+    ei_np = np.load(os.path.join(tmp, "ei.npy"))
+    x_np = np.load(os.path.join(tmp, "x.npy"))
+    w_np = np.load(os.path.join(tmp, "w.npy"))
+    n = x_np.shape[0]
+    x, w = torch.from_numpy(x_np).to(dev), torch.from_numpy(w_np).to(dev)
+    ei = torch.from_numpy(ei_np).to(dev)
+    res = {"rank": rank, "launches": {}, "ms": {}, "err": {}}
+
+    def counted(label, fn, want):
+        dist.barrier()
+        sync()
+        reset_counts(k)
+        t0 = time.perf_counter()
+        value = fn()
+        sync()
+        res["ms"][label] = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(k)
+        if counts != every_kernel(want):
+            fail(f"{label}, rank {rank}: expected launches {want}, counted "
+                 f"{counts}")
+        res["launches"][label] = counts
+        return value
+
+    t0 = time.perf_counter()
+    plan = k.build_csr_plan(ei_np[0], ei_np[1], n)
+    one = k.spmm_csr(x, w, plan)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    g = torch.randn(one.shape, generator=gen, device=dev)
+    xr = x.detach().clone().requires_grad_()
+    k.spmm_csr(xr, w, plan).backward(g)
+    one_dx = xr.grad
+    res["host_s"] = {"plan": time.perf_counter() - t0}
+
+    # the sharded SpMM, by destination (bitwise one plan) and uniform
+    for kind, build in (("dst", par.partition_edges_by_dst),
+                        ("uniform", par.partition_edges_uniform)):
+        t0 = time.perf_counter()
+        part = build(ei_np, n, P, w_np)
+        spmm = par.make_sharded_spmm(n)
+        own = part.edge_index[rank]
+        keep = own[1] < n
+        splan = k.build_csr_plan(own[0][keep], own[1][keep], n)
+        res["host_s"][f"partition_{kind}"] = time.perf_counter() - t0
+        ws = torch.from_numpy(part.edge_weight).to(dev)
+        xs = x.detach().clone().requires_grad_()
+
+        def fwd_bwd():
+            o = spmm(part.edge_index, ws, xs)
+            o.backward(g)
+            return o
+
+        got = counted(f"sharded_{kind}", fwd_bwd, add_launches(
+            csr_launches(splan), csr_launches(splan.transpose())))
+        if kind == "dst":
+            if not torch.equal(got.detach(), one):
+                fail(f"rank {rank}: the sharded SpMM by destination is not "
+                     "bitwise one plan's spmm_csr")
+            res["err"]["sharded_dst"] = 0.0
+        else:
+            res["err"]["sharded_uniform"] = check_close(
+                f"rank {rank}: sharded SpMM uniform vs one plan",
+                got.detach(), one, 0.0, atol=1e-5)
+        res["err"][f"sharded_{kind}_dx"] = check_close(
+            f"rank {rank}: sharded SpMM {kind} dx vs one plan", xs.grad,
+            one_dx, 0.0, atol=1e-5)
+        times = []
+        for _ in range(3):
+            dist.barrier()
+            sync()
+            t1 = time.perf_counter()
+            spmm(part.edge_index, ws, x)
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+        res["ms"][f"sharded_{kind}_calls"] = times
+        del part, ws, xs, got
+
+    # the feature-sharded SpMM: this process's block of the columns
+    c = x.shape[1] // P
+    run = par.make_feature_sharded_spmm(n)
+    xb = x[:, rank * c:(rank + 1) * c].contiguous()
+    got = counted("feature", lambda: run(ei, w, xb), csr_launches(plan))
+    res["err"]["feature"] = check_close(
+        f"rank {rank}: feature-sharded SpMM vs one plan's columns", got,
+        one[:, rank * c:(rank + 1) * c], 0.0, atol=1e-5)
+    del got, one, one_dx, g
+
+    # the expert SpMM: P41_RELATIONS random relations, the last block padded
+    rng = np.random.default_rng(SEED + 42)
+    et = torch.from_numpy(rng.integers(0, P41_RELATIONS, ei_np.shape[1])
+                          ).to(dev)
+    W = torch.from_numpy((rng.normal(size=(P41_RELATIONS, N_FEAT,
+                                           P41_EXPERT_OUT))
+                          / np.sqrt(N_FEAT)).astype(np.float32)).to(dev)
+    run = par.make_relation_expert_spmm(n)
+    wl = par.shard_expert_weights(W)
+    per = wl.shape[0]
+    local = et.cpu().numpy() - rank * per
+    mine = (local >= 0) & (local < per)
+    eplan = k.build_csr_plan(
+        local[mine] * n + ei_np[0][mine], ei_np[1][mine], n,
+        num_src=per * n)
+    want = add_launches(csr_launches(eplan), csr_launches(eplan.transpose()))
+    dist.barrier()
+    e, counts = expert_check(k, f"rank {rank}: expert SpMM "
+                             f"({P41_RELATIONS} relations, {per} a process)",
+                             run, x, ei, et, W, wl)
+    if counts != every_kernel(want):
+        fail(f"expert SpMM, rank {rank}: expected launches {want}, counted "
+             f"{counts}")
+    res["launches"]["expert"] = counts
+    res["err"]["expert"] = e
+    del et, W, wl, eplan
+
+    # the pipeline at P stages: tanh(h @ p_s)
+    M, B, Fp = P41_PIPE
+    rng = np.random.default_rng(SEED + 43)
+    params = (rng.normal(size=(P, Fp, Fp)) * 0.05).astype(np.float32)
+    xm = torch.from_numpy(rng.normal(size=(M, B, Fp)).astype(np.float32)
+                          ).to(dev)
+    coef = torch.from_numpy(rng.normal(size=(M, B, Fp)).astype(np.float32)
+                            ).to(dev)
+    p = par.shard_pipeline_params(params).requires_grad_()
+    pipe = par.make_pipeline_apply(lambda p_, h: torch.tanh(h @ p_), M)
+    got = counted("pipeline", lambda: pipe(p, xm), {})
+    (got * coef).sum().backward()
+    full = torch.from_numpy(params).to(dev).requires_grad_()
+    h = xm
+    for s in range(P):
+        h = torch.tanh(h @ full[s])
+    (h * coef).sum().backward()
+    res["err"]["pipeline"] = max(
+        check_close(f"rank {rank}: pipeline out vs sequential", got.detach(),
+                    h.detach(), 0.0, atol=1e-5),
+        check_close(f"rank {rank}: pipeline dp vs sequential", p.grad,
+                    full.grad[rank], 0.0, atol=1e-5,
+                    scale=float(full.grad.abs().max())))
+    del xm, coef, p, full, h, got
+
+    # ShardedInferenceSession on phase 5's GCN, the graph padded by one
+    # isolated node to a multiple of P rows
+    pad = (-n) % P
+    xp = torch.cat([x, x.new_zeros(pad, x.shape[1])])
+    gplan = k.build_csr_plan(ei_np[0], ei_np[1], n + pad)
+
+    def gcn():
+        model = GCNModel(hidden_dim=HIDDEN, num_class=N_CLASS,
+                         num_layers=N_LAYERS, drop_rate=GCN_DROP,
+                         dtype=torch.bfloat16)
+        return load_jax_params(model, random_params())
+
+    b = (n + pad) // P
+    sess = ShardedInferenceSession(gcn(), (xp, ei), in_specs=("dp", None),
+                                   out_specs="dp",
+                                   compute_dtype=torch.bfloat16, plan=gplan)
+    plain = InferenceSession(gcn(), (xp, ei), compute_dtype=torch.bfloat16,
+                             plan=gplan)
+    for r_ in range(2):
+        xr_ = xp + r_ * 1e-3
+        got = counted(f"session_{r_}", lambda: sess(
+            xr_[rank * b:(rank + 1) * b], ei),
+            {"spmm_csr": N_LAYERS})
+        if got.shape != (b, N_CLASS) or not torch.equal(
+                got, plain(xr_, ei)[rank * b:(rank + 1) * b]):
+            fail(f"rank {rank}: ShardedInferenceSession request {r_} is not "
+                 "bitwise InferenceSession's rows")
+    del sess, plain, xp, gplan
+
+    # ShardedFeatureStore: P41_GATHER ids, some past either end (clipped)
+    st = ShardedFeatureStore()
+    st.put_tensor(x_np, group_name="node", attr_name="x")
+    idx = np.random.default_rng(SEED + 44).integers(-5, n + 10, P41_GATHER)
+    got = counted("store", lambda: st.get_tensor("node", "x", idx), {})
+    padded = np.concatenate([x_np, np.zeros((pad, x_np.shape[1]),
+                                            np.float32)])
+    want = torch.from_numpy(np.take(padded, idx, axis=0, mode="clip"))
+    if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        fail(f"rank {rank}: ShardedFeatureStore rows are not the stored "
+             "rows bit for bit")
+    del st, got
+
+    # a MultiHostNodeLoader epoch on the arxiv shape
+    every, bs, fan = P41_LOADER
+    graph = Graph(x=x_np, edge_index=ei_np)
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(ei_np, n, list(fan), seed=SEED)
+    res["host_s"]["sampler"] = time.perf_counter() - t0
+    loader = MultiHostNodeLoader(graph, sampler,
+                                 input_nodes=np.arange(0, n, every),
+                                 batch_size=bs)
+    seeds, batch_ms = [], []
+    t0 = time.perf_counter()
+    for batch in loader:
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        if batch["x"].device.type != dev.type or int(
+                batch["seed_mask"].sum()) != bs:
+            fail(f"rank {rank}: a loader batch is not on the card or not "
+                 f"{bs} seeds")
+        seeds.append(batch["n_id"][0, :bs].cpu().numpy())
+        t0 = time.perf_counter()
+    if len(seeds) != len(loader) or not seeds:
+        fail(f"rank {rank}: {len(seeds)} loader batches, len {len(loader)}")
+    np.save(os.path.join(tmp, f"seeds{rank}.npy"), np.concatenate(seeds))
+    res["ms"]["loader_batches"] = batch_ms
+
+    # the hetero_rgcn twin's --ep P: a checkpoint after EP_CKPT steps, then
+    # a fresh trainer resumed from it repeats the rest bitwise
+    args = ep_args(P)
+    data = het.typed_graph()
+    tr = het.ExpertRGCN(args, data)
+
+    def steps(t, n_):
+        return [t.step() for _ in range(n_)]
+
+    first = counted("ep_steps", lambda: steps(tr, EP_CKPT),
+                    {"spmm_csr": 4 * EP_CKPT})
+    ckpt = os.path.join(tmp, "ep_ckpt")
+    t0 = time.perf_counter()
+    save_checkpoint_sharded(ckpt, common.checkpoint_tree(tr.params, tr.opt),
+                            step=EP_CKPT)
+    res["ms"]["ckpt_save"] = (time.perf_counter() - t0) * 1e3
+    rest = steps(tr, EP_STEPS - EP_CKPT)
+    tr2 = het.ExpertRGCN(args, data)
+    t0 = time.perf_counter()
+    tree, step = load_checkpoint_sharded(
+        ckpt, common.checkpoint_tree(tr2.params, tr2.opt))
+    res["ms"]["ckpt_load"] = (time.perf_counter() - t0) * 1e3
+    common.restore_checkpoint_tree(tr2.params, tr2.opt, tree)
+    again = counted("ep_resume", lambda: steps(tr2, EP_STEPS - EP_CKPT),
+                    {"spmm_csr": 4 * (EP_STEPS - EP_CKPT)})
+    if step != EP_CKPT or again != rest or not all(
+            torch.equal(tr.params[name], tr2.params[name])
+            for name in tr.params):
+        fail(f"rank {rank}: the resumed --ep run does not repeat steps "
+             f"{EP_CKPT + 1}-{EP_STEPS} bitwise ({rest} vs {again})")
+    res["ep_losses"] = first + rest
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(tmp, f"result{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def phase_slice24_procs(k, graph, x, ei, ep1_losses, smi):
+    """Phase 41 (b): `parallel_worker` in P41_PROCS processes on the one
+    card; the ranks' results gathered and held: the --ep losses equal on
+    every rank and within 1e-4 relative of (a)'s one process, the loader's
+    seeds disjoint across ranks. Returns (launches by path, figures)."""
+    import shutil
+    import tempfile
+    phase_start(f"phase 41 (b): the parallel paths in {P41_PROCS} "
+                "processes on the one card")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_par_")
+    try:
+        np.save(os.path.join(tmp, "ei.npy"), graph.edge_index)
+        np.save(os.path.join(tmp, "x.npy"), graph.x)
+        np.save(os.path.join(tmp, "w.npy"),
+                gcn_weights(ei, graph.num_nodes).cpu().numpy())
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             tmp, str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(P41_PROCS)]
+        logs = []
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=600)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        t_workers = time.perf_counter() - t0
+        for r, (proc, log) in enumerate(zip(procs, logs)):
+            if proc.returncode != 0:
+                fail(f"parallel worker {r} exited {proc.returncode}:\n"
+                     f"{log[-4000:]}")
+        print("\n".join("  " + line for line in logs[0].splitlines()
+                        if line.strip()))
+        results = []
+        for r in range(P41_PROCS):
+            with open(os.path.join(tmp, f"result{r}.json")) as f:
+                results.append(json.load(f))
+        seeds = [np.load(os.path.join(tmp, f"seeds{r}.npy"))
+                 for r in range(P41_PROCS)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    allseeds = np.concatenate(seeds)
+    if np.unique(allseeds).size != allseeds.size:
+        fail("the ranks' loader seeds overlap")
+    losses = results[0]["ep_losses"]
+    if any(res["ep_losses"] != losses for res in results) or not np.allclose(
+            losses, ep1_losses, rtol=1e-4, atol=0):
+        fail(f"hetero_rgcn --ep {P41_PROCS}: losses "
+             f"{[res['ep_losses'] for res in results]} vs one process "
+             f"{ep1_losses}")
+    runs = {}
+    for label in results[0]["launches"]:
+        runs[f"p41-{label}"] = {name: sum(res["launches"][label][name]
+                                          for res in results)
+                                for name in COUNTED}
+    # the slowest rank's time; over repeated calls, the median of those
+    ms = {}
+    for label in results[0]["ms"]:
+        slowest = np.max([res["ms"][label] for res in results], axis=0)
+        ms[label] = float(np.median(slowest))
+    errs = {label: max(res["err"][label] for res in results)
+            for label in results[0]["err"]}
+    out = {"procs": P41_PROCS, "workers_s": t_workers, "ms": ms,
+           "max_abs_err": errs, "ep_losses": losses,
+           "host_s": results[0]["host_s"],
+           "loader_batches": len(seeds[0]) // P41_LOADER[1],
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) {P41_PROCS} processes in {t_workers:.1f} s; the "
+          f"slowest rank's ms: {ms}; max errors {errs}; --ep "
+          f"{P41_PROCS} losses {losses} (one process {ep1_losses}); "
+          f"{out['loader_batches']} loader batches a rank")
+    return runs, out
+
+
+def phase_slice24(k, simplehgn_trainer, hg, graph, x, ei, smi):
+    """Phase 41: (a) `phase_slice24_one`, (b) `phase_slice24_procs`."""
+    t_phase = time.perf_counter()
+    runs, one = phase_slice24_one(k, simplehgn_trainer, hg, graph, x, ei,
+                                  smi)
+    runs_b, procs = phase_slice24_procs(
+        k, graph, x, ei, one["hetero_rgcn_ep1"]["losses"], smi)
+    runs.update(runs_b)
+    out = {"one_process": one, "processes": procs,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) phase 41 in {out['seconds']:.1f} s")
+    return runs, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -7807,6 +8431,8 @@ def main():
                       InferenceSession, load_jax_params, plan, x, ei)
     hier_t, hier_s, pgat, pgat_t, parted = phase_partitioned(
         k, shard, tier_calls, papers_losses, x, ei, smi.splitlines()[0])
+    p41_runs, p41 = phase_slice24(k, simplehgn_trainer, hg, graph, x, ei,
+                                  smi.splitlines()[0])
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -7842,6 +8468,7 @@ def main():
     runs["gcn-x"], runs["slice22_coo"] = export_counts, s22_counts
     runs["hier-t"], runs["hier-s"] = hier_t, hier_s
     runs["pgat"], runs["pgat-t"] = pgat, pgat_t
+    runs.update(p41_runs)
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -7992,7 +8619,7 @@ def main():
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
         "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21,
-        "slice22": s22, "partitioned": parted}))
+        "slice22": s22, "partitioned": parted, "slice24": p41}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8002,5 +8629,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--hier-worker"]:
         hier_worker(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--parallel-worker"]:
+        parallel_worker(sys.argv[2], int(sys.argv[3]))
     else:
         main()

@@ -54,7 +54,8 @@ __all__ = ["synthetic_community_graph", "load_node_dataset",
            "hetero_tensors", "predict", "staged_dataset", "load_imdb",
            "run_hetero_trainer", "run_edge_type_trainer", "linear_probe",
            "device_graph", "run_two_view_ssl", "run_corruption_ssl",
-           "binary_auc", "run_splice_demo"]
+           "binary_auc", "run_splice_demo", "checkpoint_tree",
+           "restore_checkpoint_tree"]
 
 
 def node_arrays(graph):
@@ -541,6 +542,31 @@ def run_edge_type_trainer(model, args, x, edge_index, edge_type, y,
     acc = test_acc()
     print(f"final test acc {acc:.4f} ({dev})")
     return {"losses": losses, "test_acc": acc, "state": state}
+
+
+def checkpoint_tree(params, opt):
+    """The tree a checkpoint holds for named parameters and their Adam or
+    AdamW: ``{"params": params, "opt": {name: {"step", "exp_avg",
+    "exp_avg_sq"}}}``, the moments zeros and the step 0 before the first
+    step, so the tree has one structure from the start (a template for
+    `train.load_checkpoint_sharded`)."""
+    state = {}
+    for name, p in params.items():
+        s = opt.state.get(p, {})
+        state[name] = {
+            "step": s.get("step", torch.zeros(())),
+            "exp_avg": s.get("exp_avg", torch.zeros_like(p)),
+            "exp_avg_sq": s.get("exp_avg_sq", torch.zeros_like(p))}
+    return {"params": params, "opt": state}
+
+
+def restore_checkpoint_tree(params, opt, tree):
+    """Load a `checkpoint_tree` into ``params`` (in place) and ``opt``'s
+    state, so the next step is the one the saved run took next."""
+    with torch.no_grad():
+        for name, p in params.items():
+            p.copy_(tree["params"][name])
+            opt.state[p] = {k: v.clone() for k, v in tree["opt"][name].items()}
 
 
 def linear_probe(emb, d, num_classes, steps=300, lr=1e-2):

@@ -24,6 +24,10 @@ partition of an (S, P / S) grid (`build_hier_halo_partition_planned`,
 ``--flat``: `build_hier_halo_partition`), and only rank 0 prints. On the card every aggregation runs the CSR SpMM kernel and its
 accumulating form; on the CPU their plain versions. Without ``--scale``
 the shard is the largest whose `estimate_hbm_gb` fits ``--hbm-gb``.
+``--ckpt DIR`` (gcn recipe) resumes from DIR's complete sharded
+checkpoint (`train.save_checkpoint_sharded`: the parameters and AdamW's
+state, a file a process) and saves one every ``--ckpt-every`` epochs and
+at the end, as the JAX twin does with Orbax.
 
     python -m gammagl_tpu_torch.examples.papers100m_trainer          # card
     python -m gammagl_tpu_torch.examples.papers100m_trainer \\
@@ -40,6 +44,7 @@ slice is not part of the twin; `parallel.scaling` models the card.
 import argparse
 import json
 import os
+import os.path as osp
 import time
 
 import numpy as np
@@ -58,7 +63,12 @@ from gammagl_tpu_torch.parallel import (auto_src_blocks,
                                         reorder_bandwidth, shard_nodes,
                                         sign_precompute, traffic_report,
                                         world)
+from gammagl_tpu_torch.examples.common import (checkpoint_tree,
+                                               restore_checkpoint_tree)
 from gammagl_tpu_torch.parallel.full_graph import jax_labels
+from gammagl_tpu_torch.train import (load_checkpoint_sharded,
+                                     save_checkpoint_sharded)
+from gammagl_tpu_torch.train.state import STEP_FILE
 from gammagl_tpu_torch.utils import (calc_gcn_norm_np, index_to_mask,
                                      resolve_device)
 
@@ -199,6 +209,11 @@ def parser():
                    help=">1: the two-level halo over a (slices, P / "
                         "slices) grid of the torch.distributed world's P "
                         "processes (parallel/hier_halo.py)")
+    p.add_argument("--ckpt", default=None,
+                   help="directory of a sharded checkpoint (gcn recipe): "
+                        "resume from it when it holds a complete one, save "
+                        "every --ckpt-every epochs and at the end")
+    p.add_argument("--ckpt-every", type=int, default=5)
     p.add_argument("--device", default="cuda",
                    help="cuda (default, the card) or cpu")
     return p
@@ -375,11 +390,16 @@ def prepare(args, data=None):
 def train(args, prep):
     """``args.epochs`` steps of the recipe on what `prepare` gave; prints
     each epoch and the JSON line, and returns a dict with ``losses``,
-    ``epoch_ms`` and the JSON line's fields."""
+    ``epoch_ms``, the JSON line's fields and (gcn) the final ``params``.
+    With ``args.ckpt`` the gcn recipe resumes from the directory's
+    complete sharded checkpoint (its step is the next epoch), saves one
+    every ``args.ckpt_every`` epochs and one at the end; ``losses`` are
+    the epochs this run took."""
     device, cdtype, part = prep["device"], prep["cdtype"], prep["part"]
     xs, ys, ms, vs = prep["xs"], prep["ys"], prep["ms"], prep["vs"]
     f, c, n, E = prep["f"], prep["c"], prep["n"], prep["edges"]
 
+    extra = {}
     if args.recipe == "sign":
         losses, times = _train_sign(args, part, xs, ys, ms, vs, c, cdtype,
                                     device)
@@ -396,12 +416,22 @@ def train(args, prep):
                     compute_dtype=cdtype, learning_rate=args.lr,
                     device=device)
         losses, times = [], []
-        for epoch in range(args.epochs):
+        start = 0
+        if args.ckpt and osp.exists(osp.join(args.ckpt, STEP_FILE)):
+            tree, start = load_checkpoint_sharded(
+                args.ckpt, checkpoint_tree(params, opt))
+            restore_checkpoint_tree(params, opt, tree)
+            _say(f"resumed from {args.ckpt} at epoch {start}", flush=True)
+        for epoch in range(start, args.epochs):
             t = time.perf_counter()
             params, opt, loss = step(params, opt, xs, ys, ms)
             loss = float(loss)  # waits for the step
             times.append(time.perf_counter() - t)
             losses.append(loss)
+            if args.ckpt and (epoch + 1) % args.ckpt_every == 0:
+                save_checkpoint_sharded(args.ckpt,
+                                        checkpoint_tree(params, opt),
+                                        step=epoch + 1)
             line = (f"epoch {epoch:3d}  loss {loss:.4f}  "
                     f"{times[-1] * 1e3:.1f} ms  "
                     f"({E / times[-1]:.3e} edges/s)")
@@ -409,9 +439,15 @@ def train(args, prep):
                 va = _val_acc(eval_logits(params, xs), ys, vs)
                 line += f"  val acc {va:.4f}"
             _say(line, flush=True)
+        if args.ckpt:
+            save_checkpoint_sharded(args.ckpt, checkpoint_tree(params, opt),
+                                    step=args.epochs)
+            _say(f"checkpoint saved to {args.ckpt}", flush=True)
+        extra = {"params": {k: v.detach() for k, v in params.items()}}
 
     steady = times[2:] or times
-    sustained = sorted(steady)[len(steady) // 2]
+    sustained = (sorted(steady)[len(steady) // 2] if steady
+                 else float("nan"))
     payload = {
         "metric": f"papers100m_{args.recipe}_epoch",
         "shard_nodes": int(n), "shard_edges": E,
@@ -426,7 +462,7 @@ def train(args, prep):
         "est_hbm_gb": float(prep["est"]), "device": prep["name"],
         "losses": losses}
     _say(json.dumps(payload), flush=True)
-    return {**payload, "epoch_ms": [t * 1e3 for t in times]}
+    return {**payload, "epoch_ms": [t * 1e3 for t in times], **extra}
 
 
 

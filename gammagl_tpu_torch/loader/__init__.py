@@ -3,10 +3,11 @@ gammagl/loader/).
 
 Ported: the graph DataLoader, the node, link and layered neighbour
 loaders over the C++ sampler, GraphSAINT, random walks, the typed-graph
-sampler, the epoch cache, the feature table on the card, prefetching
-onto it and RGT's structure loaders. Not yet: the multi-host loader
-(`multihost.py`) and `ShardedFeatureStore`, which shard over a device
-mesh.
+sampler, the epoch cache, the feature table on the card and its form cut
+into row blocks over a process group (`ShardedFeatureStore`), prefetching
+onto the card, RGT's structure loaders, and the multi-process input
+pipeline (`multihost.py`: seed shards, padded buckets, this process's
+block of a global batch).
 """
 
 from gammagl_tpu_torch.loader.dataloader import DataLoader, Collater
@@ -25,7 +26,12 @@ from gammagl_tpu_torch.loader.hetero_sampler import (HeteroNeighborSampler,
 from gammagl_tpu_torch.loader.prefetch import (PrefetchLoader,
                                                prefetch_to_device, pipeline)
 from gammagl_tpu_torch.loader.epoch_cache import EpochCache
-from gammagl_tpu_torch.loader.feature_cache import DeviceFeatureCache
+from gammagl_tpu_torch.loader.feature_cache import (DeviceFeatureCache,
+                                                    ShardedFeatureStore)
+from gammagl_tpu_torch.loader.multihost import (MultiHostNodeLoader,
+                                                make_global_batch,
+                                                pad_sampled_graph,
+                                                shard_seeds)
 from gammagl_tpu_torch.loader.rgt_loader import (ExtractLinkLoader,
                                                  ExtractNodeLoader,
                                                  build_structure_batch)
@@ -52,6 +58,11 @@ __all__ = [
     "pipeline",
     "EpochCache",
     "DeviceFeatureCache",
+    "ShardedFeatureStore",
+    "MultiHostNodeLoader",
+    "shard_seeds",
+    "make_global_batch",
+    "pad_sampled_graph",
     "ExtractNodeLoader",
     "ExtractLinkLoader",
     "build_structure_batch",

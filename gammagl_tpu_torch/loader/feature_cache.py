@@ -1,5 +1,6 @@
-"""A feature table on the card with a host fallback (counterpart of
-`gammagl_tpu/loader/feature_cache.py`'s `DeviceFeatureCache`).
+"""Feature tables on the card: one with a host fallback, and one cut
+into row blocks over a process group (counterpart of
+`gammagl_tpu/loader/feature_cache.py`).
 
 Reference: gammagl/gglspeedup/gpufeature.py. The degree-hottest rows of
 the feature matrix live on the card as one tensor within a byte budget
@@ -8,14 +9,22 @@ cached rows on the card and moves only the missing ones: an
 ``index_select`` on the host into a pinned buffer, one ``non_blocking``
 copy, and an ``index_copy_`` into the output. Hit and miss counts mirror
 the reference's budget tuning.
+
+`ShardedFeatureStore` is the multi-card form of the reference's IPC-shared
+caches (multifeat.py:10-113): each process of a group holds one
+contiguous block of rows, and a gather collects the rows asked for from
+their owners.
 """
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from gammagl_tpu_torch.data.feature_store import FeatureStore, TensorAttr
+from gammagl_tpu_torch.parallel.mesh import world
 from gammagl_tpu_torch.utils.device import resolve_device
 
-__all__ = ["DeviceFeatureCache"]
+__all__ = ["DeviceFeatureCache", "ShardedFeatureStore"]
 
 
 def _budget_rows(budget_bytes, row_bytes):
@@ -100,3 +109,81 @@ class DeviceFeatureCache:
     def hit_rate(self):
         total = self.hits + self.misses
         return self.hits / total if total else 0.0
+
+
+class ShardedFeatureStore(FeatureStore):
+    """Feature matrices cut into row blocks over a process group (None:
+    the default group, or this process alone), each process's block on
+    ``device`` (None: the card).
+
+    ``put_tensor`` pads the rows with zeros to a multiple of the group's
+    size and keeps this process's contiguous block (every process puts the
+    same matrix). ``get_tensor(index)`` is a collective: every process
+    passes the same index, as under SPMD, and gets the rows, gathered
+    from their owners bit for bit (``-0.0`` included). An index is
+    clipped into the padded rows, as the JAX store's ``take(...,
+    mode="clip")``: a negative one reads row 0, one past the end the last
+    padded row. No index gives the whole matrix (its real rows)."""
+
+    def __init__(self, group=None, device=None):
+        super().__init__()
+        self.rank, self.size, self.group = world(group)
+        self.device = resolve_device(device)
+        self._store = {}
+
+    def _key(self, attr):
+        return (attr.group_name or "", attr.attr_name or "x")
+
+    def _put_tensor(self, tensor, attr: TensorAttr) -> bool:
+        x = np.asarray(tensor)
+        pad = (-x.shape[0]) % self.size
+        if pad:   # one row count a block
+            x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+        per = x.shape[0] // self.size
+        blk = np.ascontiguousarray(x[self.rank * per:(self.rank + 1) * per])
+        self._store[self._key(attr)] = (torch.from_numpy(blk).to(
+            self.device), x.shape[0] - pad, per)
+        return True
+
+    def _gather(self, blk, per, idx):
+        """Rows ``idx`` (int64, in [0, size * per)) of the blocks: each
+        process sends the rows it owns, in the order asked, padded to the
+        largest share; the shares are placed by owner."""
+        if self.size == 1:
+            return blk[torch.from_numpy(idx).to(blk.device)]
+        owner = idx // per
+        counts = np.bincount(owner, minlength=self.size)
+        mine = np.nonzero(owner == self.rank)[0]
+        send = blk.new_zeros((int(counts.max()),) + tuple(blk.shape[1:]))
+        send[:len(mine)] = blk[torch.from_numpy(
+            idx[mine] - self.rank * per).to(blk.device)]
+        parts = [torch.empty_like(send) for _ in range(self.size)]
+        dist.all_gather(parts, send, group=self.group)
+        out = blk.new_empty((len(idx),) + tuple(blk.shape[1:]))
+        for r, part in enumerate(parts):
+            pos = np.nonzero(owner == r)[0]
+            out[torch.from_numpy(pos).to(blk.device)] = part[:len(pos)]
+        return out
+
+    def _get_tensor(self, attr: TensorAttr):
+        entry = self._store.get(self._key(attr))
+        if entry is None:
+            return None
+        blk, n, per = entry
+        total = per * self.size
+        if attr.index is None:
+            return self._gather(blk, per, np.arange(n, dtype=np.int64))
+        index = attr.index
+        if isinstance(index, torch.Tensor):
+            index = index.detach().cpu().numpy()
+        index = np.asarray(index)
+        idx = np.clip(index.reshape(-1).astype(np.int64), 0, total - 1)
+        out = self._gather(blk, per, idx)
+        return out.reshape(index.shape + tuple(blk.shape[1:]))
+
+    def _remove_tensor(self, attr: TensorAttr) -> bool:
+        return self._store.pop(self._key(attr), None) is not None
+
+    def get_all_tensor_attrs(self):
+        return [TensorAttr(group_name=g, attr_name=a)
+                for g, a in self._store]

@@ -1,12 +1,13 @@
 """Multi-device graph training, counterpart of `gammagl_tpu/parallel/`.
 
-The node orderings (RCM, label propagation, degree balance), the halo
-partitions and their SpMM tiers over ``torch.distributed`` (the flat tier
-and the planned tier, whose sums run the CSR SpMM kernels, each on P parts
-or on a two-level slice x dp grid), the partitioned GAT layer on the
-flash attention kernels, the full-graph GCN and GAT recipes on them, and
-the scaling model. One process owns one part; a partition of one part
-runs in one process with no group.
+The node orderings (RCM, label propagation, degree balance), the edge
+partitions and the edge-sharded SpMM, the feature-sharded, relation-expert
+and pipeline strategies, the halo partitions and their SpMM tiers over
+``torch.distributed`` (the flat tier and the planned tier, whose sums run
+the CSR SpMM kernels, each on P parts or on a two-level slice x dp grid),
+the partitioned GAT layer on the flash attention kernels, the full-graph
+GCN and GAT recipes on them, and the scaling model. One process owns one
+part; a partition of one part runs in one process with no group.
 """
 
 from gammagl_tpu_torch.parallel.full_graph import (  # noqa: F401
@@ -55,16 +56,36 @@ from gammagl_tpu_torch.parallel.mesh import (  # noqa: F401
     world,
 )
 from gammagl_tpu_torch.parallel.partition import (  # noqa: F401
+    EdgePartition,
     balance_permutation,
     cluster_permutation,
+    partition_edges_by_dst,
+    partition_edges_uniform,
 )
 from gammagl_tpu_torch.parallel.scaling import (  # noqa: F401
     HwModel,
     halo_scaling_estimate,
 )
+from gammagl_tpu_torch.parallel.spmm import (  # noqa: F401
+    make_sharded_spmm,
+    sharded_spmm,
+)
+from gammagl_tpu_torch.parallel.strategies import (  # noqa: F401
+    make_feature_sharded_spmm,
+    make_pipeline_apply,
+    make_relation_expert_spmm,
+    pipeline_apply,
+    relation_expert_spmm,
+    shard_expert_weights,
+    shard_pipeline_params,
+)
 
 __all__ = ["reorder_bandwidth", "cluster_permutation", "balance_permutation",
-           "world", "part_world", "HierGrid", "hier_world", "HaloPartition",
+           "EdgePartition", "partition_edges_by_dst",
+           "partition_edges_uniform", "sharded_spmm", "make_sharded_spmm",
+           "pipeline_apply", "make_pipeline_apply", "shard_pipeline_params",
+           "make_feature_sharded_spmm", "relation_expert_spmm",
+           "make_relation_expert_spmm", "shard_expert_weights", "world", "part_world", "HierGrid", "hier_world", "HaloPartition",
            "build_halo_partition", "make_halo_spmm", "HierHaloPartition",
            "build_hier_halo_partition", "make_hier_halo_spmm",
            "traffic_report", "PlannedHaloPartition", "auto_src_blocks",

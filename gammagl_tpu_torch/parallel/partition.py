@@ -1,12 +1,90 @@
 """Graph partitioning, counterpart of `gammagl_tpu/parallel/partition.py`:
-the community ordering of the block-pair route and the degree-balanced
-node relabeling of the halo partitions (host numpy, bit for bit the JAX
+the edge partitions of the sharded SpMM (`parallel/spmm.py`), the
+community ordering of the block-pair route and the degree-balanced node
+relabeling of the halo partitions (host numpy, bit for bit the JAX
 package's).
+
+Edge partitions:
+  * `partition_edges_by_dst`: part p owns the edges whose destination
+    falls in its row block of ceil(N / P) rows, so the parts' partial sums
+    cover disjoint rows;
+  * `partition_edges_uniform`: P runs of about E / P edges in the given
+    order, whatever their destinations; the partial sums overlap and are
+    summed over the group.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 
-__all__ = ["cluster_permutation", "balance_permutation"]
+__all__ = ["EdgePartition", "partition_edges_by_dst",
+           "partition_edges_uniform", "cluster_permutation",
+           "balance_permutation"]
+
+
+class EdgePartition(NamedTuple):
+    """Padded edge shards of P parts, stacked: shard p is
+    ``edge_index[p]`` with ``edge_weight[p]``. Every shard is padded to
+    one length, a multiple of 128, with edges ``src = dst = num_nodes``
+    and weight 0, which the sharded SpMM drops."""
+
+    edge_index: np.ndarray   # (P, 2, E_shard) int32, padded with num_nodes
+    edge_weight: np.ndarray  # (P, E_shard) float32, 0 at pads (1 if none)
+    row_start: np.ndarray    # (P,) first destination row owned (by dst)
+    num_parts: int
+    num_nodes: int
+
+
+def _pad_shards(shards, wshards, num_nodes, num_parts):
+    e_max = max(s.shape[1] for s in shards)
+    e_max = -(-e_max // 128) * 128  # the JAX package's shard length
+    ei = np.full((num_parts, 2, e_max), num_nodes, dtype=np.int32)
+    w = np.zeros((num_parts, e_max), dtype=np.float32)
+    for p, s in enumerate(shards):
+        ei[p, :, :s.shape[1]] = s
+        if wshards[p] is not None:
+            w[p, :s.shape[1]] = wshards[p]
+        else:
+            w[p, :s.shape[1]] = 1.0
+    return ei, w
+
+
+def partition_edges_by_dst(edge_index, num_nodes, num_parts,
+                           edge_weight=None):
+    """Edge cut by destination row blocks of ceil(N / P) rows (the last
+    part also takes any destination past the blocks)."""
+    ei = np.asarray(edge_index)
+    w = None if edge_weight is None else np.asarray(edge_weight)
+    rows_per = -(-num_nodes // num_parts)
+    owner = np.minimum(ei[1] // rows_per, num_parts - 1)
+    shards, wshards, starts = [], [], []
+    for p in range(num_parts):
+        mask = owner == p
+        shards.append(ei[:, mask])
+        wshards.append(None if w is None else w[mask])
+        starts.append(p * rows_per)
+    ei_p, w_p = _pad_shards(shards, wshards, num_nodes, num_parts)
+    return EdgePartition(ei_p, w_p, np.asarray(starts, np.int32),
+                         num_parts, num_nodes)
+
+
+def partition_edges_uniform(edge_index, num_nodes, num_parts,
+                            edge_weight=None):
+    """P shards of about E / P edges each, in the given edge order
+    (``linspace`` bounds); their destinations are arbitrary, so the
+    partial sums are summed over the group."""
+    ei = np.asarray(edge_index)
+    w = None if edge_weight is None else np.asarray(edge_weight)
+    E = ei.shape[1]
+    bounds = np.linspace(0, E, num_parts + 1).astype(np.int64)
+    shards, wshards = [], []
+    for p in range(num_parts):
+        sl = slice(bounds[p], bounds[p + 1])
+        shards.append(ei[:, sl])
+        wshards.append(None if w is None else w[sl])
+    ei_p, w_p = _pad_shards(shards, wshards, num_nodes, num_parts)
+    return EdgePartition(ei_p, w_p, np.zeros(num_parts, np.int32),
+                         num_parts, num_nodes)
 
 
 def cluster_permutation(edge_index, num_nodes, rounds=8):

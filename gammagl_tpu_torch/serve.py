@@ -24,6 +24,15 @@ set of shapes; reloading imports the ops and not the model's code:
     save_exported(ep, "gcn.pt2")          # ship this file
     logits = load_exported("gcn.pt2")(x, edge_index)
 
+`ShardedInferenceSession` serves from a process group: inputs given as
+row blocks (JAX's ``P("dp")``) are gathered, the model runs once, and
+each process returns its block of the output rows:
+
+    sess = ShardedInferenceSession(model, (x, edge_index),
+                                   in_specs=("dp", None), out_specs="dp",
+                                   plan=graph.csr_plan())
+    logits_blk = sess(x_blk, edge_index)   # this process's rows
+
 `MicroBatcher` batches concurrent single requests: a worker thread stacks
 what is queued, pads it to a bucket and calls a function of the batch,
 typically one of an `InferenceSession` a bucket:
@@ -49,11 +58,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gammagl_tpu_torch.utils.device import resolve_device
 
 __all__ = ["export_forward", "save_exported", "load_exported",
-           "InferenceSession", "MicroBatcher"]
+           "InferenceSession", "ShardedInferenceSession", "MicroBatcher"]
 
 
 def _as_tensor(a, device):
@@ -164,10 +174,13 @@ class InferenceSession:
         self.forward_kwargs = forward_kwargs
         self(*example_inputs)
 
-    def _place(self, a):
+    def _place_raw(self, a):
         if not isinstance(a, torch.Tensor):
             a = torch.tensor(np.asarray(a))
-        a = a.to(self.device)
+        return a.to(self.device)
+
+    def _place(self, a):
+        a = self._place_raw(a)
         if self.compute_dtype is not None and a.is_floating_point():
             a = a.to(self.compute_dtype)
         return a
@@ -175,6 +188,123 @@ class InferenceSession:
     def __call__(self, *inputs):
         with torch.inference_mode():
             return self.model(*(self._place(a) for a in inputs),
+                              **self.forward_kwargs)
+
+
+def _row_spec(spec):
+    """True for a spec that cuts rows over the group (an axis name such as
+    ``"dp"``, or a tuple whose first entry is one), False for a
+    replicated one (None or ``()``)."""
+    if spec is None or spec == ():
+        return False
+    if isinstance(spec, str):
+        return True
+    spec = tuple(spec)
+    if spec[0] is not None and all(s is None for s in spec[1:]):
+        return True
+    raise NotImplementedError(f"spec {spec!r}: only row blocks (an axis "
+                              "first) or replicated inputs are served")
+
+
+class ShardedInferenceSession(InferenceSession):
+    """Serving from a process group, counterpart of the JAX package's
+    pjit session over a mesh.
+
+    JAX hands any ``apply_fn`` to GSPMD, which partitions it; the port
+    cannot partition an arbitrary model, so the session computes the same
+    function at its surface (ROADMAP C59): an input whose spec cuts rows
+    (``"dp"``, JAX's ``P("dp")``) may be given as this process's block of
+    rows, which is gathered from the group (``all_gather``, rows by owner,
+    so every bit comes back), or whole; a replicated input (None, JAX's
+    ``P()``) is given whole. The model then runs once, as in
+    `InferenceSession`, on ``device`` (None: the card), with float inputs
+    cast to ``compute_dtype``, and each process returns the rows of the
+    output that ``out_specs`` gives it: None the whole output, a spec its
+    block; for a tuple output one spec for all, or a list of one spec an
+    output.
+
+    The block rule is JAX's for ``P("dp")``: rows in P contiguous blocks
+    of N / P, process r the r-th; an N that P does not divide raises
+    ValueError, as JAX's sharding does, at construction for the example
+    inputs and the output. Every process calls with the same forms (a
+    gather is a collective). ``example_inputs`` are whole. ``export()``
+    gives `export_forward`'s artifact of the forward (one device, the
+    whole inputs), and raises as it does on a kernel without an op."""
+
+    def __init__(self, model, example_inputs, in_specs, out_specs=None,
+                 group=None, device=None, compute_dtype=None,
+                 **forward_kwargs):
+        # here, not at import: `load_exported` in a fresh process imports
+        # this module, and the parallel package would pull in its tiers
+        from gammagl_tpu_torch.parallel.mesh import world
+        self.rank, self.size, self.group = world(group)
+        self._example = tuple(example_inputs)
+        in_specs = tuple(in_specs)
+        if len(in_specs) != len(self._example):
+            raise ValueError("in_specs must match example_inputs")
+        self._rows = tuple(_row_spec(s) for s in in_specs)
+        self._n = tuple(int(np.shape(a)[0]) if rows else None
+                        for a, rows in zip(self._example, self._rows))
+        for n in self._n:
+            self._check_rows(n)
+        self.out_specs = out_specs
+        super().__init__(model, self._example, device, compute_dtype,
+                         **forward_kwargs)
+
+    def _check_rows(self, n):
+        if n is not None and n % self.size:
+            raise ValueError(f"{n} rows cannot be cut into {self.size} "
+                             "equal row blocks (JAX's P('dp') needs the "
+                             "dimension divisible by the axis size)")
+
+    def _block(self, a):
+        b = a.shape[0] // self.size
+        return a[self.rank * b:(self.rank + 1) * b]
+
+    def _whole(self, a, n):
+        """Input ``a`` whole: as given, or gathered from its row blocks."""
+        if a.shape[0] == n:
+            return a
+        if a.shape[0] * self.size != n:
+            raise ValueError(f"an input of {a.shape[0]} rows is neither the "
+                             f"whole ({n}) nor this process's block "
+                             f"({n // self.size})")
+        parts = [torch.empty_like(a) for _ in range(self.size)]
+        dist.all_gather(parts, a.contiguous(), group=self.group)
+        return torch.cat(parts)
+
+    def _cut(self, out, spec):
+        if not _row_spec(spec):
+            return out
+        self._check_rows(out.shape[0])
+        return self._block(out).clone()
+
+    def device_put(self, *inputs):
+        """This process's share of the inputs on the device: its block of
+        each row-cut input (given whole or as the block), each replicated
+        input whole (no cast)."""
+        out = []
+        for a, rows, n in zip(inputs, self._rows, self._n):
+            a = self._place_raw(a)
+            out.append(self._block(a) if rows and a.shape[0] == n else a)
+        return tuple(out)
+
+    def __call__(self, *inputs):
+        whole = tuple(self._whole(self._place_raw(a), n) if rows
+                      else a for a, rows, n in zip(inputs, self._rows,
+                                                   self._n))
+        out = super().__call__(*whole)
+        spec = self.out_specs
+        if isinstance(out, (tuple, list)):
+            specs = spec if isinstance(spec, list) else [spec] * len(out)
+            return type(out)(self._cut(o, s) for o, s in zip(out, specs))
+        return self._cut(out, spec)
+
+    def export(self):
+        """`export_forward` of the model's forward on the whole example
+        inputs, on this session's device and compute dtype."""
+        return export_forward(self.model, self._example, device=self.device,
+                              compute_dtype=self.compute_dtype,
                               **self.forward_kwargs)
 
 

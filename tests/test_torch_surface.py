@@ -76,7 +76,36 @@ _INTERPRET = ("Pallas interpret mode; a CPU tensor takes the kernels' "
               "plain versions")
 _PACKED = ("the packed bf16 gather of the halo tiers: the CSR kernels "
            "read bf16 rows 16 bytes at a time, in every width")
+_GROUP = ("one process a part over torch.distributed: a process `group` "
+          "(None: the default group) in place of a device mesh and its "
+          "named axis")
+_SPEC = ("a process's view of a global array is its own block: no "
+         "sharding spec to place it by")
 COVERED_OPTIONS = {
+    "parallel/spmm.py": {
+        "mesh": ("parallel/spmm.py", _GROUP),
+        "axis": ("parallel/spmm.py", _GROUP),
+    },
+    "parallel/strategies.py": {
+        "mesh": ("parallel/strategies.py", _GROUP),
+        "axis": ("parallel/strategies.py", _GROUP),
+    },
+    "loader/multihost.py": {
+        "mesh": ("loader/multihost.py", _GROUP),
+        "axis": ("loader/multihost.py", _GROUP),
+        "spec": ("loader/multihost.py", _SPEC),
+    },
+    "loader/feature_cache.py": {
+        "mesh": ("loader/feature_cache.py", _GROUP),
+        "axis": ("loader/feature_cache.py", _GROUP),
+    },
+    "serve.py": {
+        "mesh": ("serve.py", _GROUP),
+        "param_spec": ("serve.py", "each process holds the whole model: "
+                       "parameters are replicated, never cut"),
+        "platforms": ("serve.py", "an artifact is traced for one device "
+                      "(export_forward, C53)"),
+    },
     "parallel/halo_plan.py": {
         "as_args": ("parallel/halo_plan.py", _JIT),
         "interpret": ("parallel/halo_plan.py", _INTERPRET),
@@ -90,42 +119,9 @@ COVERED_OPTIONS = {
     },
 }
 
-MISSING_NAMES = {
-    "loader/__init__.py": [
-        "ShardedFeatureStore", "MultiHostNodeLoader", "shard_seeds",
-        "make_global_batch", "pad_sampled_graph",
-    ],
-    "loader/feature_cache.py": [
-        "ShardedFeatureStore",
-    ],
-    "parallel/__init__.py": [
-        "EdgePartition", "partition_edges_by_dst",
-        "partition_edges_uniform", "sharded_spmm", "make_sharded_spmm",
-        "pipeline_apply", "make_feature_sharded_spmm",
-        "relation_expert_spmm", "make_relation_expert_spmm",
-        "shard_expert_weights", "make_pipeline_apply",
-        "shard_pipeline_params",
-    ],
-    "parallel/partition.py": [
-        "EdgePartition", "partition_edges_by_dst",
-        "partition_edges_uniform",
-    ],
-    "serve.py": [
-        "ShardedInferenceSession",
-    ],
-    "train/__init__.py": [
-        "save_checkpoint_sharded", "load_checkpoint_sharded",
-    ],
-    "train/state.py": [
-        "save_checkpoint_sharded", "load_checkpoint_sharded",
-    ],
-}
+MISSING_NAMES = {}
 
-MISSING_MODULES = [
-    "loader/multihost.py",
-    "parallel/spmm.py",
-    "parallel/strategies.py",
-]
+MISSING_MODULES = []
 
 
 def _modules(root):
