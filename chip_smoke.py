@@ -406,7 +406,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ranks; the hetero_rgcn twin's `--ep 4` for 5 steps with a sharded
    checkpoint after step 3 and a resume repeating steps 4-5 bitwise, its
    losses within 1e-4 of (a)'s; every launch count exact.
-42. Print the card's name and power limit, one JSON line on the kernels
+42. Every kernel of rows 5-15 as a `torch.library` op. (a) GAT,
+   FusedGATModel, GATv2, GraphSAGE with aggr="max", HAN, HGT, SimpleHGN
+   and GCN on the block-pair and the hybrid plan, each at its earlier
+   phase's widths on the same graph, served live (`InferenceSession`,
+   the launches a request exact), exported on the card with
+   `serve.export_forward` and saved; one fresh process that imports only
+   `gammagl_tpu_torch.serve` loads every artifact and runs the same
+   requests: logits bitwise the live session's, the launches a request
+   the live path's; its load time split into the imports,
+   `torch.export.load`, `.module()`, `load_exported`, the inputs' copy
+   and the first call. (b) `torch.library.opcheck` of each op at one
+   small hub-row case on the card. (c) The GAT request and step, the
+   GraphSAGE-max step and the HGT step through the ops and through their
+   CUDA implementations called directly, in turns, 20 calls each on
+   CUDA events; one `spmm_max_csr` call's host cost on a 64-node graph
+   through both routes (2,000 calls each, host clock).
+43. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -420,6 +436,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 It needs a CUDA card and the repository beside it; it imports no JAX.
 """
 
+import contextlib
 import copy
 import hashlib
 import inspect
@@ -6892,30 +6909,14 @@ def _digest(t):
 
 def gcn_request_routes(sess, xr, ei):
     """One GCN request timed through the op (``gammagl::spmm_csr``) and
-    through the route without it (`_forward` launching the kernel
-    directly), in turns op, direct, direct, op, 20
-    requests each on CUDA events; the two outputs bitwise equal."""
-    import gammagl_tpu_torch.ops.cuda.segment_matmul as sm
-    with_op = sm._forward
-
-    def direct(x, w, plan, per_edge=False):
-        return sm._launch(x, w, plan, per_edge)
-
-    ms, outs = {"op": [], "direct": []}, {}
-    try:
-        for route in ("op", "direct", "direct", "op"):
-            sm._forward = with_op if route == "op" else direct
-            outs[route] = sess(xr, ei)
-            ms[route].append(cuda_ms(lambda: sess(xr, ei), iters=20,
-                                     warmup=3))
-    finally:
-        sm._forward = with_op
-    if not torch.equal(outs["op"], outs["direct"]):
+    through its CUDA implementation called directly (`op_routes`); the
+    two outputs bitwise equal."""
+    with direct_launches():
+        direct = sess(xr, ei)
+    if not torch.equal(sess(xr, ei), direct):
         fail("the GCN request differs through the op and without it")
-    print(f"  GCN request through gammagl::spmm_csr {ms['op']} ms, through "
-          f"the direct launch {ms['direct']} ms (CUDA events, 20 requests; "
-          "bitwise equal)")
-    return ms
+    return op_routes("GCN request (bitwise equal on both routes)",
+                     lambda: sess(xr, ei))
 
 
 def export_path(k, GCNModel, InferenceSession, load_jax_params, plan, x, ei):
@@ -8252,6 +8253,476 @@ def phase_slice24(k, simplehgn_trainer, hg, graph, x, ei, smi):
     return runs, out
 
 
+# -- phase 42: every kernel of rows 5-15 as a torch.library op
+
+# the fresh process of phase 42 (a): it imports only `serve`, then for each
+# artifact of a directory times `torch.export.load`, `.module()` and
+# `load_exported`, moves the model's inputs to the card, times the first
+# call, and runs the requests, each input's float leaves + r * 1e-3, as
+# the parent ran them (argv: the directory, the request count, the names)
+OPS_CHILD = r"""
+import hashlib, json, sys, time
+t0 = time.perf_counter()
+import torch
+torch_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+from gammagl_tpu_torch.serve import load_exported
+import_s = time.perf_counter() - t0
+k = sys.modules["gammagl_tpu_torch.ops.cuda"]
+d, n_req, names = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+counted = json.load(open(d + "/counted.json"))
+files = json.load(open(d + "/inputs.json"))
+
+
+def tree(fn, a):
+    if isinstance(a, dict):
+        return {key: tree(fn, v) for key, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(tree(fn, v) for v in a)
+    return fn(a)
+
+
+def counts():
+    return {group: sum(getattr(k, fn).launches for fn in fns)
+            for group, fns in counted.items()}
+
+
+out = {"torch_import_s": torch_s, "serve_import_s": import_s, "models": {}}
+for name in names:
+    path = d + "/" + name + ".pt2"
+    before = set(sys.modules)
+    t0 = time.perf_counter()
+    ep = torch.export.load(path)
+    t1 = time.perf_counter()
+    if "first_load_imports" not in out:  # what the first load imported
+        groups = {}
+        for m in set(sys.modules) - before:
+            parts = m.split(".")
+            key = ".".join(parts[:2] if parts[0] == "torch" else parts[:1])
+            groups[key] = groups.get(key, 0) + 1
+        out["first_load_imports"] = dict(sorted(
+            groups.items(), key=lambda kv: -kv[1])[:10])
+    ep.module()
+    t2 = time.perf_counter()
+    prog = load_exported(path)
+    t3 = time.perf_counter()
+    inputs = tree(lambda a: a.cuda(), torch.load(d + "/" + files[name]))
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    with torch.no_grad():
+        prog(*inputs)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        digests, launches = [], []
+        for r in range(n_req):
+            xr = tree(lambda a: a + r * 1e-3 if a.is_floating_point()
+                      else a, inputs)
+            torch.cuda.synchronize()
+            before = counts()
+            res = prog(*xr)
+            torch.cuda.synchronize()
+            after = counts()
+            launches.append({n: after[n] - before[n] for n in counted
+                             if after[n] != before[n]})
+            digests.append(hashlib.sha256(res.contiguous().view(
+                torch.uint8).cpu().numpy().tobytes()).hexdigest())
+    out["models"][name] = {
+        "export_load_s": t1 - t0, "module_s": t2 - t1,
+        "load_exported_s": t3 - t2, "inputs_to_card_s": t4 - t3,
+        "first_call_s": t5 - t4, "digests": digests, "launches": launches}
+out["imported"] = [m for m in sys.modules if m == "gammagl_tpu" or
+                   m.startswith(("gammagl_tpu.", "gammagl_tpu_torch.models",
+                                 "gammagl_tpu_torch.layers", "jax"))]
+print(json.dumps(out))
+"""
+
+
+def _tree(fn, a):
+    if isinstance(a, dict):
+        return {key: _tree(fn, v) for key, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_tree(fn, v) for v in a)
+    return fn(a)
+
+
+def _request(inputs, r):
+    """Request r of an export path: each float leaf + r * 1e-3 (the fresh
+    process makes the same requests from the same inputs)."""
+    return _tree(lambda a: a + r * 1e-3 if a.is_floating_point() else a,
+                 inputs)
+
+
+def export_paths(k, models, common, simplehgn_trainer, HeteroGraph,
+                 load_jax_params, plan, x, ei, hg, hgt_plans, x_dict,
+                 ei_dict, bp_plan, bx, bei, clustered, hy_plan):
+    """The models of phase 42 (a) at their earlier phases' widths, on the
+    same graphs: {name: (model, inputs, forward keywords, the session's
+    compute dtype, the process default compute dtype, launches a
+    request)}."""
+    from gammagl_tpu_torch.models import FusedGATModel
+    dev = x.device
+    H = SHGN_HEADS
+    han_hg = han_graph(HeteroGraph)
+    han_x, han_ei, _, _, _ = common.hetero_tensors(han_hg, "paper", dev)
+    tg, typed_plan = flat_typed_graph(k, simplehgn_trainer, hg, dev)
+    torch.manual_seed(SEED + 31)
+    shgn = models.SimpleHGNModel(tg["R"], SHGN_HIDDEN, HGT_CLASSES,
+                                 heads=SHGN_HEADS, drop_rate=SHGN_DROP,
+                                 in_channels=HGT_FEAT)
+    sage = models.GraphSAGEModel(
+        hidden_dim=HIDDEN, num_class=N_CLASS, num_layers=N_LAYERS,
+        aggr="max", drop_rate=SAGE_DROP, dtype=torch.bfloat16,
+        in_channels=N_FEAT)
+    cx = torch.from_numpy(clustered.x).to(dev)
+    cei = torch.from_numpy(clustered.edge_index).to(dev)
+    bf = torch.bfloat16
+    return {
+        "gat": (gat_model(models.GATModel, load_jax_params), (x, ei),
+                {"plan": plan}, bf, None, {"flash_forward": 2}),
+        "fused_gat": (fused_gat_model(load_jax_params), (x, ei),
+                      {"plan": FusedGATModel.to_graph_format(
+                          ei.cpu().numpy(), N_NODES)}, bf, bf,
+                      {"flash_forward": 2}),
+        "gatv2": (gatv2_model(models.GATV2Model, load_jax_params), (x, ei),
+                  {"plan": plan}, bf, bf,
+                  {"expand_dst_csr": 2, "flash_forward": 2}),
+        "sage_max": (load_jax_params(sage, sage_params()), (x, ei),
+                     {"plan": plan}, bf, None, {"spmm_max_csr": N_LAYERS}),
+        "han": (han_model(models.HANModel, han_hg), (han_x, han_ei),
+                {"plan_dict": han_hg.csr_plans()}, None, bf,
+                {"flash_forward": 2}),
+        "hgt": (hgt_model(models.HGTModel, hg), (x_dict, ei_dict),
+                {"plan_dict": hgt_plans}, None, None, {"hgt_forward": 6}),
+        "simplehgn": (shgn, (tg["x"], tg["ei"], tg["fkw"]["edge_type"]),
+                      {"plan": typed_plan}, None, None,
+                      {"expand_dst_csr": 6, "segment_sum_csr": 2,
+                       "spmm_max_csr": 2, "spmm_csr": 2 * H}),
+        "gcn_block_pair": (gcn_model(models.GCNModel, load_jax_params),
+                           (bx, bei), {"plan": bp_plan}, bf, None,
+                           {"spmm_block_pair": N_LAYERS}),
+        "gcn_hybrid": (gcn_model(models.GCNModel, load_jax_params),
+                       (cx, cei), {"plan": hy_plan}, bf, None,
+                       {"spmm_block_pair": N_LAYERS, "spmm_csr": N_LAYERS}),
+    }
+
+
+def exports_from_a_file(k, paths, smi):
+    """(a) Each path served live (`InferenceSession`, N_REQUESTS requests,
+    the launches a request exact), exported on the card, saved; then one
+    fresh process that imports only `serve` loads every artifact and runs
+    the same requests: logits bitwise the live session's, the launches a
+    request the live path's. The fresh process's load time split into
+    the imports, `torch.export.load`, `.module()`, `load_exported`, the
+    inputs' copy to the card and the first call."""
+    import tempfile
+    from gammagl_tpu_torch.serve import (InferenceSession, export_forward,
+                                         save_exported)
+    from gammagl_tpu_torch.utils import compute_dtype
+    live, out, files, saved = {}, {"models": {}}, {}, {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "counted.json"), "w") as f:
+            json.dump({group: [fn.__name__ for fn in fns]
+                       for group, fns in counters(k).items()}, f)
+        for name, (model, inputs, kw, cdt, default, per_request) in \
+                paths.items():
+            with compute_dtype(default):
+                sess = InferenceSession(model, inputs, device="cuda",
+                                        compute_dtype=cdt, **kw)
+                sync()
+                reset_counts(k)
+                digests = []
+                for r in range(N_REQUESTS):
+                    digests.append(_digest(sess(*_request(inputs, r))))
+                sync()
+                counts = read_counts(k)
+                if counts != every_kernel(per_request, N_REQUESTS):
+                    fail(f"{name} live session launches {counts}")
+                t0 = time.perf_counter()
+                ep = export_forward(model, inputs, device="cuda",
+                                    compute_dtype=cdt, **kw)
+                export_s = time.perf_counter() - t0
+            ops = sorted({str(n.target) for n in ep.graph.nodes
+                          if str(n.target).startswith("gammagl.")})
+            path = os.path.join(tmp, f"{name}.pt2")
+            save_exported(ep, path)
+            # the inputs as the session is given them, each set saved once
+            # (the program casts them as the session does)
+            if id(inputs[0]) not in saved:
+                saved[id(inputs[0])] = f"{name}.in.pt"
+                torch.save(_tree(lambda a: a.cpu(), inputs),
+                           os.path.join(tmp, saved[id(inputs[0])]))
+            files[name] = saved[id(inputs[0])]
+            live[name] = (digests, counts)
+            out["models"][name] = {"export_s": export_s, "ops": ops,
+                                   "artifact_bytes": os.path.getsize(path)}
+            del ep, sess
+        with open(os.path.join(tmp, "inputs.json"), "w") as f:
+            json.dump(files, f)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", OPS_CHILD, tmp, str(N_REQUESTS),
+             *paths], capture_output=True, text=True, timeout=600,
+            cwd=root, env=dict(os.environ, PYTHONPATH=root))
+        out["child_s"] = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"phase 42's fresh process failed:\n{res.stderr[-3000:]}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    if child["imported"]:
+        fail(f"loading the artifacts imported {child['imported']}")
+    loaded = every_kernel({})
+    for name, (digests, counts) in live.items():
+        got = child["models"][name]
+        per = {kn: n // N_REQUESTS for kn, n in counts.items() if n}
+        if got["digests"] != digests:
+            fail(f"{name}: the loaded program's logits differ from the live "
+                 "session's")
+        if any(c != per for c in got["launches"]):
+            fail(f"{name}: the loaded program launched {got['launches']}, "
+                 f"the live path {per} a request")
+        for kn, n in per.items():
+            loaded[kn] += n * N_REQUESTS
+        row = out["models"][name]
+        row.update({key: got[key] for key in (
+            "export_load_s", "module_s", "load_exported_s",
+            "inputs_to_card_s", "first_call_s")})
+        print(f"  {name}: {row['ops']}, {row['artifact_bytes']} bytes; "
+              f"export {row['export_s']:.2f} s; fresh process: "
+              f"torch.export.load {row['export_load_s']:.3f} s, .module() "
+              f"{row['module_s']:.3f} s, load_exported "
+              f"{row['load_exported_s']:.3f} s, inputs to the card "
+              f"{row['inputs_to_card_s']:.3f} s, first call "
+              f"{row['first_call_s']:.3f} s; {N_REQUESTS} requests bitwise "
+              f"the live session's, {per} each")
+    out.update(torch_import_s=child["torch_import_s"],
+               serve_import_s=child["serve_import_s"],
+               first_load_imports=child["first_load_imports"])
+    print(f"  ({smi}) fresh process {out['child_s']:.1f} s in all: import "
+          f"torch {child['torch_import_s']:.2f} s, serve "
+          f"{child['serve_import_s']:.2f} s; the first torch.export.load "
+          f"imported {child['first_load_imports']} (modules by package)")
+    live_counts = every_kernel({})
+    for _, counts in live.values():
+        for kn, n in counts.items():
+            live_counts[kn] += n
+    return live_counts, loaded, out
+
+
+def _card_op_cases(k):
+    """(b) One small hub-row case of each op of rows 5-15 on the card:
+    {op name: its arguments}, bf16 rows."""
+    from gammagl_tpu_torch.ops.cuda.flash_attention import _plan_args
+    from gammagl_tpu_torch.ops.cuda.sddmm_csr import _edge_items
+    from gammagl_tpu_torch.ops.cuda.segment_matmul import _op_args
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 42)
+    n, e, hub = 300, 3000, k.ROW_SPLIT + 77
+    dst = np.concatenate([rng.integers(0, n - 20, e), np.zeros(hub, int)])
+    plan = k.build_csr_plan(rng.integers(0, n, e + hub), dst, n)
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    E, f32 = plan.num_edges, torch.float32
+    w = torch.rand(E, generator=g, device=dev)
+    keep = (torch.rand(E, 2, generator=g, device=dev) < 0.7).float()
+    x_max = torch.randint(-3, 4, (n, 16), generator=g, device=dev).to(
+        torch.bfloat16)
+    w_max = torch.randint(1, 3, (E,), generator=g, device=dev).float()
+    score, a_dst, msg = rand(n, 2, dtype=f32), rand(n, 2, dtype=f32), rand(
+        n, 16)
+    out, m, l = k.flash_forward(score, a_dst, msg, keep, plan, 0.2, True)
+    kv, q = rand(n, 64), rand(n, 2, 16)
+    h_out, h_m, h_l = k.hgt_forward(kv, q, plan)
+    rowptr, col, perm = plan.arrays(dev)
+    bdst = rng.integers(0, n, 4000)
+    bsrc = np.clip(bdst + rng.integers(-40, 41, 4000), 0, n - 1)
+    bp = k.build_block_pair_plan(bsrc, bdst, n, R=64, S=64)
+    row, bcol, w_perm, block_ptr, pair_src, row_ptr, _ = bp.arrays(dev)
+    prev = rand(n, 16)
+    return {
+        "spmm_csr_acc": (rand(n, 16), w, prev, *_op_args(plan, dev)),
+        "spmm_csr_acc_out": (rand(n, 16), w, prev, torch.empty_like(prev),
+                             *_op_args(plan, dev)),
+        "sddmm_csr": (rand(n, 16), rand(n, 16), *_edge_items(plan, dev), 2,
+                      True),
+        "expand_dst_csr": (rand(n, 16), torch.rand(E, 2, generator=g,
+                                                   device=dev),
+                           *_edge_items(plan, dev)),
+        "flash_forward": (score, a_dst, msg, keep, *_plan_args(plan, dev),
+                          0.2, True),
+        "flash_backward": (score, a_dst, msg, keep, m, l, out, rand(n, 16),
+                           rowptr, col, perm, 0.2, True),
+        "segment_extreme": (x_max, w_max, *_op_args(plan, dev), False,
+                            False),
+        "segment_max_bwd": (x_max, w_max, k.spmm_max_csr(
+            x_max, w_max, plan, weights_padded=True), rand(n, 16),
+            *_op_args(plan, dev), False, True),
+        "hgt_forward": (kv, q, rowptr, col),
+        "hgt_backward": (kv, q, h_out, rand(n, 32), h_m, h_l, rowptr, col),
+        "spmm_block_pair": (rand(n, 16), torch.rand(
+            bp.num_edges, generator=g, device=dev), w_perm, row, bcol,
+            block_ptr, pair_src, row_ptr, bp.num_nodes, bp.num_src, bp.R,
+            bp.S),
+        "block_pair_dw": (rand(n, 16), rand(n, 16), row, bcol, w_perm,
+                          bp.num_edges),
+    }
+
+
+def ops_opcheck(k):
+    """(b) ``torch.library.opcheck`` of every op of rows 5-15 on the
+    card; returns {op: seconds}."""
+    out = {}
+    for name, args in _card_op_cases(k).items():
+        t0 = time.perf_counter()
+        torch.library.opcheck(getattr(torch.ops.gammagl, name).default,
+                              args)
+        sync()
+        out[name] = time.perf_counter() - t0
+    print(f"  opcheck on the card: {', '.join(out)} pass "
+          f"({sum(out.values()):.1f} s)")
+    return out
+
+
+def _direct_impls():
+    """Each op's CUDA implementation, called without the dispatcher: the
+    route of the launches before they were ops."""
+    import importlib
+
+    # the modules by name: the package exports functions of the same names
+    bpm, fa, hf, sd, sm, mx = (importlib.import_module(
+        f"gammagl_tpu_torch.ops.cuda.{name}") for name in (
+            "block_pair", "flash_attention", "hetero_flash", "sddmm_csr",
+            "segment_matmul", "segment_max"))
+    return {"spmm_csr": sm._spmm_csr_cuda,
+            "spmm_csr_acc": sm._spmm_csr_acc_cuda,
+            "spmm_csr_acc_out": sm._spmm_csr_acc_out_cuda,
+            "expand_dst_csr": sd._expand_cuda, "sddmm_csr": sd._sddmm_cuda,
+            "flash_forward": fa._flash_forward_cuda,
+            "flash_backward": fa._flash_backward_cuda,
+            "segment_extreme": mx._extreme_cuda,
+            "segment_max_bwd": mx._segment_max_bwd_cuda,
+            "hgt_forward": hf._hgt_forward_cuda,
+            "hgt_backward": hf._hgt_backward_cuda,
+            "spmm_block_pair": bpm._spmm_block_pair_cuda,
+            "block_pair_dw": bpm._block_pair_dw_cuda}
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """Within the block each ``torch.ops.gammagl`` entry is its op's CUDA
+    implementation, called without the dispatcher: the route of the
+    launches before they were ops."""
+    ns = torch.ops.gammagl
+    impls = _direct_impls()
+    packets = {name: getattr(ns, name) for name in impls}
+    for name, impl in impls.items():
+        setattr(ns, name, impl)
+    try:
+        yield
+    finally:
+        for name, packet in packets.items():
+            setattr(ns, name, packet)
+
+
+def op_routes(label, fn):
+    """``fn`` timed through the ops and through `direct_launches`, in
+    turns op, direct, direct, op, 20 calls each on CUDA events; returns
+    {route: [ms, ms]}."""
+    ms = {"op": [], "direct": []}
+    for route in ("op", "direct", "direct", "op"):
+        with (direct_launches() if route == "direct"
+              else contextlib.nullcontext()):
+            ms[route].append(cuda_ms(fn, iters=20, warmup=3))
+    print(f"  {label}: through the ops {ms['op']} ms, direct "
+          f"{ms['direct']} ms (20 calls each, CUDA events)")
+    return ms
+
+
+def dispatch_us(k, calls=2000):
+    """The host's cost of one op call: `spmm_max_csr` on a 64-node graph
+    (its kernel takes a few microseconds), ``calls`` calls on the host
+    clock, synchronized at the end, in turns op, direct, direct, op;
+    returns {route: [us a call, us a call]}."""
+    rng = np.random.default_rng(SEED + 43)
+    tiny = k.build_csr_plan(rng.integers(0, 64, 256), rng.integers(0, 64, 256),
+                            64)
+    xt = torch.randn(64, 8, device="cuda")
+    us = {"op": [], "direct": []}
+    with torch.no_grad():
+        for route in ("op", "direct", "direct", "op"):
+            with (direct_launches() if route == "direct"
+                  else contextlib.nullcontext()):
+                for _ in range(50):
+                    k.spmm_max_csr(xt, None, tiny)
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    k.spmm_max_csr(xt, None, tiny)
+                sync()
+                us[route].append((time.perf_counter() - t0) / calls * 1e6)
+    print(f"  one spmm_max_csr call on the host: through the op {us['op']} "
+          f"us, direct {us['direct']} us ({calls} calls each)")
+    return us
+
+
+def eager_routes(k, models, common, load_jax_params, plan, x, ei, hg,
+                 hgt_plans, x_dict, ei_dict):
+    """(c) The GAT request and step, the GraphSAGE-max step and the HGT
+    step through the ops and without them (`op_routes`), and one op
+    call's host cost (`dispatch_us`)."""
+    from gammagl_tpu_torch.serve import InferenceSession
+    from gammagl_tpu_torch.train import TrainState
+    y, mask = train_labels(x)
+    sess = InferenceSession(gat_model(models.GATModel, load_jax_params),
+                            (x, ei), device="cuda",
+                            compute_dtype=torch.bfloat16, plan=plan)
+    out = {"gat_request": op_routes("GAT request", lambda: sess(x, ei))}
+    gat = TrainState(gat_model(models.GATModel, load_jax_params).to(x.device),
+                     GAT_LR, 0.0)
+    gen = dropout_rng(gat.model, SEED + 420)
+    out["gat_step"] = op_routes("GAT step", lambda: common.train_step(
+        gat, x, ei, y, mask, plan=plan, **gen))
+    sage = models.GraphSAGEModel(
+        hidden_dim=HIDDEN, num_class=N_CLASS, num_layers=N_LAYERS,
+        aggr="max", drop_rate=SAGE_DROP, dtype=torch.bfloat16,
+        in_channels=N_FEAT)
+    sage = TrainState(load_jax_params(sage, sage_params()).to(x.device),
+                      SAGE_LR, 0.0)
+    gen = dropout_rng(sage.model, SEED + 421)
+    out["sage_max_step"] = op_routes("GraphSAGE-max step", lambda: (
+        common.train_step(sage, x, ei, y, mask, plan=plan, **gen)))
+    hgt = TrainState(hgt_model(models.HGTModel, hg).to(x.device), HGT_LR,
+                     0.0)
+    hy = torch.from_numpy(np.asarray(hg["paper"].y)).to(x.device)
+    hmask = torch.from_numpy(np.asarray(hg["paper"].train_mask)).to(x.device)
+    gen = dropout_rng(hgt.model, SEED + 422)
+    out["hgt_step"] = op_routes("HGT step", lambda: common.train_step(
+        hgt, x_dict, ei_dict, hy, hmask, plan_dict=hgt_plans, **gen))
+    out["dispatch_us"] = dispatch_us(k)
+    return out
+
+
+def phase_slice25(k, smi, **graphs):
+    """Phase 42: (a) `exports_from_a_file`, (b) `ops_opcheck`, (c)
+    `eager_routes`."""
+    phase_start("phase 42: the models of rows 5-15 exported and run from a "
+                "file, opcheck of their ops on the card, eager times "
+                "through the ops")
+    t_phase = time.perf_counter()
+    live, loaded, exports = exports_from_a_file(k, export_paths(
+        k, **graphs), smi)
+    torch.cuda.empty_cache()
+    opcheck_s = ops_opcheck(k)
+    routes = eager_routes(k, **{key: graphs[key] for key in (
+        "models", "common", "load_jax_params", "plan", "x", "ei", "hg",
+        "hgt_plans", "x_dict", "ei_dict")})
+    out = {"exports": exports, "opcheck_s": opcheck_s, "routes_ms": routes,
+           "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) phase 42 in {out['seconds']:.1f} s")
+    return live, loaded, out
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -8433,6 +8904,12 @@ def main():
         k, shard, tier_calls, papers_losses, x, ei, smi.splitlines()[0])
     p41_runs, p41 = phase_slice24(k, simplehgn_trainer, hg, graph, x, ei,
                                   smi.splitlines()[0])
+    x42_live, x42_loaded, s25 = phase_slice25(
+        k, smi.splitlines()[0], models=models, common=common,
+        simplehgn_trainer=simplehgn_trainer, HeteroGraph=HeteroGraph,
+        load_jax_params=load_jax_params, plan=plan, x=x, ei=ei, hg=hg, hgt_plans=hgt_plans, x_dict=x_dict, ei_dict=ei_dict,
+        bp_plan=bp_plan, bx=bx, bei=bei, clustered=clustered,
+        hy_plan=hy_plan)
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -8469,6 +8946,7 @@ def main():
     runs["hier-t"], runs["hier-s"] = hier_t, hier_s
     runs["pgat"], runs["pgat-t"] = pgat, pgat_t
     runs.update(p41_runs)
+    runs["ops-x-live"], runs["ops-x-loaded"] = x42_live, x42_loaded
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -8619,7 +9097,8 @@ def main():
         "sampled": {key: value for key, value in sampled.items()
                     if key != "counts"},
         "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21,
-        "slice22": s22, "partitioned": parted, "slice24": p41}))
+        "slice22": s22, "partitioned": parted, "slice24": p41,
+        "slice25": s25, "whole_run_s": t_end - t_start}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,9 @@ gradient of ``x`` is the same kernel on the plan's transpose
 (`block_pair_dw`, counted in ``block_pair_dw.launches``), which writes each
 edge's ``<g[dst_e], x[src_e]>`` to its slot in the caller's order. Weights
 are read through the plan's ``w_perm`` inside the kernel: no gather or
-scatter of them runs outside it.
+scatter of them runs outside it. Both kernels are ``torch.library`` ops,
+``gammagl::spmm_block_pair`` and ``gammagl::block_pair_dw``, whose
+arguments are the plan's arrays and sizes.
 
 `HybridPlan` splits a graph whose dense pairs hold only part of the edges:
 those go to the block-pair kernel, the scattered tail to `spmm_csr`, and
@@ -33,18 +35,20 @@ tiling, and lays its edges out for the card (see the class).
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
 
 from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import (_KERNEL_DTYPES,
-                                                       _check_x,
+                                                       _bound, _check_x,
                                                        _first_order_only,
-                                                       _pad_rows, _raise_on,
+                                                       _pad_rows,
+                                                       _placed_device,
+                                                       _raise_on, _tracing,
                                                        build_csr_plan,
                                                        spmm_csr)
-from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.parallel.halo import reorder_bandwidth
 
 __all__ = ["BlockPairPlan", "build_block_pair_plan", "spmm_block_pair",
@@ -85,7 +89,8 @@ class BlockPairPlan:
                 default R = ET
 
     One copy of the arrays is kept per device (`arrays`); the transpose
-    plan of the backward is built on first use and kept too.
+    plan of the backward is built on first use and kept too. While a trace
+    runs neither cache is filled (as for `CSRPlan`).
     """
 
     def __init__(self, *, row, col, w_perm, block_ptr, pair_src, row_ptr,
@@ -123,36 +128,55 @@ class BlockPairPlan:
         """The plan of the reverse graph (sources become rows, R and S
         swap); its ``w_perm`` still indexes the caller's edges, and its
         ``fwd_pos`` gives each edge's position in this plan."""
-        if self._transpose is None:
-            tp, order = _layout(self.row, self.col, self.w_perm, self.num_src,
-                                self.num_nodes, self.S, self.R, self.ET)
-            tp.num_edges = self.num_edges
-            tp.fwd_pos = order.astype(np.int32)
+        if self._transpose is not None:
+            return self._transpose
+        tp, order = _layout(self.row, self.col, self.w_perm, self.num_src,
+                            self.num_nodes, self.S, self.R, self.ET)
+        tp.num_edges = self.num_edges
+        tp.fwd_pos = order.astype(np.int32)
+        if not _tracing():
             self._transpose = tp
-        return self._transpose
+        return tp
 
     def arrays(self, device):
         """(row, col, w_perm, block_ptr, pair_src, row_ptr, fwd_pos) as
         tensors on ``device``, copied once (fwd_pos None on a forward
-        plan)."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        plan); in a trace, the bound buffers (`buffers`) or copies for that
+        trace alone."""
+        device = _placed_device(device)
+        if _tracing():
+            bound = _bound(self)
+            if bound is not None:
+                return tuple(bound.get(name) for name in _BP_ARRAYS)
+            return self._copies(device)
         placed = self._placed.get(device)
         if placed is None:
             # ordinary tensors even when first placed under inference mode
             with torch.inference_mode(False):
-                placed = self._placed[device] = tuple(
-                    None if a is None else torch.from_numpy(a).to(device)
-                    for a in (self.row, self.col, self.w_perm,
-                              self.block_ptr, self.pair_src, self.row_ptr,
-                              self.fwd_pos))
+                placed = self._placed[device] = self._copies(device)
         return placed
+
+    def _copies(self, device):
+        return tuple(None if a is None else torch.from_numpy(a).to(device)
+                     for a in (self.row, self.col, self.w_perm,
+                               self.block_ptr, self.pair_src, self.row_ptr,
+                               self.fwd_pos))
+
+    def buffers(self, device):
+        """The tensors of this plan that its op reads, by name, on
+        ``device``, for an export wrapper to carry as buffers
+        (`serve.export_forward`)."""
+        return {name: t for name, t in zip(_BP_ARRAYS, self.arrays(device))
+                if t is not None}
 
     def __repr__(self):
         return (f"BlockPairPlan(N={self.num_nodes}, E={self.num_edges}, "
                 f"E_pad={self.E_pad}, R={self.R}, S={self.S}, "
                 f"ET={self.ET}, T={self.T}, fill={self.fill_ratio:.2f})")
+
+
+_BP_ARRAYS = ("row", "col", "w_perm", "block_ptr", "pair_src", "row_ptr",
+              "fwd_pos")
 
 
 def _layout(src, dst, eid, num_nodes, num_src, R, S, ET):
@@ -240,15 +264,20 @@ def _reference(x, w, plan, padded):
     """Plain PyTorch forward: ``index_add_`` of the weighted source rows in
     float32, cast once to x's dtype."""
     arrays = plan.arrays(x.device)
-    row, col = arrays[0].long(), arrays[1].long()
+    return _reference_arrays(x, w, _weight_index(arrays, padded), arrays[0],
+                             arrays[1], plan.num_nodes)
+
+
+def _reference_arrays(x, w, w_index, row, col, num_nodes):
+    """`_reference` on the plan's arrays: weights read at ``w_index``, or
+    at each edge's own position when it is None."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    msg = x[col].to(acc)
+    msg = x[col.long()].to(acc)
     if w is not None:
-        idx = _weight_index(arrays, padded)
-        wv = w.to(acc) if idx is None else w.to(acc)[idx.long()]
+        wv = w.to(acc) if w_index is None else w.to(acc)[w_index.long()]
         msg = msg * wv[:, None]
-    out = torch.zeros(plan.num_nodes, x.shape[1], dtype=acc, device=x.device)
-    return out.index_add_(0, row, msg).to(x.dtype)
+    out = torch.zeros(num_nodes, x.shape[1], dtype=acc, device=x.device)
+    return out.index_add_(0, row.long(), msg).to(x.dtype)
 
 
 def _weights(edge_weight, plan, weights_padded):
@@ -306,75 +335,123 @@ def _check_cuda(op, *tensors):
                              f"on {x.device} as {x.dtype}")
 
 
-def _launch(x, w, plan, padded):
-    """The forward kernel on CUDA tensors: x f32 or bf16 (N_src, F); w f32
-    read through `_weight_index`, or None."""
-    _check_cuda("spmm_block_pair", x)
+def _forward(x, w, plan, padded):
+    """The forward, the op ``gammagl::spmm_block_pair``: a CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (x f32 or bf16
+    (N_src, F); w f32 read through `_weight_index`, or None) or
+    raises."""
     arrays = plan.arrays(x.device)
-    _, col, _, block_ptr, pair_src, row_ptr, _ = arrays
-    wperm = None
+    row, col, _, block_ptr, pair_src, row_ptr, _ = arrays
+    w_index = None if w is None else _weight_index(arrays, padded)
+    return torch.ops.gammagl.spmm_block_pair(
+        x, w, w_index, row, col, block_ptr, pair_src, row_ptr,
+        plan.num_nodes, plan.num_src, plan.R, plan.S)
+
+
+@torch.library.custom_op("gammagl::spmm_block_pair", mutates_args=())
+def _spmm_block_pair_op(x: torch.Tensor, w: Optional[torch.Tensor],
+                        w_index: Optional[torch.Tensor], row: torch.Tensor,
+                        col: torch.Tensor, block_ptr: torch.Tensor,
+                        pair_src: torch.Tensor, row_ptr: torch.Tensor,
+                        num_nodes: int, num_src: int, R: int,
+                        S: int) -> torch.Tensor:
+    """``out[d] = sum_e w[w_index[e]] * x[col[e]]`` over a block-pair
+    plan's arrays (``w_index`` None: ``w[e]``)."""
+    raise ValueError(f"gammagl::spmm_block_pair: no kernel for device "
+                     f"{x.device}")
+
+
+@_spmm_block_pair_op.register_kernel("cpu")
+def _spmm_block_pair_cpu(x, w, w_index, row, col, block_ptr, pair_src,
+                         row_ptr, num_nodes, num_src, R, S):
+    return _reference_arrays(x, w, w_index, row, col, num_nodes)
+
+
+@_spmm_block_pair_op.register_kernel("cuda")
+def _spmm_block_pair_cuda(x, w, w_index, row, col, block_ptr, pair_src,
+                          row_ptr, num_nodes, num_src, R, S):
+    _check_cuda("spmm_block_pair", x)
     if w is not None:
         if w.device != x.device:
             raise ValueError(f"edge weights on {w.device}, x on {x.device}")
         w = w.contiguous()
-        wperm = _weight_index(arrays, padded)
-    out = torch.empty(plan.num_nodes, x.shape[1], dtype=x.dtype,
-                      device=x.device)
+    out = torch.empty(num_nodes, x.shape[1], dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     fwd, _, err = _kernels()
     with torch.cuda.device(x.device):
-        code = fwd(x.data_ptr(), _ptr(w), _ptr(wperm), col.data_ptr(),
+        code = fwd(x.data_ptr(), _ptr(w), _ptr(w_index), col.data_ptr(),
                    row_ptr.data_ptr(), block_ptr.data_ptr(),
-                   pair_src.data_ptr(), out.data_ptr(), plan.num_nodes,
-                   plan.num_src, x.shape[1], plan.R, plan.S,
-                   int(x.dtype == torch.bfloat16),
+                   pair_src.data_ptr(), out.data_ptr(), num_nodes, num_src,
+                   x.shape[1], R, S, int(x.dtype == torch.bfloat16),
                    torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(code, "spmm_block_pair", err)
     spmm_block_pair.launches += 1
     return out
 
 
-def _forward(x, w, plan, padded):
-    refuse_trace("spmm_block_pair")
-    if x.device.type == "cpu":
-        return _reference(x, w, plan, padded)
-    return _launch(x, w, plan, padded)
+@_spmm_block_pair_op.register_fake
+def _spmm_block_pair_fake(x, w, w_index, row, col, block_ptr, pair_src,
+                          row_ptr, num_nodes, num_src, R, S):
+    return x.new_empty(num_nodes, x.shape[1])
 
 
-def _dw_reference(x, g, plan, padded, n_out):
-    arrays = plan.arrays(x.device)
-    row, col = arrays[0].long(), arrays[1].long()
-    d = (g[row].float() * x[col].float()).sum(1)
-    if padded:
+def _dw_reference(x, g, row, col, w_perm, n_out):
+    """`block_pair_dw`'s plain version on the plan's arrays: each edge's
+    dot at its slot ``w_perm[e]`` of ``n_out`` (0 elsewhere), or in the
+    plan's order when ``w_perm`` is None."""
+    d = (g[row.long()].float() * x[col.long()].float()).sum(1)
+    if w_perm is None:
         return d
     return torch.zeros(n_out, dtype=torch.float32,
-                       device=x.device).index_put_((arrays[2].long(),), d)
+                       device=x.device).index_put_((w_perm.long(),), d)
 
 
 def _dw(x, g, plan, padded):
     """dw_e = <g[row_e], x[col_e]> at each edge's slot: (num_edges,) in the
     caller's order, 0 at edges the plan does not hold, or (num_plan_edges,)
-    in the plan's order (``padded``)."""
+    in the plan's order (``padded``); the op ``gammagl::block_pair_dw``."""
     n_out = plan.num_plan_edges if padded else plan.num_edges
-    refuse_trace("block_pair_dw")
-    if x.device.type == "cpu":
-        return _dw_reference(x, g, plan, padded, n_out)
-    _check_cuda("block_pair_dw", x, g)
     row, col, w_perm = plan.arrays(x.device)[:3]
+    return torch.ops.gammagl.block_pair_dw(x, g, row, col,
+                                           None if padded else w_perm, n_out)
+
+
+@torch.library.custom_op("gammagl::block_pair_dw", mutates_args=())
+def _block_pair_dw_op(x: torch.Tensor, g: torch.Tensor, row: torch.Tensor,
+                      col: torch.Tensor, w_perm: Optional[torch.Tensor],
+                      n_out: int) -> torch.Tensor:
+    """``<g[row[e]], x[col[e]]>`` (float32) at slot ``w_perm[e]`` of
+    ``n_out``, or at e when ``w_perm`` is None."""
+    raise ValueError(f"gammagl::block_pair_dw: no kernel for device "
+                     f"{x.device}")
+
+
+@_block_pair_dw_op.register_kernel("cpu")
+def _block_pair_dw_cpu(x, g, row, col, w_perm, n_out):
+    return _dw_reference(x, g, row, col, w_perm, n_out)
+
+
+@_block_pair_dw_op.register_kernel("cuda")
+def _block_pair_dw_cuda(x, g, row, col, w_perm, n_out):
+    _check_cuda("block_pair_dw", x, g)
     dw = torch.zeros(n_out, dtype=torch.float32, device=x.device)
-    if plan.num_plan_edges == 0:
+    if col.shape[0] == 0:
         return dw
     _, fn, err = _kernels()
     with torch.cuda.device(x.device):
         code = fn(g.data_ptr(), x.data_ptr(), row.data_ptr(), col.data_ptr(),
-                  0 if padded else w_perm.data_ptr(), dw.data_ptr(),
-                  plan.num_plan_edges, x.shape[1],
+                  _ptr(w_perm), dw.data_ptr(), col.shape[0], x.shape[1],
                   int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(code, "block_pair_dw", err)
     block_pair_dw.launches += 1
     return dw
+
+
+@_block_pair_dw_op.register_fake
+def _block_pair_dw_fake(x, g, row, col, w_perm, n_out):
+    return x.new_empty(n_out, dtype=torch.float32)
 
 
 def _check_dw(x, g, plan):
@@ -402,7 +479,9 @@ def block_pair_dw_reference(x, g, plan, weights_padded=False):
     """Plain PyTorch version of `block_pair_dw`."""
     _check_dw(x, g, plan)
     n_out = plan.num_plan_edges if weights_padded else plan.num_edges
-    return _dw_reference(x, g.to(x.dtype), plan, weights_padded, n_out)
+    row, col, w_perm = plan.arrays(x.device)[:3]
+    return _dw_reference(x, g.to(x.dtype), row, col,
+                         None if weights_padded else w_perm, n_out)
 
 
 class _SpmmBlockPair(torch.autograd.Function):

@@ -15,7 +15,9 @@ On a CUDA tensor the forward launches the hand-written kernel of
 backward launches its backward kernel, which recomputes alpha from them.
 The op is differentiable once: a backward with ``create_graph=True``
 raises on every device.
-Launches are counted in ``flash_forward.launches`` and
+Both are ``torch.library`` ops, ``gammagl::flash_forward`` (the fold
+inside) and ``gammagl::flash_backward``, on the plan's arrays. Launches
+are counted in ``flash_forward.launches`` and
 ``flash_backward.launches``. On a CPU tensor both run their plain
 versions, `flash_forward_reference` and `flash_backward_reference`.
 
@@ -40,15 +42,16 @@ edge order, and the kernels read it through the plan's ``perm``.
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import torch
 
 from gammagl_tpu_torch.ops.cuda._build import load_library
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _csr_rows
-from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _first_order_only
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
-from gammagl_tpu_torch.ops.cuda.segment_matmul import (_items, _pad_rows,
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (PlanArrays, _items,
+                                                       _op_args, _pad_rows,
                                                        _part_stride,
                                                        _raise_on, _slots,
                                                        spmm_csr)
@@ -172,12 +175,12 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _keep_row(keep, plan, gather):
+def _keep_row(keep, perm, gather):
     """The keep_row pointer: the plan's perm for a mask in the caller's
     edge order (``gather``), else 0 (keep in CSR order, or no keep)."""
     if keep is None or not gather:
         return 0
-    return plan.arrays(keep.device)[2].data_ptr()
+    return perm.data_ptr()
 
 
 def _check(score, a_dst, msg, keep, plan, gather):
@@ -222,15 +225,57 @@ def _check(score, a_dst, msg, keep, plan, gather):
     return H, msg.shape[1] // H
 
 
+def _plan_args(plan, device):
+    """The plan's arguments of the flash ops: rowptr, col, perm and the
+    work items at `ROW_SPLIT` (`_op_args`)."""
+    rowptr, col, item_ptr, meta, cut_row, cut_ptr, n_slots = _op_args(
+        plan, device)
+    return (rowptr, col, plan.arrays(device)[2], item_ptr, meta, cut_row,
+            cut_ptr, n_slots)
+
+
 def flash_forward(score, a_dst, msg, keep, plan, slope, gather):
-    """One forward: (out (N_dst, H*F), m, l). A CPU tensor takes
+    """One forward: (out (N_dst, H*F), m, l), the op
+    ``gammagl::flash_forward``. A CPU tensor takes
     `flash_forward_reference`; a CUDA tensor launches the kernel, and
     `flash_fwd_fold` after it on a plan with cut rows, or raises."""
-    H, F = _check(score, a_dst, msg, keep, plan, gather)
-    refuse_trace("flash_forward")
-    if msg.device.type == "cpu":
-        return flash_forward_reference(score, a_dst, msg, keep, plan, slope,
-                                       gather)
+    _check(score, a_dst, msg, keep, plan, gather)
+    return torch.ops.gammagl.flash_forward(
+        score, a_dst, msg, keep, *_plan_args(plan, msg.device), float(slope),
+        bool(gather))
+
+
+@torch.library.custom_op("gammagl::flash_forward", mutates_args=())
+def _flash_forward_op(score: torch.Tensor, a_dst: Optional[torch.Tensor],
+                      msg: torch.Tensor, keep: Optional[torch.Tensor],
+                      rowptr: torch.Tensor, col: torch.Tensor,
+                      perm: torch.Tensor, item_ptr: Optional[torch.Tensor],
+                      item_meta: Optional[torch.Tensor],
+                      cut_row: Optional[torch.Tensor],
+                      cut_ptr: Optional[torch.Tensor], n_slots: int,
+                      slope: float, gather: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, l) of the fused attention on the plan's arrays."""
+    raise ValueError(f"gammagl::flash_forward: no kernel for device "
+                     f"{msg.device}")
+
+
+@_flash_forward_op.register_kernel("cpu")
+def _flash_forward_cpu(score, a_dst, msg, keep, rowptr, col, perm, item_ptr,
+                       item_meta, cut_row, cut_ptr, n_slots, slope, gather):
+    return flash_forward_reference(score, a_dst, msg, keep,
+                                   PlanArrays(rowptr, col, perm), slope,
+                                   gather)
+
+
+@_flash_forward_op.register_kernel("cuda")
+def _flash_forward_cuda(score, a_dst, msg, keep, rowptr, col, perm,
+                        item_ptr, item_meta, cut_row, cut_ptr, n_slots,
+                        slope, gather):
+    plan = PlanArrays(rowptr, col, perm, item_ptr, item_meta, cut_row,
+                      cut_ptr, n_slots)
+    H = score.shape[1]
+    F = msg.shape[1] // H
     dev = msg.device
     N = plan.num_nodes
     out = torch.empty(N, H * F, dtype=msg.dtype, device=dev)
@@ -244,7 +289,7 @@ def flash_forward(score, a_dst, msg, keep, plan, slope, gather):
     fwd, _, _, err = _kernels()
     with torch.cuda.device(dev):
         code = fwd(msg.data_ptr(), score.data_ptr(), _ptr(a_dst), _ptr(keep),
-                   _keep_row(keep, plan, gather), *_items(plan, dev),
+                   _keep_row(keep, perm, gather), *_items(plan, dev),
                    _ptr(part), _part_stride(width), out.data_ptr(),
                    m.data_ptr(), l.data_ptr(), H, F, float(slope),
                    int(gather), int(msg.dtype == torch.bfloat16),
@@ -254,6 +299,16 @@ def flash_forward(score, a_dst, msg, keep, plan, slope, gather):
     if part is not None:
         flash_fwd_fold(part, plan, out, m, l)
     return out, m, l
+
+
+@_flash_forward_op.register_fake
+def _flash_forward_fake(score, a_dst, msg, keep, rowptr, col, perm,
+                        item_ptr, item_meta, cut_row, cut_ptr, n_slots,
+                        slope, gather):
+    N, H = rowptr.shape[0] - 1, score.shape[1]
+    return (msg.new_empty(N, msg.shape[1]),
+            score.new_empty(N, H, dtype=torch.float32),
+            score.new_empty(N, H, dtype=torch.float32))
 
 
 def flash_fwd_fold(part, plan, out, m, l):
@@ -281,17 +336,45 @@ def flash_fwd_fold(part, plan, out, m, l):
 def flash_backward(score, a_dst, msg, keep, m, l, out, grad, plan, slope,
                    gather):
     """One backward: (ds (E, H), dmsg (E, H*F), da (N_dst, H)), per-edge
-    outputs in CSR order. A CPU tensor takes `flash_backward_reference`;
-    a CUDA tensor launches the kernel or raises."""
-    H, F = _check(score, a_dst, msg, keep, plan, gather)
-    refuse_trace("flash_backward")
-    if msg.device.type == "cpu":
-        return flash_backward_reference(score, a_dst, msg, keep, m, l, out,
-                                        grad, plan, slope, gather)
+    outputs in CSR order, the op ``gammagl::flash_backward``. A CPU tensor
+    takes `flash_backward_reference`; a CUDA tensor launches the kernel or
+    raises."""
+    _check(score, a_dst, msg, keep, plan, gather)
+    rowptr, col, perm = plan.arrays(msg.device)
+    return torch.ops.gammagl.flash_backward(
+        score, a_dst, msg, keep, m, l, out, grad, rowptr, col, perm,
+        float(slope), bool(gather))
+
+
+@torch.library.custom_op("gammagl::flash_backward", mutates_args=())
+def _flash_backward_op(score: torch.Tensor, a_dst: Optional[torch.Tensor],
+                       msg: torch.Tensor, keep: Optional[torch.Tensor],
+                       m: torch.Tensor, l: torch.Tensor, out: torch.Tensor,
+                       grad: torch.Tensor, rowptr: torch.Tensor,
+                       col: torch.Tensor, perm: torch.Tensor, slope: float,
+                       gather: bool
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(ds, dmsg, da) of the fused attention on the plan's arrays."""
+    raise ValueError(f"gammagl::flash_backward: no kernel for device "
+                     f"{msg.device}")
+
+
+@_flash_backward_op.register_kernel("cpu")
+def _flash_backward_cpu(score, a_dst, msg, keep, m, l, out, grad, rowptr,
+                        col, perm, slope, gather):
+    return flash_backward_reference(score, a_dst, msg, keep, m, l, out, grad,
+                                    PlanArrays(rowptr, col, perm), slope,
+                                    gather)
+
+
+@_flash_backward_op.register_kernel("cuda")
+def _flash_backward_cuda(score, a_dst, msg, keep, m, l, out, grad, rowptr,
+                         col, perm, slope, gather):
+    H = score.shape[1]
+    F = msg.shape[1] // H
     dev = msg.device
     grad = grad.to(msg.dtype).contiguous()
-    rowptr, col, _ = plan.arrays(dev)
-    N, E = plan.num_nodes, plan.num_edges
+    N, E = rowptr.shape[0] - 1, col.shape[0]
     ds = torch.empty(E, H, device=dev)
     dmsg = torch.empty(E, H * F, dtype=msg.dtype, device=dev)
     da = torch.empty(N, H, device=dev)
@@ -300,9 +383,9 @@ def flash_backward(score, a_dst, msg, keep, m, l, out, grad, plan, slope,
     _, _, bwd, err = _kernels()
     with torch.cuda.device(dev):
         code = bwd(msg.data_ptr(), score.data_ptr(), _ptr(a_dst), _ptr(keep),
-                   _keep_row(keep, plan, gather),
-                   rowptr.data_ptr(), col.data_ptr(), m.data_ptr(),
-                   l.data_ptr(), out.data_ptr(), grad.data_ptr(),
+                   _keep_row(keep, perm, gather), rowptr.data_ptr(),
+                   col.data_ptr(), m.data_ptr(), l.data_ptr(),
+                   out.data_ptr(), grad.data_ptr(),
                    ds.data_ptr(), da.data_ptr(), dmsg.data_ptr(), N, H, F,
                    float(slope), int(gather),
                    int(msg.dtype == torch.bfloat16),
@@ -310,6 +393,15 @@ def flash_backward(score, a_dst, msg, keep, m, l, out, grad, plan, slope,
     _raise_on(code, "flash attention backward", err)
     flash_backward.launches += 1
     return ds, dmsg, da
+
+
+@_flash_backward_op.register_fake
+def _flash_backward_fake(score, a_dst, msg, keep, m, l, out, grad, rowptr,
+                         col, perm, slope, gather):
+    N, E, H = rowptr.shape[0] - 1, col.shape[0], score.shape[1]
+    return (score.new_empty(E, H, dtype=torch.float32),
+            msg.new_empty(E, msg.shape[1]),
+            score.new_empty(N, H, dtype=torch.float32))
 
 
 flash_forward.launches = 0

@@ -15,7 +15,9 @@ products, so the two agree to bf16 rounding, not bit for bit).
 `hgt_flash_packed` is a `torch.autograd.Function`: the forward kernel
 saves the row statistics (m, l); the backward kernel recomputes alpha from
 them and writes dq per row and dk|dv per CSR edge, which `spmm_csr` on the
-plan's edge-scatter transpose sums into source rows (no atomics). On a
+plan's edge-scatter transpose sums into source rows (no atomics). The
+kernels are the ``torch.library`` ops ``gammagl::hgt_forward`` and
+``gammagl::hgt_backward``, on the plan's rowptr and col. On a
 CUDA tensor each launches its kernel or raises (counted in
 ``hgt_forward.launches`` and ``hgt_backward.launches``); on a CPU tensor
 both run their plain versions. Differentiable once.
@@ -27,11 +29,10 @@ import functools
 import torch
 
 from gammagl_tpu_torch.ops.cuda._build import load_library
-from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (PlanArrays, _csr_rows,
                                                        _first_order_only,
                                                        _forward, _pad_rows,
                                                        _raise_on)
-from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["hgt_flash_packed", "hgt_forward", "hgt_backward",
@@ -134,21 +135,38 @@ def _check(kv, q, plan):
 
 
 def hgt_forward(kv, q, plan):
-    """One forward: (out (N_dst, H*D), m, l). A CPU tensor takes
-    `hgt_forward_reference`; a CUDA tensor launches the kernel or
-    raises."""
-    H, D = _check(kv, q, plan)
-    refuse_trace("hgt_forward")
-    if kv.device.type == "cpu":
-        return hgt_forward_reference(kv, q, plan)
-    dev, N = kv.device, plan.num_nodes
+    """One forward: (out (N_dst, H*D), m, l), the op
+    ``gammagl::hgt_forward``. A CPU tensor takes `hgt_forward_reference`;
+    a CUDA tensor launches the kernel or raises."""
+    _check(kv, q, plan)
+    rowptr, col, _ = plan.arrays(kv.device)
+    return torch.ops.gammagl.hgt_forward(kv, q, rowptr, col)
+
+
+@torch.library.custom_op("gammagl::hgt_forward", mutates_args=())
+def _hgt_forward_op(kv: torch.Tensor, q: torch.Tensor, rowptr: torch.Tensor,
+                    col: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, l) of the HGT relation attention on the plan's arrays."""
+    raise ValueError(f"gammagl::hgt_forward: no kernel for device "
+                     f"{kv.device}")
+
+
+@_hgt_forward_op.register_kernel("cpu")
+def _hgt_forward_cpu(kv, q, rowptr, col):
+    return hgt_forward_reference(kv, q, PlanArrays(rowptr, col))
+
+
+@_hgt_forward_op.register_kernel("cuda")
+def _hgt_forward_cuda(kv, q, rowptr, col):
+    N, H, D = q.shape
+    dev = kv.device
     out = torch.empty(N, H * D, dtype=kv.dtype, device=dev)
     m = torch.empty(N, H, device=dev)
     l = torch.empty(N, H, device=dev)
     if N == 0:
         return out, m, l
     fwd, _, err = _kernels()
-    rowptr, col, _ = plan.arrays(dev)
     with torch.cuda.device(dev):
         code = fwd(kv.data_ptr(), q.data_ptr(), rowptr.data_ptr(),
                    col.data_ptr(), out.data_ptr(), m.data_ptr(),
@@ -159,22 +177,51 @@ def hgt_forward(kv, q, plan):
     return out, m, l
 
 
+@_hgt_forward_op.register_fake
+def _hgt_forward_fake(kv, q, rowptr, col):
+    N, H, D = q.shape
+    return (kv.new_empty(N, H * D), q.new_empty(N, H, dtype=torch.float32),
+            q.new_empty(N, H, dtype=torch.float32))
+
+
 def hgt_backward(kv, q, out, grad, m, l, plan):
-    """One backward: (dq (N_dst, H*D), dkv (E, 2*H*D) in CSR order). A CPU
-    tensor takes `hgt_backward_reference`; a CUDA tensor launches the
-    kernel or raises."""
-    H, D = _check(kv, q, plan)
-    refuse_trace("hgt_backward")
-    if kv.device.type == "cpu":
-        return hgt_backward_reference(kv, q, out, grad, m, l, plan)
-    dev, N, E = kv.device, plan.num_nodes, plan.num_edges
+    """One backward: (dq (N_dst, H*D), dkv (E, 2*H*D) in CSR order), the
+    op ``gammagl::hgt_backward``. A CPU tensor takes
+    `hgt_backward_reference`; a CUDA tensor launches the kernel or
+    raises."""
+    _check(kv, q, plan)
+    rowptr, col, _ = plan.arrays(kv.device)
+    return torch.ops.gammagl.hgt_backward(kv, q, out, grad, m, l, rowptr,
+                                          col)
+
+
+@torch.library.custom_op("gammagl::hgt_backward", mutates_args=())
+def _hgt_backward_op(kv: torch.Tensor, q: torch.Tensor, out: torch.Tensor,
+                     grad: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     rowptr: torch.Tensor, col: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dq, dkv per CSR edge) of the HGT relation attention on the plan's
+    arrays."""
+    raise ValueError(f"gammagl::hgt_backward: no kernel for device "
+                     f"{kv.device}")
+
+
+@_hgt_backward_op.register_kernel("cpu")
+def _hgt_backward_cpu(kv, q, out, grad, m, l, rowptr, col):
+    return hgt_backward_reference(kv, q, out, grad, m, l,
+                                  PlanArrays(rowptr, col))
+
+
+@_hgt_backward_op.register_kernel("cuda")
+def _hgt_backward_cuda(kv, q, out, grad, m, l, rowptr, col):
+    N, H, D = q.shape
+    E, dev = col.shape[0], kv.device
     grad = grad.to(kv.dtype).contiguous()
     dq = torch.empty(N, H * D, dtype=kv.dtype, device=dev)
     dkv = torch.empty(E, 2 * H * D, dtype=kv.dtype, device=dev)
     if N == 0:
         return dq, dkv
     _, bwd, err = _kernels()
-    rowptr, col, _ = plan.arrays(dev)
     with torch.cuda.device(dev):
         code = bwd(kv.data_ptr(), q.data_ptr(), rowptr.data_ptr(),
                    col.data_ptr(), out.data_ptr(), grad.data_ptr(),
@@ -184,6 +231,12 @@ def hgt_backward(kv, q, out, grad, m, l, plan):
     _raise_on(code, "hgt backward", err)
     hgt_backward.launches += 1
     return dq, dkv
+
+
+@_hgt_backward_op.register_fake
+def _hgt_backward_fake(kv, q, out, grad, m, l, rowptr, col):
+    N, H, D = q.shape
+    return kv.new_empty(N, H * D), kv.new_empty(col.shape[0], 2 * H * D)
 
 
 hgt_forward.launches = 0

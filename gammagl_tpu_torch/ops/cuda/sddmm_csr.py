@@ -32,39 +32,33 @@ backward runs kernels too:
 * sddmm with gathered rows: dx_dst = `spmm_csr` weighted by the cotangent,
   dx_src = `spmm_csr` on the plan's transpose (the JAX `_sddmm_fused_bwd`).
 
-On a CUDA tensor each op launches its kernel or raises; on a CPU tensor it
-runs the plain version. Launches are counted in ``expand_dst_csr.launches``
+Each kernel is a ``torch.library`` op, ``gammagl::expand_dst_csr`` and
+``gammagl::sddmm_csr``, whose arguments are the plan's arrays and work
+items at `EDGE_SPLIT`: on a CUDA tensor it launches its kernel or raises;
+on a CPU tensor it runs the plain version. Launches are counted in ``expand_dst_csr.launches``
 (scaled expands included) and ``sddmm_csr.launches`` (`sddmm_csr_mh` and
 the weight gradient of `segment_sum_csr` and `spmm_csr` included).
 """
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from gammagl_tpu_torch.ops.cuda._build import load_library
-from gammagl_tpu_torch.ops.cuda.segment_matmul import (_csr_rows,
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (EDGE_SPLIT,
+                                                       PlanArrays, _csr_rows,
                                                        _first_order_only,
                                                        _forward, _pad_rows,
                                                        _ptr, _raise_on,
                                                        _weigh)
-from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["expand_dst_csr", "sddmm_csr", "sddmm_csr_mh",
            "expand_dst_csr_reference", "sddmm_csr_reference", "EDGE_SPLIT"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-
-# The most CSR edges one work item of the SDDMM or the expand takes
-# (`build_row_split` at this K). An item reads its destination row once
-# and writes only its own edges' outputs, so short items cost little and
-# spread long rows (the arxiv-shape graph's ~800-edge rows, a hub's
-# million) over many lane groups or warps, with nothing to fold. Chosen on
-# the card from {64, 128, 256, 512, 1024, 2048} for both kernels
-# (scripts/sddmm_probe.py times the sweep).
-EDGE_SPLIT = 128
 
 
 def expand_dst_csr_reference(x_dst, plan, scale=None):
@@ -116,16 +110,49 @@ def _check_cuda(op, *tensors):
             raise ValueError(f"{op}: operands must be contiguous")
 
 
+def _edge_items(plan, device):
+    """rowptr, col and the work items at `EDGE_SPLIT` (item_ptr None for a
+    plan whose items are its rows): the plan's arguments of the expand
+    and the SDDMM ops."""
+    rowptr, col, _ = plan.arrays(device)
+    item_ptr, meta, _, _, _ = plan.split_arrays(device, EDGE_SPLIT)
+    return rowptr, col, None if meta is None else item_ptr, meta
+
+
+def _check_device(op, device):
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{op}: no kernel for device {device}")
+
+
 def _expand(x, plan, scale=None):
     """x (N_dst, C) -> (E, C) of x's dtype in CSR order, optionally scaled
-    per edge and head by ``scale`` (E, H) f32. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel, one warp for each work
+    per edge and head by ``scale`` (E, H) f32: the op
+    ``gammagl::expand_dst_csr``, whose CPU implementation is the plain
+    version and whose CUDA one launches the kernel, one warp for each work
     item of the plan at `EDGE_SPLIT` edges, or raises."""
-    refuse_trace("expand_dst_csr")
-    if x.device.type == "cpu":
-        return expand_dst_csr_reference(x, plan, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"expand_dst_csr: no kernel for device {x.device}")
+    _check_device("expand_dst_csr", x.device)
+    return torch.ops.gammagl.expand_dst_csr(x, scale,
+                                            *_edge_items(plan, x.device))
+
+
+@torch.library.custom_op("gammagl::expand_dst_csr", mutates_args=())
+def _expand_op(x: torch.Tensor, scale: Optional[torch.Tensor],
+               rowptr: torch.Tensor, col: torch.Tensor,
+               item_ptr: Optional[torch.Tensor],
+               item_meta: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x[row(e)]`` (times ``scale[e, h]``) for every CSR edge e of the
+    plan's arrays, the items at `EDGE_SPLIT`."""
+    raise ValueError(f"gammagl::expand_dst_csr: no kernel for device "
+                     f"{x.device}")
+
+
+@_expand_op.register_kernel("cpu")
+def _expand_cpu(x, scale, rowptr, col, item_ptr, item_meta):
+    return expand_dst_csr_reference(x, PlanArrays(rowptr, col), scale)
+
+
+@_expand_op.register_kernel("cuda")
+def _expand_cuda(x, scale, rowptr, col, item_ptr, item_meta):
     _check_cuda("expand_dst_csr", x)
     heads = 1
     if scale is not None:
@@ -134,16 +161,16 @@ def _expand(x, plan, scale=None):
                             f"{x.device}")
         scale = scale.contiguous()
         heads = scale.shape[1]
-    out = torch.empty(plan.num_edges, x.shape[1], dtype=x.dtype,
+    out = torch.empty(col.shape[0], x.shape[1], dtype=x.dtype,
                       device=x.device)
     if out.numel() == 0:
         return out
     fn, _, err = _kernels()
-    item_ptr, meta, _, _, _ = plan.split_arrays(x.device, EDGE_SPLIT)
-    n_items = plan.num_nodes if meta is None else meta.shape[0]
+    n_items = rowptr.shape[0] - 1 if item_meta is None else item_meta.shape[0]
     with torch.cuda.device(x.device):
-        code = fn(x.data_ptr(), _ptr(scale), item_ptr.data_ptr(), _ptr(meta),
-                  n_items, out.data_ptr(), x.shape[1], heads,
+        code = fn(x.data_ptr(), _ptr(scale),
+                  (rowptr if item_ptr is None else item_ptr).data_ptr(),
+                  _ptr(item_meta), n_items, out.data_ptr(), x.shape[1], heads,
                   int(x.dtype == torch.bfloat16),
                   torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(code, "expand_dst_csr", err)
@@ -151,36 +178,63 @@ def _expand(x, plan, scale=None):
     return out
 
 
+@_expand_op.register_fake
+def _expand_fake(x, scale, rowptr, col, item_ptr, item_meta):
+    return x.new_empty(col.shape[0], x.shape[1])
+
+
 def _sddmm(a, x_dst, plan, heads, gather):
     """(E, heads) float32 scores in CSR order: per-head dots of ``a[col[e]]``
     (``gather``: node rows) or ``a[e]`` (per-edge rows) with
-    ``x_dst[row(e)]``. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    ``x_dst[row(e)]``, the op ``gammagl::sddmm_csr``: a CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel or raises."""
     if a.device != x_dst.device:
         raise ValueError(f"sddmm_csr: inputs on {a.device} and "
                          f"{x_dst.device}")
-    refuse_trace("sddmm_csr")
-    if a.device.type == "cpu":
-        return sddmm_csr_reference(a, x_dst, plan, heads, gather)
-    if a.device.type != "cuda":
-        raise ValueError(f"sddmm_csr: no kernel for device {a.device}")
+    _check_device("sddmm_csr", a.device)
+    return torch.ops.gammagl.sddmm_csr(a, x_dst, *_edge_items(plan, a.device),
+                                       int(heads), bool(gather))
+
+
+@torch.library.custom_op("gammagl::sddmm_csr", mutates_args=())
+def _sddmm_op(a: torch.Tensor, x_dst: torch.Tensor, rowptr: torch.Tensor,
+              col: torch.Tensor, item_ptr: Optional[torch.Tensor],
+              item_meta: Optional[torch.Tensor], heads: int,
+              gather: bool) -> torch.Tensor:
+    """Per-head dots of ``a[col[e]]`` (``gather``) or ``a[e]`` with
+    ``x_dst[row(e)]`` on the plan's arrays, the items at `EDGE_SPLIT`."""
+    raise ValueError(f"gammagl::sddmm_csr: no kernel for device {a.device}")
+
+
+@_sddmm_op.register_kernel("cpu")
+def _sddmm_cpu(a, x_dst, rowptr, col, item_ptr, item_meta, heads, gather):
+    return sddmm_csr_reference(a, x_dst, PlanArrays(rowptr, col), heads,
+                               gather)
+
+
+@_sddmm_op.register_kernel("cuda")
+def _sddmm_cuda(a, x_dst, rowptr, col, item_ptr, item_meta, heads, gather):
     _check_cuda("sddmm_csr", a, x_dst)
-    out = torch.empty(plan.num_edges, heads, device=a.device)
+    out = torch.empty(col.shape[0], heads, device=a.device)
     if out.numel() == 0:
         return out
     _, fn, err = _kernels()
-    item_ptr, meta, _, _, _ = plan.split_arrays(a.device, EDGE_SPLIT)
-    n_items = plan.num_nodes if meta is None else meta.shape[0]
-    col = plan.arrays(a.device)[1]
+    n_items = rowptr.shape[0] - 1 if item_meta is None else item_meta.shape[0]
     with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), x_dst.data_ptr(), item_ptr.data_ptr(),
-                  _ptr(meta), n_items, col.data_ptr(), out.data_ptr(),
+        code = fn(a.data_ptr(), x_dst.data_ptr(),
+                  (rowptr if item_ptr is None else item_ptr).data_ptr(),
+                  _ptr(item_meta), n_items, col.data_ptr(), out.data_ptr(),
                   heads, a.shape[1] // heads, int(gather),
                   int(a.dtype == torch.bfloat16),
                   torch.cuda.current_stream(a.device).cuda_stream)
     _raise_on(code, "sddmm_csr", err)
     sddmm_csr.launches += 1
     return out
+
+
+@_sddmm_op.register_fake
+def _sddmm_fake(a, x_dst, rowptr, col, item_ptr, item_meta, heads, gather):
+    return a.new_empty(col.shape[0], heads, dtype=torch.float32)
 
 
 class _Expand(torch.autograd.Function):

@@ -39,17 +39,20 @@ many lanes instead of walked by one warp. The partial sums of a cut row
 are folded in item order by a second kernel (`csr_fold`, launches counted
 in ``csr_fold.launches``), so the result stays deterministic.
 
-The forward of `spmm_csr` and `segment_sum_csr` is the custom op
-``torch.ops.gammagl.spmm_csr`` (registered when this module is imported;
-nothing is built until its first CUDA launch): its arguments are x, the
-weights and the plan's arrays, its CPU implementation the plain version,
-its CUDA implementation the kernel. Eager calls and `torch.export` take
-that one route, so an exported model runs the kernel from a file
+Every kernel launch of this package is the CUDA implementation of a
+``torch.library`` custom op (registered when its module is imported;
+nothing is built until its first CUDA launch): here
+``torch.ops.gammagl.spmm_csr`` (the forward of `spmm_csr` and
+`segment_sum_csr`) and ``gammagl::spmm_csr_acc`` (with
+``gammagl::spmm_csr_acc_out``, which writes into a given tensor). An op's
+arguments are tensors, ints, floats and bools: the plan's arrays
+(`_op_args`), never the plan; its CPU implementation is the plain
+version, its fake implementation gives the output's shape from the
+arguments' shapes. Eager calls and `torch.export` take that one route,
+so an exported model runs the kernels from a file
 (`serve.export_forward`). While a trace runs, a plan caches nothing: its
-arrays come from the export wrapper's buffers (`bind_plan_arrays`) or are
-built for that trace alone. The other kernels have no op yet; a trace
-that reaches one raises `NotImplementedError` (`refuse_trace`) rather
-than record its plain version.
+arrays come from the export wrapper's buffers (`bind_plan_arrays`) or
+are built for that trace alone.
 """
 
 import contextlib
@@ -80,6 +83,18 @@ __all__ = ["CSRPlan", "build_csr_plan", "build_csr_plan_blocked",
 # 1024 and 8192 (chip_smoke.py phase 24 times the sweep); smaller items
 # leave more slots to fold, larger ones a longer walk on one lane group.
 ROW_SPLIT = 2048
+
+# The most CSR edges one work item of the SDDMM or the expand takes
+# (`build_row_split` at this K). An item reads its destination row once
+# and writes only its own edges' outputs, so short items cost little and
+# spread long rows (the arxiv-shape graph's ~800-edge rows, a hub's
+# million) over many lane groups or warps, with nothing to fold. Chosen on
+# the card from {64, 128, 256, 512, 1024, 2048} for both kernels
+# (scripts/sddmm_probe.py times the sweep).
+EDGE_SPLIT = 128
+
+# the buffer-name prefix of each item size's work items (`CSRPlan.buffers`)
+_SPLIT_NAMES = {ROW_SPLIT: "", EDGE_SPLIT: "edge_"}
 
 RowSplit = namedtuple("RowSplit", [
     "item_ptr",   # (n_items + 1,) int64: item i holds CSR edges
@@ -130,17 +145,6 @@ def _tracing():
     return torch.compiler.is_compiling()
 
 
-def refuse_trace(kernel):
-    """Raise `NotImplementedError` while a trace runs: ``kernel`` has no
-    ``torch.library`` op, so a trace would record its plain version (or
-    reach a pointer of a fake tensor) in place of the kernel."""
-    if _tracing():
-        raise NotImplementedError(
-            f"{kernel} has no torch.library op, so it cannot be exported or "
-            "compiled; only spmm_csr and segment_sum_csr have one "
-            "(gammagl::spmm_csr)")
-
-
 _BOUND = threading.local()
 
 
@@ -150,24 +154,11 @@ def _bound(plan):
     return getattr(_BOUND, "plans", {}).get(id(plan))
 
 
-def plan_buffers(plan, device):
-    """The tensors of ``plan`` that the CSR op reads, by name, on
-    ``device``: rowptr, col and perm, and the work items at `ROW_SPLIT`
-    when it has cut rows. An export wrapper registers them as buffers, so
-    the artifact carries them (`serve.export_forward`)."""
-    out = dict(zip(("rowptr", "col", "perm"), plan.arrays(device)))
-    item_ptr, meta, cut_row, cut_ptr, _ = plan.split_arrays(device)
-    if meta is not None:
-        out.update(item_ptr=item_ptr, item_meta=meta, cut_row=cut_row,
-                   cut_ptr=cut_ptr)
-    return out
-
-
 @contextlib.contextmanager
 def bind_plan_arrays(bound):
-    """Within the block, each plan of ``bound`` ({plan: the dict of
-    `plan_buffers`, as buffers of a module}) reads those tensors in a
-    trace, in place of its own device copies."""
+    """Within the block, each plan of ``bound`` ({plan: the dict of its
+    ``buffers``, as buffers of a module}) reads those tensors in a trace,
+    in place of its own device copies."""
     before = getattr(_BOUND, "plans", {})
     _BOUND.plans = {**before, **{id(p): b for p, b in bound.items()}}
     try:
@@ -260,6 +251,22 @@ class CSRPlan:
                     for a in (self.rowptr, self.col, self.perm))
         return placed
 
+    def buffers(self, device):
+        """The tensors of this plan that the ops read, by name, on
+        ``device``: rowptr, col and perm, and the work items at `ROW_SPLIT`
+        and at `EDGE_SPLIT` (names ``edge_...``) where it has cut rows. An
+        export wrapper registers them as buffers, so the artifact carries
+        them (`serve.export_forward`)."""
+        out = dict(zip(("rowptr", "col", "perm"), self.arrays(device)))
+        for K, prefix in _SPLIT_NAMES.items():
+            item_ptr, meta, cut_row, cut_ptr, _ = self.split_arrays(device, K)
+            if meta is not None:
+                out.update({f"{prefix}item_ptr": item_ptr,
+                            f"{prefix}item_meta": meta,
+                            f"{prefix}cut_row": cut_row,
+                            f"{prefix}cut_ptr": cut_ptr})
+        return out
+
     def row_split(self, K=ROW_SPLIT):
         """The kernels' work items (`build_row_split` at ``K``; the CSR
         kernels take `ROW_SPLIT`), built on first use for each K."""
@@ -273,21 +280,22 @@ class CSRPlan:
         copied once for each device and K: (item_ptr, item_meta, cut_row,
         cut_ptr, n_slots). A plan without cut rows has one item per row:
         item_ptr is rowptr itself and the others are None (and 0). In a
-        trace: the bound buffers at `ROW_SPLIT`, or copies for that trace
-        alone."""
+        trace: the bound buffers at `ROW_SPLIT` or `EDGE_SPLIT`, or copies
+        for that trace alone."""
         device = _placed_device(device)
         tracing = _tracing()
         placed = None if tracing else self._split_placed.get((device, K))
         if placed is not None:
             return placed
         split = self.row_split(K)
-        bound = _bound(self) if tracing and K == ROW_SPLIT else None
+        prefix = _SPLIT_NAMES.get(K)
+        bound = _bound(self) if tracing and prefix is not None else None
         if split.cut_row.shape[0] == 0:
             placed = (self.arrays(device)[0], None, None, None, 0)
         elif bound is not None:
-            placed = (bound["item_ptr"], bound["item_meta"],
-                      bound["cut_row"], bound["cut_ptr"],
-                      int(split.cut_ptr[-1]))
+            placed = tuple(bound[prefix + name] for name in (
+                "item_ptr", "item_meta", "cut_row", "cut_ptr")) + (
+                    int(split.cut_ptr[-1]),)
         else:
             with torch.inference_mode(False):
                 meta = np.stack([split.item_row, split.item_slot], 1)
@@ -510,22 +518,16 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
-def _launch(x, w, plan, per_edge=False, prev=None, out=None):
+def _launch_arrays(x, w, rowptr, col, item_ptr, meta, cut_row, cut_ptr,
+                   n_slots, per_edge=False, prev=None, out=None):
     """Run the kernel on CUDA tensors: x f32 or bf16, (N_src, F) node rows
     or (E, F) per-edge rows (``per_edge``); w f32 (E,) or (E, H) in CSR
     order, or None; with ``prev`` (node rows and (E,) weights only) the
     accumulating form. Writes into ``out`` when given (it may be prev).
-    Counts the launch in `spmm_csr`, per edge in `segment_sum_csr`, with
-    prev in `spmm_csr_acc`; a plan with cut rows then runs `csr_fold`."""
-    rowptr, col, _ = plan.arrays(x.device)
-    return _launch_arrays(x, w, rowptr, col, *plan.split_arrays(x.device),
-                          per_edge=per_edge, prev=prev, out=out)
-
-
-def _launch_arrays(x, w, rowptr, col, item_ptr, meta, cut_row, cut_ptr,
-                   n_slots, per_edge=False, prev=None, out=None):
-    """`_launch` on a plan's arrays: ``item_ptr`` ... ``n_slots`` as
-    `CSRPlan.split_arrays` gives them (meta None: an item a row)."""
+    ``item_ptr`` ... ``n_slots`` as `CSRPlan.split_arrays` gives them
+    (item_ptr None: an item a row). Counts the launch in `spmm_csr`, per
+    edge in `segment_sum_csr`, with prev in `spmm_csr_acc`; a plan with
+    cut rows then runs `csr_fold`."""
     op = ("segment_sum_csr" if per_edge else "spmm_csr" if prev is None
           else "spmm_csr_acc")
     if x.device.type != "cuda":
@@ -659,14 +661,40 @@ def _spmm_csr_fake(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
 
 
 def _op_args(plan, device):
-    """The plan's arguments of ``gammagl::spmm_csr`` on ``device``:
-    rowptr, col, the work items (None for a plan without cut rows, whose
+    """The plan's arguments of the CSR ops on ``device``: rowptr, col, the
+    work items at `ROW_SPLIT` (None for a plan without cut rows, whose
     items are its rows) and the scratch slots."""
     rowptr, col, _ = plan.arrays(device)
     item_ptr, meta, cut_row, cut_ptr, n_slots = plan.split_arrays(device)
     if meta is None:
         item_ptr = None
     return rowptr, col, item_ptr, meta, cut_row, cut_ptr, n_slots
+
+
+class PlanArrays:
+    """A `CSRPlan` as an op's implementation sees it: the arrays it was
+    handed (`_op_args`), read through the plan's own interface
+    (`arrays`, `split_arrays`, ``num_nodes``, ``num_edges``), so the plain
+    versions and the launches written for a plan run on them unchanged.
+    It holds the items of one size, whatever K it is asked for; the
+    wrappers check ``num_src`` before the op, so it has none."""
+
+    def __init__(self, rowptr, col, perm=None, item_ptr=None,
+                 item_meta=None, cut_row=None, cut_ptr=None, n_slots=0):
+        self.num_nodes = rowptr.shape[0] - 1
+        self.num_edges = col.shape[0]
+        self._arrays = (rowptr, col, perm)
+        if item_meta is None:
+            self._split = (rowptr, None, None, None, 0)
+        else:
+            self._split = (item_ptr, item_meta, cut_row, cut_ptr,
+                           int(n_slots))
+
+    def arrays(self, device=None):
+        return self._arrays
+
+    def split_arrays(self, device=None, K=None):
+        return self._split
 
 
 def _forward(x, w, plan, per_edge=False):
@@ -773,15 +801,16 @@ def spmm_csr_acc(x, edge_weight, plan, prev=None, weights_padded=False,
 
     The edges are added to prev in float32, in CSR order, and the sum is
     rounded once to x's dtype, so a row without edges keeps prev bit for
-    bit. A CPU tensor takes `spmm_csr_acc_reference`; a CUDA tensor
-    launches the kernel (counted in ``spmm_csr_acc.launches``) or raises.
+    bit. The op ``gammagl::spmm_csr_acc`` (with ``out``,
+    ``gammagl::spmm_csr_acc_out``): a CPU tensor takes the plain version,
+    a CUDA tensor launches the kernel (counted in
+    ``spmm_csr_acc.launches``) or raises.
     Not differentiable, like the TPU kernel it replaces: a call autograd
     would have to record raises (the planned halo tier takes its backward
     from the transpose partition).
     """
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spmm_csr_acc: no kernel for device {x.device}")
-    refuse_trace("spmm_csr_acc")
     _check_x(x, plan)
     _check_prev(prev, x, plan)
     if out is not None and (out.shape != (plan.num_nodes, x.shape[1])
@@ -796,13 +825,83 @@ def spmm_csr_acc(x, edge_weight, plan, prev=None, weights_padded=False,
         raise RuntimeError("spmm_csr_acc is not differentiable; call it "
                            "under torch.no_grad(), or take spmm_csr")
     w = _csr_weights(edge_weight, plan, weights_padded)
-    if x.device.type == "cpu":
-        res = _csr_sum_reference(x, w, plan, False, prev)
-        return res if out is None else out.copy_(res)
-    return _launch(x, w, plan, prev=prev, out=out)
+    args = _op_args(plan, x.device)
+    if out is None:
+        return torch.ops.gammagl.spmm_csr_acc(x, w, prev, *args)
+    torch.ops.gammagl.spmm_csr_acc_out(x, w, prev, out, *args)
+    return out
 
 
 spmm_csr_acc.launches = 0
+
+
+@torch.library.custom_op("gammagl::spmm_csr_acc", mutates_args=())
+def _spmm_csr_acc_op(x: torch.Tensor, w: Optional[torch.Tensor],
+                     prev: Optional[torch.Tensor], rowptr: torch.Tensor,
+                     col: torch.Tensor, item_ptr: Optional[torch.Tensor],
+                     item_meta: Optional[torch.Tensor],
+                     cut_row: Optional[torch.Tensor],
+                     cut_ptr: Optional[torch.Tensor],
+                     n_slots: int) -> torch.Tensor:
+    """``prev + A x`` (prev None: ``A x``) on a plan's arrays: the forward
+    of `spmm_csr_acc`. CPU: the plain version; CUDA: the kernel with its
+    accumulating flag (and `csr_fold`), counted as `spmm_csr_acc` counts
+    it."""
+    raise ValueError(f"gammagl::spmm_csr_acc: no kernel for device "
+                     f"{x.device}")
+
+
+@_spmm_csr_acc_op.register_kernel("cpu")
+def _spmm_csr_acc_cpu(x, w, prev, rowptr, col, item_ptr, item_meta,
+                      cut_row, cut_ptr, n_slots):
+    return _csr_sum_arrays(x, w, rowptr, col, False, prev)
+
+
+@_spmm_csr_acc_op.register_kernel("cuda")
+def _spmm_csr_acc_cuda(x, w, prev, rowptr, col, item_ptr, item_meta,
+                       cut_row, cut_ptr, n_slots):
+    return _launch_arrays(x, w, rowptr, col, item_ptr, item_meta, cut_row,
+                          cut_ptr, n_slots, prev=prev)
+
+
+@_spmm_csr_acc_op.register_fake
+def _spmm_csr_acc_fake(x, w, prev, rowptr, col, item_ptr, item_meta,
+                       cut_row, cut_ptr, n_slots):
+    return x.new_empty(rowptr.shape[0] - 1, x.shape[1])
+
+
+@torch.library.custom_op("gammagl::spmm_csr_acc_out", mutates_args=("out",))
+def _spmm_csr_acc_out_op(x: torch.Tensor, w: Optional[torch.Tensor],
+                         prev: Optional[torch.Tensor], out: torch.Tensor,
+                         rowptr: torch.Tensor, col: torch.Tensor,
+                         item_ptr: Optional[torch.Tensor],
+                         item_meta: Optional[torch.Tensor],
+                         cut_row: Optional[torch.Tensor],
+                         cut_ptr: Optional[torch.Tensor],
+                         n_slots: int) -> None:
+    """``gammagl::spmm_csr_acc`` written into ``out``, which may be
+    ``prev`` itself (the planned halo tier folds each class in place)."""
+    raise ValueError(f"gammagl::spmm_csr_acc_out: no kernel for device "
+                     f"{x.device}")
+
+
+@_spmm_csr_acc_out_op.register_kernel("cpu")
+def _spmm_csr_acc_out_cpu(x, w, prev, out, rowptr, col, item_ptr, item_meta,
+                          cut_row, cut_ptr, n_slots):
+    out.copy_(_csr_sum_arrays(x, w, rowptr, col, False, prev))
+
+
+@_spmm_csr_acc_out_op.register_kernel("cuda")
+def _spmm_csr_acc_out_cuda(x, w, prev, out, rowptr, col, item_ptr,
+                           item_meta, cut_row, cut_ptr, n_slots):
+    _launch_arrays(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
+                   n_slots, prev=prev, out=out)
+
+
+@_spmm_csr_acc_out_op.register_fake
+def _spmm_csr_acc_out_fake(x, w, prev, out, rowptr, col, item_ptr,
+                           item_meta, cut_row, cut_ptr, n_slots):
+    return None
 
 
 class _SegmentSum(torch.autograd.Function):

@@ -24,7 +24,10 @@ edge-scatter transpose, the weight folded in, and the weight's own gradient
 
 On a CUDA tensor the forward launches the kernel of ``csrc/segment_max.cu``
 and the backward its backward kernel, or they raise; on a CPU tensor both
-run their plain versions. Each public function counts its forward launches
+run their plain versions. They are the ``torch.library`` ops
+``gammagl::segment_extreme`` (max and min, gathered and per edge) and
+``gammagl::segment_max_bwd``, on the plan's arrays; the passes over cut
+rows run inside them. Each public function counts its forward launches
 in its ``.launches``; the backward counts in ``segment_max_bwd.launches``.
 The op is differentiable once: a backward with ``create_graph=True``
 raises on every device.
@@ -41,18 +44,19 @@ plan without cut rows launches none of them.
 import ctypes
 import functools
 from math import inf
+from typing import Optional
 
 import torch
 
 from gammagl_tpu_torch.ops.cuda._build import load_library
-from gammagl_tpu_torch.ops.cuda.segment_matmul import (_check_x, _csr_rows,
+from gammagl_tpu_torch.ops.cuda.segment_matmul import (PlanArrays, _check_x,
+                                                       _csr_rows,
                                                        _csr_weights,
                                                        _first_order_only,
                                                        _forward, _items,
-                                                       _pad_rows,
+                                                       _op_args, _pad_rows,
                                                        _part_stride, _ptr,
                                                        _raise_on, _slots)
-from gammagl_tpu_torch.ops.cuda.segment_matmul import refuse_trace
 from gammagl_tpu_torch.ops.cuda.segment_matmul import _kernel as _spmm_kernel
 
 __all__ = ["spmm_max_csr", "spmm_min_csr", "segment_max_csr",
@@ -174,14 +178,50 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _extreme(x, w, plan, per_edge, negate, counter):
-    """The forward: a CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (counted in ``counter.launches``), and the fold
-    after it on a plan with cut rows, or raises."""
-    refuse_trace(counter.__name__)
-    if x.device.type == "cpu":
-        return _extreme_reference(x, w, plan, per_edge, negate)
+def _extreme(x, w, plan, per_edge, negate):
+    """The forward, the op ``gammagl::segment_extreme``: a CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel (counted in the
+    ``.launches`` of `spmm_max_csr`, `spmm_min_csr`, `segment_max_csr` or
+    `segment_min_csr`, by ``per_edge`` and ``negate``), and the fold after
+    it on a plan with cut rows, or raises."""
+    return torch.ops.gammagl.segment_extreme(
+        x, w, *_op_args(plan, x.device), bool(per_edge), bool(negate))
+
+
+def _counter(per_edge, negate):
+    """The public function whose ``.launches`` counts this form."""
+    return ((segment_min_csr if negate else segment_max_csr) if per_edge
+            else (spmm_min_csr if negate else spmm_max_csr))
+
+
+@torch.library.custom_op("gammagl::segment_extreme", mutates_args=())
+def _extreme_op(x: torch.Tensor, w: Optional[torch.Tensor],
+                rowptr: torch.Tensor, col: torch.Tensor,
+                item_ptr: Optional[torch.Tensor],
+                item_meta: Optional[torch.Tensor],
+                cut_row: Optional[torch.Tensor],
+                cut_ptr: Optional[torch.Tensor], n_slots: int,
+                per_edge: bool, negate: bool) -> torch.Tensor:
+    """Segment max (``negate``: min) of the messages ``w_e * x[col[e]]``
+    (``per_edge``: ``x[e]``) into their rows, on the plan's arrays."""
+    raise ValueError(f"gammagl::segment_extreme: no kernel for device "
+                     f"{x.device}")
+
+
+@_extreme_op.register_kernel("cpu")
+def _extreme_cpu(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
+                 n_slots, per_edge, negate):
+    return _extreme_reference(x, w, PlanArrays(rowptr, col), per_edge,
+                              negate)
+
+
+@_extreme_op.register_kernel("cuda")
+def _extreme_cuda(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
+                  n_slots, per_edge, negate):
+    counter = _counter(per_edge, negate)
     _check_cuda(counter.__name__, x, w)
+    plan = PlanArrays(rowptr, col, None, item_ptr, item_meta, cut_row,
+                      cut_ptr, n_slots)
     F = x.shape[1]
     out = torch.empty(plan.num_nodes, F, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -199,6 +239,12 @@ def _extreme(x, w, plan, per_edge, negate, counter):
     if part is not None:
         segment_max_fold(part, plan, out, negate)
     return out
+
+
+@_extreme_op.register_fake
+def _extreme_fake(x, w, rowptr, col, item_ptr, item_meta, cut_row, cut_ptr,
+                  n_slots, per_edge, negate):
+    return x.new_empty(rowptr.shape[0] - 1, x.shape[1])
 
 
 def segment_max_fold(part, plan, out, negate):
@@ -235,20 +281,51 @@ def _backward_kernel(op, x, w, out, grad, dmsg, dw, plan, per_edge, part,
 
 def segment_max_bwd(x, w, out, grad, plan, per_edge, want_dw):
     """One backward: (dmsg (E, F) of x's dtype in CSR order, dw (E,)
-    float32 or None). A CPU tensor takes `segment_max_bwd_reference`; a
-    CUDA tensor launches the kernel (counted in
-    ``segment_max_bwd.launches``), after `segment_max_count` and
-    `segment_max_count_fold` on a plan with cut rows, or raises."""
-    want_dw = want_dw and w is not None
-    refuse_trace("segment_max_bwd")
-    if x.device.type == "cpu":
-        return segment_max_bwd_reference(x, w, out, grad, plan, per_edge,
+    float32 or None), the op ``gammagl::segment_max_bwd``. A CPU tensor
+    takes `segment_max_bwd_reference`; a CUDA tensor launches the kernel
+    (counted in ``segment_max_bwd.launches``), after `segment_max_count`
+    and `segment_max_count_fold` on a plan with cut rows, or raises."""
+    want_dw = bool(want_dw and w is not None)
+    dmsg, dw = torch.ops.gammagl.segment_max_bwd(
+        x, w, out, grad, *_op_args(plan, x.device), bool(per_edge), want_dw)
+    return dmsg, dw if want_dw else None
+
+
+@torch.library.custom_op("gammagl::segment_max_bwd", mutates_args=())
+def _segment_max_bwd_op(x: torch.Tensor, w: Optional[torch.Tensor],
+                        out: torch.Tensor, grad: torch.Tensor,
+                        rowptr: torch.Tensor, col: torch.Tensor,
+                        item_ptr: Optional[torch.Tensor],
+                        item_meta: Optional[torch.Tensor],
+                        cut_row: Optional[torch.Tensor],
+                        cut_ptr: Optional[torch.Tensor], n_slots: int,
+                        per_edge: bool, want_dw: bool
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dmsg (E, F), dw: (E,) float32 with ``want_dw``, else (0,)) on the
+    plan's arrays."""
+    raise ValueError(f"gammagl::segment_max_bwd: no kernel for device "
+                     f"{x.device}")
+
+
+@_segment_max_bwd_op.register_kernel("cpu")
+def _segment_max_bwd_cpu(x, w, out, grad, rowptr, col, item_ptr, item_meta,
+                         cut_row, cut_ptr, n_slots, per_edge, want_dw):
+    dmsg, dw = segment_max_bwd_reference(x, w, out, grad,
+                                         PlanArrays(rowptr, col), per_edge,
                                          want_dw)
+    return dmsg, dw if want_dw else x.new_empty(0, dtype=torch.float32)
+
+
+@_segment_max_bwd_op.register_kernel("cuda")
+def _segment_max_bwd_cuda(x, w, out, grad, rowptr, col, item_ptr, item_meta,
+                          cut_row, cut_ptr, n_slots, per_edge, want_dw):
     _check_cuda("segment_max_bwd", x, w)
+    plan = PlanArrays(rowptr, col, None, item_ptr, item_meta, cut_row,
+                      cut_ptr, n_slots)
     grad = grad.to(x.dtype).contiguous()
     E, F = plan.num_edges, x.shape[1]
     dmsg = torch.empty(E, F, dtype=x.dtype, device=x.device)
-    dw = torch.zeros(E, device=x.device) if want_dw else None
+    dw = torch.zeros(E if want_dw else 0, device=x.device)
     if dmsg.numel() == 0:
         return dmsg, dw
     w = None if w is None else w.contiguous()
@@ -256,10 +333,18 @@ def segment_max_bwd(x, w, out, grad, plan, per_edge, want_dw):
     if plan.split_arrays(x.device)[4]:
         total = segment_max_count_fold(
             segment_max_count(x, w, out, plan, per_edge), plan, F)
-    _backward_kernel("segment_max_bwd", x, w, out, grad, dmsg, dw, plan,
-                     per_edge, total, False)
+    _backward_kernel("segment_max_bwd", x, w, out, grad, dmsg,
+                     dw if want_dw else None, plan, per_edge, total, False)
     segment_max_bwd.launches += 1
     return dmsg, dw
+
+
+@_segment_max_bwd_op.register_fake
+def _segment_max_bwd_fake(x, w, out, grad, rowptr, col, item_ptr, item_meta,
+                          cut_row, cut_ptr, n_slots, per_edge, want_dw):
+    E = col.shape[0]
+    return (x.new_empty(E, x.shape[1]),
+            x.new_empty(E if want_dw else 0, dtype=torch.float32))
 
 
 def segment_max_count(x, w, out, plan, per_edge):
@@ -306,8 +391,8 @@ class _SegmentExtreme(torch.autograd.Function):
     transpose sums them, times the weight, into the source rows."""
 
     @staticmethod
-    def forward(ctx, x, w, plan, per_edge, negate, counter):
-        out = _extreme(x, w, plan, per_edge, negate, counter)
+    def forward(ctx, x, w, plan, per_edge, negate):
+        out = _extreme(x, w, plan, per_edge, negate)
         ctx.save_for_backward(x, w, out)
         ctx.plan, ctx.per_edge = plan, per_edge
         return out
@@ -330,26 +415,26 @@ class _SegmentExtreme(torch.autograd.Function):
                     w_t = w.to(x.dtype).float()[
                         scatter.arrays(w.device)[2]]
                 dx = _pad_rows(_forward(dmsg, w_t, scatter), x.shape[0])
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None
 
 
-def _gathered(x, edge_weight, plan, weights_padded, negate, counter):
+def _gathered(x, edge_weight, plan, weights_padded, negate):
     if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{counter.__name__}: no kernel for device "
-                         f"{x.device}")
+        raise ValueError(f"{_counter(False, negate).__name__}: no kernel for "
+                         f"device {x.device}")
     _check_x(x, plan)
     w = _csr_weights(edge_weight, plan, weights_padded)
-    return _SegmentExtreme.apply(x, w, plan, False, negate, counter)
+    return _SegmentExtreme.apply(x, w, plan, False, negate)
 
 
-def _per_edge(msg, plan, negate, counter):
+def _per_edge(msg, plan, negate):
     if msg.dim() != 2 or msg.shape[0] != plan.num_edges:
         raise ValueError(f"msg must be (E={plan.num_edges}, F), got "
                          f"{tuple(msg.shape)}")
     if msg.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{counter.__name__}: no kernel for device "
-                         f"{msg.device}")
-    return _SegmentExtreme.apply(msg, None, plan, True, negate, counter)
+        raise ValueError(f"{_counter(True, negate).__name__}: no kernel for "
+                         f"device {msg.device}")
+    return _SegmentExtreme.apply(msg, None, plan, True, negate)
 
 
 def spmm_max_csr(x, edge_weight, plan, weights_padded=False):
@@ -366,27 +451,25 @@ def spmm_max_csr(x, edge_weight, plan, weights_padded=False):
     Differentiable once in x and edge_weight; ties split the cotangent
     evenly.
     """
-    return _gathered(x, edge_weight, plan, weights_padded, False,
-                     spmm_max_csr)
+    return _gathered(x, edge_weight, plan, weights_padded, False)
 
 
 def spmm_min_csr(x, edge_weight, plan, weights_padded=False):
     """out[d] = min_{(s,d)} w_sd * x[s]: `spmm_max_csr` of the negated
     messages, negated (``spmm_min_csr.launches``)."""
-    return _gathered(x, edge_weight, plan, weights_padded, True,
-                     spmm_min_csr)
+    return _gathered(x, edge_weight, plan, weights_padded, True)
 
 
 def segment_max_csr(msg, plan):
     """Max of per-edge rows ``msg`` (E, F) in the plan's CSR order into
     their destination rows; rows without edges are 0
     (``segment_max_csr.launches``). Differentiable once."""
-    return _per_edge(msg, plan, False, segment_max_csr)
+    return _per_edge(msg, plan, False)
 
 
 def segment_min_csr(msg, plan):
     """Min of per-edge rows in CSR order (``segment_min_csr.launches``)."""
-    return _per_edge(msg, plan, True, segment_min_csr)
+    return _per_edge(msg, plan, True)
 
 
 for _fn in (spmm_max_csr, spmm_min_csr, segment_max_csr, segment_min_csr):

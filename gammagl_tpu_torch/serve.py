@@ -13,11 +13,13 @@ cost.
     logits = sess(x, edge_index)
 
 `export_forward` traces the same forward with `torch.export`: the
-parameters and a plan's arrays go into the artifact, and the CSR SpMM is
-recorded as the op ``gammagl::spmm_csr``, so the reloaded program runs the
-hand-written kernel (a model that reaches a kernel without an op raises
-`NotImplementedError`). The artifact is traced for one device and one
-set of shapes; reloading imports the ops and not the model's code:
+parameters and the plans' arrays go into the artifact, and every kernel
+is recorded as its ``torch.library`` op (``gammagl::spmm_csr``,
+``gammagl::flash_forward``, ``gammagl::segment_extreme``,
+``gammagl::hgt_forward``, ``gammagl::spmm_block_pair``, ...), so the
+reloaded program runs the hand-written kernels. The artifact is traced
+for one device and one set of shapes; reloading imports the ops and not
+the model's code:
 
     ep = export_forward(model, (x, edge_index), device="cuda",
                         compute_dtype=torch.bfloat16, plan=plan)
@@ -51,6 +53,7 @@ dense, a hybrid of it and the CSR kernel when part of it is:
 """
 
 import queue
+import re
 import threading
 import time
 from concurrent.futures import Future
@@ -59,6 +62,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from gammagl_tpu_torch.utils.device import resolve_device
 
@@ -72,38 +76,62 @@ def _as_tensor(a, device):
     return a.to(device)
 
 
+def _key_name(key):
+    """A dict key as part of a buffer name: an edge type's tuple joined by
+    ``__``, anything else but letters, digits and ``_`` made ``_``."""
+    if isinstance(key, tuple):
+        key = "__".join(str(k) for k in key)
+    return re.sub(r"\W", "_", str(key))
+
+
+def _plans_in(value, name):
+    """(buffer-name prefix, plan) for each plan a forward keyword holds: a
+    `CSRPlan` or a `BlockPairPlan`, both parts of a `HybridPlan`
+    (``_bp``, ``_csr``), and those among a dict's values (a hetero
+    model's ``plan_dict``, keyed by edge type)."""
+    from gammagl_tpu_torch.ops.cuda import BlockPairPlan, CSRPlan, HybridPlan
+    if isinstance(value, (CSRPlan, BlockPairPlan)):
+        yield name, value
+    elif isinstance(value, HybridPlan):
+        for part in ("bp", "csr"):
+            if getattr(value, part) is not None:
+                yield f"{name}_{part}", getattr(value, part)
+    elif isinstance(value, dict):
+        for key, item in value.items():
+            yield from _plans_in(item, f"{name}_{_key_name(key)}")
+
+
 class _Exported(torch.nn.Module):
-    """The model with its forward keywords bound: each `CSRPlan` among
-    them has the arrays its op reads as buffers of this module, so the
-    exported program carries them, and the trace reads them in place of
-    the plan's own copies (`bind_plan_arrays`). Float inputs are cast to
+    """The model with its forward keywords bound: each plan among them
+    (`_plans_in`) has the arrays its ops read as buffers of this module,
+    so the exported program carries them, and the trace reads them in
+    place of the plan's own copies (`bind_plan_arrays`). Float inputs
+    (the leaves of dict, tuple and list inputs too) are cast to
     ``compute_dtype`` first, as `InferenceSession` casts them."""
 
     def __init__(self, model, device, compute_dtype, forward_kwargs):
         super().__init__()
-        from gammagl_tpu_torch.ops.cuda.segment_matmul import (CSRPlan,
-                                                               plan_buffers)
         self.model = model
         self.compute_dtype = compute_dtype
         self.forward_kwargs = forward_kwargs
-        self._plans = {}
+        self._plans = []
         for key, value in forward_kwargs.items():
-            if isinstance(value, CSRPlan):
+            for prefix, plan in _plans_in(value, key):
                 names = {}
-                for name, t in plan_buffers(value, device).items():
-                    names[name] = f"{key}_{name}"
+                for name, t in plan.buffers(device).items():
+                    names[name] = f"{prefix}_{name}"
                     self.register_buffer(names[name], t.clone())
-                self._plans[key] = names
+                self._plans.append((plan, names))
 
     def forward(self, *inputs):
         from gammagl_tpu_torch.ops.cuda.segment_matmul import (
             bind_plan_arrays)
         if self.compute_dtype is not None:
-            inputs = tuple(a.to(self.compute_dtype)
-                           if a.is_floating_point() else a for a in inputs)
-        bound = {self.forward_kwargs[key]: {name: getattr(self, buf)
-                                            for name, buf in names.items()}
-                 for key, names in self._plans.items()}
+            inputs = _tree_map(lambda a: a.to(self.compute_dtype)
+                               if a.is_floating_point() else a, inputs)
+        bound = {plan: {name: getattr(self, buf)
+                        for name, buf in names.items()}
+                 for plan, names in self._plans}
         with bind_plan_arrays(bound):
             return self.model(*inputs, **self.forward_kwargs)
 
@@ -112,19 +140,25 @@ def export_forward(model, example_inputs, device=None, compute_dtype=None,
                    **forward_kwargs):
     """`torch.export` of ``model(*inputs, **forward_kwargs)`` in eval mode
     on ``device`` (None: the current CUDA card; ``"cpu"`` for the plain
-    versions), with float inputs cast to ``compute_dtype``. The
-    parameters live in the model; a `CSRPlan` among the keywords has its
-    arrays carried as buffers. Returns the ``ExportedProgram``, traced
-    for ``device`` and the example inputs' shapes and dtypes (JAX's
-    ``platforms`` has no counterpart: one artifact, one device).
+    versions), with float inputs cast to ``compute_dtype``. An input may
+    be a tensor (or array) or a dict, tuple or list of them (a hetero
+    model's ``x_dict``). The parameters live in the model; the plans among
+    the keywords (a `CSRPlan`, `BlockPairPlan` or `HybridPlan`, or a dict
+    of them) have their arrays carried as buffers. Returns the
+    ``ExportedProgram``, traced for ``device`` and the example inputs'
+    shapes and dtypes (JAX's ``platforms`` has no counterpart: one
+    artifact, one device).
 
-    The CSR SpMM and per-edge segment sum are recorded as
-    ``gammagl::spmm_csr``; a model that reaches another kernel raises
-    `NotImplementedError` naming it."""
+    Every kernel is recorded as its op (``gammagl::spmm_csr``,
+    ``gammagl::flash_forward``, ``gammagl::segment_extreme``,
+    ``gammagl::hgt_forward``, ``gammagl::spmm_block_pair``, ...), so the
+    program runs the kernels from a file and holds none of their plain
+    versions."""
     device = resolve_device(device)
     model = model.to(device).eval()
     wrapper = _Exported(model, device, compute_dtype, forward_kwargs)
-    inputs = tuple(_as_tensor(a, device) for a in example_inputs)
+    inputs = tuple(_tree_map(lambda a: _as_tensor(a, device), a)
+                   for a in example_inputs)
     with torch.no_grad():
         if any(isinstance(p, torch.nn.parameter.UninitializedParameter)
                for p in model.parameters()):
@@ -150,8 +184,34 @@ def load_exported(path):
     callable module, its parameters frozen for serving:
     ``load_exported(path)(x, edge_index)`` runs it on the device it was
     traced for."""
-    import gammagl_tpu_torch.ops.cuda.segment_matmul  # noqa: F401 (the op)
-    return torch.export.load(path).module().requires_grad_(False)
+    import gammagl_tpu_torch.ops.cuda  # noqa: F401 (registers every op)
+    ep = torch.export.load(path)
+    for entry in ep.module_call_graph:
+        sig = entry.signature
+        if sig is not None:
+            sig.in_spec = _tuple_keys(sig.in_spec)
+            sig.out_spec = _tuple_keys(sig.out_spec)
+    return ep.module().requires_grad_(False)
+
+
+def _tuple_keys(spec):
+    """``spec`` with the dict keys that a saved program holds as lists (the
+    file's JSON has no tuples: a hetero model's edge types) made tuples
+    again; a list is never a dict key, so every such list was a tuple."""
+    if spec.is_leaf():
+        return spec
+    kids = (spec.children() if callable(getattr(spec, "children", None))
+            else spec.children_specs)
+    context = spec.context
+    if spec.type is dict:
+        context = [_as_tuple(k) if isinstance(k, list) else k
+                   for k in context]
+    return pytree.TreeSpec(spec.type, context,
+                           [_tuple_keys(kid) for kid in kids])
+
+
+def _as_tuple(key):
+    return tuple(_as_tuple(k) if isinstance(k, list) else k for k in key)
 
 
 class InferenceSession:
@@ -160,7 +220,8 @@ class InferenceSession:
     the plain versions on the host).
 
     Each call moves its inputs to the device (numpy arrays become
-    tensors), casts float inputs to ``compute_dtype`` when one is given,
+    tensors; a dict, tuple or list input leaf by leaf), casts float inputs
+    to ``compute_dtype`` when one is given,
     and runs ``model(*inputs, **forward_kwargs)`` under
     ``torch.inference_mode()``. The output is returned as the model
     produces it (float32 logits for `GCNModel`).
@@ -180,6 +241,11 @@ class InferenceSession:
         return a.to(self.device)
 
     def _place(self, a):
+        """An input on the device, cast; a dict, tuple or list input
+        (a hetero model's ``x_dict``) leaf by leaf."""
+        return _tree_map(self._place_leaf, a)
+
+    def _place_leaf(self, a):
         a = self._place_raw(a)
         if self.compute_dtype is not None and a.is_floating_point():
             a = a.to(self.compute_dtype)
@@ -229,7 +295,7 @@ class ShardedInferenceSession(InferenceSession):
     inputs and the output. Every process calls with the same forms (a
     gather is a collective). ``example_inputs`` are whole. ``export()``
     gives `export_forward`'s artifact of the forward (one device, the
-    whole inputs), and raises as it does on a kernel without an op."""
+    whole inputs)."""
 
     def __init__(self, model, example_inputs, in_specs, out_specs=None,
                  group=None, device=None, compute_dtype=None,

@@ -40,7 +40,8 @@ from gammagl_tpu_torch.examples.common import synthetic_hetero
 from gammagl_tpu_torch.models import (GATModel, GATV2Model, GCNModel,
                                       GraphSAGEModel, HGTModel)
 from gammagl_tpu_torch.ops import cuda as kops
-from gammagl_tpu_torch.ops.cuda.sddmm_csr import EDGE_SPLIT, _expand, _sddmm
+from gammagl_tpu_torch.ops.cuda.sddmm_csr import (EDGE_SPLIT, _edge_items,
+                                                   _expand, _sddmm)
 from gammagl_tpu_torch.serve import InferenceSession
 from gammagl_tpu_torch.utils import compute_dtype
 
@@ -2449,3 +2450,222 @@ def test_tiers_in_four_processes_on_one_card(card, tmp_path):
             b = b[:2000]
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=1e-4 * np.abs(b).max())
+
+
+# -- the ops of rows 5-15 on the card, and the models exported through them
+
+_OP_COUNTED = ("spmm_csr", "segment_sum_csr", "spmm_csr_acc", "csr_fold",
+               "expand_dst_csr", "sddmm_csr", "flash_forward",
+               "flash_fwd_fold", "flash_backward", "spmm_max_csr",
+               "spmm_min_csr", "segment_max_csr", "segment_min_csr",
+               "segment_max_fold", "segment_max_bwd", "segment_max_count",
+               "segment_max_count_fold", "hgt_forward", "hgt_backward",
+               "spmm_block_pair", "block_pair_dw")
+
+
+def _op_counts():
+    return {name: getattr(kops, name).launches for name in _OP_COUNTED}
+
+
+def _op_launched(before):
+    return {name: n - before[name] for name, n in _op_counts().items()
+            if n != before[name]}
+
+
+def _op_hub_plan(n=300, e=3000, hub=None, seed=50):
+    """Random edges with a hub row 0 past ROW_SPLIT (and so EDGE_SPLIT);
+    the last 20 rows get none."""
+    rng = np.random.default_rng(seed)
+    hub = kops.ROW_SPLIT + 77 if hub is None else hub
+    src = rng.integers(0, n, e + hub)
+    dst = np.concatenate([rng.integers(0, n - 20, e), np.zeros(hub, int)])
+    return kops.build_csr_plan(src, dst, n)
+
+
+def _card_op_args(name, card):
+    """One small hub-row case of an op's arguments on the card."""
+    from gammagl_tpu_torch.ops.cuda.flash_attention import _plan_args
+    from gammagl_tpu_torch.ops.cuda.segment_matmul import _op_args
+    plan = _op_hub_plan()
+    n, E = plan.num_nodes, plan.num_edges
+    g = torch.Generator(device=card).manual_seed(51)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device=card).to(dtype)
+    bf = torch.bfloat16
+    if name in ("spmm_csr_acc", "spmm_csr_acc_out"):
+        x, prev = rand(n, 16, dtype=bf), rand(n, 16, dtype=bf)
+        w = torch.rand(E, generator=g, device=card)
+        if name == "spmm_csr_acc":
+            return (x, w, prev, *_op_args(plan, card))
+        return (x, w, prev, torch.empty_like(prev), *_op_args(plan, card))
+    if name in ("sddmm_csr", "expand_dst_csr"):
+        items = _edge_items(plan, card)
+        if name == "sddmm_csr":
+            return (rand(n, 16, dtype=bf), rand(n, 16, dtype=bf), *items, 2,
+                    True)
+        return (rand(n, 16, dtype=bf), torch.rand(E, 2, generator=g,
+                                                  device=card), *items)
+    if name in ("flash_forward", "flash_backward"):
+        score, a_dst, msg = rand(n, 2), rand(n, 2), rand(n, 16, dtype=bf)
+        keep = (torch.rand(E, 2, generator=g, device=card) < 0.7).float()
+        if name == "flash_forward":
+            return (score, a_dst, msg, keep, *_plan_args(plan, card), 0.2,
+                    True)
+        out, m, l = kops.flash_forward(score, a_dst, msg, keep, plan, 0.2,
+                                       True)
+        return (score, a_dst, msg, keep, m, l, out, rand(n, 16, dtype=bf),
+                *plan.arrays(card), 0.2, True)
+    if name in ("segment_extreme", "segment_max_bwd"):
+        x = torch.randint(-3, 4, (n, 16), generator=g, device=card).to(bf)
+        w = torch.randint(1, 3, (E,), generator=g, device=card).float()
+        if name == "segment_extreme":
+            return (x, w, *_op_args(plan, card), False, False)
+        out = kops.spmm_max_csr(x, w, plan, weights_padded=True)
+        return (x, w, out, rand(n, 16, dtype=bf), *_op_args(plan, card),
+                False, True)
+    if name in ("hgt_forward", "hgt_backward"):
+        kv, q = rand(n, 64, dtype=bf), rand(n, 2, 16, dtype=bf)
+        rowptr, col, _ = plan.arrays(card)
+        if name == "hgt_forward":
+            return (kv, q, rowptr, col)
+        out, m, l = kops.hgt_forward(kv, q, plan)
+        return (kv, q, out, rand(n, 32, dtype=bf), m, l, rowptr, col)
+    rng = np.random.default_rng(52)
+    dst = rng.integers(0, n, 4000)
+    src = np.clip(dst + rng.integers(-40, 41, 4000), 0, n - 1)
+    bp = kops.build_block_pair_plan(src, dst, n, R=64, S=64)
+    row, col, w_perm, block_ptr, pair_src, row_ptr, _ = bp.arrays(card)
+    x = rand(n, 16, dtype=bf)
+    if name == "spmm_block_pair":
+        return (x, torch.rand(bp.num_edges, generator=g, device=card), w_perm,
+                row, col, block_ptr, pair_src, row_ptr, bp.num_nodes,
+                bp.num_src, bp.R, bp.S)
+    return (x, rand(n, 16, dtype=bf), row, col, w_perm, bp.num_edges)
+
+
+@pytest.mark.parametrize("name", [
+    "spmm_csr_acc", "spmm_csr_acc_out", "sddmm_csr", "expand_dst_csr",
+    "flash_forward", "flash_backward", "segment_extreme", "segment_max_bwd",
+    "hgt_forward", "hgt_backward", "spmm_block_pair", "block_pair_dw"])
+def test_ops_pass_opcheck_on_card(card, name):
+    """``torch.library.opcheck`` of each op of rows 5-15 on CUDA tensors
+    (bf16 rows, a hub row cut into work items), so the fake shapes hold
+    for the kernels' outputs too."""
+    torch.library.opcheck(getattr(torch.ops.gammagl, name).default,
+                          _card_op_args(name, card))
+
+
+def _export_case(family):
+    """(model, example inputs, forward keywords, compute dtype, the
+    kernels' launches a request) of one row family."""
+    rng = np.random.default_rng(53)
+    n, e = 2000, 16000
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    graph = Graph(x=x, edge_index=rng.integers(0, n, (2, e))).add_self_loop()
+    ei = graph.edge_index
+    torch.manual_seed(54)
+    if family == "flash":
+        return (GATModel(hidden_dim=8, num_class=5, heads=4, in_channels=24),
+                (x, ei), {"plan": graph.csr_plan()}, torch.bfloat16,
+                {"flash_forward": 2})
+    if family == "expand":
+        return (GATV2Model(hidden_dim=8, num_class=5, heads=4), (x, ei),
+                {"plan": graph.csr_plan()}, torch.float32,
+                {"expand_dst_csr": 2, "flash_forward": 2})
+    if family == "segment_max":
+        return (GraphSAGEModel(16, 5, num_layers=2, aggr="max"), (x, ei),
+                {"plan": graph.csr_plan()}, torch.bfloat16,
+                {"spmm_max_csr": 2})
+    if family == "hgt":
+        hg, target = synthetic_hetero(0)
+        return (HGTModel(hg.metadata(), 128, 3, target, heads=2,
+                         dtype=torch.bfloat16),
+                (dict(hg.x_dict), dict(hg.edge_index_dict)),
+                {"plan_dict": hg.csr_plans(window=True)}, None,
+                {"hgt_forward": 2 * len(hg.edge_types)})
+    dst = rng.integers(0, 4096, 40000)
+    src = np.clip(dst + rng.integers(-64, 65, 40000), 0, 4095)
+    band = Graph(x=rng.normal(size=(4096, 24)).astype(np.float32),
+                 edge_index=np.stack([src, dst]))
+    plan = band.auto_plan()
+    assert isinstance(plan, kops.BlockPairPlan), plan
+    return (GCNModel(hidden_dim=16, num_class=5), (band.x, band.edge_index),
+            {"plan": plan}, torch.bfloat16, {"spmm_block_pair": 2})
+
+
+@pytest.mark.parametrize("family", ["flash", "expand", "segment_max", "hgt",
+                                    "block_pair"])
+def test_exported_model_runs_its_kernels_from_a_file(card, tmp_path,
+                                                     family):
+    """One model a row family exported on the card, saved and loaded: its
+    output bitwise the live session's, and a request launches exactly the
+    kernels the live request launches."""
+    from gammagl_tpu_torch.serve import (export_forward, load_exported,
+                                         save_exported)
+    model, inputs, kwargs, dtype, per_request = _export_case(family)
+    sess = InferenceSession(model, inputs, device="cuda",
+                            compute_dtype=dtype, **kwargs)
+    torch.cuda.synchronize()
+    before = _op_counts()
+    want = sess(*inputs)
+    torch.cuda.synchronize()
+    assert _op_launched(before) == per_request
+    ep = export_forward(model, inputs, device="cuda", compute_dtype=dtype,
+                        **kwargs)
+    save_exported(ep, tmp_path / "model.pt2")
+    prog = load_exported(tmp_path / "model.pt2")
+    placed = tuple(sess._place_raw(a) if not isinstance(a, dict) else
+                   {k: sess._place_raw(v) for k, v in a.items()}
+                   for a in inputs)
+    prog(*placed)
+    torch.cuda.synchronize()
+    before = _op_counts()
+    got = prog(*placed)
+    torch.cuda.synchronize()
+    assert _op_launched(before) == per_request
+    assert torch.equal(got, want)
+
+
+def test_two_gat_steps_through_the_ops_repeat_bitwise_c39(card):
+    """ROADMAP C39 through the ops: two Adam steps of a GATModel from one
+    state (parameters, optimizer, masks and generator) give bitwise equal
+    losses and parameters; a step launches 2 flash forwards, 2 flash
+    backwards and 4 SpMM."""
+    rng = np.random.default_rng(55)
+    n, e = 3000, 40000
+    x = rng.normal(size=(n, 24)).astype(np.float32)
+    graph = Graph(x=x, edge_index=np.stack(
+        [rng.integers(0, 50, e), rng.integers(0, n, e)])).add_self_loop()
+    xt = torch.tensor(x, device=card)
+    ei = torch.tensor(graph.edge_index, device=card)
+    plan = graph.csr_plan()
+    g = torch.Generator(device=card).manual_seed(56)
+    keeps = [kops.attention_keep_mask(g, 0.6, (ei.shape[1], h), card)
+             for h in (8, 1)]
+    torch.manual_seed(57)
+    base = GATModel(hidden_dim=8, num_class=5, heads=8, in_channels=24,
+                    dtype=torch.bfloat16).to(card).train()
+    y = torch.arange(n, device=card) % 5
+    runs = []
+    for _ in range(2):
+        model = copy.deepcopy(base)
+        opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+        losses = []
+        for step in range(2):
+            before = _op_counts()
+            opt.zero_grad()
+            gen = torch.Generator(device=card).manual_seed(58 + step)
+            out = model(xt, ei, plan=plan, keeps=keeps, generator=gen)
+            loss = torch.nn.functional.cross_entropy(out.float(), y)
+            loss.backward()
+            opt.step()
+            torch.cuda.synchronize()
+            assert _op_launched(before) == {"flash_forward": 2,
+                                         "flash_backward": 2, "spmm_csr": 4}
+            losses.append(loss.detach())
+        runs.append((losses, [p.detach().clone()
+                              for p in model.parameters()]))
+    (la, pa), (lb, pb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    assert all(torch.equal(a, b) for a, b in zip(pa, pb))

@@ -14,9 +14,8 @@
   succeeds (the fault the plan caches had: ROADMAP "Found and repaired").
 * `load_exported` in a fresh process gives the same logits and imports no
   `gammagl_tpu_torch.models`.
-* A model that reaches a kernel without an op raises NotImplementedError
-  naming it (FusedGATModel: the flash forward; the segment max;
-  `spmm_csr_acc`).
+* The ops of the other kernels, and the models that reach them, are held
+  in `test_torch_export_ops.py`.
 * ``torch.library.opcheck`` on the op, node rows and per edge, unit,
   (E,) and (E, H) weights, and a plan with cut rows.
 """
@@ -38,10 +37,8 @@ import gammagl_tpu.models as jm  # noqa: E402
 from gammagl_tpu import serve as jserve  # noqa: E402
 from tests.test_torch_simple_convs import _np_tree  # noqa: E402
 
-from gammagl_tpu_torch.models import (FusedGATModel, GCNModel,  # noqa: E402
-                                      GraphSAGEModel)
-from gammagl_tpu_torch.ops.cuda import (ROW_SPLIT, build_csr_plan,  # noqa
-                                        spmm_csr_acc)
+from gammagl_tpu_torch.models import GCNModel  # noqa: E402
+from gammagl_tpu_torch.ops.cuda import ROW_SPLIT, build_csr_plan  # noqa
 from gammagl_tpu_torch.serve import (export_forward,  # noqa: E402
                                      load_exported, save_exported)
 from gammagl_tpu_torch.utils import load_jax_params  # noqa: E402
@@ -218,26 +215,6 @@ def test_load_exported_in_a_fresh_process_imports_no_model_code(tmp_path):
         want = model(torch.from_numpy(x), torch.from_numpy(ei), plan=plan)
     np.testing.assert_array_equal(np.load(tmp_path / "out.npy"),
                                   want.numpy())
-
-
-def test_kernels_without_an_op_refuse_to_be_traced():
-    x, ei = _graph()
-    plan = FusedGATModel.to_graph_format(ei, N)
-    fused = FusedGATModel(hidden_dim=4, num_class=CLS, heads=2,
-                          in_channels=FEAT)
-    with pytest.raises(NotImplementedError, match="flash_forward"):
-        export_forward(fused, (x, ei), device="cpu", plan=plan)
-    sage = GraphSAGEModel(in_channels=FEAT, hidden_dim=HID,
-                          num_class=CLS, aggr="pool")
-    with pytest.raises(NotImplementedError, match="spmm_max_csr"):
-        export_forward(sage, (x, ei), device="cpu", plan=plan)
-
-    class Acc(torch.nn.Module):
-        def forward(self, v):
-            return spmm_csr_acc(v, None, plan)
-
-    with pytest.raises(NotImplementedError, match="spmm_csr_acc"):
-        torch.export.export(Acc(), (torch.from_numpy(x),))
 
 
 @pytest.mark.parametrize("per_edge", [0, 1])
