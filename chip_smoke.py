@@ -422,7 +422,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CUDA implementations called directly, in turns, 20 calls each on
    CUDA events; one `spmm_max_csr` call's host cost on a 64-node graph
    through both routes (2,000 calls each, host clock).
-43. Print the card's name and power limit, one JSON line on the kernels
+43. The port's entry points (slice 26). (a)-(c) `entry.dryrun_multichip`
+   in DRY_PROCS gloo processes sharing the card: the 25 tiers of the JAX
+   `dryrun_multichip` (dp x tp GCN step, halo, planned, partitioned GAT,
+   both two-level tiers, sp, ep, pp, the summed minibatch, the
+   relation-sharded attention), each against its dense reference in
+   every process, the roofline lines; then in the same processes the
+   dp x tp step on the arxiv shape (F = 128, hidden 256, 40 classes, f32)
+   and the relation attention with 4 relations of 500,000 edges over
+   100,000 nodes at D = 64 f32, each against the same step in this
+   process within 1e-4 of max |.| (the gradient behind the ReLU at 1e-3
+   when a ReLU input changed sign between the two sum orders, ROADMAP
+   C's rule; the flips are counted). Each rank's launches by tier under
+   the paths `dry-<tier>`, `dp-tp` and `het-r` (rows 1, 5, 8, 10 and 11
+   must each be launched), and the slowest rank's ms a tier (gloo's host
+   copies on one card: not a speed of the card). (d) The examples sweep
+   (`examples/run_examples_smoke.py`, `--timeout` SWEEP_TIMEOUT) over
+   SWEEP_DIRS, twins no earlier phase runs; any failure fails the phase.
+44. Print the card's name and power limit, one JSON line on the kernels
    (time, plain time, one PyTorch library call's time where one computes
    the same function, the bound and launches by path; the passes over cut
    rows under their kernel's entry: the CSR fold under spmm_csr's, the
@@ -517,6 +534,13 @@ HAN_RELATIONS, HAN_HEADS, HAN_HIDDEN = ("pap", "psp"), 8, 8
 HAN_DROP, HAN_LR = 0.6, 0.005
 N_REQUESTS, N_STEPS = 8, 5
 SEED = 0
+# phase 43: the dry run's processes, and the examples sweep's twins and
+# time limit a twin: a subset, ~20 s a twin on the card's host (the
+# whole sweep of 92 twins passed on the card in 2,143 s, PERF.md; it
+# would double the run)
+DRY_PROCS = 4
+SWEEP_DIRS = ("gat", "gatv2", "hgt", "rgcn", "sgc", "serving")
+SWEEP_TIMEOUT = 120
 # K of the work items, measured on the papers transpose beside ROW_SPLIT
 SPLIT_SWEEP = (512, 1024, 4096, 8192)
 # step-0 gradients, each parameter: max |kernel - plain| <= GRAD_TOL *
@@ -8723,6 +8747,78 @@ def phase_slice25(k, smi, **graphs):
     return live, loaded, out
 
 
+# -- phase 43: the port's entry points (dryrun_multichip, the examples sweep)
+
+def dry_runs(k, res):
+    """{path: {kernel: launches}} of a dry run: each rank's counts by tier
+    (keyed by the wrappers' names) summed over the ranks, the tiers of
+    the JAX function as ``dry-<tier>``, the full-width steps as ``dp-tp``
+    and ``het-r``."""
+    runs = {}
+    for label in res["launches"][0]:
+        path = label if label in ("dp-tp", "het-r") else "dry-" + label
+        runs[path] = {name: sum(rank[label].get(fn.__name__, 0)
+                                for rank in res["launches"] for fn in fns)
+                      for name, fns in counters(k).items()}
+    return runs
+
+
+def phase_slice26(k, smi):
+    """Phase 43: (a)-(c) `entry.dryrun_multichip(DRY_PROCS,
+    full_width=True)` on the card, (d) the examples sweep over
+    SWEEP_DIRS. Returns (launches by path, figures)."""
+    import tempfile
+    from gammagl_tpu_torch import entry
+    phase_start(f"phase 43: dryrun_multichip({DRY_PROCS}) and the examples "
+                "sweep on the card")
+    t_phase = time.perf_counter()
+    res = entry.dryrun_multichip(DRY_PROCS, full_width=True)
+    names = list(res["errs"])
+    if len(names) != 25 or res["mesh"] != (2, 2):
+        fail(f"dryrun_multichip({DRY_PROCS}) checked {len(names)} tiers on "
+             f"mesh {res['mesh']}")
+    runs = dry_runs(k, res)
+    for name in ("spmm_csr", "spmm_csr_acc", "sddmm_csr", "flash_forward",
+                 "flash_backward"):
+        if not sum(c[name] for c in runs.values()):
+            fail(f"the dry run launched no {name}")
+    for r, rank in enumerate(res["launches"]):
+        print(f"  rank {r} launches: " + "; ".join(
+            f"{label} {counts}" for label, counts in rank.items()
+            if counts))
+    ms = {label: float(max(rank[label] for rank in res["ms"]))
+          for label in res["ms"][0]}
+    print(f"  ({smi}) the slowest rank's ms a tier call (gloo host copies "
+          f"on one card, not a speed of the card): "
+          + ", ".join(f"{label} {t:.1f}" for label, t in ms.items()))
+    print(f"  full width, {DRY_PROCS} processes vs one, max |diff| / max "
+          f"|one|: {res['full_width']}; dry run {res['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        out = subprocess.run(
+            [sys.executable, "-m",
+             "gammagl_tpu_torch.examples.run_examples_smoke", "--timeout",
+             str(SWEEP_TIMEOUT), "--json", os.path.join(tmp, "sweep.json"),
+             *SWEEP_DIRS], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        print("\n".join("  " + line for line in out.stdout.splitlines()))
+        if out.returncode != 0:
+            fail(f"the examples sweep exited {out.returncode}:\n"
+                 f"{out.stderr[-3000:]}")
+        with open(os.path.join(tmp, "sweep.json")) as f:
+            sweep = json.load(f)
+    t_sweep = time.perf_counter() - t0
+    result = {"procs": DRY_PROCS, "errs": res["errs"], "loss": res["loss"],
+              "full_width": res["full_width"], "ms": ms,
+              "launches_by_rank": res["launches"],
+              "roofline": res["roofline"], "dry_run_s": res["seconds"],
+              "sweep": sweep["examples"], "sweep_s": t_sweep,
+              "seconds": time.perf_counter() - t_phase}
+    print(f"  ({smi}) phase 43 in {result['seconds']:.1f} s (sweep of "
+          f"{len(SWEEP_DIRS)} twins {t_sweep:.1f} s)")
+    return runs, result
+
+
 def main():
     # the run uses one card: show it only the first, whatever the machine
     # holds (before CUDA starts, which reads this once)
@@ -8910,6 +9006,7 @@ def main():
         load_jax_params=load_jax_params, plan=plan, x=x, ei=ei, hg=hg, hgt_plans=hgt_plans, x_dict=x_dict, ei_dict=ei_dict,
         bp_plan=bp_plan, bx=bx, bei=bei, clustered=clustered,
         hy_plan=hy_plan)
+    s26_runs, s26 = phase_slice26(k, smi.splitlines()[0])
     if "jax" in sys.modules or "gammagl_tpu" in sys.modules:
         fail("JAX or the JAX package was imported")
     runs = {"gcn_serve": gcn_counts, "gat_serve": gat_counts,
@@ -8947,6 +9044,7 @@ def main():
     runs["pgat"], runs["pgat-t"] = pgat, pgat_t
     runs.update(p41_runs)
     runs["ops-x-live"], runs["ops-x-loaded"] = x42_live, x42_loaded
+    runs.update(s26_runs)
     errs = {"spmm_csr": spmm_err, **flash_err, **edge_err, **max_err,
             **hgt_err, "spmm_csr_acc": acc_err}
     for name, err in typed_err.items():
@@ -9098,7 +9196,7 @@ def main():
                     if key != "counts"},
         "ssl": ssl, "wave5_8": w58, "wave3": w3, "slice21": s21,
         "slice22": s22, "partitioned": parted, "slice24": p41,
-        "slice25": s25, "whole_run_s": t_end - t_start}))
+        "slice25": s25, "slice26": s26, "whole_run_s": t_end - t_start}))
     # the run used one card, the only one it was shown
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,9 @@ from gammagl_tpu_torch.parallel.hier_halo import (  # noqa: F401
     traffic_report,
 )
 from gammagl_tpu_torch.parallel.mesh import (  # noqa: F401
+    DpTpGrid,
     HierGrid,
+    grid_world,
     hier_world,
     part_world,
     world,
@@ -85,7 +87,8 @@ __all__ = ["reorder_bandwidth", "cluster_permutation", "balance_permutation",
            "partition_edges_uniform", "sharded_spmm", "make_sharded_spmm",
            "pipeline_apply", "make_pipeline_apply", "shard_pipeline_params",
            "make_feature_sharded_spmm", "relation_expert_spmm",
-           "make_relation_expert_spmm", "shard_expert_weights", "world", "part_world", "HierGrid", "hier_world", "HaloPartition",
+           "make_relation_expert_spmm", "shard_expert_weights", "world", "part_world", "HierGrid", "hier_world",
+           "DpTpGrid", "grid_world", "HaloPartition",
            "build_halo_partition", "make_halo_spmm", "HierHaloPartition",
            "build_hier_halo_partition", "make_hier_halo_spmm",
            "traffic_report", "PlannedHaloPartition", "auto_src_blocks",

@@ -10,14 +10,16 @@ own address (``tcp://...`` or ``file://...``), world size and rank.
 The JAX package's two-level mesh ``('slice', 'dp')`` is `hier_world`: the
 world cut into S slices of D processes, slice-major (rank r is slice
 ``r // D``, dp index ``r % D``, as the JAX mesh lays out its devices),
-with one group along each axis.
+with one group along each axis. The JAX package's ``('dp', 'tp')`` mesh of
+data and tensor parallelism is `grid_world`.
 """
 
 from typing import NamedTuple
 
 import torch.distributed as dist
 
-__all__ = ["world", "part_world", "HierGrid", "hier_world"]
+__all__ = ["world", "part_world", "HierGrid", "hier_world",
+           "DpTpGrid", "grid_world"]
 
 
 def world(group=None):
@@ -106,3 +108,51 @@ def hier_world(num_slices, dp_per_slice, group=None):
             if d == rank % D:
                 slice_group = g
     return HierGrid(rank // D, rank % D, dp_group, slice_group, group, S, D)
+
+
+class DpTpGrid(NamedTuple):
+    """This process's place in a dp x tp grid and the groups of its axes.
+
+    ``dp_group`` holds the ``dp`` processes that share its tp index (the
+    edge shards of a data-parallel sum), ``tp_group`` the ``tp`` processes
+    that share its dp index (the column blocks of a tensor-parallel
+    weight). Unlike `HierGrid`, an axis of one process has a group of its
+    own, so a caller hands either group to a collective without a case
+    for size 1 (with one process in all, both are None)."""
+    dp_index: int
+    tp_index: int
+    dp_group: object
+    tp_group: object
+    dp: int
+    tp: int
+
+    @property
+    def rank(self):
+        return self.dp_index * self.tp + self.tp_index
+
+
+def grid_world(dp, tp):
+    """The `DpTpGrid` of this process in a ``(dp, tp)`` grid over the
+    default group, laid out as the JAX mesh ``devices.reshape(dp, tp)``:
+    rank r is dp index ``r // tp``, tp index ``r % tp``.
+
+    The (1, 1) grid needs no group; any other needs an initialised default
+    group of exactly dp*tp processes. ``new_group`` is collective over the
+    default group, so every process calls this with the same grid: it
+    creates the dp tp groups, then the tp dp groups, in that order."""
+    dp, tp = int(dp), int(tp)
+    if dp < 1 or tp < 1:
+        raise ValueError(f"a grid of {dp} x {tp} processes")
+    rank, size, _ = part_world(dp * tp)
+    if size == 1:
+        return DpTpGrid(0, 0, None, None, 1, 1)
+    tp_group = dp_group = None
+    for i in range(dp):
+        g = dist.new_group([i * tp + t for t in range(tp)])
+        if i == rank // tp:
+            tp_group = g
+    for t in range(tp):
+        g = dist.new_group([i * tp + t for i in range(dp)])
+        if t == rank % tp:
+            dp_group = g
+    return DpTpGrid(rank // tp, rank % tp, dp_group, tp_group, dp, tp)

@@ -2669,3 +2669,91 @@ def test_two_gat_steps_through_the_ops_repeat_bitwise_c39(card):
     (la, pa), (lb, pb) = runs
     assert all(torch.equal(a, b) for a, b in zip(la, lb))
     assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+
+
+# -- the dry run's relation attention and dp x tp step in one process ---------
+
+def _dry_het_case(R=3, n=400, d=16, e=3000, seed=26):
+    """R relations over n nodes (the last relation: half the rows empty),
+    x and the k, q, v weights, as `entry._hetero_case` draws them."""
+    rng = np.random.default_rng(seed)
+    rel_ei = [np.stack([rng.integers(0, n, e),
+                        rng.integers(0, n // (2 if r == R - 1 else 1), e)])
+              for r in range(R)]
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    wk, wq, wv = ((rng.normal(size=(R, d, d)) * 0.4).astype(np.float32)
+                  for _ in range(3))
+    return rel_ei, x, wk, wq, wv
+
+
+def _dry_close(got, want, rtol=1e-5):
+    got, want = got.detach().cpu(), want.detach().cpu()
+    assert got.shape == want.shape
+    assert torch.allclose(got, want, rtol=rtol,
+                          atol=1e-5 * float(want.abs().max()))
+
+
+def test_dry_relation_attention_on_card_matches_the_cpu(card):
+    """`entry.hetero_step` with every relation in one process: the output
+    and the gradients of x and wk on the card against the plain versions
+    on the CPU; each relation launches `spmm_csr` once forward and once
+    backward (dv on the transpose) and the gathered SDDMM once (row 8:
+    the softmax weights' gradient)."""
+    from gammagl_tpu_torch import entry
+    rel_ei, x, wk, wq, wv = _dry_het_case()
+    before = _op_counts()
+    got = entry.hetero_step(rel_ei, x, wk, wq, wv, card)
+    torch.cuda.synchronize()
+    assert _op_launched(before) == {"spmm_csr": 2 * len(rel_ei),
+                                    "sddmm_csr": len(rel_ei)}
+    want = entry.hetero_step(rel_ei, x, wk, wq, wv, torch.device("cpu"))
+    for g, w in zip(got, want):
+        _dry_close(g, w, rtol=1e-4)
+
+
+def test_dry_softmax_weighted_spmm_and_its_dalpha_on_card(card):
+    """Row 1 with the softmax as edge weights in CSR order, and row 8 in
+    its backward: out and d alpha = <v[src], g[dst]> against the plain
+    versions on the same inputs."""
+    from gammagl_tpu_torch.entry import relation_attention
+    rel_ei, x, wk, wq, wv = _dry_het_case(R=1)
+    plan = kops.build_csr_plan(rel_ei[0][0], rel_ei[0][1], x.shape[0])
+    rng = np.random.default_rng(27)
+    v = torch.tensor(rng.normal(size=x.shape).astype(np.float32))
+    alpha = torch.tensor(rng.random(plan.num_edges).astype(np.float32))
+    g = torch.tensor(rng.normal(size=x.shape).astype(np.float32))
+    a_c = alpha.to(card).requires_grad_()
+    out = kops.spmm_csr(v.to(card), a_c, plan, weights_padded=True)
+    out.backward(g.to(card))
+    a_p = alpha.clone().requires_grad_()
+    ref = kops.spmm_csr(v, a_p, plan, weights_padded=True)
+    ref.backward(g)
+    _dry_close(out, ref)
+    _dry_close(a_c.grad, a_p.grad)
+    src = torch.from_numpy(plan.col).long()
+    dst = torch.repeat_interleave(torch.arange(plan.num_nodes),
+                                  torch.from_numpy(np.diff(plan.rowptr)))
+    _dry_close(a_c.grad, (v[src] * g[dst]).sum(-1))
+    xs = torch.tensor(x, device=card)
+    o = relation_attention(xs, *(torch.tensor(w[0], device=card)
+                                 for w in (wk, wq, wv)), plan)
+    assert torch.isfinite(o).all() and o.shape == x.shape
+
+
+def test_dry_dp_tp_step_on_card_matches_the_cpu(card):
+    """`entry.dp_tp_step` on the (1, 1) grid: loss and both gradients on
+    the card (4 `spmm_csr`: two layers forward, their dx backward)
+    against the CPU."""
+    from gammagl_tpu_torch import entry
+    from gammagl_tpu_torch.parallel import DpTpGrid
+    one = DpTpGrid(0, 0, None, None, 1, 1)
+    case = entry._gcn_case(False)
+    before = _op_counts()
+    got = entry.dp_tp_step(one, *case[:2], case[3], case[2], *case[4:],
+                           card)
+    torch.cuda.synchronize()
+    assert _op_launched(before) == {"spmm_csr": 4}
+    want = entry.dp_tp_step(one, *case[:2], case[3], case[2], *case[4:],
+                            torch.device("cpu"))
+    for g, w in zip(got, want):
+        _dry_close(g, w, rtol=1e-4)

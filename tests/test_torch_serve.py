@@ -151,6 +151,9 @@ def test_port_imports_no_jax():
             "sys.modules for t in ('rgcn', 'han', 'simplehgn', 'gat')); "
             "assert 'gammagl_tpu_torch.examples.papers100m_trainer' in "
             "sys.modules; "
+            "assert 'gammagl_tpu_torch.entry' in sys.modules; "
+            "assert 'gammagl_tpu_torch.examples.run_examples_smoke' in "
+            "sys.modules; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'flax', 'gammagl_tpu.')) or "
             "m == 'gammagl_tpu']; print(bad); sys.exit(1 if bad else 0)")
